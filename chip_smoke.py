@@ -9,23 +9,47 @@ It needs one CUDA device and nvcc, and exits non-zero without a result line
 when either is missing. Phases; any failure raises and exits non-zero:
 
   1. the card: nvidia-smi's name and power limit, torch's device name;
-  2. build the CUDA kernels K1-K3 from ct_icp_torch/csrc with nvcc (one
+  2. build the CUDA kernels K1-K5 from ct_icp_torch/csrc with nvcc (one
      process per source, all started together); print the build time and
      ptxas's register / shared-memory lines;
-  3. each kernel against its plain PyTorch version on the card at the
-     driving profile's shapes (tolerances: ct_icp_torch/kernels/checks.py),
-     then the kernel's, the plain version's and, for K1, the library
-     gather's time by CUDA events; the stages that stay plain torch in this
-     slice (ROADMAP B6, B9-B11) timed the same way, each with its bound;
-  4. the main path: Odometry(default_driving_profile(), device="cuda") over
-     the 80-frame synthetic corridor, seed 3, stream_frames(batch=16):
+  3. each kernel against its plain PyTorch version on the card
+     (tolerances: ct_icp_torch/kernels/checks.py), then the kernel's, the
+     plain version's and, for K1, the library gather's time by CUDA
+     events: at the driving profile's shapes (K1-K3, K5), and at the
+     robust profile's (K1 with its 48-of-125 voxel compaction, K2, K3 at
+     P = 40 and C = 2^19, K4 on a robust corridor frame's sub-sample at
+     1.0 m with a 2^22 table and in the Pallas configuration). K5 is held
+     on the first LM call of real frames as the per-frame path gives it
+     (frames before it registered, the call starting from the frame's
+     motion-model initial pose): a driving and a robust startup frame and,
+     in phase 6, a frame of the escalation scene's yaw jolt, whose rotation
+     between begin and end takes quat_slerp's slerp branch; its times are
+     the device time of a CUDA graph of one step and of the whole call,
+     beside one step timed with its host path. The stages that stay plain
+     torch (ROADMAP B9-B11) are timed the same way, each with its bound;
+  4. the driving path: Odometry(default_driving_profile(), device="cuda")
+     over the 80-frame synthetic corridor, seed 3, stream_frames(batch=16):
      median per-batch frames/s, failures, mean APE (against the 0.07 m gate
-     of the 3-seed benchmark; this run asserts <= 0.10 m on one seed), map
-     points, and each kernel's launches in that run (counts set to 0 just
-     before it);
-  5. one JSON line of the kernels, the card's line, and the result line.
+     of the 3-seed benchmark; asserted <= 0.10 m on this seed), map points,
+     host syncs per frame beside ICP iterations per frame;
+  5. the robust path: Odometry(robust_driving_profile(), device="cuda")
+     over bench.py's robust corridor (80 frames, 8 m/s, seed 3),
+     stream_frames(batch=8) of frames prepared beforehand: median per-batch
+     frames/s, failures (asserted 0), mean attempts, mean APE (asserted <=
+     0.10 m; the 3-seed gate is 0.058 m), map points, the speculative
+     commits, prefix commits and rollbacks;
+  6. the escalation path: bench.py's run_escalation scene (48 frames, a
+     yaw jolt over frames 18-24, a speed surge over 40-48,
+     robust_num_attempts=3, batch 8), asserting the gate's own conditions
+     and that K4 ran;
+  in 4-6 every kernel count is set to 0 just before the path and read just
+  after it; each path must launch K5 and its other kernels, and make fewer
+  host syncs a frame than LM steps (one per ICP iteration and readback
+  where no batch rolled back);
+  7. one JSON line of the kernels, the card's line, and the result line.
 """
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -34,12 +58,15 @@ import time
 import numpy as np
 import torch
 
-from ct_icp_torch.config.options import default_driving_profile
+from ct_icp_torch.config.options import (default_driving_profile,
+                                         robust_driving_profile)
 from ct_icp_torch.datasets import corridor as cor
 from ct_icp_torch.icp import solver as slv
 from ct_icp_torch.kernels import build
 from ct_icp_torch.kernels import candidate_gather as k1
 from ct_icp_torch.kernels import checks
+from ct_icp_torch.kernels import grid_sample as k4
+from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.kernels import map_insert as k3
 from ct_icp_torch.kernels import plane_moments as k2
 from ct_icp_torch.mapping import voxel_map as vm
@@ -50,6 +77,8 @@ from ct_icp_torch.ops import voxel as vx
 NUM_FRAMES = 80
 SEED = cor.APE_SEEDS[0]
 BATCH = 16
+ROBUST_BATCH = 8
+ESC_FRAMES = 48
 APE_SMOKE_BOUND_M = 0.10
 K1_QUERIES = 1536
 
@@ -57,6 +86,12 @@ K1_QUERIES = 1536
 # the float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# the frames whose first LM call K5 is held to: a driving and a robust
+# startup frame, and a frame inside the escalation scene's yaw jolt (its
+# begin and end poses apart: quat_slerp's slerp branch)
+K5_DRIVING_FRAME = 10
+K5_ROBUST_FRAME = 10
+K5_JOLT_FRAME = cor.ESC_BURST[0] + 2
 
 KERNELS = {
     "candidate_gather": dict(
@@ -68,6 +103,12 @@ KERNELS = {
     "map_insert": dict(
         module=k3, source="ct_icp_torch/csrc/map_insert.cu",
         replaces="ct_icp_tpu/mapping/voxel_map.py:366"),
+    "grid_sample": dict(
+        module=k4, source="ct_icp_torch/csrc/grid_sample.cu",
+        replaces="tools/pallas_kernels_experiment.py:35"),
+    "lm_step": dict(
+        module=k5, source="ct_icp_torch/csrc/lm_step.cu",
+        replaces="ct_icp_tpu/icp/solver.py:452"),
 }
 
 
@@ -90,35 +131,33 @@ def bound(n_bytes: float, n_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def time_stateless(fn, reps=50, graph_calls=20, graph=True):
+def time_stateless(fn, reps=50, graph_calls=20):
     """Mean ms of one ``fn()`` call on the card. Tries a CUDA graph of
     ``graph_calls`` calls (device time, no host launch overhead); where the
-    call cannot be captured, or ``graph`` is False (a call that reads the
-    device from the host), back-to-back calls between two events.
-    Returns (ms, method)."""
+    call cannot be captured, back-to-back calls between two events (the
+    calls run again there, so a failing launch still raises). Returns (ms,
+    method)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     try:
-        if not graph:
-            raise RuntimeError("the call reads the device from the host")
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             fn()
         torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
             for _ in range(graph_calls):
                 fn()
-        graph.replay()
+        g.replay()
         torch.cuda.synchronize()
         replays = max(reps // graph_calls, 2)
         start.record()
         for _ in range(replays):
-            graph.replay()
+            g.replay()
         end.record()
         torch.cuda.synchronize()
         return start.elapsed_time(end) / (replays * graph_calls), "cuda-graph"
@@ -175,8 +214,8 @@ def _level_copy(level):
 
 
 def _warm_level(dev, res, prep):
-    """A driving-size level (C = 2^18, P = 30) holding corridor frame
-    ``prep``'s points, inserted by the kernel."""
+    """A level of ``res``'s size holding frame ``prep``'s points, inserted
+    by the kernel."""
     level = vm.make_level(res.capacity_log2, res.max_num_points, dev)
     pts = torch.as_tensor(prep["xyz"], dtype=torch.float32, device=dev)
     vm.insert_points(level, pts, torch.ones(pts.shape[0], dtype=torch.bool,
@@ -186,14 +225,366 @@ def _warm_level(dev, res, prep):
     return level
 
 
-def phase_stages(dev, odo, preps_by_fid):
-    """The main path's device stages that stay plain torch in this slice
-    (ROADMAP B6, B9-B11), timed on the card at driving shapes, each with
-    its bound. Returns {stage: record}."""
+def _kernel_k1(dev, level, res, q, nv, thr, max_c, tag):
+    """K1 against its plain version and timed, at one shape."""
+    m = q.shape[0]
+    qv = torch.ones(m, dtype=torch.bool, device=dev)
+    err = checks.check_candidate_gather(level, q, qv, res.resolution, nv, thr,
+                                        max_c)
+    args = (level.keys, level.count, level.points, q, qv, res.resolution, nv,
+            thr, max_c)
+    ms, how = time_stateless(lambda: k1.candidate_gather(*args))
+    plain_ms, _ = time_stateless(lambda: k1.candidate_gather_plain(*args))
+    rows, cnt = k1.candidate_gather(*args)
+    cand = (vx.voxel_coords(q, res.resolution)[:, None, :]
+            + k1.neighbor_offsets(nv, dev)[None])
+    slots, _ = k1.find_slots_with_count(level.keys, level.count, cand)
+    flat = torch.clamp_min(slots.reshape(-1), 0).contiguous()
+    lib_ms, _ = time_stateless(lambda: level.points.index_select(0, flat))
+    o_out = rows.shape[1]
+    n_vox = torch.unique(vx.voxel_hash_u32(cand.reshape(-1, 3))).numel()
+    n_rows = torch.unique(flat).numel()
+    row_b = level.points.shape[1] * 4
+    # every probed voxel's keys once, every distinct row once, every output
+    # row and count once
+    n_bytes = (m * 13 + n_vox * 32 + n_rows * (row_b + 4)
+               + m * o_out * (row_b + 4))
+    log(f"K1 candidate_gather {tag} M={m} O={cand.shape[1]}->{o_out}: "
+        f"identical to plain; {ms:.4f} ms ({how}), plain {plain_ms:.4f} ms, "
+        f"index_select of all {flat.numel()} rows {lib_ms:.4f} ms")
+    return dict(max_abs_err=err["max_abs_err"], ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bytes=n_bytes, ops=0.0, timing=how,
+                shape=f"M={m} O={cand.shape[1]}->{o_out} "
+                      f"3P={level.points.shape[1]} C={level.capacity}"), \
+        (rows, cnt)
+
+
+def _kernel_k2(q, rows, cnt, radius, k_nearest, tag):
+    m = q.shape[0]
+    q2 = q + 0.02
+    err_f = checks.check_plane_moments(rows, cnt, q2, radius, k_nearest)
+    fresh = k2.plane_moments_plain(rows, cnt, q2, radius, k_nearest)
+    err_c = checks.check_plane_moments(rows, cnt, q, radius, k_nearest,
+                                       fresh.r_eff2)
+    ms, how = time_stateless(
+        lambda: k2.plane_moments(rows, cnt, q2, radius, k_nearest))
+    plain_ms, _ = time_stateless(
+        lambda: k2.plane_moments_plain(rows, cnt, q2, radius, k_nearest))
+    ms_c, _ = time_stateless(
+        lambda: k2.plane_moments(rows, cnt, q, radius, k_nearest,
+                                 fresh.r_eff2))
+    live = float(cnt.sum())
+    in_r = float(fresh.count.sum())
+    # fresh call: d2 twice (shell histogram + sums, 8 flops each) per live
+    # candidate, 15 flops of sums per in-radius one; the live candidates'
+    # points read once
+    n_bytes = live * 12 + cnt.numel() * 4 + m * 12 + m * 88
+    err = max(err_f["max_abs_err"], err_c["max_abs_err"])
+    log(f"K2 plane_moments {tag} M={m}: within tolerance (max abs err "
+        f"{err:.3g}); fresh {ms:.4f} ms ({how}), cached-radius {ms_c:.4f} "
+        f"ms, plain {plain_ms:.4f} ms")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bytes=n_bytes, ops=live * 16 + in_r * 15, timing=how,
+                shape=f"M={m} O={rows.shape[1]} P={rows.shape[2] // 3} "
+                      f"live={int(live)}", cached_ms=ms_c)
+
+
+def _kernel_k3(dev, level, res, prep, rounds, tag):
+    pts = torch.as_tensor(prep["xyz"], dtype=torch.float32, device=dev)
+    n = pts.shape[0]
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    md = res.min_distance_between_points
+    out = checks.check_map_insert(level, pts, valid, res.resolution, md,
+                                  rounds)
+    ms, how = time_mutating(lambda: _level_copy(level), lambda lv:
+                            vm.insert_points(lv, pts, valid, res.resolution,
+                                             md, rounds))
+    plain_ms, _ = time_mutating(
+        lambda: _level_copy(level), lambda lv: k3.map_insert_plain(
+            *lv[:3], lv.num_points, pts, valid, res.resolution, md, rounds))
+    # data-dependent work: the voxels the points land in, read once
+    after = _level_copy(level)
+    vm.insert_points(after, pts, valid, res.resolution, md, rounds)
+    coords = vx.voxel_coords(pts, res.resolution)
+    s, _ = k1.find_slots_with_count(after.keys, after.count, coords)
+    s = s[s >= 0]
+    ec = level.count[s].to(torch.float64)      # counts before the insert
+    uniq = torch.unique(s)
+    new_keys = int(((level.keys[uniq] == 0) | (level.keys[uniq] == 1)).sum())
+    n_bytes = (n * 13 + uniq.numel() * 32
+               + float(level.count[uniq].sum()) * 12 + uniq.numel() * 8
+               + out["inserted"] * 12 + new_keys * 4)
+    log(f"K3 map_insert {tag} N={n} max_rounds={rounds}: identical to plain "
+        f"({out['inserted']} inserted); {ms:.4f} ms ({how}), plain "
+        f"{plain_ms:.4f} ms")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bytes=n_bytes,
+                ops=float(ec.sum()) * 8, timing=how,
+                max_abs_err=out["max_abs_err"],
+                shape=f"N={n} rounds={rounds} P={level.max_points} "
+                      f"C={level.capacity}")
+
+
+def _kernel_k4(dev, pts, valid, voxel, capacity, table_log2, tag):
+    out = checks.check_grid_sample(pts, valid, voxel, capacity, table_log2)
+    args = (pts, valid, voxel, capacity, table_log2)
+    ms, how = time_stateless(lambda: k4.grid_sample(*args))
+    plain_ms, _ = time_stateless(lambda: k4.grid_sample_plain(*args))
+    n = pts.shape[0]
+    # inputs read once (points, validity), outputs written once (indices,
+    # validity, count); the claim table is this design's scratch
+    n_bytes = n * 13 + capacity * 5 + 4
+    table_ms = (1 << table_log2) * 4 / HBM_BYTES_PER_S * 1e3
+    log(f"K4 grid_sample {tag} N={n} table 2^{table_log2} cap={capacity}: "
+        f"identical to plain ({out['count']} kept); {ms:.4f} ms ({how}), "
+        f"plain {plain_ms:.4f} ms; the table clear alone takes >= "
+        f"{table_ms:.5f} ms")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bytes=n_bytes, ops=n * 12.0, timing=how,
+                table_clear_floor_ms=table_ms,
+                shape=f"N={n} table=2^{table_log2} capacity={capacity} "
+                      f"kept={out['count']}")
+
+
+def _path_lm_call(odo, preps, k):
+    """The inputs of K5's first LM call in frame ``k`` of the per-frame
+    path: frames [0, k) go through ``register_frame_prepared``, then frame k,
+    whose first step starts from its motion-model initial pose against the
+    map those frames built. Returns (rows, prior, n_res, state at the call,
+    the step's other arguments, the call's number of steps)."""
+    for prep in preps[:k]:
+        odo.register_frame_prepared(prep)
+    calls = []
+    step = k5.lm_step
+
+    def record(rows, prior, n_res, state, *args):
+        if not calls:
+            calls.append([rows, (rows.clone(), prior.clone(), n_res.clone(),
+                                 state.clone(), args), 0])
+        if rows is calls[0][0]:
+            calls[0][2] += 1
+        step(rows, prior, n_res, state, *args)
+
+    k5.lm_step = record
+    odo.register_frame_prepared(preps[k])
+    k5.lm_step = step
+    return calls[0][1] + (calls[0][2],)
+
+
+def _slerp_branch(state):
+    """quat_slerp's branch for the pose in ``state`` (the same for every
+    row at delta = 0): "nlerp" when |qb . qe| > 1 - 1e-7 in float32, as the
+    kernel and core/math_impl.py test it; and the begin-to-end angle."""
+    q = state[0:14].double().cpu().numpy().astype(np.float32)
+    d = np.float32(0.0)
+    for a, b in zip(q[0:4], q[7:11]):
+        d = np.float32(d + np.float32(a * b))
+    d = abs(d)
+    branch = "nlerp" if d > np.float32(1.0 - 1e-7) else "slerp"
+    return branch, float(np.degrees(2.0 * np.arccos(min(float(d), 1.0))))
+
+
+def _lm_row_ops(branch: str) -> int:
+    """Float operations one LM step needs per kept row, counted from the
+    step's formulas (csrc/lm_step.cu) for the function, not for the
+    kernel's design (which redoes the primal in each of its 12 dual
+    passes): the residual once at delta = 0, its 12 tangents by forward mode
+    with the primal shared, the normal equations and the trial cost. The
+    pose-level work (apply_delta and its tangents, the slerp's angle, the
+    prior rows, the 12x12 solve: a few thousand operations a step) is not
+    per row and is left out."""
+    slerp = branch == "slerp"
+    # interpolated rotation: the slerp weights sin((1-a)th)/sin(th) and
+    # sin(a th)/sin(th) (7) or the lerp weight (1), the blend (12), the
+    # normalisation (13); rotate the raw point (30), lerp the translation
+    # (13), the weighted point-to-plane residual (9)
+    primal = (7 if slerp else 1) + 12 + 13 + 30 + 13 + 9
+    # the tangent of one rotation column by the dual rules (a product or a
+    # quotient 3, a sum 1, a square root 2, a sine 2): through the weights
+    # (10, slerp only, with 2 cosines per row) and the blend (28 or 12), the
+    # normalisation (29), the rotation (48) and the residual (6)
+    rot_col = (10 + 28 if slerp else 12) + 29 + 48 + 6
+    jac = 6 * rot_col + 6 * 2 + (2 if slerp else 0)  # 6 translation columns
+    irls = 4 + 3                # the Cauchy weight and cost at delta = 0
+    normal = 12 + 2 * 90        # J w, then the 78 + 12 products and sums
+    trial = primal + 4          # the residual and its Cauchy cost at delta
+    return primal + jac + irls + normal + trial
+
+
+def time_graph(reset, fn, reps=20):
+    """Mean device ms of ``fn()`` captured once in a CUDA graph and replayed
+    between two events, ``reset()`` run before each replay outside them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        reset()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    total = 0.0
+    for _ in range(reps):
+        reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps, "cuda-graph"
+
+
+def _kernel_k5(dev, call, tag):
+    """K5 against its plain version on one LM call of the path: one step
+    from the call's initial state, then the whole call. Times: the device
+    time of one step and of the call (a CUDA graph), one step with its host
+    path (events around the wrapper), the plain version's (events)."""
+    rows, prior, n_res, state0, lm_args, steps = call
+    branch, angle = _slerp_branch(state0)
+    err = checks.check_lm_step(rows, prior, n_res, state0, lm_args[1],
+                               lm_args[2], lm_args[3], loop_steps=steps)
+    st = state0.clone()
+
+    def reset():
+        st.copy_(state0)
+
+    def loop(step):
+        def run():
+            for _ in range(steps):
+                step(rows, prior, n_res, st, *lm_args)
+        return run
+
+    ms, how = time_graph(reset, lambda: k5.lm_step(rows, prior, n_res, st,
+                                                   *lm_args))
+    loop_ms, _ = time_graph(reset, loop(k5.lm_step), reps=10)
+    host_ms, _ = time_mutating(
+        state0.clone, lambda s: k5.lm_step(rows, prior, n_res, s, *lm_args))
+    plain_ms, _ = time_mutating(
+        state0.clone, lambda s: k5.lm_step_plain(rows, prior, n_res, s,
+                                                 *lm_args))
+    loop_plain_ms, _ = time_mutating(
+        reset, lambda _s: loop(k5.lm_step_plain)(), reps=3)
+    k = rows.shape[0]
+    n_ok = int(n_res)
+    log(f"K5 lm_step {tag} K={k} kept={n_ok} steps={steps} {branch} "
+        f"(begin-to-end {angle:.4f} deg): within tolerance "
+        f"({json.dumps(err)}); one step {ms:.4f} ms on the device ({how}), "
+        f"{host_ms:.4f} ms with its host path, plain {plain_ms:.4f} ms; the "
+        f"call of {steps} steps {loop_ms:.4f} ms on the device, plain "
+        f"{loop_plain_ms:.4f} ms")
+    # the rows read once, the state read and written, the prior and n_res
+    n_bytes = k * 4.0 * k5.ROW + 2 * 4 * k5.STATE_SIZE + 14 * 4 + 4
+    return dict(max_abs_err=err["max_abs_err"], ms=ms, plain_ms=plain_ms,
+                library_ms=None, bytes=n_bytes,
+                ops=n_ok * float(_lm_row_ops(branch)), timing=how,
+                host_ms=host_ms, loop_ms=loop_ms,
+                loop_plain_ms=loop_plain_ms, loop_steps=steps,
+                relative_errors=err["relative"], loop_check=err["loop"],
+                branch=branch, begin_end_deg=angle,
+                shape=f"K={k} kept={n_ok} {branch} (one step)")
+
+
+def _identity_pose(dev):
+    q = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
+    return q, torch.zeros(3, device=dev)
+
+
+def phase_kernels_driving(dev, o, preps):
+    """K1-K3 and K5 against their plain versions at driving shapes
+    (options ``o``), then times. Returns {name: partial kernel record}."""
+    preps_by_fid = {0: preps[0], 1: preps[1], len(preps) - 1: preps[-1]}
+    res = o.map_options.resolutions[0]
+    icp = o.ct_icp_options
+    records = {}
+    level = _warm_level(dev, res, preps_by_fid[0])
+    log(f"driving map: C={level.capacity} P={level.max_points} "
+        f"points={int(level.num_points[0])} from frame 0 "
+        f"({preps_by_fid[0]['n']} points)")
+    p1 = preps_by_fid[1]
+    q = torch.as_tensor(p1["xyz"][:K1_QUERIES], dtype=torch.float32,
+                        device=dev)
+    records["candidate_gather"], (rows, cnt) = _kernel_k1(
+        dev, level, res, q, 1, icp.threshold_voxel_occupancy, 0, "driving")
+    records["plane_moments"] = _kernel_k2(
+        q, rows, cnt, float(o.map_options.default_radius),
+        icp.max_number_neighbors, "driving")
+    del rows, cnt
+    # K3: a startup frame (12 rounds) and a cruise frame (4 rounds)
+    rec = _kernel_k3(dev, level, res, preps_by_fid[1], 12, "driving startup")
+    rec["cruise"] = _kernel_k3(dev, level, res,
+                               preps_by_fid[max(preps_by_fid)], 4,
+                               "driving cruise")
+    records["map_insert"] = rec
+    del level
+    # K5: the first LM call of a frame on the per-frame path
+    records["lm_step"] = _kernel_k5(dev, _path_lm_call(
+        Odometry(o, device=dev), preps, K5_DRIVING_FRAME),
+        f"driving frame {K5_DRIVING_FRAME}")
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_kernels_robust(dev, odo, preps):
+    """K1-K5 against their plain versions at the robust profile's shapes
+    (0.5 m voxels, P = 40, C = 2^19, radius 0.8 with nv = 2 kept to 48
+    voxels, k_nearest 20), then times. Returns {name: partial record}."""
     o = odo.options
     res = o.map_options.resolutions[0]
-    reg = odo.registration
-    statics = reg.statics
+    icp = o.ct_icp_options
+    statics = odo.registration.statics
+    records = {}
+    level = _warm_level(dev, res, preps[0])
+    log(f"robust map: C={level.capacity} P={level.max_points} "
+        f"points={int(level.num_points[0])} from frame 0 "
+        f"({preps[0]['n']} points)")
+    p1 = preps[1]
+    q = torch.as_tensor(p1["xyz"][:p1["kp_n"]], dtype=torch.float32,
+                        device=dev)
+    records["candidate_gather"], (rows, cnt) = _kernel_k1(
+        dev, level, res, q, statics.voxel_neighborhood, 1,
+        statics.max_candidate_voxels, "robust")
+    records["plane_moments"] = _kernel_k2(
+        q, rows, cnt, float(o.map_options.default_radius),
+        icp.max_number_neighbors, "robust")
+    del rows, cnt
+    records["map_insert"] = _kernel_k3(dev, level, res, preps[1], 12,
+                                       "robust startup")
+    records["map_insert"]["cruise"] = _kernel_k3(
+        dev, level, res, preps[-1], 4, "robust cruise")
+    # K4: the escalated election of a robust frame's uploaded sub-sample
+    # (1.5 m / 1.5 = 1.0 m, 2^22 table, 4096 keypoints), then the Pallas
+    # configuration (2^21 table, a valid prefix, N % 1024 == 0)
+    prep = preps[-1]
+    raw, _alphas = pl.unpack_scan(torch.from_numpy(
+        prep["scan_host"].view(np.int16)).to(dev))
+    sub = raw[:prep["n"]].contiguous()
+    voxel = max(o.sample_voxel_size / 1.5, min(o.init_voxel_size,
+                                               o.voxel_size))
+    records["grid_sample"] = _kernel_k4(
+        dev, sub, torch.ones(sub.shape[0], dtype=torch.bool, device=dev),
+        voxel, o.max_keypoints, 22, "robust escalation")
+    n_pad = (sub.shape[0] + 1023) // 1024 * 1024
+    padded = torch.zeros((n_pad, 3), dtype=torch.float32, device=dev)
+    padded[:sub.shape[0]] = sub
+    records["grid_sample"]["pallas_config"] = _kernel_k4(
+        dev, padded, torch.arange(n_pad, device=dev) < sub.shape[0], voxel,
+        o.max_keypoints, 21, "Pallas configuration")
+    del level
+    # K5: the first LM call of a robust frame on the per-frame path, at its K
+    records["lm_step"] = _kernel_k5(dev, _path_lm_call(
+        Odometry(o, device=dev), preps, K5_ROBUST_FRAME),
+        f"robust frame {K5_ROBUST_FRAME}")
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_stages(dev, odo, preps_by_fid):
+    """The driving path's device stages that stay plain torch (ROADMAP
+    B9-B11), timed on the card at driving shapes, each with its bound.
+    Returns {stage: record}."""
+    res = odo.options.map_options.resolutions[0]
     level = _warm_level(dev, res, preps_by_fid[0])
     prep = preps_by_fid[max(preps_by_fid)]         # a cruise frame
     n = prep["n"]
@@ -201,8 +592,7 @@ def phase_stages(dev, odo, preps_by_fid):
 
     # B11: unpack_scan + transform_points of the frame's uploaded scan
     scan = torch.from_numpy(prep["scan_host"].view(np.int16)).to(dev)
-    qb = torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev)
-    tb = torch.zeros(3, device=dev)
+    qb, tb = _identity_pose(dev)
     qe = torch.tensor([0.99995, 0.0, 0.0, 0.01], device=dev)
     te = torch.tensor([1.0, 0.02, 0.0], device=dev)
 
@@ -230,36 +620,6 @@ def phase_stages(dev, odo, preps_by_fid):
     c = level.capacity
     out["B10 prune_level"] = dict(ms=ms, timing=how, bytes=c * (24 + 12),
                                   ops=c * 9.0, shape=f"C={c}")
-
-    # B6: one LM inner loop (ls_max_num_iters steps) at the decimated
-    # keypoint count, against the warm level
-    dyn = slv.unpack_dynamics(reg.dynamics(odo._effective_icp_options(
-        prep["info"])))
-    kp = prep["kp_n"]
-    keep = pl.decimation_indices(kp, dyn.max_num_residuals)
-    sel = np.arange(kp) if keep is None else keep
-    raw = torch.as_tensor(prep["xyz"][sel], dtype=torch.float32, device=dev)
-    alphas = torch.as_tensor(prep["alphas"][sel], dtype=torch.float32,
-                             device=dev)
-    valid = torch.ones(raw.shape[0], dtype=torch.bool, device=dev)
-    anchors, normals, geom_w, ok, _ = slv._build_problem(
-        statics, dyn, level, raw, alphas, valid, qb, tb, qb, tb, None, True)
-    prior = torch.cat([qb, tb, tb, torch.as_tensor(odo._betas(),
-                                                   device=dev)])
-    steps = slv._lm_inner_loop(statics, dyn, raw, alphas, anchors, normals,
-                               geom_w, ok, qb, tb, qb, tb, prior)[-1]
-    ms, how = time_stateless(
-        lambda: slv._lm_inner_loop(statics, dyn, raw, alphas, anchors,
-                                   normals, geom_w, ok, qb, tb, qb, tb,
-                                   prior), reps=20, graph=False)
-    k = raw.shape[0]
-    # per keypoint and step: the residual and its 12 forward-mode tangents
-    # through slerp (~80 flops each), J^T W J and J^T W r (~180), two trial
-    # costs (~160); inputs raw, alpha, anchor, normal, weight, mask
-    out["B6 LM inner loop"] = dict(
-        ms=ms, timing=how, bytes=k * 45.0 * steps,
-        ops=k * (13 * 80 + 180 + 160) * float(steps),
-        shape=f"K={k} steps={steps}")
     for name, r in out.items():
         r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["ops"])
         log(f"{name} ({r['shape']}): {r['ms']:.4f} ms ({r['timing']}), "
@@ -269,182 +629,207 @@ def phase_stages(dev, odo, preps_by_fid):
     return out
 
 
-def phase_kernels(dev, o, preps_by_fid):
-    """Each kernel against its plain version at driving shapes (options
-    ``o``, scans of ``preps_by_fid``), then times. Returns {name: partial
-    kernel record}."""
-    res = o.map_options.resolutions[0]
-    icp = o.ct_icp_options
-    nv = 1
-    radius = float(o.map_options.default_radius)
-    k_nearest = icp.max_number_neighbors
-    records = {}
-
-    level = _warm_level(dev, res, preps_by_fid[0])
-    log(f"map: C={level.capacity} P={level.max_points} "
-        f"points={int(level.num_points[0])} from frame 0 "
-        f"({preps_by_fid[0]['n']} points)")
-
-    # ---- K1: M keypoints of frame 1 x 27 voxels
-    p1 = preps_by_fid[1]
-    q = torch.as_tensor(p1["xyz"][:K1_QUERIES], dtype=torch.float32,
-                        device=dev)
-    m = q.shape[0]
-    qv = torch.ones(m, dtype=torch.bool, device=dev)
-    thr = icp.threshold_voxel_occupancy
-    err = checks.check_candidate_gather(level, q, qv, res.resolution, nv, thr)
-    args = (level.keys, level.count, level.points, q, qv, res.resolution, nv,
-            thr)
-    ms, how = time_stateless(lambda: k1.candidate_gather(*args))
-    plain_ms, _ = time_stateless(lambda: k1.candidate_gather_plain(*args))
-    cand = (vx.voxel_coords(q, res.resolution)[:, None, :]
-            + k1.neighbor_offsets(nv, dev)[None])
-    slots, _ = k1.find_slots_with_count(level.keys, level.count, cand)
-    flat = torch.clamp_min(slots.reshape(-1), 0).contiguous()
-    lib_ms, _ = time_stateless(lambda: level.points.index_select(0, flat))
-    n_pairs = flat.numel()
-    n_vox = torch.unique(vx.voxel_hash_u32(cand.reshape(-1, 3))).numel()
-    n_rows = torch.unique(flat).numel()
-    row_b = level.points.shape[1] * 4
-    k1_bytes = (m * 13 + n_vox * 32 + n_rows * (row_b + 4)
-                + n_pairs * (row_b + 4))
-    records["candidate_gather"] = dict(
-        max_abs_err=err["max_abs_err"], ms=ms, plain_ms=plain_ms,
-        library_ms=lib_ms, bytes=k1_bytes, ops=0.0, timing=how,
-        shape=f"M={m} O={n_pairs // m} 3P={level.points.shape[1]} "
-              f"C={level.capacity}")
-    log(f"K1 candidate_gather M={m}: identical to plain; {ms:.4f} ms "
-        f"({how}), plain {plain_ms:.4f} ms, index_select {lib_ms:.4f} ms")
-
-    # ---- K2: the same rows, queries moved as an ICP iteration moves them
-    rows, cnt = k1.candidate_gather(*args)
-    q2 = q + 0.02
-    err_f = checks.check_plane_moments(rows, cnt, q2, radius, k_nearest)
-    fresh = k2.plane_moments_plain(rows, cnt, q2, radius, k_nearest)
-    err_c = checks.check_plane_moments(rows, cnt, q, radius, k_nearest,
-                                       fresh.r_eff2)
-    ms, how = time_stateless(
-        lambda: k2.plane_moments(rows, cnt, q2, radius, k_nearest))
-    plain_ms, _ = time_stateless(
-        lambda: k2.plane_moments_plain(rows, cnt, q2, radius, k_nearest))
-    ms_c, _ = time_stateless(
-        lambda: k2.plane_moments(rows, cnt, q, radius, k_nearest,
-                                 fresh.r_eff2))
-    live = float(cnt.sum())
-    in_r = float(fresh.count.sum())
-    # fresh call: d2 twice (shell histogram + sums, 8 flops each) per live
-    # candidate, 15 flops of sums per in-radius one
-    k2_bytes = live * 12 + cnt.numel() * 4 + m * 12 + m * 88
-    records["plane_moments"] = dict(
-        max_abs_err=max(err_f["max_abs_err"], err_c["max_abs_err"]), ms=ms,
-        plain_ms=plain_ms, library_ms=None, bytes=k2_bytes,
-        ops=live * 16 + in_r * 15, timing=how,
-        shape=f"M={m} O={rows.shape[1]} P={rows.shape[2] // 3} "
-              f"live={int(live)}", cached_ms=ms_c)
-    log(f"K2 plane_moments M={m}: within tolerance (max abs err "
-        f"{records['plane_moments']['max_abs_err']:.3g}); fresh {ms:.4f} ms "
-        f"({how}), cached-radius {ms_c:.4f} ms, plain {plain_ms:.4f} ms")
-
-    # ---- K3: a startup frame (0.2 m dedup, 12 rounds) and a cruise frame
-    # (0.5 m dedup, 4 rounds) into the warm level
-    k3_recs = []
-    for fid, rounds in ((1, 12), (max(preps_by_fid), 4)):
-        prep = preps_by_fid[fid]
-        pts = torch.as_tensor(prep["xyz"], dtype=torch.float32, device=dev)
-        n = pts.shape[0]
-        valid = torch.ones(n, dtype=torch.bool, device=dev)
-        md = res.min_distance_between_points
-        out = checks.check_map_insert(level, pts, valid, res.resolution, md,
-                                      rounds)
-
-        def setup():
-            return _level_copy(level)
-
-        ms, how = time_mutating(setup, lambda lv: vm.insert_points(
-            lv, pts, valid, res.resolution, md, rounds))
-        plain_ms, _ = time_mutating(setup, lambda lv: k3.map_insert_plain(
-            *lv[:3], lv.num_points, pts, valid, res.resolution, md, rounds))
-        # data-dependent work: the voxels the points land in, read once
-        after = _level_copy(level)
-        vm.insert_points(after, pts, valid, res.resolution, md, rounds)
-        coords = vx.voxel_coords(pts, res.resolution)
-        s, _ = k1.find_slots_with_count(after.keys, after.count, coords)
-        s = s[s >= 0]
-        ec = level.count[s].to(torch.float64)      # counts before the insert
-        uniq = torch.unique(s)
-        new_keys = int(((level.keys[uniq] == 0) | (level.keys[uniq] == 1))
-                       .sum())
-        n_bytes = (n * 13 + uniq.numel() * 32
-                   + float(level.count[uniq].sum()) * 12 + uniq.numel() * 8
-                   + out["inserted"] * 12 + new_keys * 4)
-        k3_recs.append(dict(ms=ms, plain_ms=plain_ms, bytes=n_bytes,
-                            ops=float(ec.sum()) * 8, timing=how,
-                            max_abs_err=out["max_abs_err"],
-                            shape=f"N={n} rounds={rounds}"))
-        log(f"K3 map_insert N={n} max_rounds={rounds}: identical to plain "
-            f"({out['inserted']} inserted); {ms:.4f} ms ({how}), plain "
-            f"{plain_ms:.4f} ms")
-    # the line reports the startup frame (the larger insert); both are logged
-    rec = dict(k3_recs[0])
-    rec["library_ms"] = None
-    rec["cruise"] = k3_recs[1]
-    records["map_insert"] = rec
-    del level, rows, cnt
-    torch.cuda.empty_cache()
-    return records
+def _reset_counts():
+    for spec in KERNELS.values():
+        spec["module"].launches = 0
 
 
-def phase_main_path(odo, frames, preps):
-    """The driving slice through the user's entry points: ``preps`` are
-    ``odo.prepare_frame`` of ``frames``."""
-    for name in KERNELS:
-        KERNELS[name]["module"].launches = 0
+def _read_counts():
+    return {name: spec["module"].launches for name, spec in KERNELS.items()}
+
+
+def _stream(odo, preps, batch):
+    """Stream ``preps``; per-batch wall times (synchronized at each batch
+    end) and the summaries."""
     torch.cuda.synchronize()
-    batch_s = []
-    failures = 0
-    outer_iters = 0
-    t_batch = time.time()
-    t0 = t_batch
-    for i, summary in enumerate(odo.stream_frames(iter(preps), batch=BATCH)):
-        outer_iters += summary.icp_summary.num_iters
-        if not summary.success:
-            failures += 1
-        if (i + 1) % BATCH == 0 or i + 1 == len(preps):
+    batch_s, summaries = [], []
+    t_batch = t0 = time.time()
+    for i, summary in enumerate(odo.stream_frames(iter(preps), batch=batch)):
+        summaries.append(summary)
+        if (i + 1) % batch == 0 or i + 1 == len(preps):
             torch.cuda.synchronize()
             now = time.time()
-            batch_s.append((now - t_batch, (i % BATCH) + 1))
+            batch_s.append((now - t_batch, (i % batch) + 1))
             t_batch = now
-    wall = time.time() - t0
-    launches = {name: KERNELS[name]["module"].launches for name in KERNELS}
-    errs = cor.seq_ape(odo, frames)
-    fps_batches = [n / s for s, n in batch_s]
-    out = dict(frames=len(preps), batch=BATCH, failures=failures,
-               mean_ape_m=float(np.mean(errs)), final_drift_m=float(errs[-1]),
-               map_points=odo.map_size(),
-               median_batch_fps=float(np.median(fps_batches)),
-               batch_fps=fps_batches, wall_s=wall,
-               host_syncs=odo.host_syncs,
-               host_syncs_per_frame=odo.host_syncs / len(preps),
-               # each outer ICP iteration and each LM step reads the device
-               # once (solver.py), so the syncs split into the two
-               icp_iters_per_frame=outer_iters / len(preps),
-               lm_steps_per_frame=(odo.host_syncs - outer_iters) / len(preps),
-               prunes_per_frame=sum(
-                   p["info"].registered_fid % PRUNE_PERIOD == 0
-                   for p in preps) / len(preps),
-               launches=launches)
-    log("main path: " + json.dumps(out))
-    log(f"  mean APE {out['mean_ape_m']:.4f} m (smoke bound "
-        f"{APE_SMOKE_BOUND_M} m; the 3-seed gate is {cor.APE_BOUND_M} m)")
-    if failures:
-        raise RuntimeError(f"main path: {failures} failed frames")
-    if not out["mean_ape_m"] <= APE_SMOKE_BOUND_M:
-        raise RuntimeError(f"main path: mean APE {out['mean_ape_m']} m > "
-                           f"{APE_SMOKE_BOUND_M} m")
-    missing = [name for name, n in launches.items() if n <= 0]
+    return summaries, batch_s, time.time() - t0
+
+
+def _require_launches(path, launches, names):
+    missing = [n for n in names if launches[n] <= 0]
     if missing:
-        raise RuntimeError(f"the main path never launched {missing}")
+        raise RuntimeError(f"the {path} path never launched {missing}")
+
+
+def _require_syncs(path, out, committed_only):
+    """No host read per LM step: fewer host syncs a frame than K5 steps;
+    where every frame's work was committed (no rollback), exactly one sync
+    per ICP iteration and one per result readback. (A rolled-back batch's
+    ICP iterations are read but not counted in the frames' summaries.)"""
+    syncs = out["host_syncs_per_frame"]
+    steps = out["launches"]["lm_step"] / out["frames"]
+    if not syncs < steps:
+        raise RuntimeError(f"{path} path: {syncs} host syncs a frame for "
+                           f"{steps} LM steps")
+    if committed_only and not (syncs <= out["icp_iters_per_frame"]
+                               + out["result_reads_per_frame"] + 1e-9):
+        raise RuntimeError(f"{path} path: a host sync beyond one per ICP "
+                           "iteration and one per result readback")
+
+
+def _path_stats(odo, frames, preps, summaries, batch_s, wall):
+    outer = sum(s.icp_summary.num_iters for s in summaries)
+    errs = cor.seq_ape(odo, frames)
+    fps = [n / s for s, n in batch_s]
+    nf = len(preps)
+    return dict(
+        frames=nf, failures=sum(not s.success for s in summaries),
+        mean_attempts=float(np.mean([s.number_of_attempts
+                                     for s in summaries])),
+        mean_ape_m=float(np.mean(errs)), final_drift_m=float(errs[-1]),
+        map_points=odo.map_size(),
+        median_batch_fps=float(np.median(fps)), batch_fps=fps, wall_s=wall,
+        icp_iters_per_frame=outer / nf,
+        host_syncs_per_frame=odo.host_syncs / nf,
+        result_reads_per_frame=odo.result_reads / nf,
+        prunes_per_frame=sum(p["info"].registered_fid % PRUNE_PERIOD == 0
+                             for p in preps) / nf), errs
+
+
+def phase_driving(odo, frames, preps):
+    """The driving path through the user's entry points: ``preps`` are
+    ``odo.prepare_frame`` of ``frames``."""
+    _reset_counts()
+    summaries, batch_s, wall = _stream(odo, preps, BATCH)
+    launches = _read_counts()
+    out, _ = _path_stats(odo, frames, preps, summaries, batch_s, wall)
+    out.update(batch=BATCH, launches=launches)
+    log("driving path: " + json.dumps(out))
+    log(f"  mean APE {out['mean_ape_m']:.4f} m (smoke bound "
+        f"{APE_SMOKE_BOUND_M} m; the 3-seed gate is {cor.APE_BOUND_M} m); "
+        f"host syncs per frame {out['host_syncs_per_frame']:.3f} beside "
+        f"{out['icp_iters_per_frame']:.3f} ICP iterations per frame and "
+        f"{out['result_reads_per_frame']:.4f} result readbacks")
+    if out["failures"]:
+        raise RuntimeError(f"driving path: {out['failures']} failed frames")
+    if not out["mean_ape_m"] <= APE_SMOKE_BOUND_M:
+        raise RuntimeError(f"driving path: mean APE {out['mean_ape_m']} m > "
+                           f"{APE_SMOKE_BOUND_M} m")
+    _require_launches("driving", launches, ["candidate_gather",
+                                            "plane_moments", "map_insert",
+                                            "lm_step"])
+    _require_syncs("driving", out, committed_only=True)
     return out
+
+
+def phase_robust(dev):
+    """The robust path: bench.py's robust corridor through
+    Odometry(robust_driving_profile()).stream_frames(batch=8)."""
+    t0 = time.time()
+    frames = cor.render_corridor(cor.build_scene(),
+                                 cor.robust_corridor_trajectory(NUM_FRAMES),
+                                 NUM_FRAMES, SEED)
+    odo = Odometry(robust_driving_profile(), device=dev)
+    preps = [odo.prepare_frame(f["xyz"], f["timestamps"], i, frame_id=i)
+             for i, f in enumerate(frames)]
+    log(f"robust corridor: {len(frames)} frames rendered and prepared in "
+        f"{time.time() - t0:.1f} s; points after dedup "
+        f"{[p['n'] for p in preps[:2]]} ... {preps[-1]['n']}, keypoints "
+        f"{[p['kp_n'] for p in preps[:2]]} ... {preps[-1]['kp_n']}")
+    records = phase_kernels_robust(dev, odo, preps)
+    odo = Odometry(robust_driving_profile(), device=dev)
+    _reset_counts()
+    summaries, batch_s, wall = _stream(odo, preps, ROBUST_BATCH)
+    launches = _read_counts()
+    out, _ = _path_stats(odo, frames, preps, summaries, batch_s, wall)
+    out.update(batch=ROBUST_BATCH, launches=launches,
+               speculative_batches_committed={
+                   str(k): v for k, v in
+                   odo.speculative_batches_committed.items()},
+               speculative_prefix_commits=odo.speculative_prefix_commits,
+               speculative_rollbacks=odo.speculative_rollbacks,
+               max_level=max(s.robust_level for s in summaries))
+    log("robust path: " + json.dumps(out))
+    log(f"  mean APE {out['mean_ape_m']:.4f} m (smoke bound "
+        f"{APE_SMOKE_BOUND_M} m; the 3-seed gate is "
+        f"{cor.ROBUST_APE_BOUND_M} m); failures {out['failures']}, mean "
+        f"attempts {out['mean_attempts']:.3f}; host syncs per frame "
+        f"{out['host_syncs_per_frame']:.3f} beside "
+        f"{out['icp_iters_per_frame']:.3f} ICP iterations per frame")
+    if out["failures"]:
+        raise RuntimeError(f"robust path: {out['failures']} failed frames")
+    if not out["mean_ape_m"] <= APE_SMOKE_BOUND_M:
+        raise RuntimeError(f"robust path: mean APE {out['mean_ape_m']} m > "
+                           f"{APE_SMOKE_BOUND_M} m")
+    _require_launches("robust", launches, ["candidate_gather",
+                                           "plane_moments", "map_insert",
+                                           "lm_step"])
+    _require_syncs("robust", out,
+                   committed_only=odo.speculative_rollbacks == 0)
+    return out, records
+
+
+def phase_escalation(dev):
+    """bench.py's run_escalation scene: a yaw jolt over frames [18, 24)
+    and a speed surge over [40, 48), robust_num_attempts=3, batch 8; the
+    gate's own assertions (bench.py:685-698). Before it, K5 against its
+    plain version on the first LM call of a jolt frame (the slerp branch).
+    Returns (path record, K5 record)."""
+    b0, b1 = cor.ESC_BURST
+    s0, _s1 = cor.ESC_SURGE
+    frames = cor.render_corridor(cor.build_scene(),
+                                 cor.escalation_trajectory(ESC_FRAMES),
+                                 ESC_FRAMES, SEED)
+    opts = dataclasses.replace(robust_driving_profile(), robust_num_attempts=3)
+    odo = Odometry(opts, device=dev)
+    preps = [odo.prepare_frame(f["xyz"], f["timestamps"], i, frame_id=i)
+             for i, f in enumerate(frames)]
+    jolt = _kernel_k5(dev, _path_lm_call(Odometry(opts, device=dev), preps,
+                                         K5_JOLT_FRAME),
+                      f"escalation jolt frame {K5_JOLT_FRAME}")
+    if jolt["branch"] != "slerp":
+        raise RuntimeError("the jolt frame's LM call is not on the slerp "
+                           "branch")
+    torch.cuda.empty_cache()
+    _reset_counts()
+    summaries, batch_s, wall = _stream(odo, preps, ROBUST_BATCH)
+    launches = _read_counts()
+    out, errs = _path_stats(odo, frames, preps, summaries, batch_s, wall)
+    attempts = [s.number_of_attempts for s in summaries]
+    levels = [s.robust_level for s in summaries]
+    post = errs[b1 + 4:s0 - 1]
+    exhausted = [i for i, a in enumerate(attempts)
+                 if a >= odo.options.robust_num_attempts]
+    out.update(
+        batch=ROBUST_BATCH, launches=launches,
+        mean_burst_attempts=float(np.mean(attempts[b0:b1])),
+        mean_burst_level=float(np.mean(levels[b0:b1])),
+        post_burst_ape_m=float(np.mean(post)), exhausted_frames=exhausted,
+        max_level=max(levels), max_attempts=max(attempts),
+        speculative_batches_committed={
+            str(k): v for k, v in odo.speculative_batches_committed.items()},
+        speculative_prefix_commits=odo.speculative_prefix_commits,
+        speculative_rollbacks=odo.speculative_rollbacks)
+    log("escalation path: " + json.dumps(out))
+    checks_ok = {
+        "mean_burst_attempts >= 1.1":
+            out["mean_burst_attempts"] >= cor.ESC_MIN_BURST_ATTEMPTS,
+        "mean_burst_level >= 0.7":
+            out["mean_burst_level"] >= cor.ESC_MIN_BURST_LEVEL,
+        "post_burst_ape <= 0.15 m":
+            out["post_burst_ape_m"] <= cor.ESC_POST_APE_BOUND_M,
+        ">= 2 exhausted frames, all in the surge":
+            len(exhausted) >= cor.ESC_MIN_EXHAUSTED_FRAMES
+            and all(i >= s0 - 1 for i in exhausted),
+        "max_level >= 2": out["max_level"] >= cor.ESC_MIN_GAP_LEVEL,
+    }
+    log(f"  escalation gate: {json.dumps(checks_ok)}")
+    failed = [k for k, ok in checks_ok.items() if not ok]
+    if failed:
+        raise RuntimeError(f"escalation path: {failed}")
+    _require_launches("escalation", launches, list(KERNELS))
+    _require_syncs("escalation", out,
+                   committed_only=odo.speculative_rollbacks == 0)
+    return out, jolt
 
 
 def main() -> int:
@@ -452,6 +837,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False: this script "
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    t_start = time.time()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -473,32 +859,72 @@ def main() -> int:
         f"{time.time() - t0:.1f} s; points after dedup "
         f"{[p['n'] for p in preps[:2]]} ... {preps[-1]['n']}, keypoints "
         f"{[p['kp_n'] for p in preps[:2]]} ... {preps[-1]['kp_n']}")
+    driving_records = phase_kernels_driving(dev, odo.options, preps)
+    stages = phase_stages(dev, odo, {0: preps[0], len(preps) - 1: preps[-1]})
+    driving = phase_driving(odo, frames, preps)
+    for name, per_frame in (("B11 unpack_scan+transform_points", 1.0),
+                            ("B9 compact_mask", 0.0),
+                            ("B10 prune_level", driving["prunes_per_frame"])):
+        stages[name]["calls_per_frame"] = per_frame
+    robust, robust_records = phase_robust(dev)
+    escalation, jolt_k5 = phase_escalation(dev)
 
-    by_fid = {0: preps[0], 1: preps[1], len(preps) - 1: preps[-1]}
-    records = phase_kernels(dev, odo.options, by_fid)
-    stages = phase_stages(dev, odo, by_fid)
-    main_out = phase_main_path(odo, frames, preps)
-    per_frame = {"B11 unpack_scan+transform_points": 1.0,
-                 "B9 compact_mask": 0.0,
-                 "B10 prune_level": main_out["prunes_per_frame"],
-                 "B6 LM inner loop": main_out["icp_iters_per_frame"]}
-    for name, r in stages.items():
-        r["calls_per_frame"] = per_frame[name]
-
+    paths = {"driving": driving, "robust": robust, "escalation": escalation}
     kernels = []
     for name, spec in KERNELS.items():
-        r = records[name]
+        # the robust shapes where the kernel runs there (every kernel), the
+        # driving shapes beside them in "driving"
+        # (the driving shapes, and K5's jolt frame, beside them); the
+        # largest error over every shape checked
+        r = robust_records[name]
         b_ms, b_by = bound(r["bytes"], r["ops"])
-        kernels.append(dict(
+        others = {"driving": driving_records.get(name)}
+        if name == "lm_step":
+            others["jolt"] = jolt_k5
+        rec = dict(
             name=name, route="cuda", source=spec["source"],
-            replaces=spec["replaces"], launches=main_out["launches"][name],
-            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=b_ms, bound_by=b_by, library_ms=r["library_ms"],
-            timing=r["timing"], shape=r["shape"]))
-    log(f"cruise-frame insert: {json.dumps(records['map_insert']['cruise'])}")
-    log(f"plane_moments with the cached radius: "
-        f"{records['plane_moments']['cached_ms']} ms")
+            replaces=spec["replaces"],
+            launches=sum(p["launches"][name] for p in paths.values()),
+            launches_by_path={k: p["launches"][name]
+                              for k, p in paths.items()},
+            max_abs_err=max([r["max_abs_err"]] + [
+                o["max_abs_err"] for o in others.values() if o]),
+            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
+            library_ms=r["library_ms"], timing=r["timing"], shape=r["shape"])
+        if "host_ms" in r:
+            rec["host_ms"] = r["host_ms"]
+        for key, o in others.items():
+            if o is None:
+                continue
+            ob_ms, ob_by = bound(o["bytes"], o["ops"])
+            rec[key] = dict(
+                ms=o["ms"], plain_ms=o["plain_ms"], bound_ms=ob_ms,
+                bound_by=ob_by, library_ms=o["library_ms"],
+                max_abs_err=o["max_abs_err"], shape=o["shape"])
+            if "host_ms" in o:
+                rec[key]["host_ms"] = o["host_ms"]
+        kernels.append(rec)
+    extras = {
+        "map_insert cruise (robust)": robust_records["map_insert"]["cruise"],
+        "map_insert cruise (driving)":
+            driving_records["map_insert"]["cruise"],
+        "plane_moments cached radius ms (robust, driving)": [
+            robust_records["plane_moments"]["cached_ms"],
+            driving_records["plane_moments"]["cached_ms"]],
+        "grid_sample Pallas configuration":
+            robust_records["grid_sample"]["pallas_config"],
+        "grid_sample table clear floor ms":
+            robust_records["grid_sample"]["table_clear_floor_ms"],
+        "lm_step calls (robust, driving, jolt)": [
+            {k: r[k] for k in ("loop_ms", "loop_plain_ms", "loop_steps",
+                               "relative_errors", "loop_check", "branch",
+                               "begin_end_deg")}
+            for r in (robust_records["lm_step"], driving_records["lm_step"],
+                      jolt_k5)],
+    }
+    log("extras: " + json.dumps(extras))
     log("stages: " + json.dumps(stages))
+    log(f"total wall time {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

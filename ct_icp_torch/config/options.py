@@ -449,3 +449,109 @@ def default_driving_profile() -> OdometryOptions:
             ls_max_num_iters=3,
             ls_sigma=0.1,
         ))
+
+
+def robust_driving_profile() -> OdometryOptions:
+    """Reference OdometryOptions::RobustDrivingProfile (odometry.cpp:38-90).
+
+    Deviation kept from ct_icp_tpu: the map keeps ONE 0.5 m level instead of
+    the reference's {0.2, 0.5, 1.5} triple. The profile's solver (CERES,
+    fixed default_radius=0.8) only ever searches the 0.5 m level
+    (SearchParamsFromRadiusSearch picks the last level <= radius), and the
+    unsearched levels would be fixed device tensors that every insert
+    writes for nothing.
+    """
+    return OdometryOptions(
+        voxel_size=0.5,
+        map_options=MultiResolutionVoxelMapOptions(
+            resolutions=(ResolutionParam(0.5, 0.1, 40, 19),),
+            default_radius=0.8),
+        sample_voxel_size=1.5,
+        max_distance=200.0,
+        min_distance_points=0.05,
+        init_num_frames=40,
+        max_num_points_in_voxel=20,
+        distance_error_threshold=5.0,
+        motion_compensation=MotionCompensation.CONTINUOUS,
+        initialization=Initialization.INIT_CONSTANT_VELOCITY,
+        robust_registration=True,
+        robust_full_voxel_threshold=0.5,
+        robust_empty_voxel_threshold=0.2,
+        robust_num_attempts=10,
+        robust_max_voxel_neighborhood=4,
+        robust_threshold_relative_orientation=5.0,
+        robust_threshold_ego_orientation=5.0,
+        default_motion_model=MotionModelOptions(
+            beta_constant_velocity=0.001,
+            beta_location_consistency=0.001,
+            beta_small_velocity=0.0),
+        ct_icp_options=CTICPOptions(
+            max_number_neighbors=20,
+            min_number_neighbors=20,
+            num_iters_icp=15,
+            max_dist_to_plane_ct_icp=0.5,
+            threshold_orientation_norm=0.01,
+            point_to_plane_with_distortion=True,
+            distance=IcpDistance.POINT_TO_PLANE,
+            parametrization=PoseParametrization.CONTINUOUS_TIME,
+            num_closest_neighbors=1,
+            loss_function=LeastSquares.CAUCHY,
+            solver=Solver.CERES,
+            ls_max_num_iters=20,
+            ls_sigma=0.2,
+            ls_tolerant_min_threshold=0.05,
+        ),
+    )
+
+
+def default_robust_outdoor_low_inertia() -> OdometryOptions:
+    """Reference OdometryOptions::DefaultRobustOutdoorLowInertia
+    (odometry.cpp:92-152), the NCLT profile. Carried for the options
+    conversion; its indoor run is not part of the port yet."""
+    return OdometryOptions(
+        voxel_size=0.3,
+        sample_voxel_size=1.5,
+        min_distance_points=0.1,
+        max_distance=200.0,
+        init_num_frames=20,
+        max_num_points_in_voxel=20,
+        distance_error_threshold=5.0,
+        motion_compensation=MotionCompensation.CONTINUOUS,
+        initialization=Initialization.INIT_NONE,
+        size_voxel_map=0.8,
+        voxel_neighborhood=1,
+        robust_registration=True,
+        robust_full_voxel_threshold=0.5,
+        robust_empty_voxel_threshold=0.1,
+        robust_num_attempts=3,
+        robust_max_voxel_neighborhood=4,
+        robust_threshold_relative_orientation=2.0,
+        robust_threshold_ego_orientation=2.0,
+        default_motion_model=MotionModelOptions(
+            beta_constant_velocity=0.0,
+            beta_location_consistency=0.0,
+            beta_small_velocity=0.001,
+            beta_orientation_consistency=0.0),
+        ct_icp_options=CTICPOptions(
+            num_iters_icp=30,
+            threshold_voxel_occupancy=5,
+            min_number_neighbors=20,
+            max_number_neighbors=20,
+            max_dist_to_plane_ct_icp=0.5,
+            threshold_orientation_norm=0.01,
+            point_to_plane_with_distortion=True,
+            distance=IcpDistance.POINT_TO_PLANE,
+            parametrization=PoseParametrization.CONTINUOUS_TIME,
+            num_closest_neighbors=1,
+            loss_function=LeastSquares.CAUCHY,
+            solver=Solver.CERES,
+            ls_max_num_iters=10,
+            ls_sigma=0.2,
+            ls_tolerant_min_threshold=0.05,
+            weight_neighborhood=0.2,
+            weight_alpha=0.8,
+            weighting_scheme=WeightingScheme.ALL,
+            max_num_residuals=600,
+            min_num_residuals=200,
+        ),
+    )

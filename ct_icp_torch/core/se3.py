@@ -78,3 +78,7 @@ se3_compose = _m.se3_compose
 se3_inverse = _m.se3_inverse
 se3_interpolate = _m.se3_interpolate
 alpha_timestamp = _m.alpha_timestamp
+# array helpers of the same namespace, for code written against either this
+# module or core/dual.py's ``math`` (the residuals take one or the other)
+sum = _xp.sum
+concatenate = _xp.concatenate

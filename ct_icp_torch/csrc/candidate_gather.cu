@@ -15,6 +15,15 @@
 // one 3P row + one count; no arithmetic to speak of. The rolled [C, 2R]
 // probe window of the TPU design is dropped: a direct probe reads the same
 // 32 bytes of keys per pair and needs no window rebuild after each insert.
+//
+// With max_candidates < O (the reference's max_candidate_voxels, 48 of the
+// 125 voxels of a 0.5 m map searched at radius 0.8: the robust profile), a
+// first launch probes every (query, voxel) pair, one block per query and one
+// thread per voxel, and keeps the first max_candidates voxels in the order
+// of the reference's top_k: usable voxels before the others, then the
+// nearer offset, then the lower index (keys are distinct, so a rank count in
+// shared memory places each kept voxel); a second launch copies the kept
+// rows, one warp per (query, kept voxel).
 #include "common.cuh"
 
 namespace {
@@ -70,7 +79,94 @@ __global__ void candidate_gather_kernel(
   }
 }
 
+__global__ void candidate_select_kernel(
+    const uint32_t* __restrict__ keys, const int32_t* __restrict__ count,
+    const float* __restrict__ queries, const uint8_t* __restrict__ query_valid,
+    uint32_t cap_mask, int nv, float resolution, int threshold, int max_c,
+    int32_t* __restrict__ sel_slot, int32_t* __restrict__ sel_cnt) {
+  __shared__ uint32_t order_key[1024];
+  const int side = 2 * nv + 1;
+  const int n_off = side * side * side;
+  const int qi = blockIdx.x;
+  const int o = threadIdx.x;
+  int slot = 0, cnt = 0;
+  bool ok = false;
+  if (o < n_off) {
+    const int dx = o % side - nv, dy = (o / side) % side - nv,
+              dz = o / (side * side) - nv;
+    const int cx = cticp::voxel_coord(queries[3 * qi + 0], resolution) + dx;
+    const int cy = cticp::voxel_coord(queries[3 * qi + 1], resolution) + dy;
+    const int cz = cticp::voxel_coord(queries[3 * qi + 2], resolution) + dz;
+    const uint32_t h = cticp::voxel_hash_u32(cx, cy, cz);
+    const uint32_t k2 = cticp::voxel_key_u32(cx, cy, cz);
+    bool hit = false;
+    for (int p = 0; p < cticp::kProbeWindow; ++p) {
+      const uint32_t at = (h + static_cast<uint32_t>(p)) & cap_mask;
+      const uint32_t key = keys[at];
+      if (key == cticp::kEmpty) break;
+      if (key == k2) {
+        slot = static_cast<int>(at);
+        hit = true;
+        break;
+      }
+    }
+    if (hit) cnt = count[slot];
+    ok = hit && cnt >= threshold && query_valid[qi];
+    const uint32_t d2 = static_cast<uint32_t>(dx * dx + dy * dy + dz * dz);
+    order_key[o] = (ok ? 0u : 1u) << 24 | d2 << 12 | static_cast<uint32_t>(o);
+  }
+  __syncthreads();
+  if (o < n_off) {
+    const uint32_t mine = order_key[o];
+    int rank = 0;
+    for (int q = 0; q < n_off; ++q) rank += order_key[q] < mine;
+    if (rank < max_c) {
+      sel_slot[qi * max_c + rank] = slot;
+      sel_cnt[qi * max_c + rank] = ok ? cnt : 0;
+    }
+  }
+}
+
+__global__ void candidate_rows_kernel(const float* __restrict__ points,
+                                      const int32_t* __restrict__ sel_slot,
+                                      long long pairs, int row_len,
+                                      float* __restrict__ rows) {
+  const long long pair =
+      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (pair >= pairs) return;
+  const float* src = points + static_cast<size_t>(sel_slot[pair]) * row_len;
+  float* dst = rows + static_cast<size_t>(pair) * row_len;
+  for (int i = lane; i < row_len; i += 32) dst[i] = src[i];
+}
+
 }  // namespace
+
+extern "C" int k1_candidate_gather_compact(
+    const void* keys, const void* count, const void* points,
+    const void* queries, const void* query_valid, int m, int cap, int row_len,
+    int nv, float resolution, int threshold, int max_c, void* rows,
+    void* cnt_ok, void* sel_slot, void* stream) {
+  const int side = 2 * nv + 1;
+  const int n_off = side * side * side;
+  if (m > 0 && max_c > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const int threads = (n_off + 31) / 32 * 32;
+    candidate_select_kernel<<<m, threads, 0, s>>>(
+        static_cast<const uint32_t*>(keys), static_cast<const int32_t*>(count),
+        static_cast<const float*>(queries),
+        static_cast<const uint8_t*>(query_valid),
+        static_cast<uint32_t>(cap - 1), nv, resolution, threshold, max_c,
+        static_cast<int32_t*>(sel_slot), static_cast<int32_t*>(cnt_ok));
+    const long long pairs = static_cast<long long>(m) * max_c;
+    const long long blocks = (pairs * 32 + 255) / 256;
+    candidate_rows_kernel<<<static_cast<unsigned>(blocks), 256, 0, s>>>(
+        static_cast<const float*>(points),
+        static_cast<const int32_t*>(sel_slot), pairs, row_len,
+        static_cast<float*>(rows));
+  }
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int k1_candidate_gather(const void* keys, const void* count,
                                    const void* points, const void* queries,

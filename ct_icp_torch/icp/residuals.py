@@ -5,6 +5,10 @@ profile runs: point-to-plane residuals, the Cauchy loss (and the other
 closed-form losses), the DoRegisterCeres weighting (reference
 ct_icp.cpp:577-587), the PreviousFrameMotionModel rows and the
 continuous-time transform the Jacobian is taken through.
+
+The pose functions take the math namespace ``m``: ``core/se3.py`` (torch
+values, the default) or ``core/dual.py``'s ``math`` (values with their
+forward-mode tangents, for the LM step's Jacobian).
 """
 
 import torch
@@ -62,36 +66,36 @@ def ceres_path_weights(a2d, closest_dist, power_planarity, weight_alpha,
                                 / (max_dist_to_plane * min_num_neighbors)))
 
 
-def apply_delta(delta, qb, tb, qe, te):
+def apply_delta(delta, qb, tb, qe, te, m=s3):
     """Left-multiplicative so(3) x R^3 perturbation of (begin, end) poses."""
     # rotvecs as [1, 3] rows: torch.where over 0-dim float32 operands gives
     # a float64 tangent under torch.func.jacfwd (torch 2.13)
-    dqb = s3.quat_from_rotvec(delta[None, 0:3])[0]
-    dqe = s3.quat_from_rotvec(delta[None, 6:9])[0]
-    return (s3.quat_normalize(s3.quat_mul(dqb, qb)), tb + delta[3:6],
-            s3.quat_normalize(s3.quat_mul(dqe, qe)), te + delta[9:12])
+    dqb = m.quat_from_rotvec(delta[None, 0:3])[0]
+    dqe = m.quat_from_rotvec(delta[None, 6:9])[0]
+    return (m.quat_normalize(m.quat_mul(dqb, qb)), tb + delta[3:6],
+            m.quat_normalize(m.quat_mul(dqe, qe)), te + delta[9:12])
 
 
-def interp_world_points(qb, tb, qe, te, raw, alphas):
+def interp_world_points(qb, tb, qe, te, raw, alphas, m=s3):
     """CT transform of raw points at their alpha-timestamps
     (reference CTFunctor, cost_functions.h:200-218: slerp quat + lerp tr)."""
     n = raw.shape[0]
-    qi, ti = s3.se3_interpolate(qb.expand(n, 4), tb.expand(n, 3),
-                                qe.expand(n, 4), te.expand(n, 3), alphas)
-    return s3.quat_rotate(qi, raw) + ti
+    qi, ti = m.se3_interpolate(qb.expand(n, 4), tb.expand(n, 3),
+                               qe.expand(n, 4), te.expand(n, 3), alphas)
+    return m.quat_rotate(qi, raw) + ti
 
 
 def geometric_residuals(distance: IcpDistance, world, anchors, normals,
-                        weights):
+                        weights, m=s3):
     """Per-point residual rows [N, 1] (point-to-plane: the path this port
     covers; the other distances are not ported yet)."""
     if distance != IcpDistance.POINT_TO_PLANE:
         raise NotImplementedError(f"{distance} is not ported")
-    r = torch.sum((world - anchors) * normals, dim=-1)
+    r = m.sum((world - anchors) * normals, axis=-1)
     return (weights * r)[:, None]
 
 
-def motion_prior_residuals(qb, tb, qe, te, prior, num_residuals):
+def motion_prior_residuals(qb, tb, qe, te, prior, num_residuals, m=s3):
     """The PreviousFrameMotionModel constraint rows [10]
     (reference src/ct_icp/motion_model.cpp:12-61); ``prior`` is the packed
     [14] vector of registration.make_prior."""
@@ -102,8 +106,8 @@ def motion_prior_residuals(qb, tb, qe, te, prior, num_residuals):
     w_sv = torch.sqrt(n * prior[13])
     prev_q, prev_t, prev_v = prior[0:4], prior[4:7], prior[7:10]
     r_loc = w_loc * (tb - prev_t)
-    dotq = torch.sum(s3.quat_normalize(qb) * prev_q, dim=-1)
+    dotq = m.sum(m.quat_normalize(qb) * prev_q, axis=-1)
     r_or = (w_or * (1.0 - dotq * dotq))[None]
     r_cv = w_cv * ((te - tb) - prev_v)
     r_sv = w_sv * (tb - te)
-    return torch.cat([r_loc, r_or, r_cv, r_sv])
+    return m.concatenate([r_loc, r_or, r_cv, r_sv])

@@ -12,15 +12,17 @@ path the driving profile runs:
       3. moments + descriptor (kernel K2), the k-NN shell radius cached with
          the rows and recomputed only on regather iterations
       4. geometric weights, the uniform-stride residual cap
-      5. LM inner loop (<= ls_max_num_iters): Jacobian by forward mode
-         through the slerp (torch.func.jacfwd, as jax.jacfwd), IRLS weights,
-         the Jacobi-preconditioned damped 12x12 solve with the degenerate-
-         column freeze, accept/reject, the function-tolerance exit
+      5. LM inner loop: min(ls_max_num_iters, 64) steps (kernel K5):
+         Jacobian by forward mode through the slerp (as jax.jacfwd), IRLS
+         weights, the Jacobi-preconditioned damped 12x12 solve with the
+         degenerate-column freeze, accept/reject; the function-tolerance
+         exit sets a device flag that turns the later steps into no-ops
       6. convergence test on rot/trans deltas
 
-The reference runs this as one XLA program; here it is a Python loop, so
-each early exit (LM done, outer convergence + the next regather decision)
-is a device->host read: ``RegistrationResult.host_syncs`` counts them.
+The reference runs this as one XLA program; here the outer loop is a Python
+loop, so its early exit (outer convergence + the next regather decision) is
+one device->host read per ICP iteration: ``RegistrationResult.host_syncs``
+counts them. The LM steps read nothing back.
 Dynamic scalars are numpy float32 values, so derived thresholds round as
 the reference's float32 arithmetic does.
 """
@@ -30,13 +32,13 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
-from torch.func import jacfwd
 
 from ct_icp_torch.config.options import (CTICPOptions, IcpDistance,
                                          LeastSquares, PoseParametrization,
                                          Solver)
 from ct_icp_torch.core import se3 as s3
 from ct_icp_torch.icp import residuals as res
+from ct_icp_torch.kernels import lm_step as lm
 from ct_icp_torch.mapping import voxel_map as vm
 
 MAX_OUTER_ITERS = 64
@@ -153,7 +155,8 @@ def _build_problem(statics, dyn, level, raw, alphas, valid, qb, tb, qe, te,
     if do_gather:
         rows, cnt_ok = vm.gather_candidate_planes(
             level, world, valid, dyn.voxel_resolution,
-            statics.voxel_neighborhood, dyn.threshold_voxel_occupancy)
+            statics.voxel_neighborhood, dyn.threshold_voxel_occupancy,
+            statics.max_candidate_voxels)
         cached_r = None
     else:
         rows, cnt_ok, cached_r = cache
@@ -183,78 +186,23 @@ def _build_problem(statics, dyn, level, raw, alphas, valid, qb, tb, qe, te,
 
 def _lm_inner_loop(statics, dyn, raw, alphas, anchors, normals, geom_w, ok,
                    qb, tb, qe, te, prior):
-    """ceres::Solve replacement: <= ls_max_num_iters damped-GN steps with
-    IRLS weights and accept/reject damping. Returns (qb, tb, qe, te, cost,
-    n_res, host_syncs)."""
-    k = raw.shape[0]
-    n_res = ok.to(torch.int32).sum()
-    dev = raw.device
+    """ceres::Solve replacement: exactly min(ls_max_num_iters, 64) damped-GN
+    steps with IRLS weights and accept/reject damping, each step after the
+    function-tolerance exit leaving the state as it is (kernel K5 on the
+    card, kernels/lm_step.py). Nothing is read back per step. Returns (qb,
+    tb, qe, te, cost, n_res, host_syncs)."""
+    n_steps = min(dyn.ls_max_num_iters, MAX_INNER_ITERS)
+    if n_steps < 1:
+        raise ValueError("the LM inner loop needs ls_max_num_iters >= 1")
+    n_res = ok.sum(dtype=torch.int32)
+    rows = lm.pack_rows(raw, alphas, anchors, normals, geom_w, ok)
+    state = lm.init_state(qb, tb, qe, te)
     freeze_begin = statics.parametrization == PoseParametrization.SIMPLE
-
-    def residual_vector(delta, q0, t0, q1, t1):
-        q0b, t0b, q1b, t1b = res.apply_delta(delta, q0, t0, q1, t1)
-        world = res.interp_world_points(q0b, t0b, q1b, t1b, raw, alphas)
-        geo = res.geometric_residuals(statics.distance, world, anchors,
-                                      normals, geom_w)
-        geo = torch.where(ok[:, None], geo, torch.zeros_like(geo)).reshape(-1)
-        pri = res.motion_prior_residuals(q0b, t0b, q1b, t1b, prior, n_res)
-        return torch.cat([geo, pri])
-
-    def total_cost(delta, q0, t0, q1, t1):
-        r = residual_vector(delta, q0, t0, q1, t1)
-        pr, prior_r = r[:k], r[k:]
-        c_pts = torch.sum(res.robust_cost(statics.loss, pr * pr, dyn.ls_sigma,
-                                          dyn.ls_tolerant_min_threshold))
-        return c_pts + torch.sum(prior_r * prior_r)
-
-    zero = torch.zeros(12, dtype=raw.dtype, device=dev)
-    eye = torch.eye(12, dtype=raw.dtype, device=dev)
-    lam = torch.tensor(1e-4, dtype=raw.dtype, device=dev)
-    cost0 = total_cost(zero, qb, tb, qe, te)
-    syncs = 0
-    for _ in range(min(dyn.ls_max_num_iters, MAX_INNER_ITERS)):
-        def rfun(d, q0=qb, t0=tb, q1=qe, t1=te):
-            return residual_vector(d, q0, t0, q1, t1)
-
-        r0 = rfun(zero)
-        jac = jacfwd(rfun)(zero)                       # [rows, 12]
-        pr = r0[:k]
-        w_pts = res.irls_weight(statics.loss, pr * pr, dyn.ls_sigma,
-                                dyn.ls_tolerant_min_threshold)
-        w = torch.cat([w_pts, torch.ones(r0.shape[0] - k, dtype=raw.dtype,
-                                         device=dev)])
-        if freeze_begin:
-            jac = torch.cat([torch.zeros_like(jac[:, 0:6]), jac[:, 6:]], 1)
-        jw = jac * w[:, None]
-        jtj = jw.T @ jac
-        jtr = jw.T @ r0
-        diag = torch.diagonal(jtj)
-        # freeze unobservable dimensions (e.g. the begin pose when every
-        # alpha is 1 on the first frames): Jacobi scaling would otherwise
-        # hide the rank deficiency and amplify float32 noise
-        degen = diag <= 1e-7 * torch.clamp_min(diag.max(), 1e-12)
-        keep = (~degen).to(raw.dtype)
-        d = torch.where(degen, torch.ones_like(diag),
-                        torch.sqrt(torch.clamp_min(diag, 1e-20)))
-        a = jtj / (d[:, None] * d[None, :])
-        a = a * keep[:, None] * keep[None, :] + torch.diag(degen.to(raw.dtype))
-        a = a + lam * torch.diag(torch.diagonal(a)) + 1e-7 * eye
-        b = -jtr / d * keep
-        delta = torch.linalg.solve(a, b) / d * keep
-
-        cost1 = total_cost(delta, qb, tb, qe, te)
-        accept = cost1 < cost0
-        # ceres::Solve's function_tolerance exit (Ceres default 1e-6)
-        done = accept & (cost0 - cost1 <= 1e-6 * (cost0 + 1e-30))
-        qb, tb, qe, te = res.apply_delta(
-            torch.where(accept, delta, zero), qb, tb, qe, te)
-        lam = torch.where(accept, torch.clamp_min(lam / 3.0, 1e-8),
-                          torch.clamp_max(lam * 4.0, 1e4))
-        cost0 = torch.where(accept, cost1, cost0)
-        syncs += 1
-        if bool(done):
-            break
-    return qb, tb, qe, te, cost0, n_res, syncs
+    for _ in range(n_steps):
+        lm.lm_step(rows, prior, n_res, state, statics.loss, dyn.ls_sigma,
+                   dyn.ls_tolerant_min_threshold, freeze_begin)
+    return (state[0:4], state[4:7], state[7:11], state[11:14],
+            state[lm.S_COST0], n_res, 0)
 
 
 def build_register_fn(statics: SolverStatics):
@@ -266,7 +214,6 @@ def build_register_fn(statics: SolverStatics):
             or statics.distance != IcpDistance.POINT_TO_PLANE
             or statics.num_closest_neighbors > 1
             or statics.use_distance_strategy or statics.use_normal_filter
-            or statics.max_candidate_voxels > 0
             or statics.analytic_jacobian):
         raise NotImplementedError(
             "ct_icp_torch ports the ball-neighborhood CERES point-to-plane "

@@ -8,13 +8,27 @@ CUDA inputs and raises AssertionError on a disagreement. Tolerances:
   * K2 float sums: summed in another order (warp tree vs torch reduction),
     so within 1e-4 of each query's second-moment scale; the normal within
     1e-3 (|cos| of the angle, sign free) where the neighborhood is planar
-    (a2D > 0.5 and >= 10 points); a2D within 1e-3 where >= 5 points.
+    (a2D > 0.5 and >= 10 points); a2D within 1e-3 where >= 5 points;
+  * K4 (grid election): indices, count and validity identical;
+  * K5 (LM step), one step from the same state: J^T W J and J^T W r within
+    1e-4 of their largest entry (K rows summed in another order: block
+    shuffles vs BLAS), the trial cost and the cost at delta = 0 within 1e-5
+    relative, delta within 1e-3 of its largest entry (the 12x12 solve
+    carries the sums' rounding through a matrix of condition ~1e3 after the
+    Jacobi scaling); the whole loop (the same number of steps) ends within
+    1 mm and 0.01 deg, its accept/reject decisions being free to differ
+    where a trial cost ties the current one within rounding.
 Each returns {"max_abs_err": float} for the float outputs (0 if identical).
 """
 
+import numpy as np
 import torch
 
+from ct_icp_torch.config.options import LeastSquares
+from ct_icp_torch.core import se3_np as s3n
 from ct_icp_torch.kernels import candidate_gather as k1
+from ct_icp_torch.kernels import grid_sample as k4
+from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.kernels import map_insert as k3
 from ct_icp_torch.kernels import plane_moments as k2
 
@@ -26,9 +40,9 @@ def _same(a, b, what):
 
 
 def check_candidate_gather(level, queries, query_valid, resolution, nv,
-                           threshold):
+                           threshold, max_candidates=0):
     args = (level.keys, level.count, level.points, queries, query_valid,
-            resolution, nv, threshold)
+            resolution, nv, threshold, max_candidates)
     rows, cnt = k1.candidate_gather(*args)
     prow, pcnt = k1.candidate_gather_plain(*args)
     torch.cuda.synchronize()
@@ -87,3 +101,62 @@ def check_map_insert(level, pts, valid, resolution, min_dist, max_rounds):
                            "inserted")):
         _same(x, y, f"map_insert {name}")
     return {"max_abs_err": 0.0, "inserted": int(n_a[0])}
+
+
+def check_grid_sample(points, valid, voxel_size, capacity, table_log2=22):
+    got = k4.grid_sample(points, valid, voxel_size, capacity, table_log2)
+    want = k4.grid_sample_plain(points, valid, voxel_size, capacity,
+                                table_log2)
+    torch.cuda.synchronize()
+    for a, b, name in zip(got, want, ("idx", "out_valid", "count")):
+        _same(a, b, f"grid_sample {name}")
+    return {"max_abs_err": 0.0, "count": int(want[2])}
+
+
+def _rel_err(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def check_lm_step(rows, prior, n_res, state, sigma, tolerant_a,
+                  freeze_begin=False, loop_steps=0):
+    """One K5 step and one plain step from copies of ``state``; then, with
+    ``loop_steps``, that many steps of each from ``state``."""
+    args = (LeastSquares.CAUCHY, sigma, tolerant_a, freeze_begin)
+    a, b = state.clone(), state.clone()
+    k5.lm_step(rows, prior, n_res, a, *args)
+    k5.lm_step_plain(rows, prior, n_res, b, *args)
+    torch.cuda.synchronize()
+    jtj = slice(k5.S_JTJ, k5.S_JTJ + 144)
+    jtr = slice(k5.S_JTR, k5.S_JTR + 12)
+    delta = slice(k5.S_DELTA, k5.S_DELTA + 12)
+    errs = {"jtj": _rel_err(a[jtj], b[jtj]), "jtr": _rel_err(a[jtr], b[jtr]),
+            "delta": _rel_err(a[delta], b[delta]),
+            "cost1": _rel_err(a[k5.S_COST1], b[k5.S_COST1]),
+            "cost0": _rel_err(a[k5.S_COST0], b[k5.S_COST0])}
+    limits = {"jtj": 1e-4, "jtr": 1e-4, "delta": 1e-3, "cost1": 1e-5,
+              "cost0": 1e-5}
+    for name, lim in limits.items():
+        if not errs[name] <= lim:
+            raise AssertionError(f"lm_step {name}: relative error "
+                                 f"{errs[name]:.3g} > {lim}")
+    out = {"max_abs_err": float(max((a[s] - b[s]).abs().max()
+                                    for s in (jtj, jtr, delta))),
+           "relative": errs}
+    if loop_steps:
+        a, b = state.clone(), state.clone()
+        for _ in range(loop_steps):
+            k5.lm_step(rows, prior, n_res, a, *args)
+            k5.lm_step_plain(rows, prior, n_res, b, *args)
+        torch.cuda.synchronize()
+        pa, pb = a[0:14].double().cpu().numpy(), b[0:14].double().cpu().numpy()
+        d_tr = max(np.linalg.norm(pa[4:7] - pb[4:7]),
+                   np.linalg.norm(pa[11:14] - pb[11:14]))
+        d_rot = max(s3n.angular_distance_deg(pa[0:4], pb[0:4]),
+                    s3n.angular_distance_deg(pa[7:11], pb[7:11]))
+        if not (d_tr <= 1e-3 and d_rot <= 1e-2):
+            raise AssertionError(f"lm_step loop: poses {d_tr:.3g} m, "
+                                 f"{d_rot:.3g} deg apart")
+        out["loop"] = {"steps": loop_steps, "d_tr_m": float(d_tr),
+                       "d_rot_deg": float(d_rot),
+                       "done": (float(a[k5.S_DONE]), float(b[k5.S_DONE]))}
+    return out

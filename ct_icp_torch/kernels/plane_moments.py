@@ -42,18 +42,24 @@ def _radius_sq(radius) -> float:
     return float(r * r)
 
 
-def knn_radius2(d2, ok, radius: float, k_nearest: int, bins: int = KNN_BINS):
+def knn_radius2(d2, ok, query, m: int, radius: float, k_nearest: int,
+                bins: int = KNN_BINS):
     """Per-query squared radius ~ the distance to the k-th nearest
     candidate: the smallest of ``bins`` nested radii whose in-radius count
-    reaches k (full radius when none does or k <= 0)."""
-    m = d2.shape[0]
+    reaches k (full radius when none does or k <= 0). ``d2``, ``ok`` and
+    ``query`` (the candidate's query index) are flat over the candidates."""
     r2 = max(_radius_sq(radius), 1e-20)
     frac = (torch.arange(1, bins + 1, dtype=d2.dtype, device=d2.device)
             / bins) ** 2
     edges2 = torch.full((m, 1), r2, dtype=d2.dtype, device=d2.device) \
         * frac[None, :]                                         # [M, B]
-    inside = ok[..., None] & (d2[..., None] <= edges2[:, None, None, :])
-    cnt = inside.sum(dim=(1, 2))                                # [M, B]
+    # each candidate's shell: the first edge >= d2 (bins = outside); the
+    # in-radius count of edge b is the histogram's prefix sum up to b
+    shell = torch.searchsorted(edges2[0].contiguous(), d2)
+    shell = torch.where(ok, shell, torch.full_like(shell, bins))
+    hist = torch.zeros((m * (bins + 1),), dtype=torch.int64, device=d2.device)
+    hist.index_add_(0, query * (bins + 1) + shell, torch.ones_like(shell))
+    cnt = torch.cumsum(hist.reshape(m, bins + 1)[:, :bins], dim=1)  # [M, B]
     reach = cnt >= max(k_nearest, 1)
     bin_idx = torch.argmax(reach.to(torch.int32), dim=-1)
     found = reach.any(-1) & (k_nearest > 0)
@@ -64,43 +70,59 @@ def knn_radius2(d2, ok, radius: float, k_nearest: int, bins: int = KNN_BINS):
 def plane_moments_plain(rows, cnt_ok, queries, radius: float,
                         k_nearest: Optional[int],
                         cached_r_eff2=None) -> Moments:
-    """Plain PyTorch version of :func:`plane_moments`."""
-    m = queries.shape[0]
+    """Plain PyTorch version of :func:`plane_moments`, over the live
+    candidates only (a voxel's points below its usable count)."""
+    m, o = cnt_ok.shape
     p = rows.shape[-1] // 3
-    x, y, z = rows[..., 0:p], rows[..., p:2 * p], rows[..., 2 * p:3 * p]
-    dx = x - queries[:, None, 0:1]
-    dy = y - queries[:, None, 1:2]
-    dz = z - queries[:, None, 2:3]
+    dev, dt = rows.device, rows.dtype
+    live = (torch.arange(p, dtype=torch.int32, device=dev)[None, None, :]
+            < cnt_ok[..., None])
+    qi, oi, pi = live.nonzero(as_tuple=True)
+    x, y, z = rows[qi, oi, pi], rows[qi, oi, p + pi], rows[qi, oi, 2 * p + pi]
+    dx = x - queries[qi, 0]
+    dy = y - queries[qi, 1]
+    dz = z - queries[qi, 2]
     d2 = dx * dx + dy * dy + dz * dz
     rr = _radius_sq(radius)
-    in_cap = torch.arange(p, dtype=torch.int32,
-                          device=rows.device)[None, None, :] < cnt_ok[..., None]
-    ok = in_cap & (d2 <= rr)
-    r_eff2 = torch.full((m,), rr, dtype=rows.dtype, device=rows.device)
+    ok = d2 <= rr
+    r_eff2 = torch.full((m,), rr, dtype=dt, device=dev)
     if k_nearest is not None:
         r_eff2 = (cached_r_eff2 if cached_r_eff2 is not None
-                  else knn_radius2(d2, ok, radius, k_nearest))
-        ok = ok & (d2 <= r_eff2[:, None, None])
+                  else knn_radius2(d2, ok, qi, m, radius, k_nearest))
+        ok = ok & (d2 <= r_eff2[qi])
 
-    w = ok.to(queries.dtype)
+    def per_query(v):
+        return torch.zeros(m, dtype=v.dtype, device=dev).index_add_(0, qi, v)
+
+    w = ok.to(dt)
     rx, ry, rz = dx * w, dy * w, dz * w
-    count = ok.sum(dim=(1, 2)).to(torch.int32)
-    sum_rel = torch.stack([rx.sum((1, 2)), ry.sum((1, 2)), rz.sum((1, 2))], -1)
-    sxx, sxy, sxz = (rx * dx).sum((1, 2)), (rx * dy).sum((1, 2)), \
-        (rx * dz).sum((1, 2))
-    syy, syz, szz = (ry * dy).sum((1, 2)), (ry * dz).sum((1, 2)), \
-        (rz * dz).sum((1, 2))
+    count = per_query(ok.to(torch.int32))
+    sum_rel = torch.stack([per_query(rx), per_query(ry), per_query(rz)], -1)
+    sxx, sxy, sxz = per_query(rx * dx), per_query(rx * dy), per_query(rx * dz)
+    syy, syz, szz = per_query(ry * dy), per_query(ry * dz), per_query(rz * dz)
     sum_outer = torch.stack([torch.stack([sxx, sxy, sxz], -1),
                              torch.stack([sxy, syy, syz], -1),
                              torch.stack([sxz, syz, szz], -1)], -2)
 
-    d2m = torch.where(ok, d2, torch.full_like(d2, float("inf"))).reshape(m, -1)
-    amin = torch.argmin(d2m, dim=-1)[:, None]
-    closest = torch.stack([torch.gather(v.reshape(m, -1), 1, amin)[:, 0]
-                           for v in (x, y, z)], -1)
-    cd2 = torch.gather(d2m, 1, amin)[:, 0]
+    # the closest: the first in-radius candidate (in voxel, point order) of
+    # least d2; index 0 where there is none, as an argmin over all-inf
+    inf = float("inf")
+    d2m = torch.where(ok, d2, torch.full_like(d2, inf))
+    cd2 = torch.full((m,), inf, dtype=dt, device=dev).scatter_reduce(
+        0, qi, d2m, "amin")
+    flat = oi * p + pi
+    none = o * p
+    first = torch.full((m,), none, dtype=flat.dtype, device=dev)
+    first = first.scatter_reduce(
+        0, qi, torch.where(ok & (d2m == cd2[qi]), flat,
+                           torch.full_like(flat, none)), "amin")
+    first = torch.where(first == none, torch.zeros_like(first), first)
+    q_all = torch.arange(m, device=dev)
+    fo, fp = first // p, first % p
+    closest = torch.stack([rows[q_all, fo, fp], rows[q_all, fo, p + fp],
+                           rows[q_all, fo, 2 * p + fp]], -1)
     closest_dist = torch.where(count > 0, torch.sqrt(cd2),
-                               torch.full_like(cd2, float("inf")))
+                               torch.full_like(cd2, inf))
     desc = description_from_moments(count, sum_rel, sum_outer, queries)
     return Moments(count, sum_rel, sum_outer, closest, closest_dist, r_eff2,
                    desc.normal, desc.a2D)

@@ -78,12 +78,15 @@ def find_slots_with_count(level: MapLevel, query_coords):
 
 def gather_candidate_planes(level: MapLevel, queries, query_valid,
                             resolution: float, nv: int,
-                            threshold_voxel_occupancy: int = 1):
+                            threshold_voxel_occupancy: int = 1,
+                            max_candidates: int = 0):
     """Search front-end (kernel K1): candidate rows [M, O, 3P] of the
-    (2nv+1)^3 voxels around each query + their usable counts [M, O]."""
+    (2nv+1)^3 voxels around each query + their usable counts [M, O]; with
+    0 < max_candidates < O, only the first max_candidates of them, usable
+    and nearer voxels first."""
     return k1.candidate_gather(level.keys, level.count, level.points, queries,
                                query_valid, resolution, nv,
-                               threshold_voxel_occupancy)
+                               threshold_voxel_occupancy, max_candidates)
 
 
 def moments_from_planes(rows, cnt_ok, queries, radius: float,

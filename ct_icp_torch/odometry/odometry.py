@@ -1,21 +1,31 @@
-"""The streaming odometry driver — host side around the device pipeline.
+"""The odometry driver — host side around the device pipeline.
 
-Counterpart of ``ct_icp_tpu/odometry/odometry.py::Odometry`` on the path
-``bench.py --driving`` runs: ``prepare_frame`` (shuffle, exact host voxel
-dedup on the wire-quantized coords, keypoint-prefix partition, u16 wire
-packing) and ``stream_frames(preps, batch)`` (batches of frames through the
-streaming body of odometry/pipeline.py, the map and the motion state resident
-on the device, one readback per batch).
+Counterpart of ``ct_icp_tpu/odometry/odometry.py::Odometry`` on the
+host-deduped GRID path:
+  * ``prepare_frame`` (shuffle, exact host voxel dedup on the wire-quantized
+    coords, keypoint-prefix partition, u16 wire packing);
+  * ``register_frame`` / ``register_frame_prepared``: one frame at a time,
+    the pose initialization on the host (reference InitializeMotion), one
+    frame step per attempt; with ``robust_registration`` the escalation
+    regimen (reference RobustRegistration + IncreaseRobustnessLevel): each
+    attempt's insert is gated on the device by the robust assessment, the
+    host assesses in float64 and escalates, and a deferred map update
+    resolves the corners the device cannot see;
+  * ``stream_frames(preps, batch)``: batches of frames with the map and the
+    motion state resident on the device and one readback per batch; robust
+    profiles stream speculatively (2-deep), with a checkpoint per batch,
+    prefix commit, rollback and per-frame replay.
 
-Not ported yet (raise rather than run something else): the robust
-escalation regimen, the per-frame ``register_frame`` API, the map rebase
-(``rebuild_level``), the device grid subsample and keypoint election, the
-CT-BA backend and the frame ring.
+Not ported (they raise NotImplementedError): the map rebase
+(``rebuild_level``) and so the rebase statuses of the speculative streamer,
+the frame ring, the CT-BA backend, ``profile_registration`` and the
+CONSTANT_VELOCITY motion compensation.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -23,17 +33,24 @@ import torch
 
 from ct_icp_torch import resolve_device
 from ct_icp_torch.config.options import (CTICPOptions, Initialization,
-                                         MotionCompensation, OdometryOptions,
+                                         MotionCompensation,
+                                         MotionModelOptions, OdometryOptions,
                                          PoseParametrization, SamplingOption)
 from ct_icp_torch.core import se3_np as s3n
 from ct_icp_torch.core.pose import Pose, TrajectoryFrame
-from ct_icp_torch.icp.registration import CTICPRegistration
+from ct_icp_torch.icp.registration import CTICPRegistration, make_prior
 from ct_icp_torch.mapping import voxel_map as vm
 from ct_icp_torch.odometry import pipeline as pl
+from ct_icp_torch.odometry.motion_model import PreviousFrameMotionModel
 
 # Map-prune cadence (frames); the reference prunes every frame, at 100 m
 # thresholds a few frames of lag is behaviorally free.
 PRUNE_PERIOD = 8
+
+# The device's float32 insert gate is kept strictly tighter than the host's
+# float64 assessment: a threshold tie must resolve to "the device skipped,
+# the host decides" — an insert the host would reject cannot be undone.
+GATE_MARGIN = 1.0 - 1e-4
 
 
 @dataclasses.dataclass
@@ -112,6 +129,27 @@ def _host_voxel_dedup(xyz: np.ndarray, voxel_size: float,
     return first[:capacity]
 
 
+def _escalate_once(opts: CTICPOptions, base_sample_voxel: float,
+                   min_voxel: float):
+    """One IncreaseRobustnessLevel rung (reference odometry.cpp:996-1018):
+    returns (escalated options, escalated sample voxel). The sample voxel
+    does not compound: every level >= 1 samples at base/1.5."""
+    return dataclasses.replace(
+        opts,
+        ls_max_num_iters=opts.ls_max_num_iters + 30,
+        max_num_residuals=(opts.max_num_residuals * 2
+                           if opts.max_num_residuals > 0
+                           else opts.max_num_residuals),
+        num_iters_icp=min(opts.num_iters_icp + 20, 50),
+        threshold_orientation_norm=max(
+            opts.threshold_orientation_norm / 10, 1e-5),
+        threshold_translation_norm=max(
+            opts.threshold_orientation_norm / 10, 1e-4),
+        ls_sigma=opts.ls_sigma * 1.2,
+        max_dist_to_plane_ct_icp=opts.max_dist_to_plane_ct_icp * 1.5,
+    ), max(base_sample_voxel / 1.5, min_voxel)
+
+
 def _sanitize_scan(xyz, timestamps):
     """Contiguous float64 copies with non-finite points dropped. Raises on
     an empty result."""
@@ -144,21 +182,31 @@ def _apply_motion_compensation(options: OdometryOptions) -> OdometryOptions:
     return dataclasses.replace(options, ct_icp_options=icp)
 
 
+def _zero_motion_model() -> MotionModelOptions:
+    return dataclasses.replace(
+        MotionModelOptions(), beta_location_consistency=0.0,
+        beta_constant_velocity=0.0, beta_small_velocity=0.0,
+        beta_orientation_consistency=0.0)
+
+
 class Odometry:
     """Continuous-time LiDAR odometry against a local voxel map on the card
     (``device="cuda"``, the default) or, for tests, the CPU."""
 
-    def __init__(self, options: OdometryOptions, device=None):
+    def __init__(self, options: OdometryOptions, device=None, seed: int = 0):
         options = _apply_motion_compensation(options)
-        if (options.robust_registration or not options.host_subsample
+        if (not options.host_subsample
                 or options.sampling != SamplingOption.GRID
-                or options.max_num_keypoints > 0
-                or options.motion_compensation
-                == MotionCompensation.CONSTANT_VELOCITY
-                or options.backend.enabled):
+                or options.max_num_keypoints > 0):
             raise NotImplementedError(
-                "ct_icp_torch streams the non-robust, host-deduped, "
-                "keypoint-prefix path only (e.g. default_driving_profile)")
+                "ct_icp_torch runs the host-deduped GRID keypoint path only")
+        if options.motion_compensation == MotionCompensation.CONSTANT_VELOCITY:
+            raise NotImplementedError(
+                "CONSTANT_VELOCITY motion compensation is not ported")
+        if options.backend.enabled:
+            raise NotImplementedError("the CT-BA backend is not ported")
+        if options.profile_registration:
+            raise NotImplementedError("profile_registration is not ported")
         self.device = resolve_device(device)
         self.options = options
         self.map_options = options.map_options
@@ -168,23 +216,46 @@ class Odometry:
         self.registration = CTICPRegistration(
             options.ct_icp_options, self.map_options,
             num_keypoints=options.max_keypoints)
-        self._stream_step = pl.make_stream_body(
-            self.map_options, self.registration.statics,
-            sub_capacity=options.max_subsampled_points,
+        statics = self.registration.statics
+        sub = options.max_subsampled_points
+        self._frame_step = pl.make_frame_step(self.map_options, statics, sub)
+        stream_args = dict(
+            sub_capacity=sub,
             const_velocity=(options.initialization
                             == Initialization.INIT_CONSTANT_VELOCITY),
             continuous=(options.motion_compensation
                         == MotionCompensation.CONTINUOUS),
             always_insert=options.always_insert,
-            do_no_insert=options.do_no_insert)
+            do_no_insert=options.do_no_insert,
+            robust_gated=options.robust_registration)
+        self._multi_step = pl.make_multi_step(pl.make_stream_body(
+            self.map_options, statics, **stream_args))
         self._odo_state = torch.as_tensor(pl.init_odo_state(),
                                           device=self.device)
         self._startup_opts_cache = {}
+        self.default_motion_model = PreviousFrameMotionModel(
+            options.default_motion_model)
         self.trajectory: List[TrajectoryFrame] = []
         self.registered_frames = 0
+        self.robust_num_consecutive_failures = 0
+        self.suspect_registration_error = False
+        self.next_robust_level = options.robust_minimal_level
         self.insertion_tracker = _InsertionTracker()
-        # device->host reads made by the solver loops (early exits)
+        # the robust streamer: steady batches committed whole, by dispatched
+        # level; mid-batch violations whose steady prefix was committed; and
+        # batches rolled back to their checkpoint (prefix commits included)
+        self.speculative_batches_committed: Dict[int, int] = {}
+        self.speculative_prefix_commits = 0
+        self.speculative_rollbacks = 0
+        self.rng = np.random.default_rng(seed)
+        # a cadence prune that could not run (a robust attempt failed its
+        # on-device assessment, so the gated prune was skipped) is owed to
+        # the next frame that can prune safely
+        self._prune_owed = False
+        # device->host reads: the solver's (one per ICP iteration) and the
+        # readbacks of frame results (one per attempt or per batch)
         self.host_syncs = 0
+        self.result_reads = 0
 
     # ------------------------------------------------------------- public API —
     def map_size(self) -> int:
@@ -192,6 +263,11 @@ class Odometry:
 
     def get_trajectory(self) -> List[TrajectoryFrame]:
         return [f.copy() for f in self.trajectory]
+
+    def replay_refined_frames(self, refined_frames) -> int:
+        raise NotImplementedError(
+            "the frame ring (retained frame clouds and their replay into "
+            "the map) is not ported")
 
     def prepare_frame(self, xyz: np.ndarray, timestamps: np.ndarray,
                       registered_fid: int, frame_id: Optional[int] = None
@@ -208,50 +284,60 @@ class Odometry:
             frame_id=registered_fid if frame_id is None else frame_id,
             begin_timestamp=float(timestamps.min()),
             end_timestamp=float(timestamps.max()))
-        o = self.options
-        cap = o.max_scan_points
         n = xyz.shape[0]
-        if n > cap:
+        if n > self.options.max_scan_points:
             sel = np.random.default_rng(registered_fid).choice(
-                n, cap, replace=False)
+                n, self.options.max_scan_points, replace=False)
             xyz, timestamps = xyz[sel], timestamps[sel]
-        # SHUFFLE before the voxel dedup (reference InitializeFrame,
-        # odometry.cpp:349-361): first-per-voxel then draws a random
-        # representative per voxel and the keypoint alphas stay uniform
-        perm = np.random.default_rng(
-            (0x5EED, info.frame_id)).permutation(xyz.shape[0])
-        xyz, timestamps = xyz[perm], timestamps[perm]
-        startup = registered_fid < o.init_num_frames
-        v = o.init_voxel_size if startup else o.voxel_size
-        q = np.rint(xyz * pl.SCAN_QUANT) / pl.SCAN_QUANT
-        keep = _host_voxel_dedup(q, v, o.max_subsampled_points)
-        xyz, timestamps = xyz[keep], timestamps[keep]
-        n = xyz.shape[0]
-        cap = min(cap, o.max_subsampled_points)
-        # KEYPOINT PREFIX: stable-partition the deduped scan so the
-        # sample-voxel grid winners (first in scan order) come first; the
-        # device takes keypoints as that prefix
-        v_kp = o.init_sample_voxel_size if startup else o.sample_voxel_size
-        q = np.rint(xyz * pl.SCAN_QUANT) / pl.SCAN_QUANT
-        kp_first = _host_voxel_dedup(q, v_kp, o.max_keypoints)
-        mask = np.zeros(n, bool)
-        mask[kp_first] = True
-        order = np.concatenate([kp_first, np.nonzero(~mask)[0]])
-        xyz, timestamps = xyz[order], timestamps[order]
-        alphas = self._frame_alphas(timestamps, info)
-        return {
-            "info": info, "n": n,
-            "scan_host": pl.pack_scan_u16(xyz, alphas, n,
-                                          pl.scan_rung(cap, n)),
-            "xyz": xyz, "timestamps": timestamps, "alphas": alphas,
-            "kp_n": int(kp_first.shape[0]), "kp_voxel": float(v_kp),
-        }
+        out = self._dedup_and_pack(xyz, timestamps, info)
+        out["info"] = info
+        return out
+
+    def register_frame_prepared(self, prep: dict,
+                                initial_estimate: Optional[TrajectoryFrame]
+                                = None) -> RegistrationSummary:
+        """Register a frame produced by prepare_frame (in order)."""
+        t_start = time.time()
+        info = prep["info"]
+        if info.registered_fid != self.registered_frames:
+            raise ValueError("Prepared frames must be registered in order")
+        self.registered_frames += 1
+        self._initialize_motion(info, initial_estimate)
+        summary = self._do_register(prep["xyz"], prep["timestamps"], info,
+                                    prep=prep)
+        summary.logged_values["odometry_total"] = (time.time() - t_start) * 1e3
+        return summary
+
+    def register_frame(self, xyz: np.ndarray, timestamps: np.ndarray,
+                       frame_id: Optional[int] = None,
+                       initial_estimate: Optional[TrajectoryFrame] = None
+                       ) -> RegistrationSummary:
+        """Register one scan (reference RegisterFrame, odometry.cpp:199-273).
+
+        ``xyz`` [N, 3] sensor-frame points, ``timestamps`` [N] raw per-point
+        timestamps (any monotone unit)."""
+        t_start = time.time()
+        xyz, timestamps = _sanitize_scan(xyz, timestamps)
+        info = FrameInfo(
+            registered_fid=self.registered_frames,
+            frame_id=self.registered_frames if frame_id is None else frame_id,
+            begin_timestamp=float(timestamps.min()),
+            end_timestamp=float(timestamps.max()))
+        self.registered_frames += 1
+        self._initialize_motion(info, initial_estimate)
+        summary = self._do_register(xyz, timestamps, info)
+        summary.logged_values["odometry_total"] = (time.time() - t_start) * 1e3
+        return summary
 
     def stream_frames(self, preps, batch: int = 1):
         """Register prepared frames in order (generator of
         RegistrationSummary). ``batch`` frames share one stacked upload and
         one readback of their results; the frames of a batch run one after
-        another on the device. The last group may be shorter."""
+        another on the device. Robust profiles stream speculatively (see
+        ``_stream_frames_robust``)."""
+        if self.options.robust_registration:
+            yield from self._stream_frames_robust(preps, max(batch, 1))
+            return
         group = []
         for prep in preps:
             group.append(prep)
@@ -262,7 +348,442 @@ class Odometry:
         if group:
             yield from self._finish_batch(*self._stream_frames_batched(group))
 
-    # ---------------------------------------------------------------- driver —
+    # ------------------------------------------------------ frame preparation —
+    def _dedup_and_pack(self, xyz, timestamps, info: FrameInfo) -> dict:
+        """Shuffle, voxel dedup, keypoint-prefix partition and wire packing
+        of a scan already cut to max_scan_points."""
+        o = self.options
+        # SHUFFLE before the voxel dedup (reference InitializeFrame,
+        # odometry.cpp:349-361): first-per-voxel then draws a random
+        # representative per voxel and the keypoint alphas stay uniform
+        perm = np.random.default_rng(
+            (0x5EED, info.frame_id)).permutation(xyz.shape[0])
+        xyz, timestamps = xyz[perm], timestamps[perm]
+        startup = info.registered_fid < o.init_num_frames
+        v = o.init_voxel_size if startup else o.voxel_size
+        q = np.rint(xyz * pl.SCAN_QUANT) / pl.SCAN_QUANT
+        keep = _host_voxel_dedup(q, v, o.max_subsampled_points)
+        xyz, timestamps = xyz[keep], timestamps[keep]
+        n = xyz.shape[0]
+        cap = min(o.max_scan_points, o.max_subsampled_points)
+        # KEYPOINT PREFIX: stable-partition the deduped scan so the
+        # sample-voxel grid winners (first in scan order) come first; the
+        # device takes keypoints as that prefix when it samples at this
+        # voxel size (a robust escalation shrinks it: the device election
+        # runs then)
+        v_kp = o.init_sample_voxel_size if startup else o.sample_voxel_size
+        q = np.rint(xyz * pl.SCAN_QUANT) / pl.SCAN_QUANT
+        kp_first = _host_voxel_dedup(q, v_kp, o.max_keypoints)
+        mask = np.zeros(n, bool)
+        mask[kp_first] = True
+        order = np.concatenate([kp_first, np.nonzero(~mask)[0]])
+        xyz, timestamps = xyz[order], timestamps[order]
+        alphas = self._frame_alphas(timestamps, info)
+        return {
+            "n": n,
+            "scan_host": pl.pack_scan_u16(xyz, alphas, n,
+                                          pl.scan_rung(cap, n)),
+            "xyz": xyz, "timestamps": timestamps, "alphas": alphas,
+            "kp_n": int(kp_first.shape[0]), "kp_voxel": float(v_kp),
+        }
+
+    def _prepare_device_scan(self, xyz, timestamps, info: FrameInfo, prep):
+        """The packed scan on the device for the frame step (from ``prep``
+        when given, else prepared here as prepare_frame would) -> (scan,
+        n, kp_n, kp_voxel)."""
+        if prep is None:
+            n = xyz.shape[0]
+            cap = self.options.max_scan_points
+            if n > cap:
+                sel = self.rng.choice(n, cap, replace=False)
+                xyz, timestamps = xyz[sel], timestamps[sel]
+            prep = self._dedup_and_pack(xyz, timestamps, info)
+        scan = torch.from_numpy(prep["scan_host"].view(np.int16)).to(
+            self.device)
+        return scan, prep["n"], prep.get("kp_n", 0), prep.get("kp_voxel", 0.0)
+
+    # ------------------------------------------------------------ motion init —
+    def _initialize_motion(self, info: FrameInfo,
+                           initial_estimate: Optional[TrajectoryFrame]):
+        """Reference InitializeMotion (odometry.cpp:276-330)."""
+        if initial_estimate is not None:
+            self.trajectory.append(initial_estimate.copy())
+            return
+        k = info.registered_fid
+        frame = TrajectoryFrame(
+            Pose(timestamp=info.begin_timestamp, frame_id=info.frame_id),
+            Pose(timestamp=info.end_timestamp, frame_id=info.frame_id))
+        tr = self.trajectory
+        const_vel = (self.options.initialization
+                     == Initialization.INIT_CONSTANT_VELOCITY)
+        continuous = (self.options.motion_compensation
+                      == MotionCompensation.CONTINUOUS)
+        if k <= 1:
+            pass  # identity
+        elif k == 2:
+            if const_vel:
+                rel = tr[k - 2].end_pose.inverse() * tr[k - 1].end_pose
+                frame.begin_pose.quat = tr[k - 1].end_pose.quat.copy()
+                frame.begin_pose.tr = tr[k - 1].end_pose.tr.copy()
+                nxt = tr[k - 1].end_pose * rel
+                frame.end_pose.quat, frame.end_pose.tr = nxt.quat, nxt.tr
+            else:
+                frame.begin_pose.quat = tr[k - 1].begin_pose.quat.copy()
+                frame.begin_pose.tr = tr[k - 1].begin_pose.tr.copy()
+                frame.end_pose.quat = frame.begin_pose.quat.copy()
+                frame.end_pose.tr = frame.begin_pose.tr.copy()
+        else:
+            if const_vel:
+                if continuous:
+                    rel_b = (tr[k - 2].begin_pose.inverse()
+                             * tr[k - 1].begin_pose)
+                    nb = tr[k - 1].begin_pose * rel_b
+                    frame.begin_pose.quat, frame.begin_pose.tr = nb.quat, nb.tr
+                else:
+                    frame.begin_pose.quat = tr[k - 1].end_pose.quat.copy()
+                    frame.begin_pose.tr = tr[k - 1].end_pose.tr.copy()
+                rel_e = tr[k - 2].end_pose.inverse() * tr[k - 1].end_pose
+                ne = tr[k - 1].end_pose * rel_e
+                frame.end_pose.quat, frame.end_pose.tr = ne.quat, ne.tr
+            else:
+                frame.begin_pose.quat = tr[k - 1].end_pose.quat.copy()
+                frame.begin_pose.tr = tr[k - 1].end_pose.tr.copy()
+                frame.end_pose.quat = frame.begin_pose.quat.copy()
+                frame.end_pose.tr = frame.begin_pose.tr.copy()
+        self.trajectory.append(frame)
+
+    # ---------------------------------------------------- per-frame registration —
+    def _do_register(self, xyz, timestamps, info: FrameInfo,
+                     prep=None) -> RegistrationSummary:
+        """Reference DoRegister (odometry.cpp:386-501): the robust regimen
+        or one frame step."""
+        if self.options.robust_registration:
+            return self._do_register_robust_fused(xyz, timestamps, info,
+                                                  prep=prep)
+        return self._do_register_fused(xyz, timestamps, info, prep=prep)
+
+    def _prior(self, k: int) -> np.ndarray:
+        """The packed motion prior of frame k (registration.make_prior)."""
+        o = self.options
+        if k == 0:
+            return make_prior(None, None, self.origin)
+        if o.with_default_motion_model:
+            self.default_motion_model.options = o.default_motion_model
+            self.default_motion_model.update_state(self.trajectory[k - 1],
+                                                   k - 1)
+            return self.default_motion_model.device_prior(self.origin)
+        return make_prior(self.trajectory[k - 1], _zero_motion_model(),
+                          self.origin)
+
+    def _pose_init_packed(self, frame: TrajectoryFrame) -> np.ndarray:
+        return np.concatenate([
+            s3n.quat_normalize(frame.begin_pose.quat),
+            frame.begin_pose.tr - self.origin,
+            s3n.quat_normalize(frame.end_pose.quat),
+            frame.end_pose.tr - self.origin]).astype(np.float32)
+
+    def _run_frame_step(self, scan, n, frame, prior, dyn, fs):
+        """One frame step on the device and the readback of its result."""
+        out = self._frame_step(
+            self.map_state, scan, n,
+            torch.as_tensor(self._pose_init_packed(frame), device=self.device),
+            torch.as_tensor(prior, device=self.device), dyn, fs)
+        self.host_syncs += out.host_syncs + 1
+        self.result_reads += 1
+        return out, out.packed.cpu().numpy().astype(np.float64)
+
+    def _set_frame_poses(self, frame: TrajectoryFrame, r):
+        frame.begin_pose.quat = r[0:4]
+        frame.begin_pose.tr = r[4:7] + self.origin
+        frame.end_pose.quat = r[7:11]
+        frame.end_pose.tr = r[11:14] + self.origin
+        frame.begin_pose.normalize_()
+        frame.end_pose.normalize_()
+
+    def _do_register_fused(self, xyz, timestamps, info: FrameInfo,
+                           prep=None) -> RegistrationSummary:
+        """One frame step (reference _do_register_fused): frame 0 and the
+        non-robust per-frame path."""
+        o = self.options
+        k = info.registered_fid
+        scan, n, kp_n, kp_voxel = self._prepare_device_scan(
+            xyz, timestamps, info, prep)
+        frame = self.trajectory[k]
+        summary = RegistrationSummary()
+        summary.initial_frame = frame.copy()
+        startup = k < o.init_num_frames
+        dyn = self.registration.dynamics(self._effective_icp_options(info))
+        tracker = self.insertion_tracker
+        force_insert = 0.0
+        if o.always_insert or tracker.total_insertions == 0:
+            force_insert = 1.0
+        if o.do_no_insert:
+            force_insert = -1.0
+        fs1 = o.init_sample_voxel_size if startup else o.sample_voxel_size
+        fs = np.asarray([
+            o.init_voxel_size if startup else o.voxel_size,
+            fs1,
+            o.max_distance,
+            1.0 if k > 0 else 0.0,
+            force_insert,
+            o.insertion_ego_rotation_threshold,
+            float(tracker.skipped_frames),
+            o.insertion_threshold_frames_skipped,
+            o.distance_error_threshold,
+            o.orientation_error_threshold,
+            1.0 if k % PRUNE_PERIOD == 0 else 0.0,
+            np.inf, np.inf, np.inf, 0.0,
+            # young-map insert budget (fs[15], see OdometryOptions)
+            float(o.bootstrap_insert_rounds) if k < o.bootstrap_frames
+            else 4.0,
+            self._kp_prefix_scalar(kp_n, kp_voxel, fs1),
+        ], dtype=np.float32)
+        _out, r = self._run_frame_step(scan, n, frame, self._prior(k), dyn,
+                                       fs)
+        self._set_frame_poses(frame, r)
+        summary.frame = frame
+        self._fill_summary(summary, r)
+        summary.points_added = bool(r[21])
+        summary.logged_values["odometry_num_subsampled"] = int(r[18])
+        summary.logged_values["map_inserted_points"] = int(r[20])
+        self._compute_summary_metrics(summary, k)
+        assess_ok = bool(r[22])
+        summary.success = bool(r[17]) and (assess_ok or k == 0)
+        if not summary.success and not assess_ok:
+            summary.error_message = "Registration assessment failed"
+        tracker.cum_orientation_change_since_insertion += \
+            summary.relative_orientation
+        tracker.cum_distance_since_insertion += summary.relative_distance
+        if summary.points_added:
+            tracker.insert_frame(k)
+        else:
+            tracker.skip_frame()
+        self._maybe_rebase()
+        return summary
+
+    @staticmethod
+    def _fill_summary(summary: RegistrationSummary, r):
+        summary.number_of_residuals = int(r[14])
+        summary.sample_size = int(r[19])
+        summary.icp_summary.num_residuals_used = int(r[14])
+        summary.icp_summary.num_iters = int(r[15])
+        summary.icp_summary.success = bool(r[17])
+
+    def _do_register_robust_fused(self, xyz, timestamps, info: FrameInfo,
+                                  prep=None) -> RegistrationSummary:
+        """The robust regimen through the frame step: one step per attempt
+        (its insert applied on the device when the attempt passes the
+        device's robust assessment), host escalation between attempts, the
+        deferred map update only for the corners the device cannot see."""
+        k = info.registered_fid
+        if k == 0:
+            # frame 0: no registration, insert directly
+            return self._do_register_fused(xyz, timestamps, info, prep=prep)
+        summary = RegistrationSummary()
+        summary.frame = self.trajectory[k].copy()
+        summary.initial_frame = self.trajectory[k].copy()
+        out, inserted, count = self._robust_registration_fused(
+            xyz, timestamps, info, summary, self._prior(k), prep=prep)
+        self.trajectory[k] = summary.frame
+        self._compute_summary_metrics(summary, k)
+        self._update_map_host(summary, out.world, k,
+                              device_inserted=inserted,
+                              device_inserted_count=count)
+        self._maybe_rebase()
+        return summary
+
+    def _robust_registration_fused(self, xyz, timestamps, info: FrameInfo,
+                                   summary: RegistrationSummary, prior,
+                                   prep=None):
+        """Reference RobustRegistration (odometry.cpp:780-852) on the frame
+        step. Returns (the last attempt's FrameResult, whether the device
+        inserted, how many points)."""
+        o = self.options
+        k = info.registered_fid
+        scan, n, kp_n, kp_voxel = self._prepare_device_scan(
+            xyz, timestamps, info, prep)
+        attempt_opts = self._effective_icp_options(info)
+        startup = k < o.init_num_frames
+        sample_voxel_size = (o.init_sample_voxel_size if startup
+                             else o.sample_voxel_size)
+        min_voxel_size = min(o.init_voxel_size, o.voxel_size)
+        initial_estimate = summary.frame.copy()
+        robust_level = 0
+        summary.number_of_attempts = 0
+
+        def increase_level():
+            nonlocal attempt_opts, sample_voxel_size, robust_level
+            summary.frame = initial_estimate.copy()
+            attempt_opts, sample_voxel_size = _escalate_once(
+                attempt_opts, o.sample_voxel_size, min_voxel_size)
+            robust_level += 1
+
+        for _ in range(self.next_robust_level):
+            increase_level()
+
+        summary.points_added = False
+        # the device cannot see do_no_insert / always_insert: force the safe
+        # side and let the deferred update resolve them
+        gate_mode = -1.0 if o.do_no_insert else 2.0
+        gm = GATE_MARGIN
+        while True:
+            summary.robust_level = robust_level
+            dyn = self.registration.dynamics(attempt_opts)
+            fs = np.asarray([
+                o.init_voxel_size if startup else o.voxel_size,
+                sample_voxel_size,
+                o.max_distance,
+                1.0,
+                gate_mode,
+                o.insertion_ego_rotation_threshold, 0.0,
+                o.insertion_threshold_frames_skipped,
+                o.distance_error_threshold * gm,
+                o.orientation_error_threshold * gm,
+                1.0 if (k % PRUNE_PERIOD == 0 or self._prune_owed) else 0.0,
+                o.robust_threshold_relative_orientation * gm,
+                o.robust_threshold_ego_orientation * gm,
+                o.robust_relative_trans_threshold * gm,
+                1.0 if (robust_level == 0
+                        and o.robust_num_attempts_when_rotation > 0) else 0.0,
+                # young-map insert budget (fs[15], see OdometryOptions)
+                float(o.bootstrap_insert_rounds) if k < o.bootstrap_frames
+                else 4.0,
+                self._kp_prefix_scalar(kp_n, kp_voxel, sample_voxel_size),
+            ], dtype=np.float32)
+            out, r = self._run_frame_step(scan, n, summary.frame, prior, dyn,
+                                          fs)
+            self._set_frame_poses(summary.frame, r)
+            self._fill_summary(summary, r)
+            summary.success = bool(r[17])
+            summary.number_of_attempts += 1
+            inserted_on_device = bool(r[21])
+            inserted_count = int(r[20])
+            assess_ok_device = bool(r[22])
+            if k > 0:
+                prev = self.trajectory[k - 1]
+                summary.distance_correction = float(np.linalg.norm(
+                    summary.frame.begin_pose.tr - prev.end_pose.tr))
+                summary.relative_orientation = prev.end_pose.angular_distance(
+                    summary.frame.end_pose)
+                summary.ego_orientation = summary.frame.ego_angular_distance()
+            summary.relative_distance = float(np.linalg.norm(
+                summary.frame.end_pose.tr - summary.frame.begin_pose.tr))
+            if self._assess_registration(summary):
+                break
+            if summary.number_of_attempts < o.robust_num_attempts:
+                increase_level()
+            else:
+                break
+
+        if summary.number_of_attempts >= o.robust_num_attempts:
+            self.robust_num_consecutive_failures += 1
+        else:
+            self.robust_num_consecutive_failures = 0
+        # a requested prune only ran if the final attempt's device
+        # assessment passed (the frame core gates the sweep on assess_ok)
+        prune_requested = (k % PRUNE_PERIOD == 0) or self._prune_owed
+        self._prune_owed = prune_requested and not assess_ok_device
+        return out, inserted_on_device, inserted_count
+
+    def _assess_registration(self, summary: RegistrationSummary) -> bool:
+        """Reference AssessRegistration (odometry.cpp:604-684)."""
+        o = self.options
+        if summary.relative_distance > o.distance_error_threshold:
+            summary.error_message = "Error in ego-motion distance !"
+            return False
+        if (summary.relative_orientation > o.orientation_error_threshold
+                or summary.ego_orientation > o.orientation_error_threshold):
+            summary.error_message = "Error in ego-motion orientation !"
+            return False
+        success = summary.success
+        if o.robust_registration:
+            if (summary.robust_level == 0
+                    and (summary.relative_orientation
+                         > o.robust_threshold_relative_orientation
+                         or summary.ego_orientation
+                         > o.robust_threshold_ego_orientation)):
+                if summary.robust_level < o.robust_num_attempts_when_rotation:
+                    summary.error_message = (
+                        "Large rotations require at a robust_level of at "
+                        f"least 1 (got: {summary.robust_level}).")
+                    return False
+            if summary.relative_distance > o.robust_relative_trans_threshold:
+                summary.error_message = "The relative distance is too important"
+                return False
+        return success
+
+    def _update_map_host(self, summary: RegistrationSummary, world, k: int,
+                         device_inserted: bool, device_inserted_count: int):
+        """The robust insertion decision and the deferred map update
+        (reference UpdateMap, odometry.cpp:855-953). The attempt's frame
+        step already ran the robust-gated insert + prune on the device; when
+        its decision matches the host's ``add_points`` nothing more runs. A
+        mismatch — possible only in corners the device cannot see
+        (always_insert, the consecutive-failure override after attempt
+        exhaustion) — runs the deferred update."""
+        o = self.options
+        self.suspect_registration_error = (
+            summary.number_of_attempts >= o.robust_num_attempts)
+        add_points = not (
+            summary.ego_orientation > o.robust_threshold_ego_orientation
+            or summary.relative_orientation
+            > o.robust_threshold_relative_orientation)
+        if self.suspect_registration_error:
+            add_points |= self.robust_num_consecutive_failures > 5
+        self.next_robust_level = (o.robust_minimal_level if add_points
+                                  else o.robust_minimal_level + 1)
+        if not summary.success:
+            self.next_robust_level = o.robust_minimal_level + 2
+        elif (summary.relative_orientation
+              > o.robust_threshold_relative_orientation
+              or summary.ego_orientation > o.robust_threshold_ego_orientation
+              or summary.number_of_attempts > 1):
+            self.next_robust_level = o.robust_minimal_level + 1
+
+        summary.points_added = add_points
+        if o.do_no_insert:
+            add_points = False
+        if o.always_insert:
+            add_points = True
+        if device_inserted == add_points:
+            # the attempt's frame step already applied this decision
+            summary.logged_values["map_inserted_points"] = \
+                device_inserted_count
+        elif device_inserted and not add_points:
+            # cannot un-insert; record the divergence (needs an exact tie
+            # between the device's float32 and the host's float64 tests)
+            summary.logged_values["map_inserted_points"] = \
+                device_inserted_count
+            summary.logged_values["insertion_divergence"] = 1.0
+            add_points = True
+        else:
+            location = torch.as_tensor(
+                self.trajectory[-1].end_pose.tr - self.origin,
+                dtype=torch.float32, device=self.device)
+            inserted = pl.update_map(
+                self.map_state, self.map_options, world,
+                torch.ones(world.shape[0], dtype=torch.bool,
+                           device=self.device), location,
+                float(np.float32(o.max_distance)), add_points,
+                prune=(k % PRUNE_PERIOD == 0) or self._prune_owed)
+            self._prune_owed = False
+            self.result_reads += 1
+            self.host_syncs += 1
+            summary.logged_values["map_inserted_points"] = int(inserted[0])
+        if add_points:
+            self.insertion_tracker.insert_frame(k)
+        else:
+            self.insertion_tracker.skip_frame()
+
+    def _maybe_rebase(self):
+        if (self.trajectory and np.linalg.norm(
+                self.trajectory[-1].end_pose.tr - self.origin)
+                > self.rebase_distance):
+            raise NotImplementedError(
+                "map rebase (rebuild_level) is not ported: the trajectory "
+                f"left the {self.rebase_distance} m map frame")
+
+    # ------------------------------------------------------------- streaming —
     def _betas(self):
         o = self.options
         mm = o.default_motion_model
@@ -291,46 +812,55 @@ class Odometry:
             # young-map insert budget (fs[15], see OdometryOptions)
             float(o.bootstrap_insert_rounds) if k < o.bootstrap_frames
             else 4.0,
-            self._kp_prefix_scalar(prep, fs1),
+            self._kp_prefix_scalar(prep.get("kp_n", 0),
+                                   prep.get("kp_voxel", 0.0), fs1),
         ], dtype=np.float32)
 
     @staticmethod
-    def _kp_prefix_scalar(prep, fs1: float) -> float:
-        """fs[16]: the keypoint-prefix count when the prep's partition was
-        computed at this frame's sample voxel size, else 0."""
-        kp_n = prep.get("kp_n", 0)
-        if kp_n > 0 and abs(prep.get("kp_voxel", 0.0) - fs1) < 1e-9:
+    def _kp_prefix_scalar(kp_n: int, kp_voxel: float, fs1: float) -> float:
+        """fs[16]: the keypoint-prefix count when the partition was
+        computed at this frame's sample voxel size, else 0 (the device
+        election runs then)."""
+        if kp_n > 0 and abs(kp_voxel - fs1) < 1e-9:
             return float(kp_n)
         return 0.0
 
-    def _stream_frames_batched(self, group):
-        """Upload one group's scans together and run its frames in order;
-        returns (infos, packed results [B, 24] on the device, origin)."""
+    def _upload(self, group):
+        """One stacked upload of a group's scans -> (scans [B, R, 4] on the
+        device, ns, ks)."""
         rung = max(p["scan_host"].shape[0] for p in group)
         scans = np.zeros((len(group), rung, 4), np.uint16)
         for b, prep in enumerate(group):
             sh = prep["scan_host"]
             scans[b, :sh.shape[0]] = sh
-        scans_dev = torch.from_numpy(scans.view(np.int16)).to(self.device)
-        betas = torch.as_tensor(self._betas(), device=self.device)
-        infos, packed = [], []
-        for b, prep in enumerate(group):
-            info = prep["info"]
-            if info.registered_fid != self.registered_frames:
+        return (torch.from_numpy(scans.view(np.int16)).to(self.device),
+                [p["n"] for p in group],
+                [p["info"].registered_fid for p in group])
+
+    def _stream_frames_batched(self, group):
+        """Run one group's frames in order; returns (infos, packed results
+        [B, 24] on the device, origin)."""
+        for prep in group:
+            if prep["info"].registered_fid != self.registered_frames:
                 raise ValueError("Prepared frames must be streamed in order")
             self.registered_frames += 1
-            dyn = self.registration.dynamics(self._effective_icp_options(info))
-            self._odo_state, row, syncs = self._stream_step(
-                self.map_state, self._odo_state, scans_dev[b], prep["n"],
-                info.registered_fid, betas, dyn, self._frame_scalars(prep))
-            self.host_syncs += syncs
-            infos.append(info)
-            packed.append(row)
-        return infos, torch.stack(packed), self.origin.copy()
+        scans, ns, ks = self._upload(group)
+        dyns = [self.registration.dynamics(
+            self._effective_icp_options(p["info"])) for p in group]
+        fss = [self._frame_scalars(p) for p in group]
+        betas = torch.as_tensor(self._betas(), device=self.device)
+        self._odo_state, packed, syncs, _ = self._multi_step(
+            self.map_state, self._odo_state, scans, ns, ks, betas, dyns, fss)
+        self.host_syncs += syncs
+        return [p["info"] for p in group], packed, self.origin.copy()
+
+    def _read_rows(self, packed_all):
+        self.host_syncs += 1
+        self.result_reads += 1
+        return packed_all.cpu().numpy().astype(np.float64)
 
     def _finish_batch(self, infos, packed_all, origin):
-        rows = packed_all.cpu().numpy().astype(np.float64)
-        for info, row in zip(infos, rows):
+        for info, row in zip(infos, self._read_rows(packed_all)):
             yield self._finish_streamed(info, row, origin)
 
     def _finish_streamed(self, info, r, origin) -> RegistrationSummary:
@@ -350,11 +880,7 @@ class Odometry:
         summary = RegistrationSummary()
         summary.frame = frame
         summary.initial_frame = frame.copy()
-        summary.number_of_residuals = int(r[14])
-        summary.sample_size = int(r[19])
-        summary.icp_summary.num_residuals_used = int(r[14])
-        summary.icp_summary.num_iters = int(r[15])
-        summary.icp_summary.success = bool(r[17])
+        self._fill_summary(summary, r)
         summary.points_added = bool(r[21])
         summary.logged_values["odometry_num_subsampled"] = int(r[18])
         summary.logged_values["map_inserted_points"] = int(r[20])
@@ -372,15 +898,250 @@ class Odometry:
             tracker.insert_frame(k)
         else:
             tracker.skip_frame()
-
-        if np.linalg.norm(frame.end_pose.tr - self.origin) \
-                > self.rebase_distance:
-            raise NotImplementedError(
-                "map rebase (rebuild_level) is not ported: the trajectory "
-                f"left the {self.rebase_distance} m map frame")
+        self._maybe_rebase()
         return summary
 
-    # ------------------------------------------------------------ helpers —
+    # ------------------------------------------------------- robust streaming —
+    def _odo_state_from_host(self) -> torch.Tensor:
+        """The device odometry state rebuilt from the host trajectory and
+        tracker — when the robust streamer enters (or re-enters after a
+        rollback) speculative mode."""
+        s = np.array(pl.init_odo_state())
+        k = self.registered_frames
+        if k >= 1:
+            f = self.trajectory[k - 1]
+            s[0:4] = s3n.quat_normalize(f.begin_pose.quat)
+            s[4:7] = f.begin_pose.tr - self.origin
+            s[7:11] = s3n.quat_normalize(f.end_pose.quat)
+            s[11:14] = f.end_pose.tr - self.origin
+        if k >= 2:
+            f2 = self.trajectory[k - 2]
+            s[14:18] = s3n.quat_normalize(f2.begin_pose.quat)
+            s[18:21] = f2.begin_pose.tr - self.origin
+            s[21:25] = s3n.quat_normalize(f2.end_pose.quat)
+            s[25:28] = f2.end_pose.tr - self.origin
+        s[28] = float(k)
+        s[29] = float(self.insertion_tracker.skipped_frames)
+        s[30] = float(self.insertion_tracker.total_insertions)
+        return torch.as_tensor(s.astype(np.float32), device=self.device)
+
+    def _robust_frame_scalars(self, info: FrameInfo, prep: dict,
+                              level: int = 0,
+                              sample_voxel: Optional[float] = None
+                              ) -> np.ndarray:
+        """Frame scalars of a speculative robust streamed frame at
+        ``level`` (``sample_voxel`` overrides fs[1] on escalated levels).
+        The thresholds carry the per-frame attempts' GATE_MARGIN: a
+        device/host tie must resolve to a rollback, never to a speculative
+        commit the host would have rejected. The rotation check (fs[14])
+        applies at robust level 0 only (reference AssessRegistration,
+        odometry.cpp:621-631)."""
+        o = self.options
+        gm = GATE_MARGIN
+        startup = info.registered_fid < o.init_num_frames
+        fs1 = (sample_voxel if sample_voxel is not None
+               else (o.init_sample_voxel_size if startup
+                     else o.sample_voxel_size))
+        return np.asarray([
+            o.init_voxel_size if startup else o.voxel_size,
+            fs1,
+            o.max_distance, 0.0, 0.0,
+            o.insertion_ego_rotation_threshold, 0.0,
+            o.insertion_threshold_frames_skipped,
+            o.distance_error_threshold * gm,
+            o.orientation_error_threshold * gm,
+            1.0 if info.registered_fid % PRUNE_PERIOD == 0 else 0.0,
+            o.robust_threshold_relative_orientation * gm,
+            o.robust_threshold_ego_orientation * gm,
+            o.robust_relative_trans_threshold * gm,
+            1.0 if (level == 0
+                    and o.robust_num_attempts_when_rotation > 0) else 0.0,
+            # young-map insert budget (fs[15], see OdometryOptions)
+            float(o.bootstrap_insert_rounds)
+            if info.registered_fid < o.bootstrap_frames else 4.0,
+            self._kp_prefix_scalar(prep.get("kp_n", 0),
+                                   prep.get("kp_voxel", 0.0), fs1),
+        ], dtype=np.float32)
+
+    def _stream_frames_robust(self, preps, batch: int):
+        """Speculative robust streaming (generator); reference
+        _stream_frames_robust, odometry.py:941-1257.
+
+        Steady state is accept-on-first-attempt at a persistent robust level
+        (the minimal level on open stretches, minimal + 1 through sustained
+        rotation), and the attempt's assessment runs on the device. So
+        ``batch`` frames run per dispatch AT the current next_robust_level,
+        with robust-gated insertion, and "this frame implies staying at the
+        dispatched level" licenses the speculation. A frame that breaks it
+        ends the committed prefix: the map rolls back to the batch's
+        checkpoint, the prefix re-runs with the suffix made map-neutral
+        (fs[8] = -1 fails its assessment, which blocks its insert and
+        prune), and the suffix replays through the per-frame escalation
+        path. Two batches are in flight: batch k+1 is dispatched before
+        batch k's rows are read; when k does not commit whole, k+1's work is
+        discarded and it is dispatched again. Frames are prepared by the
+        caller (no prefetch thread)."""
+        o = self.options
+        minimal = o.robust_minimal_level
+        betas = torch.as_tensor(self._betas(), device=self.device)
+        tail = []
+
+        def groups():
+            g = []
+            for prep in preps:
+                g.append(prep)
+                if len(g) == batch:
+                    yield g
+                    g = []
+            tail.extend(g)
+
+        # speculation levels: next_robust_level only sits at minimal or
+        # minimal + 1 after a passing frame; higher levels need failures,
+        # which drain per-frame
+        spec_levels = (minimal, minimal + 1)
+        min_voxel = min(o.init_voxel_size, o.voxel_size)
+
+        def level_inputs(group, level):
+            dyns, fss = [], []
+            for prep in group:
+                info = prep["info"]
+                opts = self._effective_icp_options(info)
+                sv = None
+                for _ in range(level):
+                    opts, sv = _escalate_once(opts, o.sample_voxel_size,
+                                              min_voxel)
+                dyns.append(self.registration.dynamics(opts))
+                fss.append(self._robust_frame_scalars(
+                    info, prep, level=level, sample_voxel=sv))
+            return dyns, fss
+
+        def stack_upload(group):
+            scans, ns, ks = self._upload(group)
+            per_level = {lv: level_inputs(group, lv) for lv in spec_levels}
+            return group, scans, ns, ks, per_level
+
+        def dispatch(upload):
+            """Run one batch at the current next_robust_level from the
+            current state, keeping its checkpoint."""
+            group, scans, ns, ks, per_level = upload
+            level = self.next_robust_level
+            dyns, fss = per_level[level]
+            self._odo_state, packed, syncs, ckpt = self._multi_step(
+                self.map_state, self._odo_state, scans, ns, ks, betas, dyns,
+                fss, with_checkpoint=True)
+            self.host_syncs += syncs
+            return {"upload": upload, "group": group, "level": level,
+                    "packed": packed, "ckpt": ckpt}
+
+        def resolve(p):
+            """Read one batch's rows; commit the steady prefix, then repair
+            and replay the rest. Returns "ok" (whole batch committed),
+            "levelchange" (whole batch committed, its last frame implies a
+            level transition: a batch in flight ran at the stale level) or
+            "rolledback"."""
+            group = p["group"]
+            rows = self._read_rows(p["packed"])
+            lvl = p["level"]
+            pass_ok = (rows[:, 22] > 0) & (rows[:, 17] > 0)
+            implied = np.where(rows[:, 23] > 0, minimal, minimal + 1)
+            if group[0]["info"].registered_fid == 0:
+                pass_ok[0] = True      # frame 0 does not register
+                implied[0] = lvl
+            # prefix commit: frame i of the batch depends only on frames
+            # < i, so every frame before the first violation ran what the
+            # per-frame path would have run; a passing frame that implies a
+            # level transition is itself committable
+            commit_n, new_level = 0, None
+            for i in range(len(group)):
+                if not pass_ok[i]:
+                    break
+                commit_n = i + 1
+                if implied[i] != lvl:
+                    new_level = int(implied[i])
+                    break
+            origin0 = self.origin.copy()
+            for prep, row in zip(group[:commit_n], rows[:commit_n]):
+                info = prep["info"]
+                self.registered_frames = info.registered_fid + 1
+                summary = self._finish_streamed(info, row, origin0)
+                summary.number_of_attempts = 1
+                summary.robust_level = lvl
+                self.robust_num_consecutive_failures = 0
+                self.suspect_registration_error = False
+                self.next_robust_level = lvl
+                yield summary
+            if new_level is not None:
+                self.next_robust_level = new_level
+            if commit_n == len(group):
+                self.speculative_batches_committed[lvl] = \
+                    self.speculative_batches_committed.get(lvl, 0) + 1
+                return "ok" if new_level is None else "levelchange"
+
+            # mid-batch violation: roll back, then one re-run from the
+            # checkpoint in which the suffix is map-neutral (fs[8] = -1
+            # fails its assessment: no insert, no prune) brings the map to
+            # the post-prefix state; the suffix's odometry state is
+            # discarded (rebuilt from the host when speculation resumes)
+            self.speculative_rollbacks += 1
+            self._odo_state = pl.restore(self.map_state, p["ckpt"])
+            if commit_n > 0:
+                self.speculative_prefix_commits += 1
+                _g, scans, ns, ks, per_level = p["upload"]
+                dyns, fss = per_level[lvl]
+                fss = [f.copy() for f in fss]
+                for f in fss[commit_n:]:
+                    f[8] = -1.0
+                self._odo_state, _rows, syncs, _ = self._multi_step(
+                    self.map_state, self._odo_state, scans, ns, ks, betas,
+                    dyns, fss)
+                self.host_syncs += syncs
+            for prep in group[commit_n:]:
+                yield self.register_frame_prepared(prep)
+            if self.next_robust_level in spec_levels:
+                self._odo_state = self._odo_state_from_host()
+            return "rolledback"
+
+        def drain(group):
+            """Per-frame escalation for a whole group; re-enters speculation
+            when the level allows it."""
+            for prep in group:
+                yield self.register_frame_prepared(prep)
+            if self.next_robust_level in spec_levels:
+                self._odo_state = self._odo_state_from_host()
+
+        self._odo_state = self._odo_state_from_host()
+        pending = None
+        for upload in map(stack_upload, groups()):
+            if self.next_robust_level not in spec_levels:
+                # deeply escalated (a frame failed): drain per-frame until
+                # the level returns to a speculation level; nothing is in
+                # flight here
+                assert pending is None
+                yield from drain(upload[0])
+                continue
+            cur = dispatch(upload)
+            if pending is not None:
+                status = yield from resolve(pending)
+                if status == "levelchange":
+                    # pending committed, but cur ran at the old level: back
+                    # to cur's checkpoint (the post-pending state), redo
+                    self._odo_state = pl.restore(self.map_state, cur["ckpt"])
+                    cur = dispatch(cur["upload"])
+                elif status == "rolledback":
+                    if self.next_robust_level in spec_levels:
+                        # state restored and replayed: cur again, at the
+                        # (possibly new) level
+                        cur = dispatch(cur["upload"])
+                    else:
+                        yield from drain(cur["group"])
+                        cur = None
+            pending = cur
+        if pending is not None:
+            yield from resolve(pending)
+        for prep in tail:
+            yield self.register_frame_prepared(prep)
+
+    # ---------------------------------------------------------------- helpers —
     def _frame_alphas(self, timestamps: np.ndarray, info: FrameInfo):
         if info.registered_fid <= 1:
             # first frames: collapse timestamps to the end pose

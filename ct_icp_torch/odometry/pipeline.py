@@ -1,16 +1,22 @@
 """The per-frame device pipeline around the solver (torch, eager).
 
-Counterpart of ``ct_icp_tpu/odometry/pipeline.py`` on the streamed,
-host-deduped path: the u16 scan wire format, the frame core (keypoint
-prefix, pre-gather residual-cap decimation, registration, world transform,
-assessment, insertion decision, prune + insert) and the streaming body whose
+Counterpart of ``ct_icp_tpu/odometry/pipeline.py`` on the host-deduped
+path: the u16 scan wire format, the frame core (keypoint prefix or the
+device keypoint grid election, pre-gather residual-cap decimation,
+registration, world transform, assessment, insertion decision — heuristic,
+forced or robust-gated — prune + insert), the per-frame step of the
+``register_frame`` path, the deferred map update, the streaming body whose
 motion initialization, prior and insertion tracker live in the device
-vector ``odo_state``.
+vector ``odo_state``, and the multi-frame step with its rollback checkpoint.
 
 The reference pads every stage to a capacity ladder so XLA compiles a few
 shapes; ladders are exact and only exist for speed, so here every stage is
-sliced to its live count instead. The map is updated in place.
+sliced to its live count instead (the keypoint election, whose count stays
+on the device, keeps its capacity and a validity mask). The map is updated
+in place, so a checkpoint is a device copy of it (``snapshot``).
 """
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -19,6 +25,8 @@ from ct_icp_torch.core import se3 as s3
 from ct_icp_torch.icp import residuals as res
 from ct_icp_torch.icp import solver as slv
 from ct_icp_torch.mapping import voxel_map as vm
+from ct_icp_torch.ops import sampling as smp
+from ct_icp_torch.ops import voxel as vx
 from ct_icp_torch.ops.voxel import div_exact
 
 # index of max_num_residuals in the packed solver-dynamics vector (the
@@ -81,20 +89,47 @@ def decimation_indices(kp_cnt: int, max_num_residuals: int):
     return np.nonzero(sel)[0]
 
 
+def device_decimation(kp_valid, kp_cnt, max_num_residuals: int):
+    """``decimation_indices`` with the keypoint count on the device (the
+    keypoint election's): returns (indices, count, valid) of the kept
+    keypoints, compacted, at the input's capacity."""
+    k = kp_valid.shape[0]
+    target = max((3 * max_num_residuals) // 2, 256)
+    live = torch.clamp_min(kp_cnt.to(torch.int64), 1)
+    t_eff = torch.clamp_max(live, target)
+    pos = torch.arange(k, dtype=torch.int64, device=kp_valid.device)
+    sel = (torch.div(pos * t_eff, live, rounding_mode="floor")
+           != torch.div((pos - 1) * t_eff, live, rounding_mode="floor"))
+    keep = kp_valid & (sel | (kp_cnt <= target))
+    idx, cnt, valid = vx.compact_mask(keep, k)
+    return idx.to(torch.int64), cnt, valid
+
+
+class FrameResult(NamedTuple):
+    packed: torch.Tensor      # f32[24], the reference layout
+    add: torch.Tensor         # bool: the frame's points went into the map
+    world: torch.Tensor       # f32[sub_cnt, 3] corrected sub-frame points
+    host_syncs: int           # device->host reads the solver made
+
+
 def make_frame_core(map_options, statics, sub_capacity: int):
-    """One odometry frame on the streamed path: keypoint prefix ->
+    """One odometry frame: keypoint prefix (or the device grid election) ->
     decimation -> CT registration -> world transform -> assessment ->
     insertion decision -> prune + insert (in place on ``map_state``).
 
     frame_scalars ``fs`` (f32[17]) follow the reference layout
     (pipeline.py:195-225): 0 voxel_size, 1 sample_voxel_size,
-    2 max_distance, 5 insertion_ego_rotation_threshold,
-    7 insertion_threshold_frames_skipped, 8 distance_error_threshold,
+    2 max_distance, 3 do_register, 4 force_insert, 5
+    insertion_ego_rotation_threshold, 6 skipped_frames, 7
+    insertion_threshold_frames_skipped, 8 distance_error_threshold,
     9 orientation_error_threshold, 10 do_prune, 11-14 robust assessment
-    terms, 15 insert election rounds, 16 keypoint-prefix count.
+    terms, 15 insert election rounds, 16 keypoint-prefix count (0: run the
+    keypoint grid election on the device, kernel K4). Entries 3, 4 and 6
+    arrive as the arguments ``do_register``, ``force_insert`` (-1 none,
+    0 heuristic, 1 force, 2 robust-gated: insert only when the rotation
+    stays within the robust thresholds) and ``skipped``.
 
-    Returns (packed f32[24] in the reference layout, add bool tensor,
-    host_syncs)."""
+    Returns a FrameResult."""
     resolutions = tuple(r.resolution for r in map_options.resolutions)
     min_dists = tuple(r.min_distance_between_points
                       for r in map_options.resolutions)
@@ -107,17 +142,33 @@ def make_frame_core(map_options, statics, sub_capacity: int):
         dev = raw.device
         sub_cnt = min(n_points, sub_capacity)
         sub_raw, sub_alphas = raw[:sub_cnt], alphas[:sub_cnt]
-        if fs[16] <= 0:
-            raise NotImplementedError(
-                "the device keypoint grid election is not ported: "
-                "prepare frames with the host keypoint prefix")
-        kp_cnt = min(int(fs[16]), kp_capacity)
-        kp_raw, kp_alphas = sub_raw[:kp_cnt], sub_alphas[:kp_cnt]
-        keep = decimation_indices(kp_cnt, int(dyn_packed[_MNR_INDEX]))
-        if keep is not None:
-            keep_t = torch.as_tensor(keep, device=dev)
-            kp_raw, kp_alphas = kp_raw[keep_t], kp_alphas[keep_t]
-        kp_valid = torch.ones(kp_raw.shape[0], dtype=torch.bool, device=dev)
+        mnr = int(dyn_packed[_MNR_INDEX])
+        if fs[16] > 0:
+            # KEYPOINT PREFIX: prepare_frame put the fs[1]-grid winners
+            # first, so the election's result is a slice of known length
+            kp_cnt = min(int(fs[16]), kp_capacity)
+            kp_raw, kp_alphas = sub_raw[:kp_cnt], sub_alphas[:kp_cnt]
+            keep = decimation_indices(kp_cnt, mnr)
+            if keep is not None:
+                keep_t = torch.as_tensor(keep, device=dev)
+                kp_raw, kp_alphas = kp_raw[keep_t], kp_alphas[keep_t]
+            kp_valid = torch.ones(kp_raw.shape[0], dtype=torch.bool,
+                                  device=dev)
+            kp_count = torch.tensor(float(kp_raw.shape[0]), device=dev)
+        else:
+            # the keypoint grid election at fs[1] (robust escalation shrinks
+            # the sample voxel below the prefix's): its count stays on the
+            # device, so the keypoints keep the capacity and a mask
+            idx, kp_valid, kp_cnt_t = smp.voxel_subsample_indices(
+                sub_raw, torch.ones(sub_cnt, dtype=torch.bool, device=dev),
+                float(fs[1]), kp_capacity)
+            idx = idx.to(torch.int64)
+            kp_raw, kp_alphas = sub_raw[idx], sub_alphas[idx]
+            if mnr > 0:
+                didx, kp_cnt_t, kp_valid = device_decimation(
+                    kp_valid, kp_cnt_t, mnr)
+                kp_raw, kp_alphas = kp_raw[didx], kp_alphas[didx]
+            kp_count = kp_cnt_t.to(torch.float32)
 
         dyn = slv.unpack_dynamics(dyn_packed)
         if not do_register:     # frame 0: poses pass through
@@ -146,10 +197,12 @@ def make_frame_core(map_options, statics, sub_capacity: int):
         # ---- insertion decision (reference UpdateMap, odometry.cpp:918-933)
         heuristic_add = torch.where(ego_or > fs[5], skipped > fs[7],
                                     torch.ones_like(assess_ok))
-        add = torch.where(force_insert < 0, torch.zeros_like(assess_ok),
-                          torch.where(force_insert > 0,
-                                      torch.ones_like(assess_ok),
-                                      heuristic_add)) & assess_ok
+        add = torch.where(
+            force_insert < 0, torch.zeros_like(assess_ok),
+            torch.where(force_insert > 1.5, rot_within,
+                        torch.where(force_insert > 0,
+                                    torch.ones_like(assess_ok),
+                                    heuristic_add))) & assess_ok
 
         inserted = torch.zeros(1, dtype=torch.int32, device=dev)
         valid = add.reshape(1).expand(sub_cnt).contiguous()
@@ -162,14 +215,13 @@ def make_frame_core(map_options, statics, sub_capacity: int):
 
         f32 = dict(dtype=torch.float32, device=dev)
         host = torch.tensor([result.num_iters, float(result.converged),
-                             float(result.valid_problem), sub_cnt,
-                             kp_raw.shape[0]], **f32)
+                             float(result.valid_problem), sub_cnt], **f32)
         packed = torch.cat([
             qb, tb, qe, te, result.num_residuals.to(**f32).reshape(1),
-            host, inserted.to(torch.float32),
+            host, kp_count.reshape(1), inserted.to(torch.float32),
             add.to(**f32).reshape(1), assess_ok.to(**f32).reshape(1),
             rot_within.to(**f32).reshape(1)])
-        return packed, add, result.host_syncs
+        return FrameResult(packed, add, world, result.host_syncs)
 
     return core
 
@@ -189,14 +241,76 @@ def init_odo_state():
     return s
 
 
+def make_frame_step(map_options, statics, sub_capacity: int):
+    """One frame of the per-frame (``register_frame``) path, the pose
+    initialization and the prior given by the host (reference
+    make_frame_step_fn, pipeline.py:434-458):
+      (map_state, scan_packed, n, pose_init [14], prior [14], dyn, fs)
+        -> FrameResult
+    with do_register, force_insert and skipped in fs[3], fs[4], fs[6]."""
+    core = make_frame_core(map_options, statics, sub_capacity)
+
+    def frame_step(map_state, scan_packed, n_points: int, pose_init, prior,
+                   dyn_packed, fs):
+        raw, alphas = unpack_scan(scan_packed)
+        dev = raw.device
+        return core(map_state, raw, alphas, n_points, pose_init[0:4],
+                    pose_init[4:7], pose_init[7:11], pose_init[11:14], prior,
+                    dyn_packed, fs, bool(fs[3] > 0),
+                    torch.tensor(float(fs[4]), device=dev),
+                    torch.tensor(float(fs[6]), device=dev))
+
+    return frame_step
+
+
+def update_map(map_state, map_options, world, valid, location,
+               max_distance: float, do_insert: bool, prune: bool):
+    """The deferred map update (reference _update_map_impl,
+    pipeline.py:71-84): an optional prune around ``location``, then the
+    insert of ``world`` where ``valid`` and ``do_insert``, in place on every
+    level. Returns the points inserted, int32[1]."""
+    inserted = torch.zeros(1, dtype=torch.int32, device=world.device)
+    valid = valid & do_insert
+    for level, r in zip(map_state, map_options.resolutions):
+        if prune:
+            vm.prune_level(level, location, max_distance)
+        inserted = inserted + vm.insert_points(
+            level, world, valid, r.resolution, r.min_distance_between_points)
+    return inserted
+
+
+def snapshot(map_state, odo_state):
+    """A device copy of the map and the odometry state: the rollback point
+    of a speculative batch. The reference's functional map makes this an
+    output of the batch's program (make_multi_step_fn, with_checkpoint);
+    here the batch updates the map in place, so the copy is taken before
+    it runs (about 265 MB at the robust profile's 2^19 x 40-point level)."""
+    return (tuple(vm.MapLevel(*(t.clone() for t in level))
+                  for level in map_state), odo_state.clone())
+
+
+def restore(map_state, ckpt):
+    """Roll ``map_state`` back to the checkpoint, in place; returns the
+    checkpoint's odometry state (a copy: the checkpoint stays usable)."""
+    levels, odo_state = ckpt
+    for level, saved in zip(map_state, levels):
+        for t, s in zip(level, saved):
+            t.copy_(s)
+    return odo_state.clone()
+
+
 def make_stream_body(map_options, statics, sub_capacity: int,
                      const_velocity: bool, continuous: bool,
-                     always_insert: bool, do_no_insert: bool):
+                     always_insert: bool, do_no_insert: bool,
+                     robust_gated: bool = False):
     """Per-frame streaming body:
       (map_state, odo_state, scan_packed, n, k, prior_betas, dyn, fs)
         -> (odo_state, packed [24], host_syncs)
     ``k`` is the frame's registration index — the host's copy of
-    odo_state[28] (the reference reads it on the device)."""
+    odo_state[28] (the reference reads it on the device).
+    ``robust_gated``: insertion mode 2 (insert only when the on-device
+    robust assessment passes) after the first inserted frame — the
+    speculative robust streamer's mode."""
     core = make_frame_core(map_options, statics, sub_capacity)
 
     def stream_body(map_state, odo_state, scan_packed, n_points: int, k: int,
@@ -237,12 +351,14 @@ def make_stream_body(map_options, statics, sub_capacity: int,
             force_insert = torch.tensor(-1.0, device=s.device)
         elif always_insert:
             force_insert = torch.tensor(1.0, device=s.device)
+        elif robust_gated:
+            force_insert = torch.where(total_ins < 0.5, 1.0, 2.0)
         else:
             force_insert = (total_ins < 0.5).to(torch.float32)
 
-        packed, add, syncs = core(map_state, raw, alphas, n_points, qb0, tb0,
-                                  qe0, te0, prior, dyn_packed, fs, k > 0,
-                                  force_insert, skipped)
+        packed, add, _world, syncs = core(
+            map_state, raw, alphas, n_points, qb0, tb0, qe0, te0, prior,
+            dyn_packed, fs, k > 0, force_insert, skipped)
 
         # ---- tracker + state update
         addf = add.to(torch.float32)
@@ -256,3 +372,26 @@ def make_stream_body(map_options, statics, sub_capacity: int,
         return new_state, packed, syncs
 
     return stream_body
+
+
+def make_multi_step(body):
+    """A batch of frames through the streaming ``body``, one after another
+    (reference make_multi_step_fn, pipeline.py:599-667):
+      (map_state, odo_state, scans [B, R, 4], ns, ks, betas, dyns, fss,
+       with_checkpoint) -> (odo_state, packed [B, 24], host_syncs, ckpt)
+    ``ckpt`` (with_checkpoint) is the snapshot of the map and the odometry
+    state before the batch — the speculative robust streamer's rollback
+    point — else None."""
+
+    def multi_step(map_state, odo_state, scans, ns, ks, betas, dyns, fss,
+                   with_checkpoint: bool = False):
+        ckpt = snapshot(map_state, odo_state) if with_checkpoint else None
+        rows, syncs = [], 0
+        for b in range(len(ns)):
+            odo_state, row, s = body(map_state, odo_state, scans[b], ns[b],
+                                     ks[b], betas, dyns[b], fss[b])
+            rows.append(row)
+            syncs += s
+        return odo_state, torch.stack(rows), syncs, ckpt
+
+    return multi_step

@@ -87,6 +87,6 @@ def compact_mask(mask, capacity: int):
                       torch.full_like(pos, capacity)).to(torch.int64)
     idx = torch.zeros(capacity + 1, dtype=torch.int32, device=dev)
     idx.scatter_(0, dst, pid)
-    count = mask.to(torch.int32).sum()
+    count = mask.sum(dtype=torch.int32)
     out_valid = torch.arange(capacity, dtype=torch.int32, device=dev) < count
     return idx[:capacity], torch.clamp_max(count, capacity), out_valid

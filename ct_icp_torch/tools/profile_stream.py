@@ -1,9 +1,13 @@
-"""Where the time of the streamed driving slice goes, on the card.
+"""Where the time of a streamed slice goes, on the card.
 
     python3 -m ct_icp_torch.tools.profile_stream [--frames 48] [--batch 16]
+    python3 -m ct_icp_torch.tools.profile_stream --robust [--frames 48] \
+        [--batch 8]
 
 Runs ``Odometry(default_driving_profile())`` over the synthetic corridor
-(seed 3) with ``stream_frames(batch)`` and profiles the last batch with
+(seed 3), or with ``--robust`` ``Odometry(robust_driving_profile())`` over
+the robust gate's 8 m/s corridor, with ``stream_frames(batch)``, and
+profiles the last batch with
 ``torch.profiler`` (CPU and CUDA activities). The solver's and the map's
 stages are labelled with ``record_function`` ranges for the run (the
 package itself carries no instrumentation). Prints one JSON line: the
@@ -26,7 +30,8 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from ct_icp_torch.config.options import default_driving_profile
+from ct_icp_torch.config.options import (default_driving_profile,
+                                         robust_driving_profile)
 from ct_icp_torch.datasets import corridor as cor
 from ct_icp_torch.icp import solver as slv
 from ct_icp_torch.mapping import voxel_map as vm
@@ -37,7 +42,7 @@ from ct_icp_torch.odometry.odometry import Odometry
 STAGES = (
     (pl, "unpack_scan", "B11 unpack_scan"),
     (slv, "_build_problem", "K1+K2 association (build_problem)"),
-    (slv, "_lm_inner_loop", "B6 LM inner loop"),
+    (slv, "_lm_inner_loop", "K5 LM inner loop"),
     (pl, "transform_points", "B11 transform_points"),
     (vm, "prune_level", "B10 prune_level"),
     (vm, "insert_points", "K3 insert_points"),
@@ -55,8 +60,11 @@ def _labelled(fn, label):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--frames", type=int, default=48)
-    ap.add_argument("--batch", type=int, default=16)
+    ap.add_argument("--batch", type=int, default=None)
+    ap.add_argument("--robust", action="store_true")
     args = ap.parse_args()
+    if args.batch is None:
+        args.batch = 8 if args.robust else 16
     if not torch.cuda.is_available():
         raise SystemExit("profile_stream: needs an NVIDIA GPU")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -66,9 +74,13 @@ def main():
         setattr(mod, attr, _labelled(getattr(mod, attr), label))
 
     scene = cor.build_scene()
-    traj = cor.straight_trajectory(400, args.frames * 0.1 + 0.5)
+    if args.robust:
+        traj = cor.robust_corridor_trajectory(args.frames)
+        odo = Odometry(robust_driving_profile())
+    else:
+        traj = cor.straight_trajectory(400, args.frames * 0.1 + 0.5)
+        odo = Odometry(default_driving_profile())
     frames = cor.render_corridor(scene, traj, args.frames, cor.APE_SEEDS[0])
-    odo = Odometry(default_driving_profile())
     preps = [odo.prepare_frame(f["xyz"], f["timestamps"], i, frame_id=i)
              for i, f in enumerate(frames)]
     head, last = preps[:-args.batch], preps[-args.batch:]
@@ -104,7 +116,8 @@ def main():
     host_ops = [e for e in prof.key_averages() if e.key not in labels]
     top = sorted(host_ops, key=lambda e: -e.self_cpu_time_total)[:12]
     out = dict(
-        card=card, frames=len(last), batch=args.batch,
+        card=card, profile="robust" if args.robust else "driving",
+        frames=len(last), batch=args.batch,
         first_frame=last[0]["info"].registered_fid,
         wall_ms_per_frame=wall * 1e3 / len(last),
         device_busy_ms_per_frame=busy_us / 1e3 / len(last),
@@ -112,6 +125,7 @@ def main():
         device_ops_per_frame=len(device) / len(last),
         failures=sum(not s.success for s in summaries),
         host_syncs_per_frame=odo.host_syncs / len(preps),
+        speculative_rollbacks=odo.speculative_rollbacks,
         stages=stages,
         top_ops_by_host_self_ms_per_frame={
             e.key: e.self_cpu_time_total / 1e3 / len(last) for e in top},

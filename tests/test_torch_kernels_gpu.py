@@ -1,4 +1,4 @@
-"""CUDA kernels K1-K3 against their plain PyTorch versions, on the card.
+"""CUDA kernels K1-K5 against their plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU and nvcc (the kernels build from ct_icp_torch/csrc at
 first use); skips elsewhere. Run on a machine with the card (this file needs
@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from ct_icp_torch.kernels import checks
+from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.mapping import voxel_map as vm
 
 pytestmark = pytest.mark.gpu
@@ -54,6 +55,19 @@ def test_candidate_gather_matches_plain(cuda, nv):
         checks.check_candidate_gather(level, q, valid, 0.8, nv, thr)
 
 
+@pytest.mark.parametrize("max_candidates", [48, 10])
+def test_candidate_gather_compaction_matches_plain(cuda, max_candidates):
+    """The robust profile's search: 0.5 m voxels, nv = 2 (125 voxels) kept
+    down to max_candidates."""
+    rng = np.random.default_rng(3)
+    level = _warm_level(rng, cuda, p=40, res=0.5)
+    q = torch.from_numpy(_scene(rng, 600)).to(cuda)
+    valid = torch.from_numpy(rng.uniform(size=q.shape[0]) < 0.9).to(cuda)
+    for thr in (1, 5):
+        checks.check_candidate_gather(level, q, valid, 0.5, 2, thr,
+                                      max_candidates)
+
+
 @pytest.mark.parametrize("k_nearest", [40, 0, None])
 def test_plane_moments_matches_plain(cuda, k_nearest):
     rng = np.random.default_rng(1)
@@ -80,3 +94,46 @@ def test_map_insert_matches_plain(cuda, max_rounds):
     out = checks.check_map_insert(level, pts + 0.05, valid, 0.8, 0.1,
                                   max_rounds)
     assert out["inserted"] > 0
+
+
+@pytest.mark.parametrize("table_log2, capacity, n", [
+    (22, 4096, 65536), (22, 512, 20000), (21, 1024, 4096), (10, 4096, 3000),
+    (22, 4096, 0)])
+def test_grid_sample_matches_plain(cuda, table_log2, capacity, n):
+    rng = np.random.default_rng(table_log2 + n)
+    pts = torch.from_numpy(_scene(rng, max(n // 2, 1))[:n]).to(cuda)
+    valid = torch.from_numpy(rng.uniform(size=pts.shape[0]) < 0.97).to(cuda)
+    out = checks.check_grid_sample(pts, valid, 1.0, capacity, table_log2)
+    assert out["count"] > 0 or n == 0
+
+
+def _lm_problem(rng, dev, k, moving):
+    """K rows on the corridor-like scene, anchors on the planes, 3/4 kept,
+    and a motion prior with every beta set."""
+    pts = _scene(rng, k)[:k]
+    alphas = rng.uniform(0, 1, k).astype(np.float32)
+    anchors = pts + rng.normal(scale=0.03, size=pts.shape).astype(np.float32)
+    normals = rng.normal(size=pts.shape).astype(np.float32)
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    ok = t(rng.uniform(size=k) < 0.75)
+    rows = k5.pack_rows(t(pts), t(alphas), t(anchors), t(normals),
+                        t(rng.uniform(0.2, 1.0, k).astype(np.float32)), ok)
+    qe = [0.99997, 0.001, -0.002, 0.007] if moving else [1.0, 0, 0, 0]
+    te = [0.35, 0.04, 0.01] if moving else [0.0, 0, 0]
+    f = lambda x: torch.tensor(x, dtype=torch.float32, device=dev)
+    state = k5.init_state(f([1.0, 0, 0, 0]), f([0.02, -0.01, 0.0]),
+                          torch.nn.functional.normalize(f(qe), dim=0), f(te))
+    prior = f([1.0, 0, 0, -0.001, -0.02, 0, 0, 0.3, 0.0, 0, 0.001, 0.01,
+               0.001, 0.0005])
+    return rows, prior, ok.sum(dtype=torch.int32), state
+
+
+@pytest.mark.parametrize("moving", [False, True])
+@pytest.mark.parametrize("freeze_begin", [False, True])
+def test_lm_step_matches_plain(cuda, moving, freeze_begin):
+    rng = np.random.default_rng(7)
+    rows, prior, n_res, state = _lm_problem(rng, cuda, 4096, moving)
+    out = checks.check_lm_step(rows, prior, n_res, state, np.float32(0.2),
+                               np.float32(0.05), freeze_begin, loop_steps=20)
+    assert out["loop"]["steps"] == 20
