@@ -9,7 +9,7 @@ It needs one CUDA device and nvcc, and exits non-zero without a result line
 when either is missing. Phases; any failure raises and exits non-zero:
 
   1. the card: nvidia-smi's name and power limit, torch's device name;
-  2. build the CUDA kernels K1-K5 from ct_icp_torch/csrc with nvcc (one
+  2. build the CUDA kernels K1-K7 from ct_icp_torch/csrc with nvcc (one
      process per source, all started together); print the build time and
      ptxas's register / shared-memory lines;
   3. each kernel against its plain PyTorch version on the card
@@ -42,11 +42,34 @@ when either is missing. Phases; any failure raises and exits non-zero:
      yaw jolt over frames 18-24, a speed surge over 40-48,
      robust_num_attempts=3, batch 8), asserting the gate's own conditions
      and that K4 ran;
-  in 4-6 every kernel count is set to 0 just before the path and read just
+  7. the long drive: the 500 frames of configs/synthetic_long_drive.yaml
+     (seed 7, 100,000 points a frame, read by the port's own YAML reader),
+     rendered beforehand on a thread pool, prepared in a PrefetchIterator
+     (3 workers, depth 32) and streamed through
+     Odometry(default_driving_profile()).stream_frames(batch=16) with the
+     rebase distance cut from 500 m to 100 m so that the map rebase (K7
+     rebuild_claim + K6 row_gather) runs inside the drive: 0 failures, at
+     least 2 rebases, segment RPE <= 0.50 %Tr on this seed, and K6 and K7
+     launched once per rebase and field (K6: points, normals, counts,
+     flags); median per-batch frames/s, %Tr, APE, map points, host syncs a
+     frame, render and stream wall times (the stream's includes the copy of
+     the first rebase's level that phase 9 is held on, and its host time);
+  8. the robust corridor of phase 5 again with a rebase distance of 20 m:
+     the speculative streamer's deferred rebases ("rebase" statuses) run;
+     0 failures, APE <= 0.10 m, at least 2 rebases, and the largest end-pose
+     difference from phase 5's run;
+  9. K6 and K7 against their plain versions: the whole rebuild_level (K7,
+     then K6 on points, normals, counts and flags) bit-identical to the
+     plain one on the long drive's map (2^18 slots x 90 floats) and the
+     robust run's (2^19 x 120), each as it stood at its first rebase, with
+     that rebase's shift; K6 alone at the Pallas dma_gather_kernel's shapes
+     (2^18 x 128 float32, N = 16,384 and 110,592 random and sorted slots)
+     beside index_select;
+  in 4-8 every kernel count is set to 0 just before the path and read just
   after it; each path must launch K5 and its other kernels, and make fewer
   host syncs a frame than LM steps (one per ICP iteration and readback
   where no batch rolled back);
-  7. one JSON line of the kernels, the card's line, and the result line.
+  10. one JSON line of the kernels, the card's line, and the result line.
 """
 
 import dataclasses
@@ -61,7 +84,7 @@ import torch
 from ct_icp_torch.config.options import (default_driving_profile,
                                          robust_driving_profile)
 from ct_icp_torch.datasets import corridor as cor
-from ct_icp_torch.icp import solver as slv
+from ct_icp_torch.datasets import long_drive as ld
 from ct_icp_torch.kernels import build
 from ct_icp_torch.kernels import candidate_gather as k1
 from ct_icp_torch.kernels import checks
@@ -69,10 +92,15 @@ from ct_icp_torch.kernels import grid_sample as k4
 from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.kernels import map_insert as k3
 from ct_icp_torch.kernels import plane_moments as k2
+from ct_icp_torch.kernels import rebuild as k7
+from ct_icp_torch.kernels import row_gather as k6
 from ct_icp_torch.mapping import voxel_map as vm
 from ct_icp_torch.odometry import pipeline as pl
 from ct_icp_torch.odometry.odometry import PRUNE_PERIOD, Odometry
 from ct_icp_torch.ops import voxel as vx
+from ct_icp_torch.tools.exp_gather import k6_bytes
+from ct_icp_torch.tools.timing import (HBM_BYTES_PER_S, bound, time_cold,
+                                       time_stateless)
 
 NUM_FRAMES = 80
 SEED = cor.APE_SEEDS[0]
@@ -81,11 +109,16 @@ ROBUST_BATCH = 8
 ESC_FRAMES = 48
 APE_SMOKE_BOUND_M = 0.10
 K1_QUERIES = 1536
+# the long drive: the timed seed of the 3-seed gate, its frames and batch,
+# and a rebase distance that its ~240 m reach from the start crosses
+LONG_SEED = ld.LONG_SEEDS[0]
+LONG_REBASE_DISTANCE = 100.0
+ROBUST_REBASE_DISTANCE = 20.0
+# the Pallas dma_gather_kernel's configuration (tools/exp_gather.py:141-143)
+GATHER_C = 1 << 18
+GATHER_W = 128
+GATHER_NS = (16384, 110592)
 
-# One H100 SXM (NVIDIA data sheet, full 700 W power limit): HBM rate and
-# the float32 rate outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 # the frames whose first LM call K5 is held to: a driving and a robust
 # startup frame, and a frame inside the escalation scene's yaw jolt (its
 # begin and end poses apart: quat_slerp's slerp branch)
@@ -109,7 +142,16 @@ KERNELS = {
     "lm_step": dict(
         module=k5, source="ct_icp_torch/csrc/lm_step.cu",
         replaces="ct_icp_tpu/icp/solver.py:452"),
+    "row_gather": dict(
+        module=k6, source="ct_icp_torch/csrc/row_gather.cu",
+        replaces="tools/exp_gather.py:90"),
+    "rebuild_claim": dict(
+        module=k7, source="ct_icp_torch/csrc/rebuild_claim.cu",
+        replaces="ct_icp_tpu/mapping/voxel_map.py:619"),
 }
+# the kernels of the first three paths (the rebase runs on none of them)
+K1_K5 = ["candidate_gather", "plane_moments", "map_insert", "grid_sample",
+         "lm_step"]
 
 
 def log(*args):
@@ -121,55 +163,6 @@ def card_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
     return out.stdout.strip().splitlines()[0]
-
-
-def bound(n_bytes: float, n_ops: float):
-    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
-    the float32 operations over the card's float32 rate."""
-    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def time_stateless(fn, reps=50, graph_calls=20):
-    """Mean ms of one ``fn()`` call on the card. Tries a CUDA graph of
-    ``graph_calls`` calls (device time, no host launch overhead); where the
-    call cannot be captured, back-to-back calls between two events (the
-    calls run again there, so a failing launch still raises). Returns (ms,
-    method)."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    try:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            for _ in range(graph_calls):
-                fn()
-        g.replay()
-        torch.cuda.synchronize()
-        replays = max(reps // graph_calls, 2)
-        start.record()
-        for _ in range(replays):
-            g.replay()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / (replays * graph_calls), "cuda-graph"
-    except RuntimeError as err:
-        torch.cuda.synchronize()
-        log(f"  (no graph capture: {str(err).splitlines()[0][:100]})")
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps, "events"
 
 
 def time_mutating(setup, fn, reps=20):
@@ -194,6 +187,9 @@ def time_mutating(setup, fn, reps=20):
 
 def phase_build():
     names = list(KERNELS)
+    if sorted(names) != build.kernel_names():
+        raise RuntimeError(f"kernel sources {build.kernel_names()} are not "
+                           f"the kernels checked here {sorted(names)}")
     t0 = time.time()
     build.build_all(names)
     log(f"build: {len(names)} kernels in {time.time() - t0:.2f} s "
@@ -765,7 +761,7 @@ def phase_robust(dev):
                                            "lm_step"])
     _require_syncs("robust", out,
                    committed_only=odo.speculative_rollbacks == 0)
-    return out, records
+    return out, records, (odo, frames, preps)
 
 
 def phase_escalation(dev):
@@ -826,10 +822,229 @@ def phase_escalation(dev):
     failed = [k for k, ok in checks_ok.items() if not ok]
     if failed:
         raise RuntimeError(f"escalation path: {failed}")
-    _require_launches("escalation", launches, list(KERNELS))
+    _require_launches("escalation", launches, K1_K5)
     _require_syncs("escalation", out,
                    committed_only=odo.speculative_rollbacks == 0)
     return out, jolt
+
+
+def _capture_first_rebase(odo, store):
+    """Keep a device copy of level 0 and the shift of ``odo``'s first
+    rebase (per-frame or streamed), as the rebase receives them: the inputs
+    K7 and K6 are held on after the path. The copy is made inside the
+    path's run, so its stream time includes it: ``capture_host_s`` is the
+    host time it took (its device time is a few hundredths of a ms)."""
+    for name in ("_rebase", "_stream_rebase"):
+        inner = getattr(odo, name)
+
+        def spy(*args, _inner=inner):
+            if not store:
+                t0 = time.perf_counter()
+                store.update(level=_level_copy(args[0][0]),
+                             shift=args[-1].clone(), frame=len(odo.trajectory))
+                store["capture_host_s"] = time.perf_counter() - t0
+            return _inner(*args)
+
+        setattr(odo, name, spy)
+
+
+def _require_rebase_launches(path, launches, rebases, levels):
+    """K7 once a level and rebase, K6 four times (points, normals, counts,
+    flags)."""
+    want = {"rebuild_claim": rebases * levels,
+            "row_gather": 4 * rebases * levels}
+    got = {k: launches[k] for k in want}
+    if got != want:
+        raise RuntimeError(f"{path} path: rebase launches {got}, expected "
+                           f"{want} for {rebases} rebases")
+
+
+def phase_long(dev):
+    """The 500-frame urban drive (seed 7) through the user's entry points,
+    with the rebase distance at 100 m."""
+    acq = ld.load_acquisition(LONG_SEED)
+    odo = Odometry(default_driving_profile(), device=dev)
+    odo.rebase_distance = LONG_REBASE_DISTANCE
+    captured = {}
+    _capture_first_rebase(odo, captured)
+    _reset_counts()
+    out = ld.stream_long_drive(odo, acq, ld.LONG_FRAMES, ld.LONG_BATCH,
+                               prerender=True)
+    launches = _read_counts()
+    out.update(launches=launches, seed=LONG_SEED,
+               rebase_distance_m=LONG_REBASE_DISTANCE,
+               first_rebase_frame=captured.get("frame"),
+               first_rebase_capture_host_s=captured.get("capture_host_s"))
+    log("long drive: " + json.dumps(out))
+    log(f"  {out['frames']} frames, batch {out['batch']}: {out['tr_pct']:.4f}"
+        f" %Tr (bound {ld.LONG_TR_BOUND_PCT} on this seed; the gate is the "
+        f"mean of seeds {ld.LONG_SEEDS}), mean APE {out['mean_ape_m']:.4f} m,"
+        f" {out['rebases']} rebases, median {out['median_batch_fps']:.2f} "
+        f"frames/s, rendering {out['render_s']:.1f} s beforehand, streaming "
+        f"{out['stream_s']:.1f} s (with the first rebase's level copy, "
+        f"{out['first_rebase_capture_host_s']:.4f} s of host time)")
+    if out["failures"]:
+        raise RuntimeError(f"long drive: {out['failures']} failed frames")
+    if not out["tr_pct"] <= ld.LONG_TR_BOUND_PCT:
+        raise RuntimeError(f"long drive: {out['tr_pct']} %Tr > "
+                           f"{ld.LONG_TR_BOUND_PCT}")
+    if out["rebases"] < 2:
+        raise RuntimeError(f"long drive: {out['rebases']} rebases < 2")
+    _require_launches("long drive", launches, ["candidate_gather",
+                                               "plane_moments", "map_insert",
+                                               "lm_step", "row_gather",
+                                               "rebuild_claim"])
+    _require_rebase_launches("long drive", launches, out["rebases"],
+                             len(odo.map_state))
+    if not out["host_syncs_per_frame"] < launches["lm_step"] / out["frames"]:
+        raise RuntimeError("long drive: a host sync per LM step")
+    del odo
+    torch.cuda.empty_cache()
+    return out, captured
+
+
+def phase_robust_rebase(dev, robust_run, robust_out):
+    """Phase 5's robust corridor again (the same prepared frames) with the
+    rebase distance at 20 m: the speculative streamer defers its rebases
+    until no batch is in flight."""
+    ref_odo, frames, preps = robust_run
+    odo = Odometry(robust_driving_profile(), device=dev)
+    odo.rebase_distance = ROBUST_REBASE_DISTANCE
+    captured = {}
+    _capture_first_rebase(odo, captured)
+    _reset_counts()
+    summaries, batch_s, wall = _stream(odo, preps, ROBUST_BATCH)
+    launches = _read_counts()
+    out, _ = _path_stats(odo, frames, preps, summaries, batch_s, wall)
+    diff = max(a.end_pose.location_distance(b.end_pose) for a, b in
+               zip(odo.get_trajectory(), ref_odo.get_trajectory()))
+    out.update(batch=ROBUST_BATCH, launches=launches, rebases=odo.rebases,
+               rebase_distance_m=ROBUST_REBASE_DISTANCE,
+               max_end_pose_diff_from_robust_m=diff,
+               first_rebase_capture_host_s=captured.get("capture_host_s"),
+               robust_mean_ape_m=robust_out["mean_ape_m"],
+               speculative_batches_committed={
+                   str(k): v for k, v in
+                   odo.speculative_batches_committed.items()},
+               speculative_prefix_commits=odo.speculative_prefix_commits,
+               speculative_rollbacks=odo.speculative_rollbacks)
+    log("robust rebase path: " + json.dumps(out))
+    log(f"  {odo.rebases} rebases; mean APE {out['mean_ape_m']:.4f} m "
+        f"(without rebases {robust_out['mean_ape_m']:.4f} m); end poses at "
+        f"most {diff:.4f} m from phase 5's")
+    if out["failures"]:
+        raise RuntimeError(f"robust rebase path: {out['failures']} failed "
+                           "frames")
+    if not out["mean_ape_m"] <= APE_SMOKE_BOUND_M:
+        raise RuntimeError(f"robust rebase path: mean APE "
+                           f"{out['mean_ape_m']} m > {APE_SMOKE_BOUND_M} m")
+    if odo.rebases < 2:
+        raise RuntimeError(f"robust rebase path: {odo.rebases} rebases < 2")
+    _require_launches("robust rebase", launches, ["candidate_gather",
+                                                  "plane_moments",
+                                                  "map_insert", "lm_step",
+                                                  "row_gather",
+                                                  "rebuild_claim"])
+    _require_rebase_launches("robust rebase", launches, odo.rebases,
+                             len(odo.map_state))
+    del odo
+    torch.cuda.empty_cache()
+    return out, captured
+
+
+def _kernel_k6(table, slots, sub, tag, library=True):
+    """K6 against its plain version; times with the L2 flushed before each
+    call (``ms``, as the rebase finds the map) and back to back in a CUDA
+    graph (``warm_ms``: rows and output stay in L2 where they fit)."""
+    checks.check_row_gather(table, slots, sub)
+    ms, how = time_cold(lambda: k6.row_gather(table, slots, sub))
+    warm_ms, _ = time_stateless(lambda: k6.row_gather(table, slots, sub))
+    plain_ms, _ = time_cold(lambda: k6.row_gather_plain(table, slots, sub))
+    lib_ms = lib_warm_ms = None
+    if library:        # the same function: every slot valid, no sub
+        idx = slots.long()
+        lib_ms, _ = time_cold(lambda: table.index_select(0, idx))
+        lib_warm_ms, _ = time_stateless(lambda: table.index_select(0, idx))
+    n, w = slots.shape[0], table.shape[1]
+    n_bytes = k6_bytes(table, slots, sub)
+    log(f"K6 row_gather {tag} N={n} W={w}: identical to plain; {ms:.4f} ms "
+        f"({how}; {warm_ms:.4f} ms back to back), plain {plain_ms:.4f} ms, "
+        f"index_select {'-' if lib_ms is None else f'{lib_ms:.4f} ms'} "
+        f"({'-' if lib_warm_ms is None else f'{lib_warm_ms:.4f} ms'} back "
+        f"to back); {n_bytes / ms / 1e6:.1f} GB/s")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bytes=float(n_bytes), ops=0.0 if sub is None else n * w * 1.0,
+                timing=how, warm_ms=warm_ms, library_warm_ms=lib_warm_ms,
+                shape=f"C={table.shape[0]} W={w} N={n} {tag}")
+
+
+def _kernel_rebase(level, shift, res, tag):
+    """K7, then the whole rebuild_level (K7 + 4 x K6), against the plain
+    versions on a real level and shift; times of K7, of K6 on the points
+    (the rebase's largest gather) and of the whole rebuild."""
+    out = checks.check_rebuild_level(level, shift, res)
+    kargs = (level.keys, level.count, level.points, shift, res)
+    ms, how = time_cold(lambda: k7.rebuild_claim(*kargs))
+    warm_ms, _ = time_stateless(lambda: k7.rebuild_claim(*kargs))
+    plain_ms, _ = time_cold(lambda: k7.rebuild_claim_plain(*kargs), reps=3)
+    c = level.capacity
+    # every key read and every table and writer slot written (12 B a
+    # slot); the count of each row with a live key (4 B) and the first
+    # point of each occupied row (12 B); ~25 operations an occupied row
+    # (the shift, the voxel ids, the two hashes)
+    live = (level.keys != k3.EMPTY) & (level.keys != k3.TOMB)
+    n_live = int(live.sum())
+    n_occ = int((live & (level.count > 0)).sum())
+    rec7 = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bytes=12.0 * c + 4.0 * n_live + 12.0 * n_occ,
+                ops=25.0 * n_occ, timing=how, warm_ms=warm_ms,
+                shape=f"C={c} P={level.max_points} live={n_live} "
+                      f"occupied={n_occ} rows={out['rows']} {tag}")
+    _table, src = k7.rebuild_claim(*kargs)
+    sub = shift.repeat_interleave(level.max_points).contiguous()
+    rec6 = _kernel_k6(level.points, src, sub, f"rebase points {tag}",
+                      library=False)
+    whole_ms, _ = time_cold(lambda: vm.rebuild_level(level, shift, res))
+    whole_plain_ms, _ = time_cold(
+        lambda: checks.plain_rebuild_level(level, shift, res), reps=3)
+    log(f"K7 rebuild_claim {tag} C={c}: identical to plain ({out['rows']} "
+        f"rows kept of {int((level.count > 0).sum())}, shift "
+        f"{shift.tolist()}); {ms:.4f} ms ({how}; {warm_ms:.4f} ms back to "
+        f"back), plain {plain_ms:.4f} ms; "
+        f"the whole rebuild_level {whole_ms:.4f} ms, plain "
+        f"{whole_plain_ms:.4f} ms")
+    rec7.update(rebuild_level_ms=whole_ms,
+                rebuild_level_plain_ms=whole_plain_ms)
+    return rec7, rec6
+
+
+def phase_kernels_rebase(dev, long_capture, robust_capture, long_res,
+                         robust_res):
+    """K7 and K6 on the long drive's and the robust run's maps at their
+    first rebase, then K6 at the Pallas kernel's shapes."""
+    records = {}
+    records["rebuild_claim"], records["row_gather"] = _kernel_rebase(
+        long_capture["level"], long_capture["shift"], long_res, "long drive")
+    del long_capture["level"]
+    r7, r6 = _kernel_rebase(robust_capture["level"], robust_capture["shift"],
+                            robust_res, "robust")
+    del robust_capture["level"]
+    records["rebuild_claim"]["others"] = {"robust": r7}
+    records["row_gather"]["others"] = {"robust": r6}
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(SEED)
+    table = torch.from_numpy(rng.standard_normal(
+        (GATHER_C, GATHER_W)).astype(np.float32)).to(dev)
+    for n in GATHER_NS:
+        for order in ("random", "sorted"):
+            s = rng.integers(0, GATHER_C, n)
+            s = np.sort(s) if order == "sorted" else s
+            slots = torch.from_numpy(s.astype(np.int32)).to(dev)
+            records["row_gather"]["others"][f"exp_gather N={n} {order}"] = \
+                _kernel_k6(table, slots, None, f"exp_gather {order}")
+    del table
+    torch.cuda.empty_cache()
+    return records
 
 
 def main() -> int:
@@ -866,19 +1081,31 @@ def main() -> int:
                             ("B9 compact_mask", 0.0),
                             ("B10 prune_level", driving["prunes_per_frame"])):
         stages[name]["calls_per_frame"] = per_frame
-    robust, robust_records = phase_robust(dev)
+    robust, robust_records, robust_run = phase_robust(dev)
     escalation, jolt_k5 = phase_escalation(dev)
+    long_drive, long_capture = phase_long(dev)
+    robust_rebase, robust_capture = phase_robust_rebase(dev, robust_run,
+                                                        robust)
+    del robust_run
+    rebase_records = phase_kernels_rebase(
+        dev, long_capture, robust_capture,
+        default_driving_profile().map_options.resolutions[0].resolution,
+        robust_driving_profile().map_options.resolutions[0].resolution)
 
-    paths = {"driving": driving, "robust": robust, "escalation": escalation}
+    paths = {"driving": driving, "robust": robust, "escalation": escalation,
+             "long_drive": long_drive, "robust_rebase": robust_rebase}
+    primary = {**robust_records, **rebase_records}
     kernels = []
     for name, spec in KERNELS.items():
-        # the robust shapes where the kernel runs there (every kernel), the
-        # driving shapes beside them in "driving"
-        # (the driving shapes, and K5's jolt frame, beside them); the
-        # largest error over every shape checked
-        r = robust_records[name]
+        # K1-K5: the robust shapes (every kernel runs there), the driving
+        # shapes and K5's jolt frame beside them; K6, K7: the long drive's
+        # rebase, the robust run's and K6 at exp_gather's shapes beside it;
+        # the largest error over every shape checked
+        r = primary[name]
         b_ms, b_by = bound(r["bytes"], r["ops"])
-        others = {"driving": driving_records.get(name)}
+        others = dict(r.get("others", {}))
+        if name in driving_records:
+            others["driving"] = driving_records[name]
         if name == "lm_step":
             others["jolt"] = jolt_k5
         rec = dict(
@@ -891,8 +1118,10 @@ def main() -> int:
                 o["max_abs_err"] for o in others.values() if o]),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
             library_ms=r["library_ms"], timing=r["timing"], shape=r["shape"])
-        if "host_ms" in r:
-            rec["host_ms"] = r["host_ms"]
+        for key in ("host_ms", "warm_ms", "library_warm_ms",
+                    "rebuild_level_ms", "rebuild_level_plain_ms"):
+            if r.get(key) is not None:
+                rec[key] = r[key]
         for key, o in others.items():
             if o is None:
                 continue
@@ -901,8 +1130,9 @@ def main() -> int:
                 ms=o["ms"], plain_ms=o["plain_ms"], bound_ms=ob_ms,
                 bound_by=ob_by, library_ms=o["library_ms"],
                 max_abs_err=o["max_abs_err"], shape=o["shape"])
-            if "host_ms" in o:
-                rec[key]["host_ms"] = o["host_ms"]
+            for extra in ("host_ms", "warm_ms", "library_warm_ms"):
+                if o.get(extra) is not None:
+                    rec[key][extra] = o[extra]
         kernels.append(rec)
     extras = {
         "map_insert cruise (robust)": robust_records["map_insert"]["cruise"],

@@ -28,12 +28,17 @@ DEFAULT_DEVICE = "cuda"
 def resolve_device(device=None):
     """The torch device for an entry point: ``DEFAULT_DEVICE`` unless the
     caller names one. Raises when CUDA is asked for and there is no card —
-    the port never carries on quietly on the CPU."""
+    the port never carries on quietly on the CPU. On a card, the kernels
+    are built first (``kernels.build.prepare``, once per process)."""
     import torch
 
     dev = torch.device(DEFAULT_DEVICE if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "ct_icp_torch: CUDA device requested but torch.cuda.is_available()"
-            " is False; pass device='cpu' to run the plain PyTorch path")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "ct_icp_torch: CUDA device requested but "
+                "torch.cuda.is_available() is False; pass device='cpu' to "
+                "run the plain PyTorch path")
+        from ct_icp_torch.kernels import build
+        build.prepare()
     return dev

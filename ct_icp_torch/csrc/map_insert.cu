@@ -13,21 +13,18 @@
 // round is launched and resolved threads exit at once — the reference's
 // all-resolved early exit changes nothing but the work done.
 //
-// Arbitration is bit-exact with the reference: a claim round is an
-// atomicMin of the ORIGINAL scan index over the EMPTY/TOMB slots its
-// claimants probe (MAX_PROBES = 16 rounds); an election round is an
-// atomicMin of the point index over each slot (max_rounds rounds). The
+// Arbitration is bit-exact with the reference: the claim rounds are those of
+// claim.cuh (shared with K7 rebuild_claim): an atomicMin of the ORIGINAL scan
+// index over the EMPTY/TOMB slots its claimants probe (MAX_PROBES = 16
+// rounds); an election round is an atomicMin of the point index over each
+// slot (max_rounds rounds), on the same stamped 64-bit claim words. The
 // reference elects on the compacted eligible index, whose order equals the
-// scan order, so the winners are the same. Never atomicCAS first-come: its
-// winner depends on timing. The claim words are 64-bit: the high half is a
-// per-round stamp that decreases from round to round, so a round's claims
-// always beat the leftovers of earlier rounds and the table is cleared
-// only once per call.
+// scan order, so the winners are the same.
 //
 // Bound: the min-distance check, which reads the existing rows of every
 // point's voxel (N x 3P floats, gathered); claim and election rounds touch
 // a few words per unresolved point.
-#include "common.cuh"
+#include "claim.cuh"
 
 namespace {
 
@@ -35,8 +32,11 @@ namespace {
 enum : int {
   kSlot = 0, kHash, kKey, kFlags, kEcount, kRank, kAttempt, kScratchRows
 };
-// kFlags bits
-constexpr int kValid = 1, kResolved = 2, kEligible = 4;
+// kFlags bits: the claim rounds' kValid and kResolved, then this kernel's
+using cticp::claim_word;
+using cticp::kResolved;
+using cticp::kValid;
+constexpr int kEligible = 4;
 
 struct Scratch {
   int32_t* slot;
@@ -47,11 +47,6 @@ struct Scratch {
   int32_t* rank;
   int32_t* attempt;
 };
-
-__device__ __forceinline__ unsigned long long claim_word(int stamp, int pid) {
-  return (static_cast<unsigned long long>(0xffffffffu - stamp) << 32) |
-         static_cast<uint32_t>(pid);
-}
 
 // Phase 1: the probe-window lookup of the existing voxel (PROBE_WINDOW).
 __global__ void resolve_kernel(const uint32_t* __restrict__ table,
@@ -86,49 +81,6 @@ __global__ void resolve_kernel(const uint32_t* __restrict__ table,
   }
   s.slot[i] = slot;
   s.flags[i] = flags;
-}
-
-// Claim round r, first half: the re-read of round r-1's slot (a same-voxel
-// loser resolves to the winner's key), then round r's probe: an existing
-// key resolves, an EMPTY/TOMB slot takes this point's claim.
-__global__ void claim_attempt_kernel(const uint32_t* __restrict__ table,
-                                     unsigned long long* __restrict__ claim,
-                                     int n, uint32_t cap_mask, int r,
-                                     int stamp, Scratch s) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || s.flags[i] != kValid) return;  // invalid or resolved
-  const uint32_t h = s.hash[i], key = s.key[i];
-  if (r > 0) {
-    const uint32_t prev = (h + static_cast<uint32_t>(r - 1)) & cap_mask;
-    if (table[prev] == key) {
-      s.slot[i] = static_cast<int>(prev);
-      s.flags[i] |= kResolved;
-      return;
-    }
-  }
-  if (r >= cticp::kMaxProbes) return;
-  const uint32_t at = (h + static_cast<uint32_t>(r)) & cap_mask;
-  const uint32_t k = table[at];
-  if (k == key) {
-    s.slot[i] = static_cast<int>(at);
-    s.flags[i] |= kResolved;
-    return;
-  }
-  if (k == cticp::kEmpty || k == cticp::kTomb) {
-    atomicMin(claim + at, claim_word(stamp, i));
-    s.attempt[i] = r;
-  }
-}
-
-// Claim round r, second half: the winner of each claimed slot writes its key.
-__global__ void claim_write_kernel(uint32_t* __restrict__ table,
-                                   const unsigned long long* __restrict__ claim,
-                                   int n, uint32_t cap_mask, int r, int stamp,
-                                   Scratch s) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || s.flags[i] != kValid || s.attempt[i] != r) return;
-  const uint32_t at = (s.hash[i] + static_cast<uint32_t>(r)) & cap_mask;
-  if (claim[at] == claim_word(stamp, i)) table[at] = s.key[i];
 }
 
 // Min-distance check against the voxel's existing points; eligibility.
@@ -222,16 +174,10 @@ extern "C" int k3_map_insert(void* keys, void* count, void* points,
     resolve_kernel<<<blocks, threads, 0, st>>>(
         table, fpts, static_cast<const uint8_t*>(valid), n, cap_mask,
         resolution, s);
-    int stamp = 0;
-    for (int r = 0; r < cticp::kMaxProbes; ++r, ++stamp) {
-      claim_attempt_kernel<<<blocks, threads, 0, st>>>(table, cl, n, cap_mask,
-                                                       r, stamp, s);
-      claim_write_kernel<<<blocks, threads, 0, st>>>(table, cl, n, cap_mask,
-                                                     r, stamp, s);
-    }
-    // the re-read of the last round's slot
-    claim_attempt_kernel<<<blocks, threads, 0, st>>>(
-        table, cl, n, cap_mask, cticp::kMaxProbes, stamp, s);
+    int stamp = cticp::launch_claim_rounds(
+        table, cl, n, cap_mask, 0,
+        cticp::ClaimRows{s.slot, s.hash, s.key, s.flags, s.attempt}, blocks,
+        threads, st);
     mindist_kernel<<<blocks, threads, 0, st>>>(
         static_cast<const int32_t*>(count), static_cast<const float*>(points),
         fpts, n, p, min_d2, s);

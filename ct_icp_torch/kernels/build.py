@@ -1,11 +1,14 @@
-"""Build and load the port's CUDA kernels (csrc/*.cu) at first use.
+"""Build and load the port's CUDA kernels (csrc/*.cu): all of them when an
+entry point first resolves a CUDA device (:func:`prepare`), any one at its
+first use.
 
 Each source is a standalone translation unit with a plain C interface: nvcc
 compiles it into ``build/ct_icp_torch/lib<name>-<hash>.so`` (the hash covers
-the source and the flags, so an edited kernel never loads a stale library)
-and ``ctypes`` loads it. Pointers and the CUDA stream cross as
-``c_void_p``. Nothing here runs at import time: the CPU tests import every
-module, and this machine may have no ``nvcc``.
+the source, the shared headers and the flags, so an edited kernel never
+loads a stale library) and ``ctypes`` loads it. Pointers and the CUDA
+stream cross as ``c_void_p``. Nothing here runs at import time: the CPU
+tests import every module, and a machine without a card may have no
+``nvcc``.
 
 Flags: ``-fmad=false`` because integer outputs (voxel ids, in-radius counts,
 histogram bins, min-distance accepts) come from float compares, and an FMA
@@ -45,9 +48,14 @@ def nvcc_path() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    common = (CSRC / "common.cuh").read_bytes()
-    digest = hashlib.sha256(src + common + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def kernel_names():
+    """The name of every kernel source (``csrc/<name>.cu``)."""
+    return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
 def build_all(names) -> None:
@@ -77,8 +85,23 @@ def build_all(names) -> None:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
 
 
+_prepared = []
+
+
+def prepare() -> None:
+    """Build every kernel source, once per process (a no-op for libraries
+    already on disk). Entry points call it when they resolve a CUDA device,
+    so that no kernel's build lands inside a run: built at first use, the
+    first rebase would stall a drive for the seconds of K6's and K7's
+    build."""
+    if not _prepared:
+        build_all(kernel_names())
+        _prepared.append(True)
+
+
 # argument types of the launchers' C signatures
-PTR, INT, FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+PTR, INT, LONG, FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                         ctypes.c_float)
 
 
 def launcher(name: str, symbol: str, argtypes):

@@ -10,6 +10,9 @@ CUDA inputs and raises AssertionError on a disagreement. Tolerances:
     1e-3 (|cos| of the angle, sign free) where the neighborhood is planar
     (a2D > 0.5 and >= 10 points); a2D within 1e-3 where >= 5 points;
   * K4 (grid election): indices, count and validity identical;
+  * K6 (row gather) and K7 (the rebase's table and writers), and the whole
+    ``rebuild_level`` they make up: identical (keys, counts, points,
+    normals, flags, num_points);
   * K5 (LM step), one step from the same state: J^T W J and J^T W r within
     1e-4 of their largest entry (K rows summed in another order: block
     shuffles vs BLAS), the trial cost and the cost at delta = 0 within 1e-5
@@ -31,6 +34,9 @@ from ct_icp_torch.kernels import grid_sample as k4
 from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.kernels import map_insert as k3
 from ct_icp_torch.kernels import plane_moments as k2
+from ct_icp_torch.kernels import rebuild as k7
+from ct_icp_torch.kernels import row_gather as k6
+from ct_icp_torch.mapping import voxel_map as vm
 
 
 def _same(a, b, what):
@@ -111,6 +117,48 @@ def check_grid_sample(points, valid, voxel_size, capacity, table_log2=22):
     for a, b, name in zip(got, want, ("idx", "out_valid", "count")):
         _same(a, b, f"grid_sample {name}")
     return {"max_abs_err": 0.0, "count": int(want[2])}
+
+
+def check_row_gather(table, slots, sub=None):
+    got = k6.row_gather(table, slots, sub)
+    want = k6.row_gather_plain(table, slots, sub)
+    torch.cuda.synchronize()
+    _same(got, want, "row_gather")
+    return {"max_abs_err": 0.0}
+
+
+def plain_rebuild_level(level, shift, resolution):
+    """rebuild_level through the plain versions of K7 and K6."""
+    table, src = k7.rebuild_claim_plain(level.keys, level.count,
+                                        level.points, shift, resolution)
+    p = level.max_points
+    count = k6.row_gather_plain(level.count[:, None], src)[:, 0]
+    return vm.MapLevel(
+        keys=table, count=count,
+        points=k6.row_gather_plain(level.points, src,
+                                   shift.repeat_interleave(p)),
+        normals=k6.row_gather_plain(level.normals, src),
+        nflags=k6.row_gather_plain(level.nflags[:, None], src)[:, 0],
+        num_points=count.sum(dtype=torch.int32).reshape(1))
+
+
+def check_rebuild_level(level, shift, resolution):
+    """K7 against its plain version, then the whole ``rebuild_level``
+    (K7 + K6) against the plain one. Returns the rows kept too."""
+    got = k7.rebuild_claim(level.keys, level.count, level.points, shift,
+                           resolution)
+    want = k7.rebuild_claim_plain(level.keys, level.count, level.points,
+                                  shift, resolution)
+    torch.cuda.synchronize()
+    _same(got[0], want[0], "rebuild_claim table")
+    _same(got[1], want[1], "rebuild_claim src")
+    new = vm.rebuild_level(level, shift, resolution)
+    ref = plain_rebuild_level(level, shift, resolution)
+    torch.cuda.synchronize()
+    for name in vm.MapLevel._fields:
+        _same(getattr(new, name), getattr(ref, name), f"rebuild_level {name}")
+    return {"max_abs_err": 0.0, "rows": int((want[1] >= 0).sum()),
+            "num_points": int(ref.num_points[0])}
 
 
 def _rel_err(a, b):

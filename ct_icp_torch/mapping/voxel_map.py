@@ -15,7 +15,8 @@ The reference's rolled [C, 2R] probe window (``win``) is TPU layout and is
 dropped: the lookup kernel probes ``keys`` directly.
 
 Unlike the reference, insert and prune update the level in place (the map is
-~100 MB at driving capacity and a frame rewrites a few rows of it).
+~100 MB at driving capacity and a frame rewrites a few rows of it); the
+rebase (``rebuild_level``) returns a new level, as the reference does.
 """
 
 from typing import NamedTuple, Tuple
@@ -25,6 +26,8 @@ import torch
 from ct_icp_torch.kernels import candidate_gather as k1
 from ct_icp_torch.kernels import map_insert as k3
 from ct_icp_torch.kernels import plane_moments as k2
+from ct_icp_torch.kernels import rebuild as k7
+from ct_icp_torch.kernels import row_gather as k6
 
 EMPTY = k3.EMPTY
 TOMB = k3.TOMB
@@ -128,3 +131,28 @@ def prune_level(level: MapLevel, location, max_distance: float, gate=None):
                                  level.keys))
     level.count.copy_(torch.where(drop, zero, level.count))
     level.nflags.copy_(torch.where(drop, zero, level.nflags))
+
+
+def rebuild_level(level: MapLevel, shift, resolution: float) -> MapLevel:
+    """Rebase the level's frame: subtract ``shift`` (f32[3] on the level's
+    device) from every stored point and rebuild the hash table from scratch
+    (row-level rehash; clears tombstones). Returns a new level. K7 claims
+    the fresh table and elects each slot's writer row; K6 moves the rows
+    (the points with the shift repeated per plane subtracted, the normals,
+    counts and flags as they are); empty slots come out zero. Rows whose
+    first points land in one voxel after the shift share its slot and only
+    the writer's row is kept (off the voxel grid, a good share of rows: the
+    reference's docstring calls them rare); rows left unresolved after
+    MAX_PROBES rounds are dropped too (reference voxel_map.py:619-657)."""
+    p = level.max_points
+    table, src = k7.rebuild_claim(level.keys, level.count, level.points,
+                                  shift, resolution)
+    count = k6.row_gather(level.count[:, None], src)[:, 0]
+    return MapLevel(
+        keys=table,
+        count=count,
+        points=k6.row_gather(level.points, src,
+                             shift.repeat_interleave(p).contiguous()),
+        normals=k6.row_gather(level.normals, src),
+        nflags=k6.row_gather(level.nflags[:, None], src)[:, 0],
+        num_points=count.sum(dtype=torch.int32).reshape(1))

@@ -14,12 +14,19 @@ host-deduped GRID path:
   * ``stream_frames(preps, batch)``: batches of frames with the map and the
     motion state resident on the device and one readback per batch; robust
     profiles stream speculatively (2-deep), with a checkpoint per batch,
-    prefix commit, rollback and per-frame replay.
+    prefix commit, rollback and per-frame replay;
+  * a floating map origin: device coordinates are relative to
+    ``self.origin`` (float64, host); when a frame ends farther than
+    ``rebase_distance`` from it, the map (and the streaming state) is
+    rebased by the float64 shift, sent to the device as float32
+    (``pipeline.make_rebase_fn``: kernels K7 and K6), and the origin
+    advances by it. The speculative streamer defers the rebase until no
+    later batch is in flight (its "rebase" / "levelchange_rebase"
+    statuses).
 
-Not ported (they raise NotImplementedError): the map rebase
-(``rebuild_level``) and so the rebase statuses of the speculative streamer,
-the frame ring, the CT-BA backend, ``profile_registration`` and the
-CONSTANT_VELOCITY motion compensation.
+Not ported (they raise NotImplementedError): the frame ring, the CT-BA
+backend, ``profile_registration`` and the CONSTANT_VELOCITY motion
+compensation.
 """
 
 from __future__ import annotations
@@ -213,6 +220,9 @@ class Odometry:
         self.map_state = vm.make_map(self.map_options, self.device)
         self.origin = np.zeros(3, dtype=np.float64)
         self.rebase_distance = 500.0
+        self.rebases = 0
+        self._rebase = pl.make_rebase_fn(self.map_options)
+        self._stream_rebase = pl.make_stream_rebase_fn(self.map_options)
         self.registration = CTICPRegistration(
             options.ct_icp_options, self.map_options,
             num_keypoints=options.max_keypoints)
@@ -333,20 +343,33 @@ class Odometry:
         """Register prepared frames in order (generator of
         RegistrationSummary). ``batch`` frames share one stacked upload and
         one readback of their results; the frames of a batch run one after
-        another on the device. Robust profiles stream speculatively (see
+        another on the device, and a batch's summaries come after the next
+        batch has run. Robust profiles stream speculatively (see
         ``_stream_frames_robust``)."""
         if self.options.robust_registration:
             yield from self._stream_frames_robust(preps, max(batch, 1))
             return
-        group = []
-        for prep in preps:
-            group.append(prep)
-            if len(group) == max(batch, 1):
-                yield from self._finish_batch(
-                    *self._stream_frames_batched(group))
-                group = []
-        if group:
-            yield from self._finish_batch(*self._stream_frames_batched(group))
+        def groups():
+            group = []
+            for prep in preps:
+                group.append(prep)
+                if len(group) == max(batch, 1):
+                    yield group
+                    group = []
+            if group:
+                yield group
+
+        # one batch behind, as the reference reads it: batch k's rows are
+        # finished (and a rebase they call for applied to the map and state
+        # after batch k + 1) once batch k + 1 has run
+        pending = None
+        for group in groups():
+            cur = self._stream_frames_batched(group)
+            if pending is not None:
+                yield from self._finish_batch(*pending)
+            pending = cur
+        if pending is not None:
+            yield from self._finish_batch(*pending)
 
     # ------------------------------------------------------ frame preparation —
     def _dedup_and_pack(self, xyz, timestamps, info: FrameInfo) -> dict:
@@ -775,13 +798,43 @@ class Odometry:
         else:
             self.insertion_tracker.skip_frame()
 
+    def _strayed(self) -> bool:
+        """The last frame ended farther than rebase_distance from the
+        origin."""
+        return bool(np.linalg.norm(self.trajectory[-1].end_pose.tr
+                                   - self.origin) > self.rebase_distance)
+
+    def _shift(self) -> np.ndarray:
+        """The float64 shift that moves the origin to the last frame's end
+        position."""
+        return (self.trajectory[-1].end_pose.tr - self.origin).astype(
+            np.float64)
+
+    def _device_shift(self, shift: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(shift, np.float32),
+                               device=self.device)
+
     def _maybe_rebase(self):
-        if (self.trajectory and np.linalg.norm(
-                self.trajectory[-1].end_pose.tr - self.origin)
-                > self.rebase_distance):
-            raise NotImplementedError(
-                "map rebase (rebuild_level) is not ported: the trajectory "
-                f"left the {self.rebase_distance} m map frame")
+        """The per-frame path's floating origin (reference
+        odometry.py:2137-2143): past rebase_distance, rebase the map by the
+        shift to the last frame's end position."""
+        if self._strayed():
+            shift = self._shift()
+            self.map_state = self._rebase(self.map_state,
+                                          self._device_shift(shift))
+            self.origin = self.origin + shift
+            self.rebases += 1
+
+    def _rebase_stream_head(self):
+        """Rebase the map and the streaming odometry state by the shift to
+        the last frame's end position (reference odometry.py:865-872 and
+        rebase_head, :1187-1195). No batch may be in flight beyond the
+        current map and state."""
+        shift = self._shift()
+        self.map_state, self._odo_state = self._stream_rebase(
+            self.map_state, self._odo_state, self._device_shift(shift))
+        self.origin = self.origin + shift
+        self.rebases += 1
 
     # ------------------------------------------------------------- streaming —
     def _betas(self):
@@ -863,8 +916,13 @@ class Odometry:
         for info, row in zip(infos, self._read_rows(packed_all)):
             yield self._finish_streamed(info, row, origin)
 
-    def _finish_streamed(self, info, r, origin) -> RegistrationSummary:
-        """Host bookkeeping of one streamed frame from its packed result."""
+    def _finish_streamed(self, info, r, origin,
+                         allow_rebase: bool = True) -> RegistrationSummary:
+        """Host bookkeeping of one streamed frame from its packed result,
+        computed in the map frame of ``origin`` (the dispatch-time origin).
+        ``allow_rebase=False`` defers the rebase to the caller: the
+        speculative robust streamer must not rebase while a later batch is
+        in flight (its checkpoint would straddle the change of frame)."""
         k = info.registered_fid
         frame = TrajectoryFrame(
             Pose(timestamp=info.begin_timestamp, frame_id=info.frame_id),
@@ -898,7 +956,8 @@ class Odometry:
             tracker.insert_frame(k)
         else:
             tracker.skip_frame()
-        self._maybe_rebase()
+        if allow_rebase and self._strayed():
+            self._rebase_stream_head()
         return summary
 
     # ------------------------------------------------------- robust streaming —
@@ -978,9 +1037,12 @@ class Odometry:
         (fs[8] = -1 fails its assessment, which blocks its insert and
         prune), and the suffix replays through the per-frame escalation
         path. Two batches are in flight: batch k+1 is dispatched before
-        batch k's rows are read; when k does not commit whole, k+1's work is
-        discarded and it is dispatched again. Frames are prepared by the
-        caller (no prefetch thread)."""
+        batch k's rows are read; when k does not commit whole, or commits
+        whole but strays past the rebase distance or changes the level,
+        k+1's work is discarded (its checkpoint is the post-k state), the
+        deferred rebase applied, and k+1 dispatched again. Frames are
+        prepared by the caller (``concurrent.PrefetchIterator`` can prepare
+        them in worker threads)."""
         o = self.options
         minimal = o.robust_minimal_level
         betas = torch.as_tensor(self._betas(), device=self.device)
@@ -1036,9 +1098,13 @@ class Odometry:
         def resolve(p):
             """Read one batch's rows; commit the steady prefix, then repair
             and replay the rest. Returns "ok" (whole batch committed),
-            "levelchange" (whole batch committed, its last frame implies a
-            level transition: a batch in flight ran at the stale level) or
-            "rolledback"."""
+            "rebase" (whole batch committed, a frame strayed past the rebase
+            distance: the caller applies the deferred rebase with no batch
+            in flight), "levelchange" / "levelchange_rebase" (whole batch
+            committed, its last frame implies a level transition: a batch in
+            flight ran at the stale level; plus the deferred rebase) or
+            "rolledback" (the committed prefix does not rebase; a replayed
+            frame rebases on the per-frame path)."""
             group = p["group"]
             rows = self._read_rows(p["packed"])
             lvl = p["level"]
@@ -1063,7 +1129,8 @@ class Odometry:
             for prep, row in zip(group[:commit_n], rows[:commit_n]):
                 info = prep["info"]
                 self.registered_frames = info.registered_fid + 1
-                summary = self._finish_streamed(info, row, origin0)
+                summary = self._finish_streamed(info, row, origin0,
+                                                allow_rebase=False)
                 summary.number_of_attempts = 1
                 summary.robust_level = lvl
                 self.robust_num_consecutive_failures = 0
@@ -1075,7 +1142,15 @@ class Odometry:
             if commit_n == len(group):
                 self.speculative_batches_committed[lvl] = \
                     self.speculative_batches_committed.get(lvl, 0) + 1
-                return "ok" if new_level is None else "levelchange"
+                # any committed frame past the rebase distance defers the
+                # rebase, not only the last one
+                ends = np.stack([f.end_pose.tr
+                                 for f in self.trajectory[-commit_n:]])
+                strayed = bool(np.any(np.linalg.norm(
+                    ends - self.origin, axis=1) > self.rebase_distance))
+                if new_level is not None:
+                    return "levelchange_rebase" if strayed else "levelchange"
+                return "rebase" if strayed else "ok"
 
             # mid-batch violation: roll back, then one re-run from the
             # checkpoint in which the suffix is map-neutral (fs[8] = -1
@@ -1122,10 +1197,13 @@ class Odometry:
             cur = dispatch(upload)
             if pending is not None:
                 status = yield from resolve(pending)
-                if status == "levelchange":
-                    # pending committed, but cur ran at the old level: back
-                    # to cur's checkpoint (the post-pending state), redo
+                if status in ("rebase", "levelchange", "levelchange_rebase"):
+                    # pending committed, but cur ran at the old level or in
+                    # the old frame: back to cur's checkpoint (the
+                    # post-pending state), rebase if due, redo
                     self._odo_state = pl.restore(self.map_state, cur["ckpt"])
+                    if status != "levelchange":
+                        self._rebase_stream_head()
                     cur = dispatch(cur["upload"])
                 elif status == "rolledback":
                     if self.next_robust_level in spec_levels:
@@ -1137,7 +1215,10 @@ class Odometry:
                         cur = None
             pending = cur
         if pending is not None:
-            yield from resolve(pending)
+            status = yield from resolve(pending)
+            if status in ("rebase", "levelchange_rebase"):
+                # nothing in flight: rebase the committed state directly
+                self._rebase_stream_head()
         for prep in tail:
             yield self.register_frame_prepared(prep)
 

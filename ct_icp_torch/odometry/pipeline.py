@@ -7,7 +7,8 @@ registration, world transform, assessment, insertion decision — heuristic,
 forced or robust-gated — prune + insert), the per-frame step of the
 ``register_frame`` path, the deferred map update, the streaming body whose
 motion initialization, prior and insertion tracker live in the device
-vector ``odo_state``, and the multi-frame step with its rollback checkpoint.
+vector ``odo_state``, the multi-frame step with its rollback checkpoint, and
+the floating-origin rebase of the map (and of the streaming state).
 
 The reference pads every stage to a capacity ladder so XLA compiles a few
 shapes; ladders are exact and only exist for speed, so here every stage is
@@ -395,3 +396,36 @@ def make_multi_step(body):
         return odo_state, torch.stack(rows), syncs, ckpt
 
     return multi_step
+
+
+# the pose translations carried in odo_state (prev/prev2 begin/end)
+_ODO_TRANSLATIONS = (4, 11, 18, 25)
+
+
+def make_rebase_fn(map_options):
+    """The map rebase (reference make_rebase_fn, pipeline.py:679-689):
+      (map_state, shift f32[3] on the device) -> the rebuilt map_state,
+    every level shifted and rehashed (``voxel_map.rebuild_level``)."""
+    resolutions = tuple(r.resolution for r in map_options.resolutions)
+
+    def rebase(map_state, shift):
+        return tuple(vm.rebuild_level(level, shift, res)
+                     for level, res in zip(map_state, resolutions))
+
+    return rebase
+
+
+def make_stream_rebase_fn(map_options):
+    """The rebase of the streaming path (reference make_stream_rebase_fn,
+    pipeline.py:692-708): the map, and the pose translations carried in
+    ``odo_state`` (bases 4, 11, 18, 25):
+      (map_state, odo_state, shift) -> (map_state, odo_state)."""
+    rebase = make_rebase_fn(map_options)
+
+    def stream_rebase(map_state, odo_state, shift):
+        new_state = odo_state.clone()
+        for base in _ODO_TRANSLATIONS:
+            new_state[base:base + 3] = odo_state[base:base + 3] - shift
+        return rebase(map_state, shift), new_state
+
+    return stream_rebase

@@ -1,0 +1,204 @@
+"""The reference's accuracy gates (``bench.py``), run by the port on the card.
+
+    python -m ct_icp_torch.tools.bench --driving [N]
+    python -m ct_icp_torch.tools.bench --robust [N]
+    python -m ct_icp_torch.tools.bench --escalation [N]
+    python -m ct_icp_torch.tools.bench --long [N]
+
+``N`` cuts the frames (default: the gate's own count). Each gate prints one
+JSON line and exits 1 when its accuracy bound fails:
+  * ``--driving``: the 80-frame corridor, ``default_driving_profile()``,
+    batch 16; mean APE over seeds 3, 4, 5 <= 0.07 m and 0 failures;
+  * ``--robust``: the corridor at 8 m/s, ``robust_driving_profile()``,
+    batch 8; mean APE over seeds 3, 4, 5 <= 0.058 m;
+  * ``--escalation``: the yaw jolt and speed surge (48 frames, 3 attempts,
+    batch 8), the reference's five conditions;
+  * ``--long``: the 500-frame urban drive, ``default_driving_profile()``,
+    batch 16; segment RPE over seeds 7, 8, 9 <= 0.50 %Tr and 0 failures.
+    The timed seed's frames are rendered beforehand, as the reference does.
+Frames/s is the median per-batch rate after two warm-up batches on the
+timed seed (the first), measured on the card and reported beside the
+card's name and power limit; the reference's frames/s floors are TPU
+figures and gate nothing here. Frames are prepared in a PrefetchIterator
+(3 workers). Needs one CUDA device: exits 2 without one.
+"""
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from ct_icp_torch.config.options import (default_driving_profile,
+                                         robust_driving_profile)
+from ct_icp_torch.datasets import corridor as cor
+from ct_icp_torch.datasets import long_drive as ld
+from ct_icp_torch.odometry.concurrent import PrefetchIterator
+from ct_icp_torch.odometry.odometry import Odometry
+
+DRIVING_BATCH = 16
+ROBUST_BATCH = 8
+
+
+def _card() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 \
+        else torch.cuda.get_device_name(0)
+
+
+def _stream(opts, frames, batch):
+    """Stream ``frames`` through a new Odometry(opts) on the card, prepared
+    in prefetch workers. Returns (odo, summaries, median per-batch
+    frames/s after two warm-up batches or None)."""
+    odo = Odometry(opts, device="cuda")
+
+    def prepare(item):
+        i, fr = item
+        return odo.prepare_frame(fr["xyz"], fr["timestamps"], i, frame_id=i)
+
+    summaries, ends = [], []
+    with PrefetchIterator(enumerate(frames), prepare,
+                          depth=2 * batch) as preps:
+        for i, s in enumerate(odo.stream_frames(preps, batch=batch)):
+            summaries.append(s)
+            if (i + 1) % batch == 0 and i + 1 >= 2 * batch:
+                torch.cuda.synchronize()
+                ends.append(time.time())
+    fps = [batch / d for d in np.diff(ends)]
+    return odo, summaries, (float(np.median(fps)) if fps else None)
+
+
+def _corridor_gate(name, opts, traj, num_frames, batch, bound):
+    scene = cor.build_scene()
+    apes, failures, fps, attempts = [], 0, None, []
+    for seed in cor.APE_SEEDS:
+        frames = cor.render_corridor(scene, traj, num_frames, seed)
+        odo, summaries, f = _stream(opts, frames, batch)
+        if seed == cor.APE_SEEDS[0]:    # the timed seed
+            fps = f
+        apes.append(float(np.mean(cor.seq_ape(odo, frames))))
+        failures += sum(not s.success for s in summaries)
+        attempts += [s.number_of_attempts for s in summaries]
+    ape = float(np.mean(apes))
+    return {
+        "metric": f"synthetic_{name}_odometry", "frames": num_frames,
+        "batch": batch, "failures": failures, "mean_ape_m": ape,
+        "ape_per_seed": apes, "ape_bound_m": bound,
+        "mean_attempts": float(np.mean(attempts)),
+        "frames_per_sec": fps,
+        "accuracy_ok": bool(ape <= bound and failures == 0)}
+
+
+def run_driving(num_frames=None):
+    n = num_frames or 80
+    return _corridor_gate("driving", default_driving_profile(),
+                          cor.straight_trajectory(400, n * 0.1 + 0.5), n,
+                          DRIVING_BATCH, cor.APE_BOUND_M)
+
+
+def run_robust(num_frames=None):
+    n = num_frames or 80
+    return _corridor_gate("robust", robust_driving_profile(),
+                          cor.robust_corridor_trajectory(n), n, ROBUST_BATCH,
+                          cor.ROBUST_APE_BOUND_M)
+
+
+def run_escalation(num_frames=None):
+    n = num_frames or 48
+    b0, b1 = cor.ESC_BURST
+    s0, s1 = cor.ESC_SURGE
+    surge = n >= s1
+    frames = cor.render_corridor(cor.build_scene(),
+                                 cor.escalation_trajectory(n), n,
+                                 cor.APE_SEEDS[0])
+    opts = dataclasses.replace(robust_driving_profile(), robust_num_attempts=3)
+    t0 = time.time()
+    odo, summaries, _ = _stream(opts, frames, ROBUST_BATCH)
+    wall = time.time() - t0
+    errs = cor.seq_ape(odo, frames)
+    attempts = [s.number_of_attempts for s in summaries]
+    levels = [s.robust_level for s in summaries]
+    post = errs[b1 + 4:(s0 - 1 if surge else len(errs))]
+    burst_attempts = float(np.mean(attempts[b0:b1]))
+    burst_level = float(np.mean(levels[b0:b1]))
+    post_ape = float(np.mean(post)) if post else float("inf")
+    exhausted = [i for i, a in enumerate(attempts)
+                 if a >= opts.robust_num_attempts]
+    surge_ok = (not surge or (
+        len(exhausted) >= cor.ESC_MIN_EXHAUSTED_FRAMES
+        and all(i >= s0 - 1 for i in exhausted)
+        and max(levels) >= cor.ESC_MIN_GAP_LEVEL))
+    return {
+        "metric": "synthetic_robust_escalation_recovery", "frames": len(errs),
+        "failures": sum(not s.success for s in summaries),
+        "post_burst_ape_m": post_ape,
+        "mean_burst_attempts": burst_attempts,
+        "mean_burst_level": burst_level, "max_attempts": max(attempts),
+        "max_level": max(levels), "exhausted_frames": exhausted,
+        "mean_ape_m": float(np.mean(errs)),
+        "wall_sec_per_frame": wall / max(len(errs), 1),
+        "accuracy_ok": bool(burst_attempts >= cor.ESC_MIN_BURST_ATTEMPTS
+                            and burst_level >= cor.ESC_MIN_BURST_LEVEL
+                            and post_ape <= cor.ESC_POST_APE_BOUND_M
+                            and surge_ok)}
+
+
+def run_long(num_frames=None):
+    n = num_frames or ld.LONG_FRAMES
+    runs = []
+    for seed in ld.LONG_SEEDS:
+        odo = Odometry(default_driving_profile(), device="cuda")
+        runs.append(ld.stream_long_drive(
+            odo, ld.load_acquisition(seed), n, ld.LONG_BATCH,
+            prerender=seed == ld.LONG_SEEDS[0]))
+    tr = float(np.mean([r["tr_pct"] for r in runs]))
+    failures = sum(r["failures"] for r in runs)
+    first = runs[0]
+    return {
+        "metric": "synthetic_long_drive_segment_rpe", "value": tr,
+        "unit": "%Tr", "frames": first["frames"], "batch": ld.LONG_BATCH,
+        "failures": failures, "tr_per_seed": [r["tr_pct"] for r in runs],
+        "ape_per_seed": [r["mean_ape_m"] for r in runs],
+        "mean_ape_m": float(np.mean([r["mean_ape_m"] for r in runs])),
+        "segments": first["segments"],
+        "frames_per_sec": first["median_batch_fps"],
+        "render_s": first["render_s"], "stream_s": first["stream_s"],
+        "host_syncs_per_frame": first["host_syncs_per_frame"],
+        "rebases": [r["rebases"] for r in runs],
+        "tr_bound_pct": ld.LONG_TR_BOUND_PCT,
+        "accuracy_ok": bool(tr <= ld.LONG_TR_BOUND_PCT and failures == 0)}
+
+
+GATES = {"--driving": run_driving, "--robust": run_robust,
+         "--escalation": run_escalation, "--long": run_long}
+
+
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else argv
+    if not args or args[0] not in GATES:
+        print(f"usage: python -m ct_icp_torch.tools.bench "
+              f"{{{'|'.join(GATES)}}} [frames]", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("bench: needs an NVIDIA GPU (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    result = GATES[args[0]](int(args[1]) if len(args) > 1 else None)
+    result["card"] = _card()
+    result["device"] = torch.cuda.get_device_name(0)
+    print(json.dumps(result), flush=True)
+    if not result["accuracy_ok"]:
+        print(f"{result['metric']}: ACCURACY GATE FAILED", file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -3,11 +3,14 @@
     python3 -m ct_icp_torch.tools.profile_stream [--frames 48] [--batch 16]
     python3 -m ct_icp_torch.tools.profile_stream --robust [--frames 48] \
         [--batch 8]
+    python3 -m ct_icp_torch.tools.profile_stream --long [--frames 128]
 
 Runs ``Odometry(default_driving_profile())`` over the synthetic corridor
 (seed 3), or with ``--robust`` ``Odometry(robust_driving_profile())`` over
-the robust gate's 8 m/s corridor, with ``stream_frames(batch)``, and
-profiles the last batch with
+the robust gate's 8 m/s corridor, or with ``--long`` the driving profile
+over the first frames of the 500-frame urban drive (seed 7, the rebase
+distance at 100 m, so that the batch of frames 112-127 holds the first
+rebase), with ``stream_frames(batch)``, and profiles the last batch with
 ``torch.profiler`` (CPU and CUDA activities). The solver's and the map's
 stages are labelled with ``record_function`` ranges for the run (the
 package itself carries no instrumentation). Prints one JSON line: the
@@ -22,8 +25,10 @@ import argparse
 import collections
 import functools
 import json
+import os
 import subprocess
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -33,6 +38,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 from ct_icp_torch.config.options import (default_driving_profile,
                                          robust_driving_profile)
 from ct_icp_torch.datasets import corridor as cor
+from ct_icp_torch.datasets import long_drive as ld
 from ct_icp_torch.icp import solver as slv
 from ct_icp_torch.mapping import voxel_map as vm
 from ct_icp_torch.odometry import pipeline as pl
@@ -46,6 +52,7 @@ STAGES = (
     (pl, "transform_points", "B11 transform_points"),
     (vm, "prune_level", "B10 prune_level"),
     (vm, "insert_points", "K3 insert_points"),
+    (vm, "rebuild_level", "K7+K6 rebuild_level"),
 )
 
 
@@ -59,10 +66,14 @@ def _labelled(fn, label):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--frames", type=int, default=48)
+    ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--batch", type=int, default=None)
-    ap.add_argument("--robust", action="store_true")
+    path = ap.add_mutually_exclusive_group()
+    path.add_argument("--robust", action="store_true")
+    path.add_argument("--long", action="store_true")
     args = ap.parse_args()
+    if args.frames is None:
+        args.frames = 128 if args.long else 48
     if args.batch is None:
         args.batch = 8 if args.robust else 16
     if not torch.cuda.is_available():
@@ -73,14 +84,21 @@ def main():
     for mod, attr, label in STAGES:
         setattr(mod, attr, _labelled(getattr(mod, attr), label))
 
-    scene = cor.build_scene()
-    if args.robust:
-        traj = cor.robust_corridor_trajectory(args.frames)
-        odo = Odometry(robust_driving_profile())
-    else:
-        traj = cor.straight_trajectory(400, args.frames * 0.1 + 0.5)
+    if args.long:
+        acq = ld.load_acquisition(ld.LONG_SEEDS[0])
+        with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
+            frames = list(pool.map(acq.frame, range(args.frames)))
         odo = Odometry(default_driving_profile())
-    frames = cor.render_corridor(scene, traj, args.frames, cor.APE_SEEDS[0])
+        odo.rebase_distance = 100.0
+    else:
+        if args.robust:
+            traj = cor.robust_corridor_trajectory(args.frames)
+            odo = Odometry(robust_driving_profile())
+        else:
+            traj = cor.straight_trajectory(400, args.frames * 0.1 + 0.5)
+            odo = Odometry(default_driving_profile())
+        frames = cor.render_corridor(cor.build_scene(), traj, args.frames,
+                                     cor.APE_SEEDS[0])
     preps = [odo.prepare_frame(f["xyz"], f["timestamps"], i, frame_id=i)
              for i, f in enumerate(frames)]
     head, last = preps[:-args.batch], preps[-args.batch:]
@@ -116,7 +134,8 @@ def main():
     host_ops = [e for e in prof.key_averages() if e.key not in labels]
     top = sorted(host_ops, key=lambda e: -e.self_cpu_time_total)[:12]
     out = dict(
-        card=card, profile="robust" if args.robust else "driving",
+        card=card, profile=("robust" if args.robust else
+                            "long" if args.long else "driving"),
         frames=len(last), batch=args.batch,
         first_frame=last[0]["info"].registered_fid,
         wall_ms_per_frame=wall * 1e3 / len(last),
@@ -126,6 +145,7 @@ def main():
         failures=sum(not s.success for s in summaries),
         host_syncs_per_frame=odo.host_syncs / len(preps),
         speculative_rollbacks=odo.speculative_rollbacks,
+        rebases=odo.rebases,
         stages=stages,
         top_ops_by_host_self_ms_per_frame={
             e.key: e.self_cpu_time_total / 1e3 / len(last) for e in top},

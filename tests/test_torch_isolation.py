@@ -86,3 +86,23 @@ def test_entry_points_default_to_the_card():
         Odometry(default_driving_profile())
     assert Odometry(default_driving_profile(),
                     device="cpu").device.type == "cpu"
+
+
+def test_the_card_path_needs_no_yaml():
+    """The machine with the card is not promised PyYAML: chip_smoke.py and
+    the modules it reaches (the long drive's scene reader among them)
+    import and read a scene file with ``yaml`` blocked too."""
+    code = (
+        "import sys\n"
+        "for name in ('yaml', 'jax', 'ct_icp_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import chip_smoke\n"
+        "from ct_icp_torch.datasets import long_drive as ld\n"
+        "from ct_icp_torch.tools import bench, exp_gather\n"
+        "acq = ld.load_acquisition(ld.LONG_SEEDS[0])\n"
+        "print(acq.num_frames(), len(acq.scene.primitives))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    frames, prims = map(int, out.stdout.split())
+    assert frames >= 500 and prims > 1000

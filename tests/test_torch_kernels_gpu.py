@@ -1,4 +1,4 @@
-"""CUDA kernels K1-K5 against their plain PyTorch versions, on the card.
+"""CUDA kernels K1-K7 against their plain PyTorch versions, on the card.
 
 Needs an NVIDIA GPU and nvcc (the kernels build from ct_icp_torch/csrc at
 first use); skips elsewhere. Run on a machine with the card (this file needs
@@ -137,3 +137,41 @@ def test_lm_step_matches_plain(cuda, moving, freeze_begin):
     out = checks.check_lm_step(rows, prior, n_res, state, np.float32(0.2),
                                np.float32(0.05), freeze_begin, loop_steps=20)
     assert out["loop"]["steps"] == 20
+
+
+@pytest.mark.parametrize("w, dtype, with_sub", [
+    (128, torch.float32, False), (90, torch.float32, True),
+    (120, torch.float32, True), (3, torch.float32, False),
+    (1, torch.int32, False), (128, torch.int32, False)])
+def test_row_gather_matches_plain(cuda, w, dtype, with_sub):
+    rng = np.random.default_rng(w)
+    c, n = 1 << 14, 20000 + 37          # not a multiple of 512 rows
+    table = torch.from_numpy(rng.standard_normal((c, w)) * 100).to(
+        device=cuda, dtype=dtype)
+    slots = rng.integers(0, c, n)
+    slots[rng.uniform(size=n) < 0.2] = -1
+    slots = torch.from_numpy(slots).to(device=cuda, dtype=torch.int32)
+    sub = (torch.from_numpy(rng.standard_normal(w)).to(
+        device=cuda, dtype=torch.float32) if with_sub else None)
+    checks.check_row_gather(table, slots, sub)
+    # a view whose rows start off a 16-byte boundary takes the 4-byte path
+    odd = torch.empty(c * w + 1, device=cuda, dtype=dtype)[1:].view(c, w)
+    odd.copy_(table)
+    checks.check_row_gather(odd, slots, sub)
+
+
+@pytest.mark.parametrize("cap_log2, shift", [
+    (14, (2.3, -0.7, 0.1)), (14, (-5.0, -5.0, -1.5)), (12, (0.7, 0.3, -0.2))])
+def test_rebuild_level_matches_plain(cuda, cap_log2, shift):
+    """K7 and K6 through rebuild_level: a level with tombstones (a prune),
+    shifts off and on the voxel grid, and a 2^12 level loaded near full."""
+    rng = np.random.default_rng(cap_log2)
+    level = _warm_level(rng, cuda, cap_log2=cap_log2)
+    vm.prune_level(level, torch.zeros(3, device=cuda), 12.0)
+    level.normals.copy_(torch.from_numpy(
+        rng.standard_normal((level.capacity, 3))).to(cuda))
+    level.nflags.copy_(torch.from_numpy(
+        rng.integers(0, 4, level.capacity)).to(cuda))
+    out = checks.check_rebuild_level(
+        level, torch.tensor(shift, dtype=torch.float32, device=cuda), 0.8)
+    assert 0 < out["rows"] and out["num_points"] > 0

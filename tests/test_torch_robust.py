@@ -207,7 +207,8 @@ def test_robust_corridor_frames_match_bench(scene):
                                   "rebase"])
 def test_paths_out_of_the_port_raise_not_implemented(path):
     """The paths this port does not carry yet refuse to run, always with
-    NotImplementedError."""
+    NotImplementedError. The rebase is ported: a frame past the rebase
+    distance moves the origin to its end position and the map with it."""
     opts = options_from_dict(dataclasses.asdict(robust_options()))
     if path == "backend":
         opts = dataclasses.replace(opts, backend=dataclasses.replace(
@@ -229,6 +230,17 @@ def test_paths_out_of_the_port_raise_not_implemented(path):
         return
     f0, f1 = room_frames(2)
     odo.register_frame(f0["xyz"], f0["timestamps"])  # the origin's frame
+    level = odo.map_state[0]
+    occupied = int(((level.keys != 0) & (level.keys != 1)).sum())
     odo.rebase_distance = 1e-6     # frame 1 leaves the map frame
-    with pytest.raises(NotImplementedError):
-        odo.register_frame(f1["xyz"], f1["timestamps"])
+    summary = odo.register_frame(f1["xyz"], f1["timestamps"])
+    assert summary.success and odo.rebases == 1
+    end = odo.trajectory[-1].end_pose.tr
+    assert np.array_equal(odo.origin, end) and np.linalg.norm(end) > 0.05
+    # the map was rebuilt in the new frame, not lost: its rows keep their
+    # points (a few merge where the shift puts two first points in one
+    # voxel), and none is a tombstone
+    level = odo.map_state[0]
+    rows = int(((level.keys != 0) & (level.keys != 1)).sum())
+    assert 0.5 * occupied < rows and int((level.keys == 1).sum()) == 0
+    assert odo.map_size() == int(level.count.sum()) > 1000
