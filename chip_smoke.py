@@ -11,7 +11,8 @@ when either is missing. Phases; any failure raises and exits non-zero:
   1. the card: nvidia-smi's name and power limit, torch's device name;
   2. build the CUDA kernels K1-K7 from ct_icp_torch/csrc with nvcc (one
      process per source, all started together); print the build time and
-     ptxas's register / shared-memory lines;
+     ptxas's register / shared-memory / spill lines (and keep each entry's
+     registers and spills for the kernels line);
   3. each kernel against its plain PyTorch version on the card
      (tolerances: ct_icp_torch/kernels/checks.py), then the kernel's, the
      plain version's and, for K1, the library gather's time by CUDA
@@ -23,10 +24,17 @@ when either is missing. Phases; any failure raises and exits non-zero:
      (frames before it registered, the call starting from the frame's
      motion-model initial pose): a driving and a robust startup frame and,
      in phase 6, a frame of the escalation scene's yaw jolt, whose rotation
-     between begin and end takes quat_slerp's slerp branch; its times are
-     the device time of a CUDA graph of one step and of the whole call,
-     beside one step timed with its host path. The stages that stay plain
-     torch (ROADMAP B9-B11) are timed the same way, each with its bound;
+     between begin and end takes quat_slerp's slerp branch. K5 is one
+     launch per LM call: its times are the device time of the call and of a
+     call of one step (each a CUDA graph of one launch), the steps the call
+     ran and the time a step, and the call with its host path. K3 is one
+     launch per insert: its device time (a CUDA graph of one insert) beside
+     its time with the host enqueue. torch.profiler's trace of one call of
+     each, at the driving
+     shapes, must show one device operation for K5 and at most two for K3
+     (where the profiler sees the device at all). The stages that stay
+     plain torch (ROADMAP B9-B11) are timed the same way, each with its
+     bound;
   4. the driving path: Odometry(default_driving_profile(), device="cuda")
      over the 80-frame synthetic corridor, seed 3, stream_frames(batch=16):
      median per-batch frames/s, failures, mean APE (against the 0.07 m gate
@@ -65,15 +73,17 @@ when either is missing. Phases; any failure raises and exits non-zero:
      that rebase's shift; K6 alone at the Pallas dma_gather_kernel's shapes
      (2^18 x 128 float32, N = 16,384 and 110,592 random and sorted slots)
      beside index_select;
-  in 4-8 every kernel count is set to 0 just before the path and read just
-  after it; each path must launch K5 and its other kernels, and make fewer
-  host syncs a frame than LM steps (one per ICP iteration and readback
-  where no batch rolled back);
+  in 4-8 every kernel count and K5's device count of LM steps are set to
+  0 just before the path and read just after it; each path must launch K5
+  and its other kernels, and make fewer host syncs a frame than LM steps
+  (one per ICP iteration and readback where no batch rolled back); the
+  driving path one K5 launch per ICP iteration;
   10. one JSON line of the kernels, the card's line, and the result line.
 """
 
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -100,7 +110,7 @@ from ct_icp_torch.odometry.odometry import PRUNE_PERIOD, Odometry
 from ct_icp_torch.ops import voxel as vx
 from ct_icp_torch.tools.exp_gather import k6_bytes
 from ct_icp_torch.tools.timing import (HBM_BYTES_PER_S, bound, time_cold,
-                                       time_stateless)
+                                       time_graph, time_stateless)
 
 NUM_FRAMES = 80
 SEED = cor.APE_SEEDS[0]
@@ -185,6 +195,29 @@ def time_mutating(setup, fn, reps=20):
     return total / reps, "events"
 
 
+def ptxas_summary(log_text):
+    """{entry function: {registers, spill_stores, spill_loads}} from
+    ``nvcc -Xptxas -v``'s output."""
+    out, entry = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = m.group(1)
+            out[entry] = {}
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[entry].update(spill_stores=int(m.group(1)),
+                              spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[entry]["registers"] = int(m.group(1))
+    return out
+
+
 def phase_build():
     names = list(KERNELS)
     if sorted(names) != build.kernel_names():
@@ -203,6 +236,9 @@ def phase_build():
         for line in info["ptxas"].splitlines():
             if "Used" in line or "spill" in line or "Compiling entry" in line:
                 log("   ", line.strip())
+        KERNELS[name]["ptxas"] = ptxas_summary(info["ptxas"])
+        log(f"  {name} registers / spills: "
+            f"{json.dumps(KERNELS[name]['ptxas'])}")
 
 
 def _level_copy(level):
@@ -285,16 +321,31 @@ def _kernel_k2(q, rows, cnt, radius, k_nearest, tag):
                       f"live={int(live)}", cached_ms=ms_c)
 
 
-def _kernel_k3(dev, level, res, prep, rounds, tag):
+def _kernel_k3(dev, level, res, prep, rounds, tag, count_ops=False):
     pts = torch.as_tensor(prep["xyz"], dtype=torch.float32, device=dev)
     n = pts.shape[0]
     valid = torch.ones(n, dtype=torch.bool, device=dev)
     md = res.min_distance_between_points
     out = checks.check_map_insert(level, pts, valid, res.resolution, md,
                                   rounds)
-    ms, how = time_mutating(lambda: _level_copy(level), lambda lv:
-                            vm.insert_points(lv, pts, valid, res.resolution,
-                                             md, rounds))
+    lv = _level_copy(level)
+
+    def reset():
+        for dst, src in zip(lv, level):
+            dst.copy_(src)
+
+    def insert():
+        vm.insert_points(lv, pts, valid, res.resolution, md, rounds)
+
+    ms, how = time_graph(reset, insert)
+    host_ms, _ = time_mutating(lambda: _level_copy(level), lambda lv2:
+                               vm.insert_points(lv2, pts, valid,
+                                                res.resolution, md, rounds))
+    ops = None
+    if count_ops:
+        reset()
+        ops = _require_ops("K3 map_insert", device_ops(insert), 2)
+    del lv
     plain_ms, _ = time_mutating(
         lambda: _level_copy(level), lambda lv: k3.map_insert_plain(
             *lv[:3], lv.num_points, pts, valid, res.resolution, md, rounds))
@@ -311,10 +362,12 @@ def _kernel_k3(dev, level, res, prep, rounds, tag):
                + float(level.count[uniq].sum()) * 12 + uniq.numel() * 8
                + out["inserted"] * 12 + new_keys * 4)
     log(f"K3 map_insert {tag} N={n} max_rounds={rounds}: identical to plain "
-        f"({out['inserted']} inserted); {ms:.4f} ms ({how}), plain "
+        f"({out['inserted']} inserted); {ms:.4f} ms on the device ({how}), "
+        f"{host_ms:.4f} ms with its host enqueue (events), plain "
         f"{plain_ms:.4f} ms")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bytes=n_bytes,
-                ops=float(ec.sum()) * 8, timing=how,
+                ops=float(ec.sum()) * 8, timing=how, host_ms=host_ms,
+                device_ops_per_call=ops,
                 max_abs_err=out["max_abs_err"],
                 shape=f"N={n} rounds={rounds} P={level.max_points} "
                       f"C={level.capacity}")
@@ -344,26 +397,26 @@ def _kernel_k4(dev, pts, valid, voxel, capacity, table_log2, tag):
 def _path_lm_call(odo, preps, k):
     """The inputs of K5's first LM call in frame ``k`` of the per-frame
     path: frames [0, k) go through ``register_frame_prepared``, then frame k,
-    whose first step starts from its motion-model initial pose against the
+    whose first call starts from its motion-model initial pose against the
     map those frames built. Returns (rows, prior, n_res, state at the call,
-    the step's other arguments, the call's number of steps)."""
+    the call's other arguments, its n_steps)."""
     for prep in preps[:k]:
         odo.register_frame_prepared(prep)
     calls = []
-    step = k5.lm_step
+    loop = k5.lm_loop
 
-    def record(rows, prior, n_res, state, *args):
+    def record(rows, prior, n_res, state, n_steps, *args):
         if not calls:
-            calls.append([rows, (rows.clone(), prior.clone(), n_res.clone(),
-                                 state.clone(), args), 0])
-        if rows is calls[0][0]:
-            calls[0][2] += 1
-        step(rows, prior, n_res, state, *args)
+            calls.append((rows.clone(), prior.clone(), n_res.clone(),
+                          state.clone(), args, n_steps))
+        loop(rows, prior, n_res, state, n_steps, *args)
 
-    k5.lm_step = record
-    odo.register_frame_prepared(preps[k])
-    k5.lm_step = step
-    return calls[0][1] + (calls[0][2],)
+    k5.lm_loop = record
+    try:
+        odo.register_frame_prepared(preps[k])
+    finally:
+        k5.lm_loop = loop
+    return calls[0]
 
 
 def _slerp_branch(state):
@@ -382,7 +435,7 @@ def _slerp_branch(state):
 def _lm_row_ops(branch: str) -> int:
     """Float operations one LM step needs per kept row, counted from the
     step's formulas (csrc/lm_step.cu) for the function, not for the
-    kernel's design (which redoes the primal in each of its 12 dual
+    kernel's design (which runs the primal in each of its two 6-tangent
     passes): the residual once at delta = 0, its 12 tangents by forward mode
     with the primal shared, the normal equations and the trial cost. The
     pose-level work (apply_delta and its tangents, the slerp's angle, the
@@ -406,80 +459,93 @@ def _lm_row_ops(branch: str) -> int:
     return primal + jac + irls + normal + trial
 
 
-def time_graph(reset, fn, reps=20):
-    """Mean device ms of ``fn()`` captured once in a CUDA graph and replayed
-    between two events, ``reset()`` run before each replay outside them."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        reset()
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
+def _require_ops(kernel, ops, most):
+    """The count of device operations one call made (None where the
+    profiler saw none); fails past ``most``."""
+    if ops is None:
+        log(f"{kernel}: the profiler saw no device operation (not measured)")
+        return None
+    log(f"{kernel}: device operations of one call: {ops}")
+    if not 1 <= len(ops) <= most:
+        raise RuntimeError(f"{kernel}: one call made {len(ops)} device "
+                           f"operations, more than {most}")
+    return len(ops)
+
+
+def device_ops(fn):
+    """The device operations (kernels, memsets, copies) of one ``fn()``
+    call by torch.profiler's trace, after a warm-up call; None where the
+    profiler sees no device activity (in one process it has seen it in its
+    first uses only, so the script counts at the driving shapes)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
     torch.cuda.synchronize()
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
         fn()
-    total = 0.0
-    for _ in range(reps):
-        reset()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        g.replay()
-        end.record()
         torch.cuda.synchronize()
-        total += start.elapsed_time(end)
-    return total / reps, "cuda-graph"
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return names or None
 
 
-def _kernel_k5(dev, call, tag):
+def _kernel_k5(dev, call, tag, count_ops=False):
     """K5 against its plain version on one LM call of the path: one step
-    from the call's initial state, then the whole call. Times: the device
-    time of one step and of the call (a CUDA graph), one step with its host
-    path (events around the wrapper), the plain version's (events)."""
+    from the call's initial state, then the whole call (up to its n_steps,
+    stopping at done). Times: the device time of the call and of a call of
+    one step (each a CUDA graph of one launch), the call with its host path
+    (events around the wrapper), the plain call's and the plain step's
+    (events)."""
     rows, prior, n_res, state0, lm_args, steps = call
     branch, angle = _slerp_branch(state0)
     err = checks.check_lm_step(rows, prior, n_res, state0, lm_args[1],
                                lm_args[2], lm_args[3], loop_steps=steps)
+    steps_run = err["loop"]["steps_run"]
     st = state0.clone()
 
     def reset():
         st.copy_(state0)
 
-    def loop(step):
-        def run():
-            for _ in range(steps):
-                step(rows, prior, n_res, st, *lm_args)
-        return run
+    def call_of(n):
+        return lambda: k5.lm_loop(rows, prior, n_res, st, n, *lm_args)
 
-    ms, how = time_graph(reset, lambda: k5.lm_step(rows, prior, n_res, st,
-                                                   *lm_args))
-    loop_ms, _ = time_graph(reset, loop(k5.lm_step), reps=10)
+    ms, how = time_graph(reset, call_of(steps))
+    step_ms, _ = time_graph(reset, call_of(1))
     host_ms, _ = time_mutating(
-        state0.clone, lambda s: k5.lm_step(rows, prior, n_res, s, *lm_args))
+        state0.clone, lambda s: k5.lm_loop(rows, prior, n_res, s, steps,
+                                           *lm_args))
     plain_ms, _ = time_mutating(
+        state0.clone, lambda s: k5.lm_loop_plain(rows, prior, n_res, s, steps,
+                                                 *lm_args), reps=3)
+    plain_step_ms, _ = time_mutating(
         state0.clone, lambda s: k5.lm_step_plain(rows, prior, n_res, s,
                                                  *lm_args))
-    loop_plain_ms, _ = time_mutating(
-        reset, lambda _s: loop(k5.lm_step_plain)(), reps=3)
+    ops = (_require_ops("K5 lm_loop", device_ops(call_of(steps)), 1)
+           if count_ops else None)
     k = rows.shape[0]
     n_ok = int(n_res)
-    log(f"K5 lm_step {tag} K={k} kept={n_ok} steps={steps} {branch} "
+    log(f"K5 lm_loop {tag} K={k} kept={n_ok} n_steps={steps} ran "
+        f"{steps_run} (plain {err['loop']['plain_steps_run']}) {branch} "
         f"(begin-to-end {angle:.4f} deg): within tolerance "
-        f"({json.dumps(err)}); one step {ms:.4f} ms on the device ({how}), "
-        f"{host_ms:.4f} ms with its host path, plain {plain_ms:.4f} ms; the "
-        f"call of {steps} steps {loop_ms:.4f} ms on the device, plain "
-        f"{loop_plain_ms:.4f} ms")
+        f"({json.dumps(err)}); the call {ms:.4f} ms on the device ({how}; "
+        f"{ms / steps_run:.4f} ms a step), {host_ms:.4f} ms with its host "
+        f"path, plain {plain_ms:.4f} ms; one step {step_ms:.4f} ms, plain "
+        f"{plain_step_ms:.4f} ms")
     # the rows read once, the state read and written, the prior and n_res
     n_bytes = k * 4.0 * k5.ROW + 2 * 4 * k5.STATE_SIZE + 14 * 4 + 4
     return dict(max_abs_err=err["max_abs_err"], ms=ms, plain_ms=plain_ms,
                 library_ms=None, bytes=n_bytes,
-                ops=n_ok * float(_lm_row_ops(branch)), timing=how,
-                host_ms=host_ms, loop_ms=loop_ms,
-                loop_plain_ms=loop_plain_ms, loop_steps=steps,
+                ops=steps_run * n_ok * float(_lm_row_ops(branch)),
+                timing=how, host_ms=host_ms, step_ms=step_ms,
+                plain_step_ms=plain_step_ms, ms_per_step=ms / steps_run,
+                steps_run=steps_run, loop_steps=steps,
+                device_ops_per_call=ops,
+                step_bound_ms=bound(n_bytes,
+                                    n_ok * float(_lm_row_ops(branch)))[0],
                 relative_errors=err["relative"], loop_check=err["loop"],
                 branch=branch, begin_end_deg=angle,
-                shape=f"K={k} kept={n_ok} {branch} (one step)")
+                shape=f"K={k} kept={n_ok} {branch} (one call of "
+                      f"{steps_run} steps)")
 
 
 def _identity_pose(dev):
@@ -508,7 +574,8 @@ def phase_kernels_driving(dev, o, preps):
         icp.max_number_neighbors, "driving")
     del rows, cnt
     # K3: a startup frame (12 rounds) and a cruise frame (4 rounds)
-    rec = _kernel_k3(dev, level, res, preps_by_fid[1], 12, "driving startup")
+    rec = _kernel_k3(dev, level, res, preps_by_fid[1], 12, "driving startup",
+                     count_ops=True)
     rec["cruise"] = _kernel_k3(dev, level, res,
                                preps_by_fid[max(preps_by_fid)], 4,
                                "driving cruise")
@@ -517,7 +584,7 @@ def phase_kernels_driving(dev, o, preps):
     # K5: the first LM call of a frame on the per-frame path
     records["lm_step"] = _kernel_k5(dev, _path_lm_call(
         Odometry(o, device=dev), preps, K5_DRIVING_FRAME),
-        f"driving frame {K5_DRIVING_FRAME}")
+        f"driving frame {K5_DRIVING_FRAME}", count_ops=True)
     torch.cuda.empty_cache()
     return records
 
@@ -628,6 +695,13 @@ def phase_stages(dev, odo, preps_by_fid):
 def _reset_counts():
     for spec in KERNELS.values():
         spec["module"].launches = 0
+    k5.reset_steps()
+
+
+def _read_steps(dev="cuda"):
+    """The LM steps K5 ran since the last ``_reset_counts`` (a device read,
+    made after the path)."""
+    return int(k5.steps_counter(dev)[0])
 
 
 def _read_counts():
@@ -657,12 +731,13 @@ def _require_launches(path, launches, names):
 
 
 def _require_syncs(path, out, committed_only):
-    """No host read per LM step: fewer host syncs a frame than K5 steps;
-    where every frame's work was committed (no rollback), exactly one sync
-    per ICP iteration and one per result readback. (A rolled-back batch's
-    ICP iterations are read but not counted in the frames' summaries.)"""
+    """No host read per LM step: fewer host syncs a frame than LM steps
+    (K5's device count of the steps it ran); where every frame's work was
+    committed (no rollback), exactly one sync per ICP iteration and one per
+    result readback. (A rolled-back batch's ICP iterations are read but not
+    counted in the frames' summaries.)"""
     syncs = out["host_syncs_per_frame"]
-    steps = out["launches"]["lm_step"] / out["frames"]
+    steps = out["lm_steps"] / out["frames"]
     if not syncs < steps:
         raise RuntimeError(f"{path} path: {syncs} host syncs a frame for "
                            f"{steps} LM steps")
@@ -696,9 +771,9 @@ def phase_driving(odo, frames, preps):
     ``odo.prepare_frame`` of ``frames``."""
     _reset_counts()
     summaries, batch_s, wall = _stream(odo, preps, BATCH)
-    launches = _read_counts()
+    launches, lm_steps = _read_counts(), _read_steps()
     out, _ = _path_stats(odo, frames, preps, summaries, batch_s, wall)
-    out.update(batch=BATCH, launches=launches)
+    out.update(batch=BATCH, launches=launches, lm_steps=lm_steps)
     log("driving path: " + json.dumps(out))
     log(f"  mean APE {out['mean_ape_m']:.4f} m (smoke bound "
         f"{APE_SMOKE_BOUND_M} m; the 3-seed gate is {cor.APE_BOUND_M} m); "
@@ -714,6 +789,10 @@ def phase_driving(odo, frames, preps):
                                             "plane_moments", "map_insert",
                                             "lm_step"])
     _require_syncs("driving", out, committed_only=True)
+    icp_iters = round(out["icp_iters_per_frame"] * out["frames"])
+    if launches["lm_step"] != icp_iters:
+        raise RuntimeError(f"driving path: {launches['lm_step']} K5 launches "
+                           f"for {icp_iters} LM calls")
     return out
 
 
@@ -735,9 +814,9 @@ def phase_robust(dev):
     odo = Odometry(robust_driving_profile(), device=dev)
     _reset_counts()
     summaries, batch_s, wall = _stream(odo, preps, ROBUST_BATCH)
-    launches = _read_counts()
+    launches, lm_steps = _read_counts(), _read_steps()
     out, _ = _path_stats(odo, frames, preps, summaries, batch_s, wall)
-    out.update(batch=ROBUST_BATCH, launches=launches,
+    out.update(batch=ROBUST_BATCH, launches=launches, lm_steps=lm_steps,
                speculative_batches_committed={
                    str(k): v for k, v in
                    odo.speculative_batches_committed.items()},
@@ -788,7 +867,7 @@ def phase_escalation(dev):
     torch.cuda.empty_cache()
     _reset_counts()
     summaries, batch_s, wall = _stream(odo, preps, ROBUST_BATCH)
-    launches = _read_counts()
+    launches, lm_steps = _read_counts(), _read_steps()
     out, errs = _path_stats(odo, frames, preps, summaries, batch_s, wall)
     attempts = [s.number_of_attempts for s in summaries]
     levels = [s.robust_level for s in summaries]
@@ -796,7 +875,7 @@ def phase_escalation(dev):
     exhausted = [i for i, a in enumerate(attempts)
                  if a >= odo.options.robust_num_attempts]
     out.update(
-        batch=ROBUST_BATCH, launches=launches,
+        batch=ROBUST_BATCH, launches=launches, lm_steps=lm_steps,
         mean_burst_attempts=float(np.mean(attempts[b0:b1])),
         mean_burst_level=float(np.mean(levels[b0:b1])),
         post_burst_ape_m=float(np.mean(post)), exhausted_frames=exhausted,
@@ -870,8 +949,8 @@ def phase_long(dev):
     _reset_counts()
     out = ld.stream_long_drive(odo, acq, ld.LONG_FRAMES, ld.LONG_BATCH,
                                prerender=True)
-    launches = _read_counts()
-    out.update(launches=launches, seed=LONG_SEED,
+    launches, lm_steps = _read_counts(), _read_steps()
+    out.update(launches=launches, lm_steps=lm_steps, seed=LONG_SEED,
                rebase_distance_m=LONG_REBASE_DISTANCE,
                first_rebase_frame=captured.get("frame"),
                first_rebase_capture_host_s=captured.get("capture_host_s"))
@@ -896,7 +975,7 @@ def phase_long(dev):
                                                "rebuild_claim"])
     _require_rebase_launches("long drive", launches, out["rebases"],
                              len(odo.map_state))
-    if not out["host_syncs_per_frame"] < launches["lm_step"] / out["frames"]:
+    if not out["host_syncs_per_frame"] < out["lm_steps"] / out["frames"]:
         raise RuntimeError("long drive: a host sync per LM step")
     del odo
     torch.cuda.empty_cache()
@@ -914,11 +993,12 @@ def phase_robust_rebase(dev, robust_run, robust_out):
     _capture_first_rebase(odo, captured)
     _reset_counts()
     summaries, batch_s, wall = _stream(odo, preps, ROBUST_BATCH)
-    launches = _read_counts()
+    launches, lm_steps = _read_counts(), _read_steps()
     out, _ = _path_stats(odo, frames, preps, summaries, batch_s, wall)
     diff = max(a.end_pose.location_distance(b.end_pose) for a, b in
                zip(odo.get_trajectory(), ref_odo.get_trajectory()))
-    out.update(batch=ROBUST_BATCH, launches=launches, rebases=odo.rebases,
+    out.update(batch=ROBUST_BATCH, launches=launches, lm_steps=lm_steps,
+               rebases=odo.rebases,
                rebase_distance_m=ROBUST_REBASE_DISTANCE,
                max_end_pose_diff_from_robust_m=diff,
                first_rebase_capture_host_s=captured.get("capture_host_s"),
@@ -1119,9 +1199,18 @@ def main() -> int:
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
             library_ms=r["library_ms"], timing=r["timing"], shape=r["shape"])
         for key in ("host_ms", "warm_ms", "library_warm_ms",
-                    "rebuild_level_ms", "rebuild_level_plain_ms"):
+                    "rebuild_level_ms", "rebuild_level_plain_ms", "step_ms",
+                    "plain_step_ms", "ms_per_step", "steps_run",
+                    "loop_steps", "step_bound_ms", "device_ops_per_call"):
             if r.get(key) is not None:
                 rec[key] = r[key]
+        if name == "lm_step":
+            rec["steps_by_path"] = {k: p["lm_steps"]
+                                    for k, p in paths.items()}
+        if name in ("lm_step", "map_insert"):
+            rec["device_ops_per_call"] = \
+                driving_records[name]["device_ops_per_call"]
+        rec["ptxas"] = spec.get("ptxas")
         for key, o in others.items():
             if o is None:
                 continue
@@ -1130,7 +1219,9 @@ def main() -> int:
                 ms=o["ms"], plain_ms=o["plain_ms"], bound_ms=ob_ms,
                 bound_by=ob_by, library_ms=o["library_ms"],
                 max_abs_err=o["max_abs_err"], shape=o["shape"])
-            for extra in ("host_ms", "warm_ms", "library_warm_ms"):
+            for extra in ("host_ms", "warm_ms", "library_warm_ms",
+                          "step_ms", "ms_per_step", "steps_run",
+                          "step_bound_ms", "device_ops_per_call"):
                 if o.get(extra) is not None:
                     rec[key][extra] = o[extra]
         kernels.append(rec)
@@ -1146,7 +1237,8 @@ def main() -> int:
         "grid_sample table clear floor ms":
             robust_records["grid_sample"]["table_clear_floor_ms"],
         "lm_step calls (robust, driving, jolt)": [
-            {k: r[k] for k in ("loop_ms", "loop_plain_ms", "loop_steps",
+            {k: r[k] for k in ("ms", "plain_ms", "loop_steps", "steps_run",
+                               "step_ms", "plain_step_ms",
                                "relative_errors", "loop_check", "branch",
                                "begin_end_deg")}
             for r in (robust_records["lm_step"], driving_records["lm_step"],

@@ -15,7 +15,12 @@
 // depends on timing. The claim words are 64-bit: the high half is a stamp
 // that decreases from round to round, so a round's claims always beat the
 // leftovers of earlier rounds and the claim array is cleared (to all ones)
-// only once per call.
+// only once per call (K7), or only when the stamps wrap (K3, whose claim
+// words and stamp persist from call to call).
+//
+// K7 launches each half of a round as a kernel (launch_claim_rounds in
+// rebuild_claim.cu); K3 calls the halves from its one cooperative kernel,
+// between grid barriers.
 #pragma once
 #include "common.cuh"
 
@@ -38,66 +43,44 @@ __device__ __forceinline__ unsigned long long claim_word(int stamp, int pid) {
          static_cast<uint32_t>(pid);
 }
 
-// Claim round r, first half: the re-read of round r-1's slot, then round r's
-// probe: an existing key resolves, an EMPTY/TOMB slot takes this claim.
-__global__ void claim_attempt_kernel(const uint32_t* __restrict__ table,
-                                     unsigned long long* __restrict__ claim,
-                                     int n, uint32_t cap_mask, int r,
-                                     int stamp, ClaimRows s) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || s.flags[i] != kValid) return;  // invalid or resolved
+// Claim round r, first half, for claimant i (flags == kValid): the re-read
+// of round r-1's slot, then round r's probe: an existing key resolves, an
+// EMPTY/TOMB slot takes this claim. Returns false where the re-read resolved
+// it, true where it went on to round r's probe (r < MAX_PROBES).
+__device__ __forceinline__ bool claim_attempt(const uint32_t* table,
+                                              unsigned long long* claim,
+                                              int i, uint32_t cap_mask, int r,
+                                              int stamp, const ClaimRows& s) {
   const uint32_t h = s.hash[i], key = s.key[i];
   if (r > 0) {
     const uint32_t prev = (h + static_cast<uint32_t>(r - 1)) & cap_mask;
     if (table[prev] == key) {
       s.slot[i] = static_cast<int>(prev);
       s.flags[i] |= kResolved;
-      return;
+      return false;
     }
   }
-  if (r >= kMaxProbes) return;
+  if (r >= kMaxProbes) return false;
   const uint32_t at = (h + static_cast<uint32_t>(r)) & cap_mask;
   const uint32_t k = table[at];
   if (k == key) {
     s.slot[i] = static_cast<int>(at);
     s.flags[i] |= kResolved;
-    return;
-  }
-  if (k == kEmpty || k == kTomb) {
+  } else if (k == kEmpty || k == kTomb) {
     atomicMin(claim + at, claim_word(stamp, i));
     s.attempt[i] = r;
   }
+  return true;
 }
 
 // Claim round r, second half: the winner of each claimed slot writes its key.
-__global__ void claim_write_kernel(uint32_t* __restrict__ table,
-                                   const unsigned long long* __restrict__ claim,
-                                   int n, uint32_t cap_mask, int r, int stamp,
-                                   ClaimRows s) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || s.flags[i] != kValid || s.attempt[i] != r) return;
+__device__ __forceinline__ void claim_write(uint32_t* table,
+                                           const unsigned long long* claim,
+                                           int i, uint32_t cap_mask, int r,
+                                           int stamp, const ClaimRows& s) {
+  if (s.flags[i] != kValid || s.attempt[i] != r) return;
   const uint32_t at = (s.hash[i] + static_cast<uint32_t>(r)) & cap_mask;
   if (claim[at] == claim_word(stamp, i)) table[at] = s.key[i];
-}
-
-// Launch all MAX_PROBES rounds and the final re-read on stream ``st`` with
-// stamps ``stamp`` .. ``stamp + MAX_PROBES``; ``claim`` must hold no word
-// with a smaller stamp than these (all ones after a clear). Returns the next
-// unused stamp.
-inline int launch_claim_rounds(uint32_t* table, unsigned long long* claim,
-                               int n, uint32_t cap_mask, int stamp,
-                               ClaimRows s, int blocks, int threads,
-                               cudaStream_t st) {
-  for (int r = 0; r < kMaxProbes; ++r, ++stamp) {
-    claim_attempt_kernel<<<blocks, threads, 0, st>>>(table, claim, n,
-                                                     cap_mask, r, stamp, s);
-    claim_write_kernel<<<blocks, threads, 0, st>>>(table, claim, n, cap_mask,
-                                                   r, stamp, s);
-  }
-  // the re-read of the last round's slot
-  claim_attempt_kernel<<<blocks, threads, 0, st>>>(table, claim, n, cap_mask,
-                                                   kMaxProbes, stamp, s);
-  return stamp;
 }
 
 }  // namespace cticp

@@ -1,128 +1,213 @@
-// K5 lm_step: one Levenberg-Marquardt step of the CT-ICP inner loop, with
-// all of its state on the device.
+// K5 lm_step: the Levenberg-Marquardt inner loop of CT-ICP, every step of
+// one LM call in one launch, its state on the device.
 //
-// Replaces the body of ct_icp_tpu/icp/solver.py:452-534 (_lm_inner_loop)
-// for the statics the driving and robust profiles run: CERES, ball
-// neighbourhood, point-to-plane, Cauchy loss, CONTINUOUS_TIME, analytic
-// Jacobian off (the begin-column freeze of SIMPLE is honoured by a flag).
-// The TPU ran the loop as a lax.while_loop inside one XLA program; eager
-// PyTorch ran it as ~1,500 small launches and one host read per step. Here a
-// step is four launches that read nothing back, so the host enqueues every
-// step of the loop at once:
+// Replaces ct_icp_tpu/icp/solver.py:418-539 (_lm_inner_loop) for the
+// statics the driving and robust profiles run: CERES, ball neighbourhood,
+// point-to-plane, Cauchy loss, CONTINUOUS_TIME, analytic Jacobian off (the
+// begin-column freeze of SIMPLE is honoured by a flag). The reference runs
+// the loop as a lax.while_loop (it < n and ~done) inside one XLA program.
+// Here one launch of a thread-block cluster of 16 CTAs runs it (a
+// non-portable size, which the H100 schedules; a card that refuses it fails
+// the launch). Each CTA keeps its share of the rows in shared memory for
+// the whole call (rows beyond what the cluster holds are read from global
+// memory, where they stay in L2).
+// A step:
 //
-//   A (K rows)    residual of each kept row at delta = 0 and its 12 tangents,
-//                 by forward mode through apply_delta and the slerp/lerp
-//                 transform (the arithmetic of jax.jacfwd, branches of
-//                 quat_slerp included: the sign flip, the clip and the nlerp
-//                 fallback); the Cauchy IRLS weight; per-block sums of the
-//                 78 distinct entries of J^T W J, the 12 of J^T W r and the
-//                 cost at delta = 0;
-//   B (1 block)   sums the block partials in block order; adds the 10
-//                 motion-prior rows and their Jacobian; the degenerate-column
-//                 freeze, the Jacobi scaling, the damping and the 12x12 solve
-//                 (Gaussian elimination, partial pivoting, float32); the trial
-//                 pose apply_delta(delta);
-//   C (K rows)    the robust cost of every kept row at the trial pose, summed
-//                 per block;
-//   D (1 thread)  the trial cost, accept/reject, lambda, cost0, the pose
-//                 update and the `done` flag (Ceres' function tolerance).
+//   1. rows: the residual of each kept row at delta = 0 and its 12 tangents
+//      by forward mode (the arithmetic of jax.jacfwd, branches of
+//      quat_slerp included: the sign flip, the clip and the nlerp
+//      fallback), in two passes of 6 tangents (begin, end) through the
+//      pose's own tangents and slerp setup, which a thread a column
+//      computes at the start of the step (and another warp the prior
+//      rows' Jacobian);
+//      the Cauchy IRLS weight; per chunk of 256 rows, the 78 sums of
+//      J^T W J, the 12 of J^T W r and the cost, each by one warp;
+//   2. every CTA sums the cluster's partials (distributed shared memory, in
+//      CTA order) and does the pose-level work itself, so nothing has to be
+//      broadcast: the prior rows added, the degenerate-column freeze, the
+//      Jacobi scaling, the damping, the 12x12 solve (one warp, a lane a
+//      row: the partial pivoting of a serial elimination, ties to the
+//      first row) and the trial pose;
+//   3. rows: the robust cost at the trial pose, summed the same way (one
+//      thread meanwhile: the prior's cost there, the pose a rejection keeps);
+//   4. accept/reject, lambda, cost0, the pose update and `done` (Ceres'
+//      function tolerance). The loop leaves at done, as the reference's
+//      while_loop does, or after n_steps.
+// Two cluster barriers a step. No float atomics: a run repeats bit for
+// bit, and every CTA computes the same solve from the same sums.
 //
-// Every pass returns at once when `done` is set, so steps past convergence
-// cost four empty launches. Sums run in a fixed order (warp shuffles, then
-// warps, then blocks): no float atomics, so a run repeats bit for bit.
-//
-// Bound: a step reads each row twice (48 B) and moves a few KB of partials:
-// a few hundred KB at K = 4096, about 0.1 us at 3.35 TB/s, and ~2.5 kflop a
-// row, ~10 Mflop, about 0.15 us at 67 TFLOP/s. Both are far below the
-// launch latency of the four passes; the design's point is the count of
-// launches and host reads, not bandwidth.
+// Bound: the rows are read once a call (48 B a row); a step is ~1,100 float
+// operations a kept row (3.2 Mflop at K = 2,941: 0.05 us at 67 TFLOP/s). The
+// loop is bound by its serial chain, not by bytes or operations: the two
+// cluster barriers, the pose-level work and the solve of every step.
 //
 // state (f32[200], see kernels/lm_step.py): 0:14 pose (qb, tb, qe, te),
 // 14 lambda, 15 cost0 (NaN until the first step), 16 done, 17 trial cost,
-// 18:30 delta, 30:44 trial pose, 44:56 J^T W r, 56:200 J^T W J.
+// 18:30 delta, 30:44 trial pose, 44:56 J^T W r, 56:200 J^T W J; after the
+// call, 17:200 hold the last step's values.
+//
+// Measurement variants (tools/exp_lm_loop.py builds them; the main path
+// never does): -DK5_CLUSTER=n launches n CTAs; -DK5_MARKS makes CTA 0's
+// thread 0 add the clock cycles of each phase of every step to a device
+// array that k5_read_marks returns.
+#include <cooperative_groups.h>
+
 #include <cmath>
+#include <cstddef>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kThreads = 128;      // threads per block of passes A and C
+constexpr int kThreads = 256;        // threads per CTA
 constexpr int kWarps = kThreads / 32;
-constexpr int kSums = 91;          // 78 of J^T W J, 12 of J^T W r, 1 cost
-constexpr int kRow = 12;           // raw 3, alpha, anchor 3, normal 3, w, ok
+constexpr int kSums = 91;            // 78 of J^T W J, 12 of J^T W r, 1 cost
+constexpr int kRow = 12;             // raw 3, alpha, anchor 3, normal 3, w, ok
+constexpr int kStateSize = 200;
+constexpr int kTan = 6;              // tangents a row pass carries
+constexpr int kChunkStride = 15;     // jac 12, r, w (odd: no bank conflicts)
+constexpr int kRowsOnChip = 4096;    // rows a CTA keeps in shared memory
+#ifndef K5_CLUSTER
+#define K5_CLUSTER 16
+#endif
+constexpr int kCluster = K5_CLUSTER; // CTAs of the launch
+static_assert(kCluster >= 1 && kCluster <= 16, "a cluster is 1..16 CTAs");
+
+#ifdef K5_MARKS
+// the phases of a step, as the cycle marks count them: the column threads,
+// the row pass, barrier 1, the cluster sums, J^T W J assembly, the scaling
+// and the solve, the trial pose, the trial-cost pass, barrier 2,
+// accept/reject
+constexpr int kPhases = 10;
+__device__ long long g_marks[kPhases];
+#define MARK(k)                        \
+  if (timed) {                         \
+    const long long t_now = clock64(); \
+    phase[k] += t_now - t_mark;        \
+    t_mark = t_now;                    \
+  }
+#else
+#define MARK(k)
+#endif
 
 constexpr int S_LAM = 14, S_COST0 = 15, S_DONE = 16, S_COST1 = 17;
 constexpr int S_DELTA = 18, S_TRIAL = 30, S_JTR = 44, S_JTJ = 56;
 
 // ---------------------------------------------------------------- duals —
-struct Dual {
-  float v, d;
-  // every Dual is built with both members set: a value without a tangent
-  // is a constant (d = 0)
-  __device__ __forceinline__ Dual(float value = 0.0f, float tangent = 0.0f)
-      : v(value), d(tangent) {}
+// A value and N tangents. Every tangent follows its own rule from the
+// values alone, so a dual of N tangents gives each tangent bit for bit what
+// a dual of one would.
+template <int N>
+struct DualT {
+  float v;
+  float d[N];
+  DualT() = default;
+  // a value without tangents is a constant (every d = 0)
+  __device__ __forceinline__ DualT(float value) : v(value) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) d[j] = 0.0f;
+  }
 };
-__device__ __forceinline__ Dual operator+(Dual a, Dual b) {
-  return {a.v + b.v, a.d + b.d};
+using Dual1 = DualT<1>;
+using Dual6 = DualT<kTan>;
+
+#define DUAL_OP(expr_v, expr_d)                     \
+  DualT<N> r(expr_v);                               \
+  for (int j = 0; j < N; ++j) r.d[j] = (expr_d);    \
+  return r;
+
+template <int N>
+__device__ __forceinline__ DualT<N> operator+(const DualT<N>& a,
+                                              const DualT<N>& b) {
+  DUAL_OP(a.v + b.v, a.d[j] + b.d[j])
 }
-__device__ __forceinline__ Dual operator-(Dual a, Dual b) {
-  return {a.v - b.v, a.d - b.d};
+template <int N>
+__device__ __forceinline__ DualT<N> operator-(const DualT<N>& a,
+                                              const DualT<N>& b) {
+  DUAL_OP(a.v - b.v, a.d[j] - b.d[j])
 }
-__device__ __forceinline__ Dual operator-(Dual a) { return {-a.v, -a.d}; }
-__device__ __forceinline__ Dual operator*(Dual a, Dual b) {
-  return {a.v * b.v, a.d * b.v + a.v * b.d};
+template <int N>
+__device__ __forceinline__ DualT<N> operator-(const DualT<N>& a) {
+  DUAL_OP(-a.v, -a.d[j])
 }
-__device__ __forceinline__ Dual operator/(Dual a, Dual b) {
-  return {a.v / b.v, (a.d - (a.v / b.v) * b.d) / b.v};
+template <int N>
+__device__ __forceinline__ DualT<N> operator*(const DualT<N>& a,
+                                              const DualT<N>& b) {
+  DUAL_OP(a.v * b.v, a.d[j] * b.v + a.v * b.d[j])
 }
-__device__ __forceinline__ Dual operator-(Dual a, float b) {
-  return {a.v - b, a.d};
+template <int N>
+__device__ __forceinline__ DualT<N> operator/(const DualT<N>& a,
+                                              const DualT<N>& b) {
+  const float q = a.v / b.v;
+  DUAL_OP(q, (a.d[j] - q * b.d[j]) / b.v)
 }
-__device__ __forceinline__ Dual operator-(float a, Dual b) {
-  return {a - b.v, -b.d};
+template <int N>
+__device__ __forceinline__ DualT<N> operator-(const DualT<N>& a, float b) {
+  DUAL_OP(a.v - b, a.d[j])
 }
-__device__ __forceinline__ Dual operator*(float a, Dual b) {
-  return {a * b.v, a * b.d};
+template <int N>
+__device__ __forceinline__ DualT<N> operator-(float a, const DualT<N>& b) {
+  DUAL_OP(a - b.v, -b.d[j])
 }
-__device__ __forceinline__ Dual operator*(Dual a, float b) {
-  return {a.v * b, a.d * b};
+template <int N>
+__device__ __forceinline__ DualT<N> operator*(float a, const DualT<N>& b) {
+  DUAL_OP(a * b.v, a * b.d[j])
 }
-__device__ __forceinline__ Dual operator/(Dual a, float b) {
-  return {a.v / b, a.d / b};
+template <int N>
+__device__ __forceinline__ DualT<N> operator*(const DualT<N>& a, float b) {
+  DUAL_OP(a.v * b, a.d[j] * b)
+}
+template <int N>
+__device__ __forceinline__ DualT<N> operator/(const DualT<N>& a, float b) {
+  DUAL_OP(a.v / b, a.d[j] / b)
 }
 
 __device__ __forceinline__ float val(float x) { return x; }
-__device__ __forceinline__ float val(Dual x) { return x.v; }
+template <int N>
+__device__ __forceinline__ float val(const DualT<N>& x) { return x.v; }
 __device__ __forceinline__ float tsqrt(float x) { return sqrtf(x); }
-__device__ __forceinline__ Dual tsqrt(Dual x) {
+template <int N>
+__device__ __forceinline__ DualT<N> tsqrt(const DualT<N>& x) {
   const float s = sqrtf(x.v);
-  return {s, x.d / (2.0f * s)};
+  DUAL_OP(s, x.d[j] / (2.0f * s))
 }
 __device__ __forceinline__ float tsin(float x) { return sinf(x); }
-__device__ __forceinline__ Dual tsin(Dual x) {
-  return {sinf(x.v), cosf(x.v) * x.d};
+template <int N>
+__device__ __forceinline__ DualT<N> tsin(const DualT<N>& x) {
+  const float c = cosf(x.v);
+  DUAL_OP(sinf(x.v), c * x.d[j])
 }
 __device__ __forceinline__ float tcos(float x) { return cosf(x); }
-__device__ __forceinline__ Dual tcos(Dual x) {
-  return {cosf(x.v), -sinf(x.v) * x.d};
+template <int N>
+__device__ __forceinline__ DualT<N> tcos(const DualT<N>& x) {
+  const float s = -sinf(x.v);
+  DUAL_OP(cosf(x.v), s * x.d[j])
 }
 __device__ __forceinline__ float tacos(float x) { return acosf(x); }
-__device__ __forceinline__ Dual tacos(Dual x) {
-  return {acosf(x.v), -x.d / sqrtf(1.0f - x.v * x.v)};
+template <int N>
+__device__ __forceinline__ DualT<N> tacos(const DualT<N>& x) {
+  const float s = sqrtf(1.0f - x.v * x.v);
+  DUAL_OP(acosf(x.v), -x.d[j] / s)
 }
+#undef DUAL_OP
 // clamp_min / clamp_max: the tangent passes where the input is kept
 template <class T>
-__device__ __forceinline__ T tmax(T a, float lo) {
+__device__ __forceinline__ T tmax(const T& a, float lo) {
   return val(a) >= lo ? a : T{lo};
 }
 template <class T>
-__device__ __forceinline__ T tclip(T a, float lo, float hi) {
+__device__ __forceinline__ T tclip(const T& a, float lo, float hi) {
   if (val(a) < lo) return T{lo};
   if (val(a) > hi) return T{hi};
   return a;
 }
 __device__ __forceinline__ float tabs(float x) { return fabsf(x); }
-__device__ __forceinline__ Dual tabs(Dual x) { return x.v < 0.0f ? -x : x; }
+template <int N>
+__device__ __forceinline__ DualT<N> tabs(const DualT<N>& x) {
+  return x.v < 0.0f ? -x : x;
+}
 
 // ------------------------------------------------- quaternion / SE3 math —
 // (w, x, y, z), the formulas of core/math_impl.py in their order
@@ -152,7 +237,8 @@ __device__ __forceinline__ Quat<T> quat_normalize(const Quat<T>& q) {
 }
 
 template <class T>
-__device__ __forceinline__ Quat<T> quat_from_rotvec(T rx, T ry, T rz) {
+__device__ __forceinline__ Quat<T> quat_from_rotvec(const T& rx, const T& ry,
+                                                   const T& rz) {
   const T theta2 = rx * rx + ry * ry + rz * rz;
   const T theta = tsqrt(tmax(theta2, 1e-30f));
   const T half = 0.5f * theta;
@@ -180,23 +266,42 @@ __device__ __forceinline__ Vec3<T> quat_rotate(const Quat<T>& q,
           v.z + q.w * t.z + c2.z};
 }
 
+// quat_slerp(q0, q1, t) split in two: what does not depend on t (the sign
+// flip, the clip, the branch, the angle) once a pose, then the blend a row.
 template <class T>
-__device__ __forceinline__ Quat<T> quat_slerp(const Quat<T>& q0, Quat<T> q1,
-                                             float t) {
+struct Slerp {
+  Quat<T> q0, q1;          // q1 flipped to q0's hemisphere
+  T theta, sin_theta;      // unused on the nlerp branch
+  bool near;               // the nlerp fallback
+};
+
+template <class T>
+__device__ __forceinline__ Slerp<T> slerp_setup(const Quat<T>& q0,
+                                               Quat<T> q1) {
   T d = q0.w * q1.w + q0.x * q1.x + q0.y * q1.y + q0.z * q1.z;
   if (val(d) < 0.0f) q1 = {-q1.w, -q1.x, -q1.y, -q1.z};
   d = tclip(tabs(d), -1.0f, 1.0f);
-  const bool near = val(d) > static_cast<float>(1.0 - 1e-7);
-  if (near) {
+  Slerp<T> s{q0, q1, T{0.0f}, T{0.0f},
+             val(d) > static_cast<float>(1.0 - 1e-7)};
+  if (!s.near) {
+    s.theta = tacos(d);
+    s.sin_theta = tsin(s.theta);
+  }
+  return s;
+}
+
+template <class T>
+__device__ __forceinline__ Quat<T> slerp_at(const Slerp<T>& s, float t) {
+  const Quat<T>& q0 = s.q0;
+  const Quat<T>& q1 = s.q1;
+  if (s.near) {
     const float w0 = 1.0f - t, w1 = t;
     return quat_normalize(Quat<T>{w0 * q0.w + w1 * q1.w, w0 * q0.x + w1 * q1.x,
                                   w0 * q0.y + w1 * q1.y,
                                   w0 * q0.z + w1 * q1.z});
   }
-  const T theta = tacos(d);
-  const T sin_theta = tsin(theta);
-  const T w0 = tsin((1.0f - t) * theta) / sin_theta;
-  const T w1 = tsin(t * theta) / sin_theta;
+  const T w0 = tsin((1.0f - t) * s.theta) / s.sin_theta;
+  const T w1 = tsin(t * s.theta) / s.sin_theta;
   return quat_normalize(Quat<T>{w0 * q0.w + w1 * q1.w, w0 * q0.x + w1 * q1.x,
                                 w0 * q0.y + w1 * q1.y, w0 * q0.z + w1 * q1.z});
 }
@@ -228,12 +333,13 @@ __device__ __forceinline__ Pose<T> apply_delta(const T* d, const Pose<T>& p) {
           {p.te.x + d[9], p.te.y + d[10], p.te.z + d[11]}};
 }
 
-// the point-to-plane residual of one row at pose p
+// the point-to-plane residual of one row at pose p (s = its slerp setup)
 template <class T>
 __device__ __forceinline__ T plane_residual(const Pose<T>& p,
+                                           const Slerp<T>& s,
                                            const float* row) {
   const float a = row[3];
-  const Quat<T> qi = quat_slerp(p.qb, p.qe, a);
+  const Quat<T> qi = slerp_at(s, a);
   const Vec3<T> raw{T{row[0]}, T{row[1]}, T{row[2]}};
   const Vec3<T> rot = quat_rotate(qi, raw);
   const float b = 1.0f - a;
@@ -279,257 +385,457 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// ------------------------------------------------------------- pass A —
-__global__ void lm_pass_a(const float* __restrict__ rows, int k,
-                          const float* __restrict__ state, float b,
-                          int freeze_begin, float* __restrict__ partials) {
-  if (state[S_DONE] != 0.0f) return;
-  __shared__ float warp_part[kWarps][kSums];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float jac[12];
-  float r = 0.0f, w = 0.0f;
-  for (int j = 0; j < 12; ++j) jac[j] = 0.0f;
-  if (i < k && rows[kRow * i + 11] != 0.0f) {
-    const float* row = rows + kRow * i;
-    const Pose<Dual> p0 = pose_from<Dual>(state);
-    for (int j = freeze_begin ? 6 : 0; j < 12; ++j) {
-      Dual d[12];
-      for (int c = 0; c < 12; ++c) d[c] = Dual{0.0f, c == j ? 1.0f : 0.0f};
-      const Dual rj = plane_residual(apply_delta(d, p0), row);
-      jac[j] = rj.d;
-      r = rj.v;
-    }
-    w = 1.0f / (1.0f + (r * r) / b);
-  }
-  float jw[12];
-  for (int j = 0; j < 12; ++j) jw[j] = jac[j] * w;
-  int slot = 0;
-  for (int a = 0; a < 12; ++a) {
-    for (int c = a; c < 12; ++c) {
-      const float s = warp_sum(jw[a] * jac[c]);
-      if (lane == 0) warp_part[warp][slot] = s;
-      ++slot;
-    }
-  }
-  for (int a = 0; a < 12; ++a) {
-    const float s = warp_sum(jw[a] * r);
-    if (lane == 0) warp_part[warp][78 + a] = s;
-  }
-  const float c = warp_sum(cauchy_cost(r * r, b));
-  if (lane == 0) warp_part[warp][90] = c;
-  __syncthreads();
-  for (int v = threadIdx.x; v < kSums; v += kThreads) {
-    float s = 0.0f;
-    for (int q = 0; q < kWarps; ++q) s += warp_part[q][v];
-    partials[blockIdx.x * kSums + v] = s;
-  }
+// The sum over the cluster's CTAs, in CTA order, of the float at `local`
+// in each CTA's shared memory: the remote loads issued together, then
+// added in order.
+__device__ __forceinline__ float cluster_sum(cg::cluster_group& cluster,
+                                             float* local) {
+  float v[kCluster];
+#pragma unroll
+  for (int q = 0; q < kCluster; ++q) v[q] = *cluster.map_shared_rank(local, q);
+  float s = 0.0f;
+#pragma unroll
+  for (int q = 0; q < kCluster; ++q) s += v[q];
+  return s;
 }
 
-// ------------------------------------------------------------- pass B —
-__device__ void solve12(float a[12][12], float x[12]) {
+// ------------------------------------------------------- shared memory —
+// One CTA's state, then the chunk buffer [kThreads][kChunkStride], then the
+// CTA's rows [rows][kRow] when they are kept on chip.
+struct Shared {
+  float state[kStateSize];
+  float part_a[kSums + 1];       // this CTA's sums (read by the cluster)
+  float sums[kSums + 1];         // the cluster's
+  float part_c[4];               // this CTA's trial cost
+  float warp_c[kWarps];
+  float pj[10][12];              // the prior's Jacobian
+  float pr[12];                  // the prior's residuals
+  unsigned char pair[78][2];     // (a, c) of each J^T W J sum
+  Pose<Dual6> pose_d[2];         // the pose's begin / end tangents
+  Slerp<Dual6> slerp_d[2];
+  Pose<float> trial;
+  Slerp<float> slerp_trial;
+  Pose<float> same;              // the pose a rejected step keeps
+  float trial_prior_cost;
+};
+constexpr int kFixedBytes =
+    (static_cast<int>(sizeof(Shared)) + 15) / 16 * 16 +
+    kThreads * kChunkStride * 4;
+static_assert(kFixedBytes + kRowsOnChip * kRow * 4 <= 232448,
+              "a CTA's shared memory is 227 KB");
+
+// The tangent of column j (the Dual1 results of one thread a column) into
+// tangent j % 6 of the half j / 6 of the pose's Dual6 tangents; the values
+// from the first column of each half. A Dual6 carries each tangent bit for
+// bit as a Dual1 would, so the columns can be computed apart.
+template <class Small, class Big>
+__device__ __forceinline__ void scatter_tangent(const Small& one, Big& six,
+                                                int t, int n_duals) {
+  const float* src = reinterpret_cast<const float*>(&one);
+  float* dst = reinterpret_cast<float*>(&six);
+  for (int e = 0; e < n_duals; ++e) {
+    dst[e * (kTan + 1) + 1 + t] = src[2 * e + 1];
+    if (t == 0) dst[e * (kTan + 1)] = src[2 * e];
+  }
+}
+static_assert(sizeof(Pose<Dual6>) == 14 * (kTan + 1) * 4 &&
+                  sizeof(Pose<Dual1>) == 14 * 2 * 4,
+              "a pose is 14 packed duals");
+static_assert(offsetof(Slerp<Dual6>, near) == 10 * sizeof(Dual6) &&
+                  offsetof(Slerp<Dual1>, near) == 10 * sizeof(Dual1),
+              "a slerp setup is 10 packed duals, then its branch");
+
+// The 12x12 solve of one warp, lane a holding row a (lanes >= 12 hold
+// zeros and their results are dropped): the partial pivoting of a serial
+// Gaussian elimination (the first row of the largest |pivot|, a NaN never
+// taken), then back substitution in the serial order. Returns x in every
+// lane.
+__device__ __forceinline__ void solve12_warp(float m[12], float x,
+                                             float xs[12]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
   for (int col = 0; col < 12; ++col) {
-    int piv = col;
-    float best = fabsf(a[col][col]);
-    for (int r = col + 1; r < 12; ++r) {
-      if (fabsf(a[r][col]) > best) {
-        best = fabsf(a[r][col]);
-        piv = r;
-      }
-    }
+    // the candidates below the diagonal: |m| as its bits plus one (the
+    // order of non-negative floats; 0 for no candidate and for a NaN,
+    // which the serial scan never takes); the largest, first lane on ties
+    const float mag = fabsf(m[col]);
+    const unsigned key = (lane > col && lane < 12 && mag == mag)
+                             ? __float_as_uint(mag) + 1u : 0u;
+    const unsigned top = __reduce_max_sync(0xffffffffu, key);
+    int piv = __ffs(__ballot_sync(0xffffffffu, key == top)) - 1;
+    // the serial scan starts from the diagonal and takes a row only when
+    // it is strictly larger
+    const float diag = fabsf(__shfl_sync(0xffffffffu, m[col], col));
+    if (top == 0u || !(__uint_as_float(top - 1u) > diag)) piv = col;
     if (piv != col) {
-      for (int c = 0; c < 12; ++c) {
-        const float t = a[col][c];
-        a[col][c] = a[piv][c];
-        a[piv][c] = t;
-      }
-      const float t = x[col];
-      x[col] = x[piv];
-      x[piv] = t;
+      const int from = lane == col ? piv : (lane == piv ? col : lane);
+#pragma unroll
+      for (int c = 0; c < 12; ++c) m[c] = __shfl_sync(0xffffffffu, m[c], from);
+      x = __shfl_sync(0xffffffffu, x, from);
     }
-    for (int r = col + 1; r < 12; ++r) {
-      const float f = a[r][col] / a[col][col];
-      for (int c = col; c < 12; ++c) a[r][c] = a[r][c] - f * a[col][c];
-      x[r] = x[r] - f * x[col];
+    const float pcol = __shfl_sync(0xffffffffu, m[col], col);
+    const float xcol = __shfl_sync(0xffffffffu, x, col);
+    const float f = m[col] / pcol;
+#pragma unroll
+    for (int c = col; c < 12; ++c) {
+      const float pc = __shfl_sync(0xffffffffu, m[c], col);
+      if (lane > col) m[c] = m[c] - f * pc;
     }
+    if (lane > col) x = x - f * xcol;
   }
+#pragma unroll
   for (int r = 11; r >= 0; --r) {
-    float s = x[r];
-    for (int c = r + 1; c < 12; ++c) s = s - a[r][c] * x[c];
-    x[r] = s / a[r][r];
+    float s = x;
+#pragma unroll
+    for (int c = r + 1; c < 12; ++c) s = s - m[c] * xs[c];
+    xs[r] = __shfl_sync(0xffffffffu, s / m[r], r);
   }
 }
 
-__global__ void lm_pass_b(const float* __restrict__ partials, int nblocks,
-                          const float* __restrict__ prior,
-                          const int32_t* __restrict__ n_res, int freeze_begin,
-                          float* __restrict__ state) {
-  if (state[S_DONE] != 0.0f) return;
-  __shared__ float sums[kSums];
-  for (int v = threadIdx.x; v < kSums; v += blockDim.x) {
-    float s = 0.0f;
-    for (int q = 0; q < nblocks; ++q) s += partials[q * kSums + v];
-    sums[v] = s;
-  }
-  __syncthreads();
-  if (threadIdx.x != 0) return;
+// ------------------------------------------------------------- the loop —
+__global__ void __launch_bounds__(kThreads, 1)
+    lm_loop_kernel(const float* __restrict__ rows, int k, int rows_per_cta,
+                   int on_chip, const float* __restrict__ prior,
+                   const int32_t* __restrict__ n_res, float* state,
+                   int n_steps, float b, int freeze_begin,
+                   int32_t* steps_run) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  extern __shared__ float4 dyn[];
+  Shared& sm = *reinterpret_cast<Shared*>(dyn);
+  float* chunk = reinterpret_cast<float*>(reinterpret_cast<char*>(dyn) +
+                                          (sizeof(Shared) + 15) / 16 * 16);
+  float* srows = chunk + kThreads * kChunkStride;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
 
+  const int r0 = rank * rows_per_cta;
+  const int nrows = max(0, min(rows_per_cta, k - r0));
+  const float* my_rows = rows + static_cast<size_t>(kRow) * r0;
+  if (on_chip) {
+    for (int v = tid; v < nrows * kRow; v += kThreads) srows[v] = my_rows[v];
+    my_rows = srows;
+  }
+  for (int v = tid; v < kStateSize; v += kThreads) sm.state[v] = state[v];
+  if (tid < 78) {
+    int a = 0, s = tid;
+    while (s >= 12 - a) s -= 12 - a++;
+    sm.pair[tid][0] = static_cast<unsigned char>(a);
+    sm.pair[tid][1] = static_cast<unsigned char>(a + s);
+  }
   const float n = fmaxf(static_cast<float>(*n_res), 0.0f);
-  const Pose<Dual> p0 = pose_from<Dual>(state);
-  float pj[10][12];
-  float pr[10];
-  for (int j = 0; j < 12; ++j) {
-    Dual d[12];
-    for (int c = 0; c < 12; ++c) d[c] = Dual{0.0f, c == j ? 1.0f : 0.0f};
-    Dual rr[10];
-    prior_residuals(apply_delta(d, p0), prior, n, rr);
-    for (int q = 0; q < 10; ++q) {
-      pj[q][j] = (freeze_begin && j < 6) ? 0.0f : rr[q].d;
-      pr[q] = rr[q].v;
-    }
-  }
-  float jtj[12][12], jtr[12];
-  int slot = 0;
-  for (int a = 0; a < 12; ++a) {
-    for (int c = a; c < 12; ++c) {
-      float s = sums[slot++];
-      for (int q = 0; q < 10; ++q) s += pj[q][a] * pj[q][c];
-      jtj[a][c] = s;
-      jtj[c][a] = s;
-    }
-  }
-  float prior_cost = 0.0f;
-  for (int q = 0; q < 10; ++q) prior_cost += pr[q] * pr[q];
-  for (int a = 0; a < 12; ++a) {
-    float s = sums[78 + a];
-    for (int q = 0; q < 10; ++q) s += pj[q][a] * pr[q];
-    jtr[a] = s;
-  }
-  if (isnan(state[S_COST0])) state[S_COST0] = sums[90] + prior_cost;
-  for (int a = 0; a < 12; ++a) {
-    state[S_JTR + a] = jtr[a];
-    for (int c = 0; c < 12; ++c) state[S_JTJ + 12 * a + c] = jtj[a][c];
-  }
-
-  // degenerate-column freeze, Jacobi scaling, damping (solver.py:499-518)
-  float maxd = jtj[0][0];
-  for (int a = 1; a < 12; ++a) maxd = fmaxf(maxd, jtj[a][a]);
-  const float thr = 1e-7f * fmaxf(maxd, 1e-12f);
-  bool degen[12];
-  float dsc[12], keep[12];
-  for (int a = 0; a < 12; ++a) {
-    degen[a] = jtj[a][a] <= thr;
-    keep[a] = degen[a] ? 0.0f : 1.0f;
-    dsc[a] = degen[a] ? 1.0f : sqrtf(fmaxf(jtj[a][a], 1e-20f));
-  }
-  const float lam = state[S_LAM];
-  float m[12][12], x[12];
-  for (int a = 0; a < 12; ++a) {
-    for (int c = 0; c < 12; ++c) {
-      float v = jtj[a][c] / (dsc[a] * dsc[c]);
-      v = v * keep[a] * keep[c];
-      if (a == c && degen[a]) v = v + 1.0f;
-      m[a][c] = v;
-    }
-  }
-  for (int a = 0; a < 12; ++a) m[a][a] = (m[a][a] + lam * m[a][a]) + 1e-7f;
-  for (int a = 0; a < 12; ++a) x[a] = -jtr[a] / dsc[a] * keep[a];
-  solve12(m, x);
-  float delta[12];
-  for (int a = 0; a < 12; ++a) {
-    delta[a] = x[a] / dsc[a] * keep[a];
-    state[S_DELTA + a] = delta[a];
-  }
-  const Pose<float> trial = apply_delta(delta, pose_from<float>(state));
-  const float tp[14] = {trial.qb.w, trial.qb.x, trial.qb.y, trial.qb.z,
-                        trial.tb.x, trial.tb.y, trial.tb.z,
-                        trial.qe.w, trial.qe.x, trial.qe.y, trial.qe.z,
-                        trial.te.x, trial.te.y, trial.te.z};
-  for (int a = 0; a < 14; ++a) state[S_TRIAL + a] = tp[a];
-}
-
-// ------------------------------------------------------------- pass C —
-__global__ void lm_pass_c(const float* __restrict__ rows, int k,
-                          const float* __restrict__ state, float b,
-                          float* __restrict__ partials) {
-  if (state[S_DONE] != 0.0f) return;
-  __shared__ float warp_part[kWarps];
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float c = 0.0f;
-  if (i < k && rows[kRow * i + 11] != 0.0f) {
-    const float r = plane_residual(pose_from<float>(state + S_TRIAL),
-                                   rows + kRow * i);
-    c = cauchy_cost(r * r, b);
-  }
-  c = warp_sum(c);
-  if (lane == 0) warp_part[warp] = c;
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.0f;
-    for (int q = 0; q < kWarps; ++q) s += warp_part[q];
-    partials[blockIdx.x] = s;
-  }
-}
 
-// ------------------------------------------------------------- pass D —
-__global__ void lm_pass_d(const float* __restrict__ partials, int nblocks,
-                          const float* __restrict__ prior,
-                          const int32_t* __restrict__ n_res,
-                          float* __restrict__ state) {
-  if (state[S_DONE] != 0.0f) return;
-  float c_pts = 0.0f;
-  for (int q = 0; q < nblocks; ++q) c_pts += partials[q];
-  const Pose<float> trial = pose_from<float>(state + S_TRIAL);
-  float pr[10];
-  prior_residuals(trial, prior, fmaxf(static_cast<float>(*n_res), 0.0f), pr);
-  float prior_cost = 0.0f;
-  for (int q = 0; q < 10; ++q) prior_cost += pr[q] * pr[q];
-  const float cost1 = c_pts + prior_cost;
-  const float cost0 = state[S_COST0];
-  const bool accept = cost1 < cost0;
-  const bool done = accept && (cost0 - cost1 <= 1e-6f * (cost0 + 1e-30f));
-  state[S_COST1] = cost1;
-  if (accept) {
-    for (int a = 0; a < 14; ++a) state[a] = state[S_TRIAL + a];
-  } else {
-    // apply_delta(0): the translations stay, the quaternions renormalise
-    const float zero[12] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f,
-                            0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    const Pose<float> same = apply_delta(zero, pose_from<float>(state));
-    state[0] = same.qb.w;
-    state[1] = same.qb.x;
-    state[2] = same.qb.y;
-    state[3] = same.qb.z;
-    state[7] = same.qe.w;
-    state[8] = same.qe.x;
-    state[9] = same.qe.y;
-    state[10] = same.qe.z;
+#ifdef K5_MARKS
+  const bool timed = rank == 0 && tid == 0;
+  long long phase[kPhases] = {}, t_mark = timed ? clock64() : 0;
+#endif
+  int it = 0;
+  while (it < n_steps && sm.state[S_DONE] == 0.0f) {
+    // ---- a thread a column: the pose's tangent and the slerp setup's
+    // (warp 0), the prior rows' (warp 1, from the same pose tangent)
+    if (lane < 12 && warp < 2) {
+      const int j = lane;
+      Dual1 d[12];
+#pragma unroll
+      for (int c = 0; c < 12; ++c) {
+        d[c] = Dual1{0.0f};
+        if (c == j) d[c].d[0] = 1.0f;
+      }
+      const Pose<Dual1> pd = apply_delta(d, pose_from<Dual1>(sm.state));
+      if (warp == 0) {
+        const Slerp<Dual1> sl = slerp_setup(pd.qb, pd.qe);
+        scatter_tangent(pd, sm.pose_d[j / kTan], j % kTan, 14);
+        scatter_tangent(sl, sm.slerp_d[j / kTan], j % kTan, 10);
+        if (j % kTan == 0) sm.slerp_d[j / kTan].near = sl.near;
+      } else {
+        Dual1 rr[10];
+        prior_residuals(pd, prior, n, rr);
+#pragma unroll
+        for (int q = 0; q < 10; ++q) {
+          sm.pj[q][j] = (freeze_begin && j < 6) ? 0.0f : rr[q].d[0];
+          if (j == 0) sm.pr[q] = rr[q].v;
+        }
+      }
+    }
+    for (int s = tid; s < kSums; s += kThreads) sm.part_a[s] = 0.0f;
+    __syncthreads();
+    MARK(0);
+
+    // ---- 1. rows: residual, Jacobian, weight; sums chunk by chunk
+    for (int base = 0; base < nrows; base += kThreads) {
+      const int i = base + tid;
+      float jac[12], r = 0.0f, w = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 12; ++j) jac[j] = 0.0f;
+      if (i < nrows && my_rows[kRow * i + 11] != 0.0f) {
+        const float* row = my_rows + kRow * i;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (h == 0 && freeze_begin) continue;
+          const Dual6 rj = plane_residual(sm.pose_d[h], sm.slerp_d[h], row);
+#pragma unroll
+          for (int j = 0; j < kTan; ++j) jac[kTan * h + j] = rj.d[j];
+          r = rj.v;
+        }
+        w = 1.0f / (1.0f + (r * r) / b);
+      }
+      float* mine = chunk + tid * kChunkStride;
+#pragma unroll
+      for (int j = 0; j < 12; ++j) mine[j] = jac[j];
+      mine[12] = r;
+      mine[13] = w;
+      __syncthreads();
+      const int len = min(kThreads, nrows - base);
+      for (int s = warp; s < kSums; s += kWarps) {
+        float acc = 0.0f;
+        if (s < 78) {
+          const int a = sm.pair[s][0], c = sm.pair[s][1];
+          for (int q = lane; q < len; q += 32) {
+            const float* cq = chunk + q * kChunkStride;
+            acc += (cq[a] * cq[13]) * cq[c];
+          }
+        } else if (s < 90) {
+          for (int q = lane; q < len; q += 32) {
+            const float* cq = chunk + q * kChunkStride;
+            acc += (cq[s - 78] * cq[13]) * cq[12];
+          }
+        } else {
+          for (int q = lane; q < len; q += 32) {
+            const float* cq = chunk + q * kChunkStride;
+            acc += cauchy_cost(cq[12] * cq[12], b);
+          }
+        }
+        acc = warp_sum(acc);
+        if (lane == 0) sm.part_a[s] += acc;
+      }
+      __syncthreads();
+    }
+    MARK(1);
+    cluster.sync();
+    MARK(2);
+
+    // ---- 2. the cluster's sums (CTA order), then the pose-level work
+    if (tid < kSums) sm.sums[tid] = cluster_sum(cluster, sm.part_a + tid);
+    __syncthreads();
+    MARK(3);
+    if (tid < 78) {
+      const int a = sm.pair[tid][0], c = sm.pair[tid][1];
+      float s = sm.sums[tid];
+#pragma unroll
+      for (int q = 0; q < 10; ++q) s += sm.pj[q][a] * sm.pj[q][c];
+      sm.state[S_JTJ + 12 * a + c] = s;
+      sm.state[S_JTJ + 12 * c + a] = s;
+    } else if (tid < 90) {
+      const int a = tid - 78;
+      float s = sm.sums[tid];
+#pragma unroll
+      for (int q = 0; q < 10; ++q) s += sm.pj[q][a] * sm.pr[q];
+      sm.state[S_JTR + a] = s;
+    } else if (tid == 90) {
+      float prior_cost = 0.0f;
+#pragma unroll
+      for (int q = 0; q < 10; ++q) prior_cost += sm.pr[q] * sm.pr[q];
+      if (isnan(sm.state[S_COST0]))
+        sm.state[S_COST0] = sm.sums[90] + prior_cost;
+    }
+    __syncthreads();
+    MARK(4);
+    if (warp == 0) {
+      // degenerate-column freeze, Jacobi scaling, damping (solver.py:499-518)
+      const float* jtj = sm.state + S_JTJ;
+      float maxd = jtj[0];
+#pragma unroll
+      for (int a = 1; a < 12; ++a) maxd = fmaxf(maxd, jtj[13 * a]);
+      const float thr = 1e-7f * fmaxf(maxd, 1e-12f);
+      bool degen[12];
+      float dsc[12], keep[12];
+#pragma unroll
+      for (int a = 0; a < 12; ++a) {
+        degen[a] = jtj[13 * a] <= thr;
+        keep[a] = degen[a] ? 0.0f : 1.0f;
+        dsc[a] = degen[a] ? 1.0f : sqrtf(fmaxf(jtj[13 * a], 1e-20f));
+      }
+      const float lam = sm.state[S_LAM];
+      const int a = lane < 12 ? lane : 0;
+      float da = 1.0f, ka = 0.0f;
+      bool ga = false;
+#pragma unroll
+      for (int c = 0; c < 12; ++c) {
+        if (c == a) {
+          da = dsc[c];
+          ka = keep[c];
+          ga = degen[c];
+        }
+      }
+      float m[12], xs[12];
+#pragma unroll
+      for (int c = 0; c < 12; ++c) {
+        float v = jtj[12 * a + c] / (da * dsc[c]);
+        v = v * ka * keep[c];
+        if (c == a && ga) v = v + 1.0f;
+        if (c == a) v = (v + lam * v) + 1e-7f;
+        m[c] = lane < 12 ? v : 0.0f;
+      }
+      const float x = lane < 12 ? -sm.state[S_JTR + a] / da * ka : 0.0f;
+      solve12_warp(m, x, xs);
+      if (lane == 0) {
+        MARK(5);
+        float delta[12];
+#pragma unroll
+        for (int c = 0; c < 12; ++c) {
+          delta[c] = xs[c] / dsc[c] * keep[c];
+          sm.state[S_DELTA + c] = delta[c];
+        }
+        const Pose<float> tr = apply_delta(delta, pose_from<float>(sm.state));
+        const float tp[14] = {tr.qb.w, tr.qb.x, tr.qb.y, tr.qb.z,
+                              tr.tb.x, tr.tb.y, tr.tb.z,
+                              tr.qe.w, tr.qe.x, tr.qe.y, tr.qe.z,
+                              tr.te.x, tr.te.y, tr.te.z};
+#pragma unroll
+        for (int c = 0; c < 14; ++c) sm.state[S_TRIAL + c] = tp[c];
+        sm.trial = tr;
+        sm.slerp_trial = slerp_setup(tr.qb, tr.qe);
+      }
+    }
+    __syncthreads();
+    MARK(6);
+
+    // ---- 3. rows: the robust cost at the trial pose; beside them, one
+    // thread: the prior's cost at the trial pose and the pose a rejected
+    // step keeps (apply_delta(0): the translations stay, the quaternions
+    // renormalise)
+    if (tid == 32) {
+      float pr[10];
+      prior_residuals(sm.trial, prior, n, pr);
+      float prior_cost = 0.0f;
+      for (int q = 0; q < 10; ++q) prior_cost += pr[q] * pr[q];
+      sm.trial_prior_cost = prior_cost;
+      const float zero[12] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f,
+                              0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      sm.same = apply_delta(zero, pose_from<float>(sm.state));
+    }
+    float cost = 0.0f;
+    for (int i = tid; i < nrows; i += kThreads) {
+      if (my_rows[kRow * i + 11] != 0.0f) {
+        const float r = plane_residual(sm.trial, sm.slerp_trial,
+                                       my_rows + kRow * i);
+        cost += cauchy_cost(r * r, b);
+      }
+    }
+    cost = warp_sum(cost);
+    if (lane == 0) sm.warp_c[warp] = cost;
+    __syncthreads();
+    if (tid == 0) {
+      float s = 0.0f;
+      for (int q = 0; q < kWarps; ++q) s += sm.warp_c[q];
+      sm.part_c[0] = s;
+    }
+    MARK(7);
+    cluster.sync();
+    MARK(8);
+
+    // ---- 4. accept / reject, lambda, cost0, the pose, done
+    if (tid == 0) {
+      const float c_pts = cluster_sum(cluster, sm.part_c);
+      float* st = sm.state;
+      const float cost1 = c_pts + sm.trial_prior_cost;
+      const float cost0 = st[S_COST0];
+      const bool accept = cost1 < cost0;
+      const bool done = accept && (cost0 - cost1 <= 1e-6f * (cost0 + 1e-30f));
+      st[S_COST1] = cost1;
+      if (accept) {
+        for (int a = 0; a < 14; ++a) st[a] = st[S_TRIAL + a];
+      } else {
+        const Pose<float>& same = sm.same;
+        st[0] = same.qb.w;
+        st[1] = same.qb.x;
+        st[2] = same.qb.y;
+        st[3] = same.qb.z;
+        st[7] = same.qe.w;
+        st[8] = same.qe.x;
+        st[9] = same.qe.y;
+        st[10] = same.qe.z;
+      }
+      const float lam = st[S_LAM];
+      st[S_LAM] = accept ? fmaxf(lam / 3.0f, 1e-8f) : fminf(lam * 4.0f, 1e4f);
+      st[S_COST0] = accept ? cost1 : cost0;
+      st[S_DONE] = done ? 1.0f : 0.0f;
+    }
+    __syncthreads();
+    MARK(9);
+    ++it;
   }
-  const float lam = state[S_LAM];
-  state[S_LAM] = accept ? fmaxf(lam / 3.0f, 1e-8f) : fminf(lam * 4.0f, 1e4f);
-  state[S_COST0] = accept ? cost1 : cost0;
-  state[S_DONE] = done ? 1.0f : 0.0f;
+  // no CTA leaves while another may still read its shared memory
+  cluster.sync();
+  if (rank == 0) {
+    for (int v = tid; v < kStateSize; v += kThreads) state[v] = sm.state[v];
+    if (tid == 0) atomicAdd(steps_run, it);
+  }
+#ifdef K5_MARKS
+  if (timed)
+    for (int k = 0; k < kPhases; ++k) g_marks[k] += phase[k];
+#endif
+}
+#undef MARK
+
+// The shared-memory and non-portable-cluster attributes, once a process.
+int setup() {
+  static bool done = false;
+  if (done) return 0;
+  cudaError_t e = cudaFuncSetAttribute(
+      lm_loop_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kFixedBytes + kRowsOnChip * kRow * 4);
+  if (e == cudaSuccess && kCluster > 8)
+    e = cudaFuncSetAttribute(lm_loop_kernel,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  done = true;
+  return 0;
 }
 
 }  // namespace
 
-extern "C" int k5_lm_step(const void* rows, int k, const void* prior,
-                          const void* n_res, void* state, float sigma,
-                          int freeze_begin, void* partials_a,
-                          void* partials_c, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nb = k > 0 ? (k + kThreads - 1) / kThreads : 1;
-  const float b = sigma * sigma;
-  auto* st = static_cast<float*>(state);
-  auto* pa = static_cast<float*>(partials_a);
-  auto* pc = static_cast<float*>(partials_c);
-  const auto* rw = static_cast<const float*>(rows);
-  const auto* pri = static_cast<const float*>(prior);
-  const auto* nr = static_cast<const int32_t*>(n_res);
-  lm_pass_a<<<nb, kThreads, 0, s>>>(rw, k, st, b, freeze_begin, pa);
-  lm_pass_b<<<1, kThreads, 0, s>>>(pa, nb, pri, nr, freeze_begin, st);
-  lm_pass_c<<<nb, kThreads, 0, s>>>(rw, k, st, b, pc);
-  lm_pass_d<<<1, 1, 0, s>>>(pc, nb, pri, nr, st);
+// The rows the cluster keeps on chip (beyond them the rows are read from
+// global memory).
+extern "C" int k5_rows_on_chip() { return kCluster * kRowsOnChip; }
+
+#ifdef K5_MARKS
+// Copy the cycle marks into `out` (int64 [10], host memory) and zero them.
+extern "C" int k5_read_marks(void* out) {
+  const long long zeros[kPhases] = {};
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_marks, sizeof(zeros));
+  if (e == cudaSuccess) e = cudaMemcpyToSymbol(g_marks, zeros, sizeof(zeros));
+  return static_cast<int>(e);
+}
+#endif
+
+// Up to n_steps LM steps on `state`, in place; adds the steps run to
+// steps_run (int32 [1]).
+extern "C" int k5_lm_loop(const void* rows, int k, const void* prior,
+                          const void* n_res, void* state, int n_steps,
+                          float sigma, int freeze_begin, void* steps_run,
+                          void* stream) {
+  const int err = setup();
+  if (err != 0) return err;
+  const int per_cta = k > 0 ? (k + kCluster - 1) / kCluster : 0;
+  const int on_chip = per_cta <= kRowsOnChip ? 1 : 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = kFixedBytes + (on_chip ? per_cta * kRow * 4 : 0);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = kCluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, lm_loop_kernel, static_cast<const float*>(rows), k, per_cta,
+      on_chip, static_cast<const float*>(prior),
+      static_cast<const int32_t*>(n_res), static_cast<float*>(state), n_steps,
+      sigma * sigma, freeze_begin, static_cast<int32_t*>(steps_run));
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

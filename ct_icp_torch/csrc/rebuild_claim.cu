@@ -59,6 +59,43 @@ __global__ void elect_writer_kernel(int32_t* __restrict__ src, int c,
   atomicMax(src + s.slot[i], i);
 }
 
+__global__ void claim_attempt_kernel(const uint32_t* __restrict__ table,
+                                     unsigned long long* __restrict__ claim,
+                                     int n, uint32_t cap_mask, int r,
+                                     int stamp, cticp::ClaimRows s) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n || s.flags[i] != kValid) return;  // invalid or resolved
+  cticp::claim_attempt(table, claim, i, cap_mask, r, stamp, s);
+}
+
+__global__ void claim_write_kernel(uint32_t* __restrict__ table,
+                                   const unsigned long long* __restrict__ claim,
+                                   int n, uint32_t cap_mask, int r, int stamp,
+                                   cticp::ClaimRows s) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  cticp::claim_write(table, claim, i, cap_mask, r, stamp, s);
+}
+
+// Launch all MAX_PROBES rounds and the final re-read on stream ``st`` with
+// stamps ``stamp`` .. ``stamp + MAX_PROBES``; ``claim`` must hold no word
+// with a smaller stamp than these (all ones after a clear). Returns the next
+// unused stamp.
+int launch_claim_rounds(uint32_t* table, unsigned long long* claim, int n,
+                        uint32_t cap_mask, int stamp, cticp::ClaimRows s,
+                        int blocks, int threads, cudaStream_t st) {
+  for (int r = 0; r < cticp::kMaxProbes; ++r, ++stamp) {
+    claim_attempt_kernel<<<blocks, threads, 0, st>>>(table, claim, n,
+                                                     cap_mask, r, stamp, s);
+    claim_write_kernel<<<blocks, threads, 0, st>>>(table, claim, n, cap_mask,
+                                                   r, stamp, s);
+  }
+  // the re-read of the last round's slot
+  claim_attempt_kernel<<<blocks, threads, 0, st>>>(
+      table, claim, n, cap_mask, cticp::kMaxProbes, stamp, s);
+  return stamp;
+}
+
 }  // namespace
 
 // keys (uint32 bits), count: int32 [c]; points: f32 [c, 3p]; shift: f32 [3]
@@ -86,8 +123,8 @@ extern "C" int k7_rebuild_claim(const void* keys, const void* count,
         static_cast<const uint32_t*>(keys), static_cast<const int32_t*>(count),
         static_cast<const float*>(points), static_cast<const float*>(shift), c,
         p, resolution, s);
-    cticp::launch_claim_rounds(tb, cl, c, static_cast<uint32_t>(c - 1), 0, s,
-                               blocks, threads, st);
+    launch_claim_rounds(tb, cl, c, static_cast<uint32_t>(c - 1), 0, s, blocks,
+                        threads, st);
     elect_writer_kernel<<<blocks, threads, 0, st>>>(static_cast<int32_t*>(src),
                                                     c, s);
   }

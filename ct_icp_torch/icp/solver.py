@@ -12,17 +12,17 @@ path the driving profile runs:
       3. moments + descriptor (kernel K2), the k-NN shell radius cached with
          the rows and recomputed only on regather iterations
       4. geometric weights, the uniform-stride residual cap
-      5. LM inner loop: min(ls_max_num_iters, 64) steps (kernel K5):
-         Jacobian by forward mode through the slerp (as jax.jacfwd), IRLS
-         weights, the Jacobi-preconditioned damped 12x12 solve with the
-         degenerate-column freeze, accept/reject; the function-tolerance
-         exit sets a device flag that turns the later steps into no-ops
+      5. LM inner loop: up to min(ls_max_num_iters, 64) steps in one call
+         of kernel K5: Jacobian by forward mode through the slerp (as
+         jax.jacfwd), IRLS weights, the Jacobi-preconditioned damped 12x12
+         solve with the degenerate-column freeze, accept/reject; the loop
+         ends at the function-tolerance exit, on the device
       6. convergence test on rot/trans deltas
 
 The reference runs this as one XLA program; here the outer loop is a Python
 loop, so its early exit (outer convergence + the next regather decision) is
 one device->host read per ICP iteration: ``RegistrationResult.host_syncs``
-counts them. The LM steps read nothing back.
+counts them. The LM call reads nothing back.
 Dynamic scalars are numpy float32 values, so derived thresholds round as
 the reference's float32 arithmetic does.
 """
@@ -186,11 +186,11 @@ def _build_problem(statics, dyn, level, raw, alphas, valid, qb, tb, qe, te,
 
 def _lm_inner_loop(statics, dyn, raw, alphas, anchors, normals, geom_w, ok,
                    qb, tb, qe, te, prior):
-    """ceres::Solve replacement: exactly min(ls_max_num_iters, 64) damped-GN
-    steps with IRLS weights and accept/reject damping, each step after the
-    function-tolerance exit leaving the state as it is (kernel K5 on the
-    card, kernels/lm_step.py). Nothing is read back per step. Returns (qb,
-    tb, qe, te, cost, n_res, host_syncs)."""
+    """ceres::Solve replacement: up to min(ls_max_num_iters, 64) damped-GN
+    steps with IRLS weights and accept/reject damping, ending at the
+    function-tolerance exit: one ``lm_loop`` call (kernel K5 on the card,
+    kernels/lm_step.py), nothing read back. Returns (qb, tb, qe, te, cost,
+    n_res, host_syncs)."""
     n_steps = min(dyn.ls_max_num_iters, MAX_INNER_ITERS)
     if n_steps < 1:
         raise ValueError("the LM inner loop needs ls_max_num_iters >= 1")
@@ -198,9 +198,8 @@ def _lm_inner_loop(statics, dyn, raw, alphas, anchors, normals, geom_w, ok,
     rows = lm.pack_rows(raw, alphas, anchors, normals, geom_w, ok)
     state = lm.init_state(qb, tb, qe, te)
     freeze_begin = statics.parametrization == PoseParametrization.SIMPLE
-    for _ in range(n_steps):
-        lm.lm_step(rows, prior, n_res, state, statics.loss, dyn.ls_sigma,
-                   dyn.ls_tolerant_min_threshold, freeze_begin)
+    lm.lm_loop(rows, prior, n_res, state, n_steps, statics.loss,
+               dyn.ls_sigma, dyn.ls_tolerant_min_threshold, freeze_begin)
     return (state[0:4], state[4:7], state[7:11], state[11:14],
             state[lm.S_COST0], n_res, 0)
 

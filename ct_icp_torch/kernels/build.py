@@ -46,10 +46,14 @@ def nvcc_path() -> str:
                        "with the CUDA toolkit")
 
 
-def _lib_path(name: str) -> Path:
+def _flags(defines=()):
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def _lib_path(name: str, defines=()) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
     headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
-    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src + headers + " ".join(_flags(defines)).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -58,10 +62,13 @@ def kernel_names():
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def build_all(names) -> None:
+def build_all(names, defines=()) -> None:
     """Compile every missing library of ``names``, one nvcc per source, all
-    started together. Raises with the compiler output on any failure."""
-    todo = [(n, _lib_path(n)) for n in names if not _lib_path(n).exists()]
+    started together; ``defines`` (``"NAME"`` or ``"NAME=value"``) build a
+    variant of each, which the main path never loads. Raises with the
+    compiler output on any failure."""
+    todo = [(n, _lib_path(n, defines)) for n in names
+            if not _lib_path(n, defines).exists()]
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -70,7 +77,8 @@ def build_all(names) -> None:
     t0 = time.time()
     for name, out in todo:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *_flags(defines), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
         procs.append((name, out, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     failed = []
@@ -80,7 +88,8 @@ def build_all(names) -> None:
             failed.append(f"--- {name} ---\n{log}")
             continue
         os.replace(tmp, out)
-        build_info[name] = {"seconds": time.time() - t0, "ptxas": log}
+        build_info[" ".join((name,) + tuple(defines))] = {
+            "seconds": time.time() - t0, "ptxas": log}
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
 
@@ -104,15 +113,15 @@ PTR, INT, LONG, FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                          ctypes.c_float)
 
 
-def launcher(name: str, symbol: str, argtypes):
-    """The C launcher ``symbol`` of ``csrc/<name>.cu`` (built first if
-    needed), with its argument types declared; it returns the
-    ``cudaGetLastError()`` after its launches."""
-    key = (name, symbol)
+def launcher(name: str, symbol: str, argtypes, defines=()):
+    """The C launcher ``symbol`` of ``csrc/<name>.cu`` (of its variant built
+    with ``defines``; built first if needed), with its argument types
+    declared; it returns the ``cudaGetLastError()`` after its launches."""
+    key = (name, symbol, tuple(defines))
     fn = _loaded.get(key)
     if fn is None:
-        build_all([name])
-        fn = getattr(ctypes.CDLL(str(_lib_path(name))), symbol)
+        build_all([name], defines)
+        fn = getattr(ctypes.CDLL(str(_lib_path(name, defines))), symbol)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         _loaded[key] = fn

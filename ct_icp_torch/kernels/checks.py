@@ -13,14 +13,15 @@ CUDA inputs and raises AssertionError on a disagreement. Tolerances:
   * K6 (row gather) and K7 (the rebase's table and writers), and the whole
     ``rebuild_level`` they make up: identical (keys, counts, points,
     normals, flags, num_points);
-  * K5 (LM step), one step from the same state: J^T W J and J^T W r within
-    1e-4 of their largest entry (K rows summed in another order: block
-    shuffles vs BLAS), the trial cost and the cost at delta = 0 within 1e-5
-    relative, delta within 1e-3 of its largest entry (the 12x12 solve
+  * K5 (LM loop), one step from the same state: J^T W J and J^T W r within
+    1e-4 of their largest entry (K rows summed in another order: warp and
+    cluster sums vs BLAS), the trial cost and the cost at delta = 0 within
+    1e-5 relative, delta within 1e-3 of its largest entry (the 12x12 solve
     carries the sums' rounding through a matrix of condition ~1e3 after the
-    Jacobi scaling); the whole loop (the same number of steps) ends within
-    1 mm and 0.01 deg, its accept/reject decisions being free to differ
-    where a trial cost ties the current one within rounding.
+    Jacobi scaling); a whole call (up to the same number of steps, each
+    stopping at done) ends within 1 mm and 0.01 deg, its accept/reject
+    decisions, and so its step count, being free to differ where a trial
+    cost ties the current one within rounding.
 Each returns {"max_abs_err": float} for the float outputs (0 if identical).
 """
 
@@ -168,10 +169,12 @@ def _rel_err(a, b):
 def check_lm_step(rows, prior, n_res, state, sigma, tolerant_a,
                   freeze_begin=False, loop_steps=0):
     """One K5 step and one plain step from copies of ``state``; then, with
-    ``loop_steps``, that many steps of each from ``state``."""
+    ``loop_steps``, one ``lm_loop`` call of that many steps against
+    ``lm_loop_plain`` from ``state`` (each stops at done), with the steps
+    each ran."""
     args = (LeastSquares.CAUCHY, sigma, tolerant_a, freeze_begin)
     a, b = state.clone(), state.clone()
-    k5.lm_step(rows, prior, n_res, a, *args)
+    k5.lm_loop(rows, prior, n_res, a, 1, *args)
     k5.lm_step_plain(rows, prior, n_res, b, *args)
     torch.cuda.synchronize()
     jtj = slice(k5.S_JTJ, k5.S_JTJ + 144)
@@ -192,19 +195,25 @@ def check_lm_step(rows, prior, n_res, state, sigma, tolerant_a,
            "relative": errs}
     if loop_steps:
         a, b = state.clone(), state.clone()
-        for _ in range(loop_steps):
-            k5.lm_step(rows, prior, n_res, a, *args)
-            k5.lm_step_plain(rows, prior, n_res, b, *args)
+        counter = k5.steps_counter(rows.device)
+        before = int(counter[0])
+        k5.lm_loop(rows, prior, n_res, a, loop_steps, *args)
         torch.cuda.synchronize()
+        steps = int(counter[0]) - before
+        plain_steps = k5.lm_loop_plain(rows, prior, n_res, b, loop_steps,
+                                       *args)
         pa, pb = a[0:14].double().cpu().numpy(), b[0:14].double().cpu().numpy()
         d_tr = max(np.linalg.norm(pa[4:7] - pb[4:7]),
                    np.linalg.norm(pa[11:14] - pb[11:14]))
         d_rot = max(s3n.angular_distance_deg(pa[0:4], pb[0:4]),
                     s3n.angular_distance_deg(pa[7:11], pb[7:11]))
         if not (d_tr <= 1e-3 and d_rot <= 1e-2):
-            raise AssertionError(f"lm_step loop: poses {d_tr:.3g} m, "
+            raise AssertionError(f"lm_loop: poses {d_tr:.3g} m, "
                                  f"{d_rot:.3g} deg apart")
-        out["loop"] = {"steps": loop_steps, "d_tr_m": float(d_tr),
-                       "d_rot_deg": float(d_rot),
+        if not 1 <= steps <= loop_steps:
+            raise AssertionError(f"lm_loop ran {steps} of {loop_steps} steps")
+        out["loop"] = {"steps": loop_steps, "steps_run": steps,
+                       "plain_steps_run": plain_steps,
+                       "d_tr_m": float(d_tr), "d_rot_deg": float(d_rot),
                        "done": (float(a[k5.S_DONE]), float(b[k5.S_DONE]))}
     return out

@@ -1,29 +1,30 @@
-"""K5 lm_step: one Levenberg-Marquardt step of the CT-ICP inner loop, its
-state kept in a device tensor.
+"""K5 lm_step: the Levenberg-Marquardt inner loop of CT-ICP, its state kept
+in a device tensor.
 
-Replaces the body of ``ct_icp_tpu/icp/solver.py:452-534``
-(``_lm_inner_loop``) for the CERES / ball-neighbourhood / point-to-plane /
-Cauchy / CONTINUOUS_TIME statics of the driving and robust profiles. Kernel:
-``csrc/lm_step.cu`` — four launches a step (rows: Jacobian by forward mode
-and the J^T W J / J^T W r block sums; one block: the prior rows, the damped
-12x12 solve, the trial pose; rows: the trial cost; one thread: accept or
-reject, lambda, cost0, pose, ``done``), none of which is read back, so a
-loop of N steps is enqueued at once. Bound on the card: launches, not bytes
-(a few hundred KB and ~10 Mflop a step at K = 4096).
+Replaces ``ct_icp_tpu/icp/solver.py:418-539`` (``_lm_inner_loop``) for the
+CERES / ball-neighbourhood / point-to-plane / Cauchy / CONTINUOUS_TIME
+statics of the driving and robust profiles. :func:`lm_loop` runs every step
+of one LM call, up to ``done``, in one launch of ``csrc/lm_step.cu``: a
+thread-block cluster of 16 CTAs that keep the rows in shared memory for the
+call, sum the step's normal equations over the cluster's distributed shared
+memory, and each do the prior rows, the damped 12x12 solve (one warp) and
+accept/reject. Nothing is read back. Bound on the card: the serial chain of
+a step (two cluster barriers, the solve), not bytes (a few hundred KB a
+call) or operations (~3 Mflop a step at K = 3,000).
 
 The step's state, ``STATE_SIZE`` floats (see ``init_state``):
   0:14 pose (qb, tb, qe, te)   14 lambda   15 cost0 (NaN before the first
   step)   16 done   17 the step's trial cost   18:30 delta
   30:44 trial pose   44:56 J^T W r   56:200 J^T W J (12 x 12)
-Every step after ``done`` leaves the state as it is.
+A step after ``done`` would leave the state as it is; the loop stops there.
 
 The problem rows are packed as f32[K, 12]: raw (3), alpha, anchor (3),
 normal (3), geometric weight, ok (1.0 / 0.0) — see ``pack_rows``.
 
-A CPU tensor takes :func:`lm_step_plain` (the Jacobian by forward mode
-through the same residual functions, ``core/dual.py``, and
-``torch.linalg.solve``: the port's loop body in the kernel's masked form); a
-CUDA tensor launches the kernel or raises.
+A CPU tensor takes :func:`lm_loop_plain` (:func:`lm_step_plain` until
+``done``: the Jacobian by forward mode through the same residual functions,
+``core/dual.py``, and ``torch.linalg.solve``); a CUDA tensor launches the
+kernel or raises.
 """
 
 import torch
@@ -38,10 +39,11 @@ STATE_SIZE = 200
 S_LAM, S_COST0, S_DONE, S_COST1 = 14, 15, 16, 17
 S_DELTA, S_TRIAL, S_JTR, S_JTJ = 18, 30, 44, 56
 ROW = 12
-_THREADS = 128        # threads per block of the kernel's row passes
 
-# launches of the CUDA kernel by lm_step, one per step (reset freely)
+# launches of the CUDA kernel by lm_loop, one per call (reset freely)
 launches = 0
+# per device, the steps lm_loop ran (see steps_counter)
+_steps = {}
 
 
 def init_state(qb, tb, qe, te):
@@ -79,8 +81,8 @@ def residual_vector(delta, state, rows, prior, n_res, m=s3):
 
 def lm_step_plain(rows, prior, n_res, state, loss: LeastSquares, sigma,
                   tolerant_a, freeze_begin: bool):
-    """Plain PyTorch version of :func:`lm_step`, in place on ``state``: a
-    step after ``done`` leaves the state as it is."""
+    """Plain PyTorch version of one step of :func:`lm_loop`, in place on
+    ``state``: a step after ``done`` leaves the state as it is."""
     # the rows that are not ok add exact zeros to every sum: drop them
     rows = rows[rows[:, 11] != 0]
     k = rows.shape[0]
@@ -140,41 +142,85 @@ def lm_step_plain(rows, prior, n_res, state, loss: LeastSquares, sigma,
     state.copy_(torch.where(state[S_DONE] != 0, state, new))
 
 
-def lm_step(rows, prior, n_res, state, loss: LeastSquares, sigma,
-            tolerant_a, freeze_begin: bool):
-    """One LM step of the problem ``rows`` (f32[K, 12], see ``pack_rows``)
-    with the packed motion prior ``prior`` f32[14] and ``n_res`` (0-dim
-    int32, the kept rows) on ``state`` f32[STATE_SIZE], in place."""
+def lm_loop_plain(rows, prior, n_res, state, n_steps: int,
+                  loss: LeastSquares, sigma, tolerant_a, freeze_begin: bool):
+    """Plain PyTorch version of :func:`lm_loop`: ``lm_step_plain`` until
+    ``done`` or ``n_steps`` steps, the reference's while loop (it reads
+    ``done`` back each step). Returns the number of steps run."""
+    steps = 0
+    while steps < n_steps and not bool(state[S_DONE] != 0):
+        lm_step_plain(rows, prior, n_res, state, loss, sigma, tolerant_a,
+                      freeze_begin)
+        steps += 1
+    return steps
+
+
+def steps_counter(device):
+    """The int32[1] tensor on ``device`` to which every :func:`lm_loop`
+    call adds the steps it ran (on the card, the kernel adds them). Only the
+    checks read it; the main path never does."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    t = _steps.get(dev)
+    if t is None:
+        t = _steps[dev] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return t
+
+
+def reset_steps():
+    """Zero every device's steps counter."""
+    for t in _steps.values():
+        t.zero_()
+
+
+def lm_loop(rows, prior, n_res, state, n_steps: int, loss: LeastSquares,
+            sigma, tolerant_a, freeze_begin: bool):
+    """Up to ``n_steps`` LM steps of the problem ``rows`` (f32[K, 12], see
+    ``pack_rows``) with the packed motion prior ``prior`` f32[14] and
+    ``n_res`` (0-dim int32, the kept rows) on ``state`` f32[STATE_SIZE], in
+    place, stopping at ``done``: one launch on the card, nothing read
+    back."""
     if rows.device.type == "cpu":
-        # a step after done would leave the state as it is: on the CPU,
-        # where reading the state is no device sync, skip it
-        if bool(state[S_DONE] != 0):
-            return
-        return lm_step_plain(rows, prior, n_res, state, loss, sigma,
-                             tolerant_a, freeze_begin)
+        steps = lm_loop_plain(rows, prior, n_res, state, n_steps, loss,
+                              sigma, tolerant_a, freeze_begin)
+        steps_counter(rows.device).add_(steps)
+        return
     global launches
-    dev = rows.device
-    if dev.type != "cuda":
-        raise ValueError(f"lm_step: no kernel for {dev}")
-    if loss != LeastSquares.CAUCHY:
-        raise NotImplementedError(f"lm_step: the kernel has the Cauchy loss "
-                                  f"only, got {loss}")
-    k = rows.shape[0]
-    build.check_tensor(rows, torch.float32, (k, ROW), "lm_step", "rows", dev)
-    build.check_tensor(prior, torch.float32, (14,), "lm_step", "prior", dev)
-    build.check_tensor(n_res, torch.int32, (), "lm_step", "n_res", dev)
-    build.check_tensor(state, torch.float32, (STATE_SIZE,), "lm_step",
-                       "state", dev)
-    nb = max((k + _THREADS - 1) // _THREADS, 1)
-    part_a = torch.empty((nb, 91), dtype=torch.float32, device=dev)
-    part_c = torch.empty((nb,), dtype=torch.float32, device=dev)
-    fn = build.launcher("lm_step", "k5_lm_step", _ARGTYPES)
-    status = fn(build.ptr(rows), k, build.ptr(prior), build.ptr(n_res),
-                build.ptr(state), float(sigma), int(bool(freeze_begin)),
-                build.ptr(part_a), build.ptr(part_c), build.stream_of(rows))
-    build.check_status(status, "lm_step")
+    launch(rows, prior, n_res, state, n_steps, loss, sigma, freeze_begin)
     launches += 1
 
 
+def launch(rows, prior, n_res, state, n_steps: int, loss: LeastSquares,
+           sigma, freeze_begin: bool, defines=()):
+    """One launch of ``csrc/lm_step.cu`` on CUDA tensors, counted by no
+    launch counter; ``defines`` pick a measurement variant of the kernel
+    (``tools/exp_lm_loop.py``), none the main path's."""
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"lm_loop: no kernel for {dev}")
+    if loss != LeastSquares.CAUCHY:
+        raise NotImplementedError(f"lm_loop: the kernel has the Cauchy loss "
+                                  f"only, got {loss}")
+    k = rows.shape[0]
+    build.check_tensor(rows, torch.float32, (k, ROW), "lm_loop", "rows", dev)
+    build.check_tensor(prior, torch.float32, (14,), "lm_loop", "prior", dev)
+    build.check_tensor(n_res, torch.int32, (), "lm_loop", "n_res", dev)
+    build.check_tensor(state, torch.float32, (STATE_SIZE,), "lm_loop",
+                       "state", dev)
+    fn = build.launcher("lm_step", "k5_lm_loop", _ARGTYPES, defines)
+    status = fn(build.ptr(rows), k, build.ptr(prior), build.ptr(n_res),
+                build.ptr(state), int(n_steps), float(sigma),
+                int(bool(freeze_begin)), build.ptr(steps_counter(dev)),
+                build.stream_of(rows))
+    build.check_status(status, "lm_loop")
+
+
+def rows_on_chip():
+    """The rows the kernel's cluster keeps in shared memory; it reads the
+    rows of a larger problem from global memory."""
+    return build.launcher("lm_step", "k5_rows_on_chip", ())()
+
+
 _ARGTYPES = (build.PTR, build.INT, build.PTR, build.PTR, build.PTR,
-             build.FLOAT, build.INT, build.PTR, build.PTR, build.PTR)
+             build.INT, build.FLOAT, build.INT, build.PTR, build.PTR)

@@ -4,10 +4,15 @@ Replaces the body of ``ct_icp_tpu/mapping/voxel_map.py::insert_points``
 with ``with_normals=False`` (:366-522): ``_resolve_or_claim_slots``
 (:198-305), the min-distance check, ``_elect_ranks`` (:327-363), the planar
 scatter, the count add and ``num_points``. Kernel: ``csrc/map_insert.cu`` —
-one thread per point, two launches per claim or election round, arbitration
-by ``atomicMin`` of the point index (bit-exact with the reference's
-scatter-min). Bound on the card: bytes of the min-distance check (the rows
-of every point's voxel); the rounds are launch-bound at driving sizes.
+one cooperative launch per insert, grid-stride loops with a grid barrier
+between phases (two a claim round, one an election round), the claimants
+and the eligible points compacted into lists, the reference's early exits
+from the claim and election rounds, arbitration by ``atomicMin`` of the
+point index (bit-exact with the reference's scatter-min). The claim words and a small control block (the
+next stamp, the round counters) persist per device and capacity
+(:func:`_claim_buffers`), so no call clears the claim words. Bound on the
+card: bytes of the min-distance check (the rows of every point's voxel);
+the rounds' grid barriers set the time at driving sizes.
 
 Unlike the reference (a pure function), both versions update the level's
 tensors in place: the map is ~100 MB and every frame rewrites a few rows.
@@ -26,10 +31,13 @@ from ct_icp_torch.ops import voxel as vx
 EMPTY, TOMB = 0, 1
 MAX_PROBES = 16
 _BIG = 2 ** 62
-_SCRATCH_ROWS = 7    # slot, hash, key, flags, ecount, rank, attempt
+# slot, hash, key, flags, ecount, rank, attempt, list
+_SCRATCH_ROWS = 8
 
 # launches of the CUDA kernel by map_insert (reset freely by callers)
 launches = 0
+# (device, capacity) -> (claim words int64 [2C], control block int32)
+_claim_state = {}
 
 
 def min_dist_sq(min_dist: float) -> float:
@@ -143,6 +151,19 @@ def map_insert_plain(keys, count, points, num_points, pts, valid,
     return inserted
 
 
+def _claim_buffers(dev, c: int):
+    """The claim words (all ones at first) and the control block (zeros)
+    the kernel keeps from call to call for tables of ``c`` slots on
+    ``dev``: every call takes new stamps, so no call clears the words."""
+    bufs = _claim_state.get((dev, c))
+    if bufs is None:
+        n_ctrl = build.launcher("map_insert", "k3_ctrl_ints", ())()
+        bufs = _claim_state[(dev, c)] = (
+            torch.full((2 * c,), -1, dtype=torch.int64, device=dev),
+            torch.zeros((n_ctrl,), dtype=torch.int32, device=dev))
+    return bufs
+
+
 def map_insert(keys, count, points, num_points, pts, valid,
                resolution: float, min_dist: float, max_rounds: int):
     """Insert ``pts`` f32[N, 3] (where ``valid`` bool[N]) into the level
@@ -171,18 +192,18 @@ def map_insert(keys, count, points, num_points, pts, valid,
             (valid, torch.bool, (n,), "valid")):
         build.check_tensor(t, dtype, shape, "map_insert", name, dev)
     scratch = torch.empty((_SCRATCH_ROWS * n,), dtype=torch.int32, device=dev)
-    claim = torch.empty((c,), dtype=torch.int64, device=dev)
+    claim, ctrl = _claim_buffers(dev, c)
     inserted = torch.empty((1,), dtype=torch.int32, device=dev)
     fn = build.launcher("map_insert", "k3_map_insert", _ARGTYPES)
     status = fn(build.ptr(keys), build.ptr(count), build.ptr(points),
                 build.ptr(num_points), build.ptr(pts), build.ptr(valid), n, c,
                 row_len // 3, float(resolution), min_dist_sq(min_dist),
                 int(max_rounds), build.ptr(scratch), build.ptr(claim),
-                build.ptr(inserted), build.stream_of(pts))
+                build.ptr(ctrl), build.ptr(inserted), build.stream_of(pts))
     build.check_status(status, "map_insert")
     launches += 1
     return inserted
 
 
 _ARGTYPES = (build.PTR,) * 6 + (build.INT,) * 3 + (build.FLOAT,) * 2 \
-    + (build.INT,) + (build.PTR,) * 4
+    + (build.INT,) + (build.PTR,) * 5

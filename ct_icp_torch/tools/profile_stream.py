@@ -4,10 +4,15 @@
     python3 -m ct_icp_torch.tools.profile_stream --robust [--frames 48] \
         [--batch 8]
     python3 -m ct_icp_torch.tools.profile_stream --long [--frames 128]
+    python3 -m ct_icp_torch.tools.profile_stream --escalation [--frames 48]
 
 Runs ``Odometry(default_driving_profile())`` over the synthetic corridor
 (seed 3), or with ``--robust`` ``Odometry(robust_driving_profile())`` over
-the robust gate's 8 m/s corridor, or with ``--long`` the driving profile
+the robust gate's 8 m/s corridor, or with ``--escalation`` the robust
+profile with 3 attempts over the escalation gate's scene (a yaw jolt over
+frames 18-24, a speed surge over 40-48: the profiled last batch is the
+surge, whose frames exhaust their attempts), or with ``--long`` the
+driving profile
 over the first frames of the 500-frame urban drive (seed 7, the rebase
 distance at 100 m, so that the batch of frames 112-127 holds the first
 rebase), with ``stream_frames(batch)``, and profiles the last batch with
@@ -23,6 +28,7 @@ are not attributed to a range; chip_smoke.py times those).
 
 import argparse
 import collections
+import dataclasses
 import functools
 import json
 import os
@@ -71,11 +77,12 @@ def main():
     path = ap.add_mutually_exclusive_group()
     path.add_argument("--robust", action="store_true")
     path.add_argument("--long", action="store_true")
+    path.add_argument("--escalation", action="store_true")
     args = ap.parse_args()
     if args.frames is None:
         args.frames = 128 if args.long else 48
     if args.batch is None:
-        args.batch = 8 if args.robust else 16
+        args.batch = 8 if args.robust or args.escalation else 16
     if not torch.cuda.is_available():
         raise SystemExit("profile_stream: needs an NVIDIA GPU")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -94,6 +101,10 @@ def main():
         if args.robust:
             traj = cor.robust_corridor_trajectory(args.frames)
             odo = Odometry(robust_driving_profile())
+        elif args.escalation:
+            traj = cor.escalation_trajectory(args.frames)
+            odo = Odometry(dataclasses.replace(robust_driving_profile(),
+                                               robust_num_attempts=3))
         else:
             traj = cor.straight_trajectory(400, args.frames * 0.1 + 0.5)
             odo = Odometry(default_driving_profile())
@@ -135,6 +146,7 @@ def main():
     top = sorted(host_ops, key=lambda e: -e.self_cpu_time_total)[:12]
     out = dict(
         card=card, profile=("robust" if args.robust else
+                            "escalation" if args.escalation else
                             "long" if args.long else "driving"),
         frames=len(last), batch=args.batch,
         first_frame=last[0]["info"].registered_fid,

@@ -1,5 +1,5 @@
 """How the port's measurement scripts time a call on the card and bound it
-(``chip_smoke.py``, ``tools/exp_gather.py``).
+(``chip_smoke.py``, ``tools/exp_gather.py``, ``tools/exp_lm_loop.py``).
 
 A bound is the least time the card could take for a function: the larger
 of the bytes it must move over the HBM rate and its float32 operations over
@@ -105,3 +105,30 @@ def time_cold(fn, reps=20):
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / reps, how
+
+
+def time_graph(reset, fn, reps=20):
+    """Mean device ms of ``fn()`` captured once in a CUDA graph and replayed
+    between two events, ``reset()`` (which restores the state ``fn``
+    updates) run before each replay outside them. Returns (ms, method)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        reset()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    total = 0.0
+    for _ in range(reps):
+        reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps, "cuda-graph"

@@ -1,4 +1,5 @@
-"""CUDA kernels K1-K7 against their plain PyTorch versions, on the card.
+"""CUDA kernels K1-K7 against their plain PyTorch versions, on the card
+(K5 as one launch per LM call, K3 as one launch per insert).
 
 Needs an NVIDIA GPU and nvcc (the kernels build from ct_icp_torch/csrc at
 first use); skips elsewhere. Run on a machine with the card (this file needs
@@ -13,8 +14,9 @@ import numpy as np
 import pytest
 import torch
 
-from ct_icp_torch.kernels import checks
+from ct_icp_torch.kernels import build, checks
 from ct_icp_torch.kernels import lm_step as k5
+from ct_icp_torch.kernels import map_insert as k3
 from ct_icp_torch.mapping import voxel_map as vm
 
 pytestmark = pytest.mark.gpu
@@ -96,6 +98,76 @@ def test_map_insert_matches_plain(cuda, max_rounds):
     assert out["inserted"] > 0
 
 
+@pytest.mark.parametrize("max_rounds", [4, 12])
+@pytest.mark.parametrize("case", ["empty", "cruise", "crowded"])
+def test_map_insert_one_launch_matches_plain(cuda, case, max_rounds):
+    """The one-launch insert bit for bit: an empty map (every point
+    claims), a cruise frame (a warm map, most points resolved by the
+    lookup) and a 2^8 table crowded past its probe chains, with tombstones
+    from prune_level (several claim rounds; some points stay unresolved)."""
+    rng = np.random.default_rng(5)
+    if case == "empty":
+        level = vm.make_level(14, 30, cuda)
+        pts = _scene(rng, 6000)
+    elif case == "cruise":
+        level = _warm_level(rng, cuda)
+        pts = _scene(rng, 6000) + np.float32(0.03)
+    else:
+        level = _warm_level(rng, cuda, cap_log2=8)
+        vm.prune_level(level, torch.zeros(3, device=cuda), 12.0)
+        assert int((level.keys == 1).sum()) > 0          # tombstones
+        pts = _scene(rng, 3000)
+    pts = torch.from_numpy(pts).to(cuda)
+    valid = torch.from_numpy(rng.uniform(size=pts.shape[0]) < 0.95).to(cuda)
+    launches = k3.launches
+    for _ in range(2):      # the second call runs on the first's stamps
+        out = checks.check_map_insert(level, pts, valid, 0.8, 0.1,
+                                      max_rounds)
+        assert out["inserted"] > 0
+        vm.insert_points(level, pts, valid, 0.8, 0.1, max_rounds)
+        pts = pts + 0.05
+    assert k3.launches == launches + 4
+
+
+@pytest.mark.parametrize("max_rounds", [4, 12])
+def test_map_insert_across_stamp_wrap(cuda, max_rounds):
+    """Inserts on either side of the claim stamp's wrap, bit for bit. The
+    stamp starts just below its limit: the first call ends past it, so the
+    second finds claim words whose stamps beat every stamp after the wrap
+    (the first call's election words lie on the slots it claims again),
+    clears them and starts again from stamp 0."""
+    rng = np.random.default_rng(13)
+    level = _warm_level(rng, cuda, cap_log2=12)
+    mine = [t.clone() for t in (level.keys, level.count, level.points,
+                                level.num_points)]
+    ref = [t.clone() for t in mine]
+    # the kernel's own buffers: map_insert keys them by its points' device
+    claim, ctrl = k3._claim_buffers(level.keys.device, level.capacity)
+    limit = build.launcher("map_insert", "k3_stamp_limit", ())()
+    per_call = k3.MAX_PROBES + max_rounds
+    start = limit - per_call + 1
+
+    def stamps():      # the stamp of each claim word (0: all ones)
+        return 0xFFFFFFFF - ((claim >> 32) & 0xFFFFFFFF)
+
+    ctrl[0] = start
+    for call, after in enumerate((limit + 1, per_call, 2 * per_call)):
+        if call == 1:
+            assert int((stamps() >= start).sum()) > 0
+        pts = torch.from_numpy(_scene(rng, 3000)).to(cuda)
+        valid = torch.from_numpy(rng.uniform(size=pts.shape[0]) < 0.95).to(
+            cuda)
+        n_a = k3.map_insert(*mine, pts, valid, 0.8, 0.1, max_rounds)
+        n_b = k3.map_insert_plain(*ref, pts, valid, 0.8, 0.1, max_rounds)
+        torch.cuda.synchronize()
+        for x, y in zip(mine + [n_a], ref + [n_b]):
+            assert torch.equal(x, y)
+        assert int(n_a[0]) > 0
+        assert int(ctrl[0]) == after
+        if call == 1:
+            assert int(stamps().max()) < per_call
+
+
 @pytest.mark.parametrize("table_log2, capacity, n", [
     (22, 4096, 65536), (22, 512, 20000), (21, 1024, 4096), (10, 4096, 3000),
     (22, 4096, 0)])
@@ -137,6 +209,31 @@ def test_lm_step_matches_plain(cuda, moving, freeze_begin):
     out = checks.check_lm_step(rows, prior, n_res, state, np.float32(0.2),
                                np.float32(0.05), freeze_begin, loop_steps=20)
     assert out["loop"]["steps"] == 20
+
+
+@pytest.mark.parametrize("n_steps", [1, 3, 20])
+@pytest.mark.parametrize("moving", [False, True])
+@pytest.mark.parametrize("freeze_begin", [False, True])
+def test_lm_loop_matches_plain(cuda, moving, freeze_begin, n_steps):
+    rng = np.random.default_rng(11)
+    rows, prior, n_res, state = _lm_problem(rng, cuda, 2941, moving)
+    launches = k5.launches
+    out = checks.check_lm_step(rows, prior, n_res, state, np.float32(0.2),
+                               np.float32(0.05), freeze_begin,
+                               loop_steps=n_steps)
+    assert k5.launches == launches + 2          # the step, then the call
+    assert out["loop"]["steps_run"] <= n_steps
+
+
+def test_lm_loop_rows_beyond_shared_memory(cuda):
+    """A problem larger than the cluster keeps on chip: its rows are read
+    from global memory."""
+    rng = np.random.default_rng(12)
+    k = k5.rows_on_chip() + 1000
+    rows, prior, n_res, state = _lm_problem(rng, cuda, k, True)
+    out = checks.check_lm_step(rows, prior, n_res, state, np.float32(0.2),
+                               np.float32(0.05), False, loop_steps=20)
+    assert out["loop"]["steps_run"] >= 1
 
 
 @pytest.mark.parametrize("w, dtype, with_sub", [

@@ -137,10 +137,10 @@ def test_forward_mode_jacobian_equals_jacfwd(pose_name):
     assert want[:, 0:6].abs().max() > 0 and want[:, 6:].abs().max() > 0
 
 
-def test_solver_loop_runs_the_step_and_reads_nothing():
-    """solver._lm_inner_loop: exactly min(ls_max_num_iters, 64) steps,
-    no host sync reported; the step's wrapper takes the plain version on
-    the CPU and launches no kernel."""
+def test_solver_loop_runs_the_step_and_reads_nothing(monkeypatch):
+    """solver._lm_inner_loop: one lm_loop call of min(ls_max_num_iters, 64)
+    steps that stops at done, no host sync reported; the wrapper takes the
+    plain version on the CPU and launches no kernel."""
     statics, dyn, raw, alphas, prob, pose, prior = _problem("moving")
     rows, state, n_res, tprior = _port_inputs(dyn, raw, alphas, prob, pose,
                                               prior)
@@ -150,12 +150,24 @@ def test_solver_loop_runs_the_step_and_reads_nothing():
         [np.asarray(getattr(dyn, f)) for f in dyn._fields], np.float32))
     tstat = tslv.SolverStatics(num_keypoints=raw.shape[0], max_neighbors=20,
                                level_index=0, voxel_neighborhood=2)
+    calls = []
+    loop = lm.lm_loop
+
+    def count_calls(*args, **kwargs):
+        calls.append(args[4])                     # n_steps
+        return loop(*args, **kwargs)
+
+    monkeypatch.setattr(lm, "lm_loop", count_calls)
     before = lm.launches
+    steps_before = int(lm.steps_counter("cpu")[0])
     out = tslv._lm_inner_loop(tstat, tdyn, t(raw), t(alphas), t(anchors),
                               t(normals), t(geom_w), t(ok),
                               *(t(x) for x in pose), tprior)
     assert lm.launches == before and out[-1] == 0
+    assert calls == [LS_STEPS]
     ref = _run_port(dyn, rows, state, n_res, tprior, early_exit=True)
+    steps = int(lm.steps_counter("cpu")[0]) - steps_before
+    assert 1 <= steps < LS_STEPS
     assert torch.equal(torch.cat(out[:4]), ref[0:14])
     assert torch.equal(out[4], ref[lm.S_COST0])
     with pytest.raises(ValueError):
