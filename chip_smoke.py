@@ -14,10 +14,12 @@ when either is missing. Phases; any failure raises and exits non-zero:
      ptxas's register / shared-memory / spill lines (and keep each entry's
      registers and spills for the kernels line);
   3. each kernel against its plain PyTorch version on the card
-     (tolerances: ct_icp_torch/kernels/checks.py), then the kernel's, the
-     plain version's and, for K1, the library gather's time by CUDA
-     events: at the driving profile's shapes (K1-K3, K5), and at the
-     robust profile's (K1 with its 48-of-125 voxel compaction, K2, K3 at
+     (tolerances: ct_icp_torch/kernels/checks.py), then the kernel's and
+     the plain version's time by CUDA events: at the driving profile's
+     shapes (K1-K3, K5), and at the robust profile's (K1 with its
+     48-of-125 voxel compaction, K2 fresh and with a cached radius, each
+     with the work its bound counts: K1's distinct key windows probed and
+     slots found, K2's distinct live map points and rows read, K3 at
      P = 40 and C = 2^19, K4 on a robust corridor frame's sub-sample at
      1.0 m with a 2^22 table and in the Pallas configuration). K5 is held
      on the first LM call of real frames as the per-frame path gives it
@@ -109,6 +111,7 @@ from ct_icp_torch.odometry import pipeline as pl
 from ct_icp_torch.odometry.odometry import PRUNE_PERIOD, Odometry
 from ct_icp_torch.ops import voxel as vx
 from ct_icp_torch.tools.exp_gather import k6_bytes
+from ct_icp_torch.tools.exp_moments import k2_bytes, live_work
 from ct_icp_torch.tools.timing import (HBM_BYTES_PER_S, bound, time_cold,
                                        time_graph, time_stateless)
 
@@ -159,6 +162,13 @@ KERNELS = {
         module=k7, source="ct_icp_torch/csrc/rebuild_claim.cu",
         replaces="ct_icp_tpu/mapping/voxel_map.py:619"),
 }
+# a kernel record's further times and work counts, copied to the kernels
+# line where present
+WORK_KEYS = ("host_ms", "warm_ms", "library_warm_ms", "step_ms",
+             "ms_per_step", "steps_run", "step_bound_ms",
+             "device_ops_per_call", "cached_ms", "group", "live",
+             "points_read", "rows_read", "per_query_bytes", "key_windows",
+             "slots_found")
 # the kernels of the first three paths (the rebase runs on none of them)
 K1_K5 = ["candidate_gather", "plane_moments", "map_insert", "grid_sample",
          "lm_step"]
@@ -258,67 +268,76 @@ def _warm_level(dev, res, prep):
 
 
 def _kernel_k1(dev, level, res, q, nv, thr, max_c, tag):
-    """K1 against its plain version and timed, at one shape."""
+    """K1 against its plain version and timed, at one shape. Returns its
+    record and its (slots, cnt_ok)."""
     m = q.shape[0]
     qv = torch.ones(m, dtype=torch.bool, device=dev)
     err = checks.check_candidate_gather(level, q, qv, res.resolution, nv, thr,
                                         max_c)
-    args = (level.keys, level.count, level.points, q, qv, res.resolution, nv,
-            thr, max_c)
+    args = (level.keys, level.count, q, qv, res.resolution, nv, thr, max_c)
     ms, how = time_stateless(lambda: k1.candidate_gather(*args))
     plain_ms, _ = time_stateless(lambda: k1.candidate_gather_plain(*args))
-    rows, cnt = k1.candidate_gather(*args)
+    slots, cnt = k1.candidate_gather(*args)
     cand = (vx.voxel_coords(q, res.resolution)[:, None, :]
             + k1.neighbor_offsets(nv, dev)[None])
-    slots, _ = k1.find_slots_with_count(level.keys, level.count, cand)
-    flat = torch.clamp_min(slots.reshape(-1), 0).contiguous()
-    lib_ms, _ = time_stateless(lambda: level.points.index_select(0, flat))
-    o_out = rows.shape[1]
+    found, _ = k1.find_slots_with_count(level.keys, level.count, cand)
+    o_out = slots.shape[1]
     n_vox = torch.unique(vx.voxel_hash_u32(cand.reshape(-1, 3))).numel()
-    n_rows = torch.unique(flat).numel()
-    row_b = level.points.shape[1] * 4
-    # every probed voxel's keys once, every distinct row once, every output
-    # row and count once
-    n_bytes = (m * 13 + n_vox * 32 + n_rows * (row_b + 4)
-               + m * o_out * (row_b + 4))
+    n_found = torch.unique(found[found >= 0]).numel()
+    # the queries (and their validity), every distinct probed voxel's key
+    # window once, every distinct found slot's count once, 8 B written per
+    # output pair
+    n_bytes = m * 13 + n_vox * 32 + n_found * 4 + m * o_out * 8
     log(f"K1 candidate_gather {tag} M={m} O={cand.shape[1]}->{o_out}: "
-        f"identical to plain; {ms:.4f} ms ({how}), plain {plain_ms:.4f} ms, "
-        f"index_select of all {flat.numel()} rows {lib_ms:.4f} ms")
+        f"identical to plain; {ms:.4f} ms ({how}), plain {plain_ms:.4f} ms; "
+        f"{n_vox} distinct key windows probed, {n_found} distinct slots "
+        f"found, {n_bytes} bytes")
     return dict(max_abs_err=err["max_abs_err"], ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bytes=n_bytes, ops=0.0, timing=how,
+                library_ms=None, bytes=n_bytes, ops=0.0, timing=how,
+                key_windows=n_vox, slots_found=n_found,
                 shape=f"M={m} O={cand.shape[1]}->{o_out} "
-                      f"3P={level.points.shape[1]} C={level.capacity}"), \
-        (rows, cnt)
+                      f"C={level.capacity}"), (slots, cnt)
 
 
-def _kernel_k2(q, rows, cnt, radius, k_nearest, tag):
+def _kernel_k2(level, q, slots, cnt, radius, k_nearest, tag):
     m = q.shape[0]
     q2 = q + 0.02
-    err_f = checks.check_plane_moments(rows, cnt, q2, radius, k_nearest)
-    fresh = k2.plane_moments_plain(rows, cnt, q2, radius, k_nearest)
-    err_c = checks.check_plane_moments(rows, cnt, q, radius, k_nearest,
+    pts = level.points
+    err_f = checks.check_plane_moments(pts, slots, cnt, q2, radius,
+                                       k_nearest)
+    fresh = k2.plane_moments_plain(pts, slots, cnt, q2, radius, k_nearest)
+    err_c = checks.check_plane_moments(pts, slots, cnt, q, radius, k_nearest,
                                        fresh.r_eff2)
     ms, how = time_stateless(
-        lambda: k2.plane_moments(rows, cnt, q2, radius, k_nearest))
+        lambda: k2.plane_moments(pts, slots, cnt, q2, radius, k_nearest))
     plain_ms, _ = time_stateless(
-        lambda: k2.plane_moments_plain(rows, cnt, q2, radius, k_nearest))
+        lambda: k2.plane_moments_plain(pts, slots, cnt, q2, radius,
+                                       k_nearest))
     ms_c, _ = time_stateless(
-        lambda: k2.plane_moments(rows, cnt, q, radius, k_nearest,
+        lambda: k2.plane_moments(pts, slots, cnt, q, radius, k_nearest,
                                  fresh.r_eff2))
-    live = float(cnt.sum())
+    points_read, rows_read, live = live_work(pts, slots, cnt)
     in_r = float(fresh.count.sum())
-    # fresh call: d2 twice (shell histogram + sums, 8 flops each) per live
-    # candidate, 15 flops of sums per in-radius one; the live candidates'
-    # points read once
-    n_bytes = live * 12 + cnt.numel() * 4 + m * 12 + m * 88
+    # exp_moments.k2_bytes: each distinct live map point once, the pairs,
+    # queries and outputs; a fresh call: d2 twice (shell histogram + sums, 8
+    # flops each) per live candidate of each query, 15 flops of sums per
+    # in-radius one
+    n_bytes = k2_bytes(pts, slots, cnt)
+    per_query_bytes = live * 12 + cnt.numel() * 4 + m * 12 + m * 88
     err = max(err_f["max_abs_err"], err_c["max_abs_err"])
     log(f"K2 plane_moments {tag} M={m}: within tolerance (max abs err "
         f"{err:.3g}); fresh {ms:.4f} ms ({how}), cached-radius {ms_c:.4f} "
-        f"ms, plain {plain_ms:.4f} ms")
+        f"ms, plain {plain_ms:.4f} ms; {live} live candidates "
+        f"({live / m:.1f} a query), {points_read} distinct live map points "
+        f"in {rows_read} rows ({rows_read * pts.shape[1] * 4 / 1e6:.2f} MB "
+        f"of rows), {n_bytes} bytes (counted per query: {per_query_bytes})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                bytes=n_bytes, ops=live * 16 + in_r * 15, timing=how,
-                shape=f"M={m} O={rows.shape[1]} P={rows.shape[2] // 3} "
-                      f"live={int(live)}", cached_ms=ms_c)
+                bytes=n_bytes, ops=live * 16.0 + in_r * 15, timing=how,
+                group=build.launcher("plane_moments", "k2_group", ())(),
+                live=live, points_read=points_read, rows_read=rows_read,
+                per_query_bytes=per_query_bytes,
+                shape=f"M={m} O={slots.shape[1]} P={pts.shape[1] // 3} "
+                      f"live={live}", cached_ms=ms_c)
 
 
 def _kernel_k3(dev, level, res, prep, rounds, tag, count_ops=False):
@@ -567,12 +586,12 @@ def phase_kernels_driving(dev, o, preps):
     p1 = preps_by_fid[1]
     q = torch.as_tensor(p1["xyz"][:K1_QUERIES], dtype=torch.float32,
                         device=dev)
-    records["candidate_gather"], (rows, cnt) = _kernel_k1(
+    records["candidate_gather"], (slots, cnt) = _kernel_k1(
         dev, level, res, q, 1, icp.threshold_voxel_occupancy, 0, "driving")
     records["plane_moments"] = _kernel_k2(
-        q, rows, cnt, float(o.map_options.default_radius),
+        level, q, slots, cnt, float(o.map_options.default_radius),
         icp.max_number_neighbors, "driving")
-    del rows, cnt
+    del slots, cnt
     # K3: a startup frame (12 rounds) and a cruise frame (4 rounds)
     rec = _kernel_k3(dev, level, res, preps_by_fid[1], 12, "driving startup",
                      count_ops=True)
@@ -605,13 +624,13 @@ def phase_kernels_robust(dev, odo, preps):
     p1 = preps[1]
     q = torch.as_tensor(p1["xyz"][:p1["kp_n"]], dtype=torch.float32,
                         device=dev)
-    records["candidate_gather"], (rows, cnt) = _kernel_k1(
+    records["candidate_gather"], (slots, cnt) = _kernel_k1(
         dev, level, res, q, statics.voxel_neighborhood, 1,
         statics.max_candidate_voxels, "robust")
     records["plane_moments"] = _kernel_k2(
-        q, rows, cnt, float(o.map_options.default_radius),
+        level, q, slots, cnt, float(o.map_options.default_radius),
         icp.max_number_neighbors, "robust")
-    del rows, cnt
+    del slots, cnt
     records["map_insert"] = _kernel_k3(dev, level, res, preps[1], 12,
                                        "robust startup")
     records["map_insert"]["cruise"] = _kernel_k3(
@@ -1198,10 +1217,8 @@ def main() -> int:
                 o["max_abs_err"] for o in others.values() if o]),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
             library_ms=r["library_ms"], timing=r["timing"], shape=r["shape"])
-        for key in ("host_ms", "warm_ms", "library_warm_ms",
-                    "rebuild_level_ms", "rebuild_level_plain_ms", "step_ms",
-                    "plain_step_ms", "ms_per_step", "steps_run",
-                    "loop_steps", "step_bound_ms", "device_ops_per_call"):
+        for key in WORK_KEYS + ("rebuild_level_ms", "rebuild_level_plain_ms",
+                                "plain_step_ms", "loop_steps"):
             if r.get(key) is not None:
                 rec[key] = r[key]
         if name == "lm_step":
@@ -1219,9 +1236,7 @@ def main() -> int:
                 ms=o["ms"], plain_ms=o["plain_ms"], bound_ms=ob_ms,
                 bound_by=ob_by, library_ms=o["library_ms"],
                 max_abs_err=o["max_abs_err"], shape=o["shape"])
-            for extra in ("host_ms", "warm_ms", "library_warm_ms",
-                          "step_ms", "ms_per_step", "steps_run",
-                          "step_bound_ms", "device_ops_per_call"):
+            for extra in WORK_KEYS:
                 if o.get(extra) is not None:
                     rec[key][extra] = o[extra]
         kernels.append(rec)

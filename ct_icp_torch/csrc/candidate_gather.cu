@@ -1,191 +1,240 @@
-// K1 candidate_gather: voxel-map lookup + candidate row gather.
+// K1 candidate_gather: voxel-map lookup + candidate selection, as slots.
 //
 // Replaces ct_icp_tpu/mapping/voxel_map.py::find_slots_with_count (:168) and
-// ::gather_candidate_planes (:668-719); its gather half is the Hopper
-// counterpart of the Pallas per-row DMA gather tools/exp_gather.py:90.
+// ::gather_candidate_planes (:668-719) up to its row gather. It returns the
+// slot of each candidate voxel (the reference's slot_c after its top_k: 0
+// where the voxel is absent, the real slot where it is present but not
+// usable) and its usable count, and copies no row. The TPU gathered the
+// [M, O', 3P] rows because its DMA wants dense rows; on Hopper, K2 reads the
+// live map points through the slots (4-byte loads from rows that stay in
+// L2), and no path writes the map between a gather and its rescorings
+// (ct_icp_torch/icp/solver.py).
 //
-// For M queries x O = (2nv+1)^3 neighbour voxels (x fastest, the order of
-// _neighbor_offsets), each warp owns one (query, voxel) pair: lanes 0..7
-// read the PROBE_WINDOW keys from h & (C-1) in one coalesced load, two
-// ballots find the first key match before the first EMPTY, and then all 32
-// lanes copy the voxel's planar 3P-float row (x | y | z planes). Absent
-// voxels copy row 0 with a zero count, as the reference gathers slot 0.
+// Every (query, voxel) pair hashes its voxel, loads the PROBE_WINDOW keys
+// from h & (C-1) (16-byte vector loads, the later ones only where the first
+// does not settle the probe), takes the first key match before the first
+// EMPTY and loads its count.
+//   * All O = (2nv+1)^3 voxels (x fastest, the order of _neighbor_offsets):
+//     one thread per pair; each pair writes its slot and count (8 B).
+//   * With 0 < max_candidates < O (the reference's max_candidate_voxels, 48
+//     of the 125 voxels of a 0.5 m map searched at radius 0.8: the robust
+//     profile), one warp per query: lanes probe 32 voxels at a time into
+//     shared memory, then place the kept ones in the order of the
+//     reference's top_k of (usable ? 1 - |offset|^2 / 100 : -1), ties to the
+//     lower index: the usable voxels, nearer offsets first (``order``, the
+//     offsets sorted by (|offset|^2, index), staged in shared memory), then
+//     the others by index. Each place is a warp ballot's prefix count.
+// One launch either way.
 //
-// Bound: bytes. Per pair it reads 8 keys + 1 count + one 3P row and writes
-// one 3P row + one count; no arithmetic to speak of. The rolled [C, 2R]
-// probe window of the TPU design is dropped: a direct probe reads the same
-// 32 bytes of keys per pair and needs no window rebuild after each insert.
-//
-// With max_candidates < O (the reference's max_candidate_voxels, 48 of the
-// 125 voxels of a 0.5 m map searched at radius 0.8: the robust profile), a
-// first launch probes every (query, voxel) pair, one block per query and one
-// thread per voxel, and keeps the first max_candidates voxels in the order
-// of the reference's top_k: usable voxels before the others, then the
-// nearer offset, then the lower index (keys are distinct, so a rank count in
-// shared memory places each kept voxel); a second launch copies the kept
-// rows, one warp per (query, kept voxel).
+// Bound: bytes. The queries, each distinct probed key window once, the
+// count of each distinct found slot once, 8 B written per output pair;
+// there is no arithmetic to speak of (three divisions and two hashes per
+// pair).
 #include "common.cuh"
 
 namespace {
 
-__global__ void candidate_gather_kernel(
+constexpr int kWarpsPerBlock = 4;
+
+// Key p of the probe window held in w (the aligned 16-byte chunks from the
+// window's first slot, which lies at w[shift]).
+__device__ __forceinline__ uint32_t window_key(const uint32_t (&w)[12],
+                                               uint32_t shift, int p) {
+  return shift == 0u ? w[p] : shift == 1u ? w[p + 1]
+                              : shift == 2u ? w[p + 2] : w[p + 3];
+}
+
+// The reference's lookup of voxel (cx, cy, cz): slot and count, or hit =
+// false (slot 0, count 0) where it is absent. The window's 8 keys lie in the
+// three aligned 16-byte chunks from (h & (C-1)) & ~3 (C is a power of two
+// >= 8, so no chunk wraps). The first chunk settles most probes (a sparse
+// table: its first key is the voxel's or EMPTY); the other two are loaded
+// only where it does not.
+__device__ __forceinline__ bool probe(const uint32_t* __restrict__ keys,
+                                      const int32_t* __restrict__ count,
+                                      uint32_t cap_mask, int cx, int cy,
+                                      int cz, int& slot, int& cnt) {
+  const uint32_t h = cticp::voxel_hash_u32(cx, cy, cz);
+  const uint32_t k2 = cticp::voxel_key_u32(cx, cy, cz);
+  const uint32_t at = h & cap_mask;
+  const uint32_t shift = at & 3u;
+  const uint4* chunks = reinterpret_cast<const uint4*>(keys);
+  uint32_t w[12];
+  int found = -1;
+  bool stop = false;
+  auto look = [&](int p) {
+    const uint32_t key = window_key(w, shift, p);
+    if (!stop && key == cticp::kEmpty) stop = true;
+    if (!stop && key == k2) {
+      found = p;
+      stop = true;
+    }
+  };
+  auto load = [&](int c) {
+    const uint4 v = __ldg(chunks + ((((at & ~3u) + 4u * c) & cap_mask) >> 2));
+    w[4 * c + 0] = v.x;
+    w[4 * c + 1] = v.y;
+    w[4 * c + 2] = v.z;
+    w[4 * c + 3] = v.w;
+  };
+  load(0);
+#pragma unroll
+  for (int p = 0; p < 4; ++p)
+    if (static_cast<uint32_t>(p) + shift < 4u) look(p);
+  if (!stop) {
+    load(1);
+    load(2);
+#pragma unroll
+    for (int p = 1; p < cticp::kProbeWindow; ++p)
+      if (static_cast<uint32_t>(p) + shift >= 4u) look(p);
+  }
+  slot = 0;
+  cnt = 0;
+  if (found < 0) return false;
+  slot = static_cast<int>((at + static_cast<uint32_t>(found)) & cap_mask);
+  cnt = __ldg(count + slot);
+  return true;
+}
+
+__global__ void candidate_lookup_kernel(
     const uint32_t* __restrict__ keys, const int32_t* __restrict__ count,
-    const float* __restrict__ points, const float* __restrict__ queries,
-    const uint8_t* __restrict__ query_valid, int m, uint32_t cap_mask,
-    int row_len, int nv, float resolution, int threshold,
-    float* __restrict__ rows, int32_t* __restrict__ cnt_ok) {
+    const float* __restrict__ queries, const uint8_t* __restrict__ query_valid,
+    int m, uint32_t cap_mask, int nv, float resolution, int threshold,
+    int32_t* __restrict__ out_slot, int32_t* __restrict__ out_cnt) {
   const int side = 2 * nv + 1;
   const int n_off = side * side * side;
   const long long pair =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (pair >= static_cast<long long>(m) * n_off) return;  // whole warp
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (pair >= static_cast<long long>(m) * n_off) return;
   const int qi = static_cast<int>(pair / n_off);
   const int o = static_cast<int>(pair - static_cast<long long>(qi) * n_off);
-
   const int cx = cticp::voxel_coord(queries[3 * qi + 0], resolution) +
                  (o % side - nv);
   const int cy = cticp::voxel_coord(queries[3 * qi + 1], resolution) +
                  ((o / side) % side - nv);
   const int cz = cticp::voxel_coord(queries[3 * qi + 2], resolution) +
                  (o / (side * side) - nv);
-  const uint32_t h = cticp::voxel_hash_u32(cx, cy, cz);
-  const uint32_t k2 = cticp::voxel_key_u32(cx, cy, cz);
-
-  bool is_empty = false, is_match = false;
-  if (lane < cticp::kProbeWindow) {
-    const uint32_t key = keys[(h + lane) & cap_mask];
-    is_empty = key == cticp::kEmpty;
-    is_match = key == k2;
-  }
-  const unsigned empty_bits = __ballot_sync(0xffffffffu, is_empty);
-  const unsigned match_bits = __ballot_sync(0xffffffffu, is_match);
-  const unsigned before_empty =
-      empty_bits ? ((1u << (__ffs(empty_bits) - 1)) - 1u) : 0xffffffffu;
-  const unsigned hit = match_bits & before_empty;
-
-  int slot = 0, cnt = 0;
-  if (hit) {
-    slot = static_cast<int>((h + static_cast<uint32_t>(__ffs(hit) - 1)) &
-                            cap_mask);
-    cnt = count[slot];
-  }
-  const float* src = points + static_cast<size_t>(slot) * row_len;
-  float* dst = rows + static_cast<size_t>(pair) * row_len;
-  for (int i = lane; i < row_len; i += 32) dst[i] = src[i];
-  if (lane == 0) {
-    const bool ok = hit && cnt >= threshold && query_valid[qi];
-    cnt_ok[pair] = ok ? cnt : 0;
-  }
+  int slot, cnt;
+  const bool hit = probe(keys, count, cap_mask, cx, cy, cz, slot, cnt);
+  const bool ok = hit && cnt >= threshold && query_valid[qi];
+  out_slot[pair] = slot;
+  out_cnt[pair] = ok ? cnt : 0;
 }
 
 __global__ void candidate_select_kernel(
     const uint32_t* __restrict__ keys, const int32_t* __restrict__ count,
     const float* __restrict__ queries, const uint8_t* __restrict__ query_valid,
-    uint32_t cap_mask, int nv, float resolution, int threshold, int max_c,
-    int32_t* __restrict__ sel_slot, int32_t* __restrict__ sel_cnt) {
-  __shared__ uint32_t order_key[1024];
+    const int32_t* __restrict__ order, int m, uint32_t cap_mask, int nv,
+    float resolution, int threshold, int max_c,
+    int32_t* __restrict__ out_slot, int32_t* __restrict__ out_cnt) {
+  extern __shared__ int32_t smem[];
   const int side = 2 * nv + 1;
   const int n_off = side * side * side;
-  const int qi = blockIdx.x;
-  const int o = threadIdx.x;
-  int slot = 0, cnt = 0;
-  bool ok = false;
-  if (o < n_off) {
-    const int dx = o % side - nv, dy = (o / side) % side - nv,
-              dz = o / (side * side) - nv;
-    const int cx = cticp::voxel_coord(queries[3 * qi + 0], resolution) + dx;
-    const int cy = cticp::voxel_coord(queries[3 * qi + 1], resolution) + dy;
-    const int cz = cticp::voxel_coord(queries[3 * qi + 2], resolution) + dz;
-    const uint32_t h = cticp::voxel_hash_u32(cx, cy, cz);
-    const uint32_t k2 = cticp::voxel_key_u32(cx, cy, cz);
-    bool hit = false;
-    for (int p = 0; p < cticp::kProbeWindow; ++p) {
-      const uint32_t at = (h + static_cast<uint32_t>(p)) & cap_mask;
-      const uint32_t key = keys[at];
-      if (key == cticp::kEmpty) break;
-      if (key == k2) {
-        slot = static_cast<int>(at);
-        hit = true;
-        break;
-      }
-    }
-    if (hit) cnt = count[slot];
-    ok = hit && cnt >= threshold && query_valid[qi];
-    const uint32_t d2 = static_cast<uint32_t>(dx * dx + dy * dy + dz * dz);
-    order_key[o] = (ok ? 0u : 1u) << 24 | d2 << 12 | static_cast<uint32_t>(o);
-  }
-  __syncthreads();
-  if (o < n_off) {
-    const uint32_t mine = order_key[o];
-    int rank = 0;
-    for (int q = 0; q < n_off; ++q) rank += order_key[q] < mine;
-    if (rank < max_c) {
-      sel_slot[qi * max_c + rank] = slot;
-      sel_cnt[qi * max_c + rank] = ok ? cnt : 0;
-    }
-  }
-}
-
-__global__ void candidate_rows_kernel(const float* __restrict__ points,
-                                      const int32_t* __restrict__ sel_slot,
-                                      long long pairs, int row_len,
-                                      float* __restrict__ rows) {
-  const long long pair =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+  const int wib = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  if (pair >= pairs) return;
-  const float* src = points + static_cast<size_t>(sel_slot[pair]) * row_len;
-  float* dst = rows + static_cast<size_t>(pair) * row_len;
-  for (int i = lane; i < row_len; i += 32) dst[i] = src[i];
+  const int qi = blockIdx.x * kWarpsPerBlock + wib;
+  if (qi >= m) return;  // whole warp
+  int32_t* sh_slot = smem + wib * 3 * n_off;
+  int32_t* sh_cnt = sh_slot + n_off;  // the usable count, -1 where unusable
+  int32_t* sh_order = sh_cnt + n_off;
+  const int bx = cticp::voxel_coord(queries[3 * qi + 0], resolution) - nv;
+  const int by = cticp::voxel_coord(queries[3 * qi + 1], resolution) - nv;
+  const int bz = cticp::voxel_coord(queries[3 * qi + 2], resolution) - nv;
+  const bool valid = query_valid[qi] != 0;
+  const unsigned below = (1u << lane) - 1u;
+  for (int t = lane; t < n_off; t += 32) sh_order[t] = order[t];
+
+  int n_ok = 0;
+#pragma unroll 4
+  for (int base = 0; base < n_off; base += 32) {
+    const int o = base + lane;
+    bool ok = false;
+    if (o < n_off) {
+      int slot, cnt;
+      const bool hit = probe(keys, count, cap_mask, bx + o % side,
+                             by + (o / side) % side, bz + o / (side * side),
+                             slot, cnt);
+      ok = hit && cnt >= threshold && valid;
+      sh_slot[o] = slot;
+      sh_cnt[o] = ok ? cnt : -1;
+    }
+    n_ok += __popc(__ballot_sync(0xffffffffu, ok));
+  }
+  __syncwarp();
+
+  // the usable voxels, nearer offsets first
+  int32_t* dst_slot = out_slot + static_cast<size_t>(qi) * max_c;
+  int32_t* dst_cnt = out_cnt + static_cast<size_t>(qi) * max_c;
+  int placed = 0;
+  for (int base = 0; base < n_off && placed < max_c; base += 32) {
+    const int t = base + lane;
+    const int o = t < n_off ? sh_order[t] : 0;
+    const int c = t < n_off ? sh_cnt[o] : -1;
+    const unsigned bits = __ballot_sync(0xffffffffu, c >= 0);
+    const int rank = placed + __popc(bits & below);
+    if (c >= 0 && rank < max_c) {
+      dst_slot[rank] = sh_slot[o];
+      dst_cnt[rank] = c;
+    }
+    placed += __popc(bits);
+  }
+  // then the others, by index
+  placed = n_ok;
+  for (int base = 0; base < n_off && placed < max_c; base += 32) {
+    const int o = base + lane;
+    const bool other = o < n_off && sh_cnt[o] < 0;
+    const unsigned bits = __ballot_sync(0xffffffffu, other);
+    const int rank = placed + __popc(bits & below);
+    if (other && rank < max_c) {
+      dst_slot[rank] = sh_slot[o];
+      dst_cnt[rank] = 0;
+    }
+    placed += __popc(bits);
+  }
 }
 
 }  // namespace
 
+// order: int32[O], the neighbour offsets sorted by (|offset|^2, index).
 extern "C" int k1_candidate_gather_compact(
-    const void* keys, const void* count, const void* points,
-    const void* queries, const void* query_valid, int m, int cap, int row_len,
-    int nv, float resolution, int threshold, int max_c, void* rows,
-    void* cnt_ok, void* sel_slot, void* stream) {
+    const void* keys, const void* count, const void* queries,
+    const void* query_valid, const void* order, int m, int cap, int nv,
+    float resolution, int threshold, int max_c, void* slots, void* cnt_ok,
+    void* stream) {
   const int side = 2 * nv + 1;
   const int n_off = side * side * side;
   if (m > 0 && max_c > 0) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    const int threads = (n_off + 31) / 32 * 32;
-    candidate_select_kernel<<<m, threads, 0, s>>>(
+    const int blocks = (m + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    const size_t smem = sizeof(int32_t) * 3 * n_off * kWarpsPerBlock;
+    candidate_select_kernel<<<blocks, 32 * kWarpsPerBlock, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(keys), static_cast<const int32_t*>(count),
         static_cast<const float*>(queries),
         static_cast<const uint8_t*>(query_valid),
+        static_cast<const int32_t*>(order), m,
         static_cast<uint32_t>(cap - 1), nv, resolution, threshold, max_c,
-        static_cast<int32_t*>(sel_slot), static_cast<int32_t*>(cnt_ok));
-    const long long pairs = static_cast<long long>(m) * max_c;
-    const long long blocks = (pairs * 32 + 255) / 256;
-    candidate_rows_kernel<<<static_cast<unsigned>(blocks), 256, 0, s>>>(
-        static_cast<const float*>(points),
-        static_cast<const int32_t*>(sel_slot), pairs, row_len,
-        static_cast<float*>(rows));
+        static_cast<int32_t*>(slots), static_cast<int32_t*>(cnt_ok));
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int k1_candidate_gather(const void* keys, const void* count,
-                                   const void* points, const void* queries,
+                                   const void* queries,
                                    const void* query_valid, int m, int cap,
-                                   int row_len, int nv, float resolution,
-                                   int threshold, void* rows, void* cnt_ok,
-                                   void* stream) {
+                                   int nv, float resolution, int threshold,
+                                   void* slots, void* cnt_ok, void* stream) {
   const int side = 2 * nv + 1;
   const long long pairs = static_cast<long long>(m) * side * side * side;
   if (pairs > 0) {
     const int threads = 256;
-    const long long blocks = (pairs * 32 + threads - 1) / threads;
-    candidate_gather_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+    const long long blocks = (pairs + threads - 1) / threads;
+    candidate_lookup_kernel<<<static_cast<unsigned>(blocks), threads, 0,
                               static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(keys), static_cast<const int32_t*>(count),
-        static_cast<const float*>(points), static_cast<const float*>(queries),
+        static_cast<const float*>(queries),
         static_cast<const uint8_t*>(query_valid), m,
-        static_cast<uint32_t>(cap - 1), row_len, nv, resolution, threshold,
-        static_cast<float*>(rows), static_cast<int32_t*>(cnt_ok));
+        static_cast<uint32_t>(cap - 1), nv, resolution, threshold,
+        static_cast<int32_t*>(slots), static_cast<int32_t*>(cnt_ok));
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -5,12 +5,13 @@ path the driving profile runs:
 
     outer loop (<= num_iters_icp, early exit on pose deltas):
       1. transform keypoints by the slerp/lerp-interpolated poses
-      2. candidate rows: a fresh gather (kernel K1) on regather iterations —
-         the first ``regather_iters``, or when the pose moved more than half
-         a voxel (translation or rotation) since the last gather — else the
-         cached rows
-      3. moments + descriptor (kernel K2), the k-NN shell radius cached with
-         the rows and recomputed only on regather iterations
+      2. candidate voxels: a fresh gather (kernel K1) on regather
+         iterations — the first ``regather_iters``, or when the pose moved
+         more than half a voxel (translation or rotation) since the last
+         gather — else the cached slots
+      3. moments + descriptor (kernel K2) of the map points the slots
+         name, the k-NN shell radius cached with the slots and recomputed
+         only on regather iterations
       4. geometric weights, the uniform-stride residual cap
       5. LM inner loop: up to min(ls_max_num_iters, 64) steps in one call
          of kernel K5: Jacobian by forward mode through the slerp (as
@@ -18,6 +19,20 @@ path the driving profile runs:
          solve with the degenerate-column freeze, accept/reject; the loop
          ends at the function-tolerance exit, on the device
       6. convergence test on rot/trans deltas
+
+The cache holds map slots, not a copy of the candidate rows as the
+reference's does, so it stays valid only while the level is not written
+between a gather and the rescorings that reuse it. No path writes it: the
+cache lives inside one ``register`` call, which starts with the
+unconditional gather of the peeled iteration 0, and every insert, prune and
+rebase comes after a registration returns, in stream order on the device —
+in ``register_frame(_prepared)`` (each robust attempt is its own
+registration; the robust-gated insert and the deferred map update follow
+the accepted one), in ``_stream_frames_batched`` (each frame registers,
+then prunes and inserts), in ``_stream_frames_robust`` (a rollback restores
+the checkpoint and a replay re-registers, both between registrations) and
+in the rebases (``_maybe_rebase``, ``_rebase_stream_head`` and the
+streamer's deferred rebases, after the frame's update).
 
 The reference runs this as one XLA program; here the outer loop is a Python
 loop, so its early exit (outer convergence + the next regather decision) is
@@ -148,20 +163,21 @@ def _build_problem(statics, dyn, level, raw, alphas, valid, qb, tb, qe, te,
                    cache, do_gather: bool):
     """Association + descriptors at the current pose estimate.
 
-    ``cache`` = (rows, cnt_ok, r_eff2) of the last gather, reused when
+    ``cache`` = (slots, cnt_ok, r_eff2) of the last gather, reused when
     ``do_gather`` is False. Returns (anchors, normals, geom_w, ok, cache)."""
     world = res.interp_world_points(qb, tb, qe, te, raw, alphas)
     k_nearest = dyn.max_number_neighbors if statics.knn_moments else None
     if do_gather:
-        rows, cnt_ok = vm.gather_candidate_planes(
+        slots, cnt_ok = vm.gather_candidate_planes(
             level, world, valid, dyn.voxel_resolution,
             statics.voxel_neighborhood, dyn.threshold_voxel_occupancy,
             statics.max_candidate_voxels)
         cached_r = None
     else:
-        rows, cnt_ok, cached_r = cache
-    mom = vm.moments_from_planes(rows, cnt_ok, world, dyn.search_radius,
-                                 k_nearest=k_nearest, cached_r_eff2=cached_r)
+        slots, cnt_ok, cached_r = cache
+    mom = vm.moments_from_planes(level, slots, cnt_ok, world,
+                                 dyn.search_radius, k_nearest=k_nearest,
+                                 cached_r_eff2=cached_r)
     ok = valid & (mom.count >= dyn.min_number_neighbors)
     closest_dist = torch.where(torch.isfinite(mom.closest_dist),
                                mom.closest_dist,
@@ -181,7 +197,7 @@ def _build_problem(statics, dyn, level, raw, alphas, valid, qb, tb, qe, te,
     sel = (torch.div(rank * cap_c, n_ok, rounding_mode="floor")
            != torch.div((rank - 1) * cap_c, n_ok, rounding_mode="floor"))
     ok = ok & (sel | (n_ok <= cap))
-    return mom.closest, mom.normal, geom_w, ok, (rows, cnt_ok, mom.r_eff2)
+    return mom.closest, mom.normal, geom_w, ok, (slots, cnt_ok, mom.r_eff2)
 
 
 def _lm_inner_loop(statics, dyn, raw, alphas, anchors, normals, geom_w, ok,

@@ -1,12 +1,15 @@
-"""K1 candidate_gather: voxel-map lookup + candidate row gather.
+"""K1 candidate_gather: voxel-map lookup + candidate selection, as slots.
 
 Replaces ``ct_icp_tpu/mapping/voxel_map.py::find_slots_with_count`` (:168)
-and ``::gather_candidate_planes`` (:668-719), its ``max_candidates``
-compaction included. Kernel: ``csrc/candidate_gather.cu`` (one warp per
-(query, neighbour voxel): an 8-key probe by ballot, then a coalesced copy of
-the planar row; with the compaction, a probe-and-rank launch per query,
-then the copy of the kept rows). Bound on the card: bytes — the gathered
-rows are read once and written once.
+and ``::gather_candidate_planes`` (:668-719) up to its row gather, the
+``max_candidates`` compaction included: it returns each candidate voxel's
+slot (the reference's ``slot_c``) and usable count, and K2 reads the points
+through the slots, so no [M, O', 3P] copy of the rows is made. Kernel:
+``csrc/candidate_gather.cu``, one launch: a thread per (query, neighbour
+voxel) probing its 8 keys by 16-byte loads; with the compaction, a warp
+per query that probes its voxels into shared memory and places the kept
+ones by ballot prefix counts. Bound on the card: bytes (the queries, the
+probed key windows, the found counts, 8 B written per output pair).
 
 A CPU tensor takes :func:`candidate_gather_plain`; a CUDA tensor launches the
 kernel or raises.
@@ -56,11 +59,19 @@ def find_slots_with_count(keys, count, coords):
     return slot.reshape(shape), cnt.reshape(shape)
 
 
-def candidate_gather_plain(keys, count, points, queries, query_valid,
+def selection_order(nv: int, device=None):
+    """int64 [O]: the neighbour offsets sorted by (|offset|^2, index), the
+    order in which the reference's top_k keeps usable voxels."""
+    off_d2 = (neighbor_offsets(nv, device).to(torch.int64) ** 2).sum(-1)
+    return torch.argsort(off_d2 * (1 << 12)
+                         + torch.arange(off_d2.shape[0], device=device))
+
+
+def candidate_gather_plain(keys, count, queries, query_valid,
                            resolution: float, nv: int,
                            threshold_voxel_occupancy: int,
                            max_candidates: int = 0):
-    """Plain PyTorch version: (rows [M, O', 3P], cnt_ok [M, O'] int32)."""
+    """Plain PyTorch version: (slots [M, O'] int32, cnt_ok [M, O'] int32)."""
     offsets = neighbor_offsets(nv, queries.device)
     qc = vx.voxel_coords(queries, resolution)
     cand = qc[:, None, :] + offsets[None]
@@ -70,83 +81,85 @@ def candidate_gather_plain(keys, count, points, queries, query_valid,
     ok = (cnt >= threshold_voxel_occupancy) & valid_slot & query_valid[:, None]
     o = offsets.shape[0]
     if 0 < max_candidates < o:
-        # the reference's top_k of (usable, nearer offset), ties to the
-        # lower index: one distinct integer key per candidate, sorted
+        # the reference's top_k of (usable ? 1 - |offset|^2 / 100 : -1),
+        # ties to the lower index: the usable voxels nearer first, then the
+        # others by index; one distinct integer key per candidate, sorted
         off_d2 = (offsets.to(torch.int64) ** 2).sum(-1)
-        key = (torch.where(ok, 0, 1).to(torch.int64) << 24
-               | (off_d2 << 12)[None]
+        key = (torch.where(ok, off_d2[None] << 12, 1 << 24)
                | torch.arange(o, device=queries.device)[None])
         sel = torch.argsort(key, dim=1)[:, :max_candidates]
         slot_c = torch.gather(slot_c, 1, sel)
         cnt = torch.gather(cnt, 1, sel)
         ok = torch.gather(ok, 1, sel)
-    rows = points[slot_c]
-    return rows, torch.where(ok, cnt, torch.zeros_like(cnt))
+    return (slot_c.to(torch.int32),
+            torch.where(ok, cnt, torch.zeros_like(cnt)))
 
 
-def candidate_gather(keys, count, points, queries, query_valid,
-                     resolution: float, nv: int,
-                     threshold_voxel_occupancy: int,
+_orders = {}
+
+
+def candidate_gather(keys, count, queries, query_valid, resolution: float,
+                     nv: int, threshold_voxel_occupancy: int,
                      max_candidates: int = 0):
-    """Candidate rows of the (2nv+1)^3 voxels around each query.
+    """Candidate voxels of the (2nv+1)^3 around each query, as map slots.
 
     keys int32[C] (uint32 bit patterns, C a power of two), count int32[C],
-    points f32[C, 3P], queries f32[M, 3], query_valid bool[M]. Returns
-    (rows f32[M, O', 3P], cnt_ok int32[M, O']): the voxel's point count,
-    zero where it is absent, below the occupancy threshold or the query is
-    invalid. O' = O = (2nv+1)^3, or ``max_candidates`` when 0 <
+    queries f32[M, 3], query_valid bool[M]. Returns (slots int32[M, O'],
+    cnt_ok int32[M, O']): the voxel's slot (0 where it is absent) and its
+    point count, zero where it is absent, below the occupancy threshold or
+    the query is invalid. O' = O = (2nv+1)^3, or ``max_candidates`` when 0 <
     max_candidates < O: then the usable voxels come first, nearer offsets
-    first (the reference's compaction)."""
+    first, then the others by index (the reference's compaction)."""
     if queries.device.type == "cpu":
-        return candidate_gather_plain(keys, count, points, queries,
-                                      query_valid, resolution, nv,
+        return candidate_gather_plain(keys, count, queries, query_valid,
+                                      resolution, nv,
                                       threshold_voxel_occupancy,
                                       max_candidates)
     global launches
     dev = queries.device
     if dev.type != "cuda":
         raise ValueError(f"candidate_gather: no kernel for {dev}")
-    c, m, row_len = keys.shape[0], queries.shape[0], points.shape[1]
-    if c & (c - 1) or row_len % 3:
-        raise ValueError("candidate_gather: C must be a power of two and "
-                         "points rows 3P wide")
+    c, m = keys.shape[0], queries.shape[0]
+    if c & (c - 1) or c < 8 or keys.data_ptr() % 16:
+        raise ValueError("candidate_gather: keys must be a 16-byte aligned "
+                         "table of C >= 8 slots, C a power of two")
     for t, dtype, shape, name in (
             (keys, torch.int32, (c,), "keys"),
             (count, torch.int32, (c,), "count"),
-            (points, torch.float32, (c, row_len), "points"),
             (queries, torch.float32, (m, 3), "queries"),
             (query_valid, torch.bool, (m,), "query_valid")):
         build.check_tensor(t, dtype, shape, "candidate_gather", name, dev)
     o = (2 * nv + 1) ** 3
     if o > 1024:
         raise ValueError("candidate_gather: nv <= 4")
-    args = (build.ptr(keys), build.ptr(count), build.ptr(points),
-            build.ptr(queries), build.ptr(query_valid), m, c, row_len,
-            int(nv), float(resolution), int(threshold_voxel_occupancy))
-    if 0 < max_candidates < o:
-        rows = torch.empty((m, max_candidates, row_len), dtype=torch.float32,
-                           device=dev)
-        cnt_ok = torch.empty((m, max_candidates), dtype=torch.int32,
-                             device=dev)
-        sel = torch.empty((m, max_candidates), dtype=torch.int32, device=dev)
+    compact = 0 < max_candidates < o
+    o_out = max_candidates if compact else o
+    slots = torch.empty((m, o_out), dtype=torch.int32, device=dev)
+    cnt_ok = torch.empty((m, o_out), dtype=torch.int32, device=dev)
+    args = (build.ptr(keys), build.ptr(count), build.ptr(queries),
+            build.ptr(query_valid))
+    tail = (float(resolution), int(threshold_voxel_occupancy))
+    if compact:
+        order = _orders.get((nv, dev))
+        if order is None:
+            order = selection_order(nv, dev).to(torch.int32)
+            _orders[(nv, dev)] = order
         fn = build.launcher("candidate_gather", "k1_candidate_gather_compact",
                             _ARGTYPES_COMPACT)
-        status = fn(*args, int(max_candidates), build.ptr(rows),
-                    build.ptr(cnt_ok), build.ptr(sel),
+        status = fn(*args, build.ptr(order), m, c, int(nv), *tail,
+                    int(max_candidates), build.ptr(slots), build.ptr(cnt_ok),
                     build.stream_of(queries))
     else:
-        rows = torch.empty((m, o, row_len), dtype=torch.float32, device=dev)
-        cnt_ok = torch.empty((m, o), dtype=torch.int32, device=dev)
         fn = build.launcher("candidate_gather", "k1_candidate_gather",
                             _ARGTYPES)
-        status = fn(*args, build.ptr(rows), build.ptr(cnt_ok),
-                    build.stream_of(queries))
+        status = fn(*args, m, c, int(nv), *tail, build.ptr(slots),
+                    build.ptr(cnt_ok), build.stream_of(queries))
     build.check_status(status, "candidate_gather")
     launches += 1
-    return rows, cnt_ok
+    return slots, cnt_ok
 
 
-_ARGTYPES = (build.PTR,) * 5 + (build.INT,) * 4 + (build.FLOAT, build.INT) \
+_ARGTYPES = (build.PTR,) * 4 + (build.INT,) * 3 + (build.FLOAT, build.INT) \
     + (build.PTR,) * 3
-_ARGTYPES_COMPACT = (build.PTR,) * 5 + (build.INT,) * 4 \
-    + (build.FLOAT, build.INT, build.INT) + (build.PTR,) * 4
+_ARGTYPES_COMPACT = (build.PTR,) * 5 + (build.INT,) * 3 \
+    + (build.FLOAT, build.INT, build.INT) + (build.PTR,) * 3

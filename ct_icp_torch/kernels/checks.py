@@ -3,8 +3,8 @@
 
 Each check runs a kernel wrapper and its plain PyTorch version on the same
 CUDA inputs and raises AssertionError on a disagreement. Tolerances:
-  * integer and hash outputs (slots, counts, shells, keys, ranks) and point
-    rows: identical;
+  * integer and hash outputs (K1's slots and counts, K2's counts, shell
+    radii and closest points, keys, ranks) and point rows: identical;
   * K2 float sums: summed in another order (warp tree vs torch reduction),
     so within 1e-4 of each query's second-moment scale; the normal within
     1e-3 (|cos| of the angle, sign free) where the neighborhood is planar
@@ -48,22 +48,22 @@ def _same(a, b, what):
 
 def check_candidate_gather(level, queries, query_valid, resolution, nv,
                            threshold, max_candidates=0):
-    args = (level.keys, level.count, level.points, queries, query_valid,
-            resolution, nv, threshold, max_candidates)
-    rows, cnt = k1.candidate_gather(*args)
-    prow, pcnt = k1.candidate_gather_plain(*args)
+    args = (level.keys, level.count, queries, query_valid, resolution, nv,
+            threshold, max_candidates)
+    slots, cnt = k1.candidate_gather(*args)
+    pslots, pcnt = k1.candidate_gather_plain(*args)
     torch.cuda.synchronize()
     _same(cnt, pcnt, "candidate_gather cnt_ok")
-    _same(rows, prow, "candidate_gather rows")
+    _same(slots, pslots, "candidate_gather slots")
     return {"max_abs_err": 0.0}
 
 
-def check_plane_moments(rows, cnt_ok, queries, radius, k_nearest,
+def check_plane_moments(points, slots, cnt_ok, queries, radius, k_nearest,
                         cached_r_eff2=None):
-    got = k2.plane_moments(rows, cnt_ok, queries, radius, k_nearest,
+    got = k2.plane_moments(points, slots, cnt_ok, queries, radius, k_nearest,
                            cached_r_eff2)
-    want = k2.plane_moments_plain(rows, cnt_ok, queries, radius, k_nearest,
-                                  cached_r_eff2)
+    want = k2.plane_moments_plain(points, slots, cnt_ok, queries, radius,
+                                  k_nearest, cached_r_eff2)
     torch.cuda.synchronize()
     _same(got.count, want.count, "plane_moments count")
     _same(got.r_eff2, want.r_eff2, "plane_moments r_eff2")

@@ -3,10 +3,13 @@
 Replaces ``ct_icp_tpu/mapping/voxel_map.py::moments_from_planes`` and
 ``::_knn_radius2`` (:722-818), ``ops/neighborhood.py::
 description_from_moments`` (:94-120) and ``ops/eigen3.py::eigh3x3``
-(:18-82). Kernel: ``csrc/plane_moments.cu`` — one warp per keypoint over its
-O x P candidates, the shell histogram in shared memory, the eigensolve in
-registers. Bound on the card: bytes (the candidate rows, read once per
-pass).
+(:18-82). The reference rescored a cached copy of the candidate rows; this
+reads the live map points through K1's slots. Kernel:
+``csrc/plane_moments.cu`` — a group of ``K2_GROUP`` lanes (a warp) per
+keypoint walks its live points only, the shell histogram in shared memory,
+the eigensolves of a block's keypoints on the lanes of its first warp.
+Bound on the card: bytes (each distinct live map point once, the slot
+pairs, queries and outputs).
 
 A CPU tensor takes :func:`plane_moments_plain`; a CUDA tensor launches the
 kernel or raises.
@@ -67,18 +70,22 @@ def knn_radius2(d2, ok, query, m: int, radius: float, k_nearest: int,
     return torch.where(found, r_eff2, torch.full_like(r_eff2, r2))
 
 
-def plane_moments_plain(rows, cnt_ok, queries, radius: float,
+def plane_moments_plain(points, slots, cnt_ok, queries, radius: float,
                         k_nearest: Optional[int],
                         cached_r_eff2=None) -> Moments:
     """Plain PyTorch version of :func:`plane_moments`, over the live
-    candidates only (a voxel's points below its usable count)."""
+    candidates only (a voxel's points below its usable count). Candidate
+    row (q, o) is ``points[slots[q, o]]``; the live points are read from it
+    directly rather than from a [M, O', 3P] copy."""
     m, o = cnt_ok.shape
-    p = rows.shape[-1] // 3
-    dev, dt = rows.device, rows.dtype
+    p = points.shape[-1] // 3
+    dev, dt = points.device, points.dtype
+    rows = slots.long()                                       # [M, O']
     live = (torch.arange(p, dtype=torch.int32, device=dev)[None, None, :]
             < cnt_ok[..., None])
     qi, oi, pi = live.nonzero(as_tuple=True)
-    x, y, z = rows[qi, oi, pi], rows[qi, oi, p + pi], rows[qi, oi, 2 * p + pi]
+    ri = rows[qi, oi]
+    x, y, z = points[ri, pi], points[ri, p + pi], points[ri, 2 * p + pi]
     dx = x - queries[qi, 0]
     dy = y - queries[qi, 1]
     dz = z - queries[qi, 2]
@@ -105,7 +112,8 @@ def plane_moments_plain(rows, cnt_ok, queries, radius: float,
                              torch.stack([sxz, syz, szz], -1)], -2)
 
     # the closest: the first in-radius candidate (in voxel, point order) of
-    # least d2; index 0 where there is none, as an argmin over all-inf
+    # least d2; flat index 0 (point 0 of candidate 0) where there is none,
+    # as an argmin over all-inf
     inf = float("inf")
     d2m = torch.where(ok, d2, torch.full_like(d2, inf))
     cd2 = torch.full((m,), inf, dtype=dt, device=dev).scatter_reduce(
@@ -118,9 +126,9 @@ def plane_moments_plain(rows, cnt_ok, queries, radius: float,
                            torch.full_like(flat, none)), "amin")
     first = torch.where(first == none, torch.zeros_like(first), first)
     q_all = torch.arange(m, device=dev)
-    fo, fp = first // p, first % p
-    closest = torch.stack([rows[q_all, fo, fp], rows[q_all, fo, p + fp],
-                           rows[q_all, fo, 2 * p + fp]], -1)
+    fr, fp = rows[q_all, first // p], first % p
+    closest = torch.stack([points[fr, fp], points[fr, p + fp],
+                           points[fr, 2 * p + fp]], -1)
     closest_dist = torch.where(count > 0, torch.sqrt(cd2),
                                torch.full_like(cd2, inf))
     desc = description_from_moments(count, sum_rel, sum_outer, queries)
@@ -128,26 +136,43 @@ def plane_moments_plain(rows, cnt_ok, queries, radius: float,
                    desc.normal, desc.a2D)
 
 
-def plane_moments(rows, cnt_ok, queries, radius: float,
+def plane_moments(points, slots, cnt_ok, queries, radius: float,
                   k_nearest: Optional[int], cached_r_eff2=None) -> Moments:
     """Moments of the in-radius candidates of each query, and the
     descriptor (normal, a2D) they give.
 
-    rows f32[M, O, 3P] planar candidate rows, cnt_ok int32[M, O] usable
-    points per voxel, queries f32[M, 3]. ``k_nearest`` (None = no cap) caps
-    the sums to ~the k nearest candidates by the 32-shell histogram radius,
-    recomputed unless ``cached_r_eff2`` f32[M] is given."""
+    points f32[C, 3P] the level's planar rows, slots int32[M, O'] and
+    cnt_ok int32[M, O'] from :func:`candidate_gather` on that level (point j
+    of candidate o is live for j < cnt_ok), queries f32[M, 3].
+    ``k_nearest`` (None = no cap) caps the sums to ~the k nearest candidates
+    by the 32-shell histogram radius, recomputed unless ``cached_r_eff2``
+    f32[M] is given."""
     if queries.device.type == "cpu":
-        return plane_moments_plain(rows, cnt_ok, queries, radius, k_nearest,
-                                   cached_r_eff2)
+        return plane_moments_plain(points, slots, cnt_ok, queries, radius,
+                                   k_nearest, cached_r_eff2)
     global launches
+    out = launch(points, slots, cnt_ok, queries, radius, k_nearest,
+                 cached_r_eff2)
+    launches += 1
+    return out
+
+
+def launch(points, slots, cnt_ok, queries, radius: float,
+           k_nearest: Optional[int], cached_r_eff2=None,
+           defines=()) -> Moments:
+    """One launch of ``csrc/plane_moments.cu`` on CUDA tensors, counted by
+    no launch counter; ``defines`` pick a measurement variant of the kernel
+    (``K2_GROUP=8`` or ``16``: ``tools/exp_moments.py``), none the main
+    path's."""
     dev = queries.device
     if dev.type != "cuda":
         raise ValueError(f"plane_moments: no kernel for {dev}")
-    m, o, row_len = rows.shape
+    c, row_len = points.shape
+    m, o = slots.shape
     if row_len % 3:
-        raise ValueError("plane_moments: rows must be 3P wide")
-    args = [(rows, torch.float32, (m, o, row_len), "rows"),
+        raise ValueError("plane_moments: points rows must be 3P wide")
+    args = [(points, torch.float32, (c, row_len), "points"),
+            (slots, torch.int32, (m, o), "slots"),
             (cnt_ok, torch.int32, (m, o), "cnt_ok"),
             (queries, torch.float32, (m, 3), "queries")]
     if cached_r_eff2 is not None:
@@ -164,16 +189,16 @@ def plane_moments(rows, cnt_ok, queries, radius: float,
         r_eff2=torch.empty((m,), **f32),
         normal=torch.empty((m, 3), **f32),
         a2d=torch.empty((m,), **f32))
-    fn = build.launcher("plane_moments", "k2_plane_moments", _ARGTYPES)
-    status = fn(build.ptr(rows), build.ptr(cnt_ok), build.ptr(queries), m, o,
-                row_len // 3, _radius_sq(radius),
+    fn = build.launcher("plane_moments", "k2_plane_moments", _ARGTYPES,
+                        defines)
+    status = fn(build.ptr(points), build.ptr(slots), build.ptr(cnt_ok),
+                build.ptr(queries), m, o, row_len // 3, _radius_sq(radius),
                 -1 if k_nearest is None else int(k_nearest),
                 None if cached_r_eff2 is None else build.ptr(cached_r_eff2),
                 *(build.ptr(t) for t in out), build.stream_of(queries))
     build.check_status(status, "plane_moments")
-    launches += 1
     return out
 
 
-_ARGTYPES = (build.PTR,) * 3 + (build.INT,) * 3 + (build.FLOAT, build.INT) \
+_ARGTYPES = (build.PTR,) * 4 + (build.INT,) * 3 + (build.FLOAT, build.INT) \
     + (build.PTR,) * 10

@@ -83,22 +83,31 @@ def gather_candidate_planes(level: MapLevel, queries, query_valid,
                             resolution: float, nv: int,
                             threshold_voxel_occupancy: int = 1,
                             max_candidates: int = 0):
-    """Search front-end (kernel K1): candidate rows [M, O, 3P] of the
-    (2nv+1)^3 voxels around each query + their usable counts [M, O]; with
-    0 < max_candidates < O, only the first max_candidates of them, usable
-    and nearer voxels first."""
-    return k1.candidate_gather(level.keys, level.count, level.points, queries,
-                               query_valid, resolution, nv,
-                               threshold_voxel_occupancy, max_candidates)
+    """Search front-end (kernel K1): the slots [M, O] of the (2nv+1)^3
+    voxels around each query (0 where absent) + their usable counts [M, O];
+    with 0 < max_candidates < O, only the first max_candidates of them,
+    usable and nearer voxels first.
+
+    Departs from the reference, which returns the candidate rows
+    ``level.points[slots]`` [M, O, 3P]: the TPU's DMA wants dense rows, so
+    its cache holds a copy; on the card K2 reads the live points through
+    the slots, and the level is not written between a gather and the
+    rescorings that reuse it (icp/solver.py)."""
+    return k1.candidate_gather(level.keys, level.count, queries, query_valid,
+                               resolution, nv, threshold_voxel_occupancy,
+                               max_candidates)
 
 
-def moments_from_planes(rows, cnt_ok, queries, radius: float,
-                        k_nearest=None, cached_r_eff2=None) -> k2.Moments:
-    """Scoring half (kernel K2): in-radius moments of cached candidate rows
-    vs the current query positions, the closest candidate and the
-    descriptor (normal, a2D) — see kernels/plane_moments.py."""
-    return k2.plane_moments(rows, cnt_ok, queries, radius, k_nearest,
-                            cached_r_eff2)
+def moments_from_planes(level: MapLevel, slots, cnt_ok, queries,
+                        radius: float, k_nearest=None,
+                        cached_r_eff2=None) -> k2.Moments:
+    """Scoring half (kernel K2): in-radius moments of the candidates that
+    ``gather_candidate_planes`` found vs the current query positions, the
+    closest candidate and the descriptor (normal, a2D) — see
+    kernels/plane_moments.py. The reference scores its cached rows; this
+    reads candidate o's points from ``level.points[slots[:, o]]``."""
+    return k2.plane_moments(level.points, slots, cnt_ok, queries, radius,
+                            k_nearest, cached_r_eff2)
 
 
 def insert_points(level: MapLevel, pts, valid, resolution: float,

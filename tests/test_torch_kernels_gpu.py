@@ -1,5 +1,6 @@
 """CUDA kernels K1-K7 against their plain PyTorch versions, on the card
-(K5 as one launch per LM call, K3 as one launch per insert).
+(K5 as one launch per LM call, K3 as one launch per insert, K1 one launch a
+call returning slots, K2 reading the live points through them).
 
 Needs an NVIDIA GPU and nvcc (the kernels build from ct_icp_torch/csrc at
 first use); skips elsewhere. Run on a machine with the card (this file needs
@@ -15,8 +16,10 @@ import pytest
 import torch
 
 from ct_icp_torch.kernels import build, checks
+from ct_icp_torch.kernels import candidate_gather as k1
 from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.kernels import map_insert as k3
+from ct_icp_torch.kernels import plane_moments as k2
 from ct_icp_torch.mapping import voxel_map as vm
 
 pytestmark = pytest.mark.gpu
@@ -53,21 +56,25 @@ def test_candidate_gather_matches_plain(cuda, nv):
     level = _warm_level(rng, cuda)
     q = torch.from_numpy(_scene(rng, 600)).to(cuda)
     valid = torch.from_numpy(rng.uniform(size=q.shape[0]) < 0.9).to(cuda)
+    launches = k1.launches
     for thr in (1, 5):
         checks.check_candidate_gather(level, q, valid, 0.8, nv, thr)
+    assert k1.launches == launches + 2          # one launch a call
 
 
 @pytest.mark.parametrize("max_candidates", [48, 10])
 def test_candidate_gather_compaction_matches_plain(cuda, max_candidates):
     """The robust profile's search: 0.5 m voxels, nv = 2 (125 voxels) kept
-    down to max_candidates."""
+    down to max_candidates, in one launch."""
     rng = np.random.default_rng(3)
     level = _warm_level(rng, cuda, p=40, res=0.5)
     q = torch.from_numpy(_scene(rng, 600)).to(cuda)
     valid = torch.from_numpy(rng.uniform(size=q.shape[0]) < 0.9).to(cuda)
+    launches = k1.launches
     for thr in (1, 5):
         checks.check_candidate_gather(level, q, valid, 0.5, 2, thr,
                                       max_candidates)
+    assert k1.launches == launches + 2
 
 
 @pytest.mark.parametrize("k_nearest", [40, 0, None])
@@ -76,12 +83,91 @@ def test_plane_moments_matches_plain(cuda, k_nearest):
     level = _warm_level(rng, cuda)
     q = torch.from_numpy(_scene(rng, 700)).to(cuda)
     valid = torch.ones(q.shape[0], dtype=torch.bool, device=cuda)
-    rows, cnt = vm.gather_candidate_planes(level, q, valid, 0.8, 1)
-    checks.check_plane_moments(rows, cnt, q, 0.75, k_nearest)
+    slots, cnt = vm.gather_candidate_planes(level, q, valid, 0.8, 1)
+    checks.check_plane_moments(level.points, slots, cnt, q, 0.75, k_nearest)
     cached = torch.full((q.shape[0],), 0.3, device=cuda)
     if k_nearest is not None:
-        checks.check_plane_moments(rows, cnt, q + 0.02, 0.75, k_nearest,
-                                   cached)
+        checks.check_plane_moments(level.points, slots, cnt, q + 0.02, 0.75,
+                                   k_nearest, cached)
+
+
+@pytest.mark.parametrize("max_candidates", [48, 10])
+def test_plane_moments_after_compaction_matches_plain(cuda, max_candidates):
+    """K2 on the robust search's kept voxels (P = 40), fresh and cached."""
+    rng = np.random.default_rng(4)
+    level = _warm_level(rng, cuda, p=40, res=0.5)
+    q = torch.from_numpy(_scene(rng, 700)).to(cuda)
+    valid = torch.from_numpy(rng.uniform(size=q.shape[0]) < 0.9).to(cuda)
+    slots, cnt = vm.gather_candidate_planes(level, q, valid, 0.5, 2,
+                                            max_candidates=max_candidates)
+    checks.check_plane_moments(level.points, slots, cnt, q, 0.8, 20)
+    want = k2.plane_moments_plain(level.points, slots, cnt, q, 0.8, 20)
+    checks.check_plane_moments(level.points, slots, cnt, q + 0.02, 0.8, 20,
+                               want.r_eff2)
+
+
+def _dense_pairs(rng, dev, p=40, o=48, m=64):
+    """A table of random full rows and m queries of o candidates each."""
+    pts = torch.from_numpy(rng.normal(scale=0.3, size=(256, 3 * p))
+                           .astype(np.float32)).to(dev)
+    slots = torch.from_numpy(rng.integers(0, 256, (m, o))
+                             .astype(np.int32)).to(dev)
+    cnt = torch.full((m, o), p, dtype=torch.int32, device=dev)
+    q = torch.from_numpy(rng.normal(scale=0.1, size=(m, 3))
+                         .astype(np.float32)).to(dev)
+    return pts, slots, cnt, q
+
+
+@pytest.mark.parametrize("k_nearest", [20, 0, None])
+def test_plane_moments_dense_query(cuda, k_nearest):
+    """Every candidate full: 48 x 40 = 1,920 live points a query, far past
+    what a lane keeps in registers."""
+    pts, slots, cnt, q = _dense_pairs(np.random.default_rng(8), cuda)
+    assert int(cnt[0].sum()) == 1920
+    for radius in (0.75, 2.0):
+        checks.check_plane_moments(pts, slots, cnt, q, radius, k_nearest)
+
+
+@pytest.mark.parametrize("live", [0, 1, 7, 9, 15, 17, 31, 33])
+def test_plane_moments_live_counts(cuda, live):
+    """Live counts around the group width (G - 1, G + 1 for G = 8, 16 and
+    32) and 0, spread over the candidates in several ways."""
+    rng = np.random.default_rng(live)
+    pts, slots, _, q = _dense_pairs(rng, cuda)
+    m, o = slots.shape
+    cnt = np.zeros((m, o), np.int32)
+    for i in range(m):
+        left = live
+        for c in rng.permutation(o):
+            if left == 0:
+                break
+            take = int(min(left, rng.integers(1, 41)))
+            cnt[i, c] = take
+            left -= take
+    cnt = torch.from_numpy(cnt).to(cuda)
+    assert (cnt.sum(1) == live).all()
+    for k_nearest in (20, None):
+        checks.check_plane_moments(pts, slots, cnt, q, 0.75, k_nearest)
+
+
+def test_plane_moments_no_candidate_takes_candidate_zero(cuda):
+    """No in-radius point: the closest is point 0 of candidate 0, whether
+    its voxel is absent (slot 0) or present but unusable (a real slot)."""
+    rng = np.random.default_rng(3)
+    level = _warm_level(rng, cuda, p=40, res=0.5)
+    q = torch.tensor([[100.0, 0.0, 0.0], [2.3, 1.3, 1.1], [0.5, 0.2, 0.1]],
+                     device=cuda)
+    valid = torch.tensor([True, False, True], device=cuda)
+    for max_candidates in (0, 48):
+        slots, cnt = vm.gather_candidate_planes(
+            level, q, valid, 0.5, 2, max_candidates=max_candidates)
+        assert int(slots[0, 0]) == 0 and int(cnt[:2].sum()) == 0
+        checks.check_plane_moments(level.points, slots, cnt, q, 0.8, 20)
+        got = k2.plane_moments(level.points, slots, cnt, q, 0.8, 20)
+        torch.cuda.synchronize()
+        rows = level.points[slots[:2, 0].long()]
+        assert torch.equal(got.closest[:2], rows[:, [0, 40, 80]])
+        assert (got.count[:2] == 0).all()
 
 
 @pytest.mark.parametrize("max_rounds", [4, 12])

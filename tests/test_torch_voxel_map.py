@@ -5,8 +5,12 @@ Inserts and prunes into small tables (capacity 2^8..2^10) so that probe
 chains longer than the 8-slot window, contested claim rounds, tombstone
 reuse and both election budgets (4, 12) all occur: the table (keys, count,
 points, num_points) must stay bit-identical to the reference after every
-step. Lookups and candidate rows are identical; the moment rescore gives
-identical counts and sums within rtol 1e-4.
+step. Lookups are identical, and the rows the port's candidate slots name
+(``points[slots]``) are the reference's candidate rows bit for bit, the
+robust profile's 48-of-125 compaction included; the moment rescore through
+the slots gives identical counts, radii and closest points and sums within
+1e-4 of each query's second-moment scale, on full neighbourhoods too and
+where no candidate lies in the radius.
 """
 
 import functools
@@ -106,6 +110,11 @@ def _map_and_queries(seed=5, cap_log2=12, p=10, res=0.8, m=300):
     return jl, map_state_from_numpy([jl._asdict()])[0], q, qv, res
 
 
+def _port_rows(tl, slots):
+    """The candidate rows the port's slots name (the reference's rows)."""
+    return tl.points[slots.long()].numpy()
+
+
 @pytest.mark.parametrize("nv", [1, 2])
 def test_lookup_and_candidate_gather_identical(nv):
     jl, tl, q, qv, res = _map_and_queries()
@@ -120,11 +129,12 @@ def test_lookup_and_candidate_gather_identical(nv):
         jr, jcnt = jvm.gather_candidate_planes(jl, jnp.asarray(q),
                                                jnp.asarray(qv), res, nv,
                                                threshold_voxel_occupancy=occ)
-        tr, tcnt = tvm.gather_candidate_planes(tl, torch.from_numpy(q),
-                                               torch.from_numpy(qv), res, nv,
-                                               threshold_voxel_occupancy=occ)
+        tslots, tcnt = tvm.gather_candidate_planes(
+            tl, torch.from_numpy(q), torch.from_numpy(qv), res, nv,
+            threshold_voxel_occupancy=occ)
+        assert tslots.dtype == torch.int32
         np.testing.assert_array_equal(tcnt.numpy(), np.asarray(jcnt))
-        np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+        np.testing.assert_array_equal(_port_rows(tl, tslots), np.asarray(jr))
 
 
 @functools.partial(jax.jit, static_argnames=("fresh",))
@@ -135,42 +145,116 @@ def _jax_moments(rows, cnt_ok, q, radius, k, cached, fresh):
         use_fresh=None if fresh else jnp.asarray(False), return_r_eff2=True)
 
 
-@pytest.mark.parametrize("k_nearest", [40, 10, 0])
-def test_moments_from_planes_matches(k_nearest):
-    jl, tl, q, qv, res = _map_and_queries()
-    radius = 0.75
-    jr, jcnt = jvm.gather_candidate_planes(jl, jnp.asarray(q), jnp.asarray(qv),
-                                           res, 1)
-    tr, tcnt = tvm.gather_candidate_planes(tl, torch.from_numpy(q),
-                                           torch.from_numpy(qv), res, 1)
-    # rescore at moved queries against the fresh radius, then the cached one
+def _assert_moments_match(want, got, min_live_share=0.5):
+    count, sum_rel, sum_outer, closest, cdist, r_eff2 = (
+        np.asarray(x) for x in want)
+    # counts, shells and the closest point come from compares of
+    # identically computed d2: exact
+    np.testing.assert_array_equal(got.count.numpy(), count)
+    np.testing.assert_array_equal(got.r_eff2.numpy(), r_eff2)
+    np.testing.assert_array_equal(got.closest.numpy(), closest)
+    # sqrt: the reference's XLA sqrt and torch's differ by <= 1 ulp
+    np.testing.assert_allclose(got.closest_dist.numpy(), cdist, rtol=1e-6)
+    # float sums: summation order differs; rtol 1e-4 of each query's
+    # second-moment scale
+    scale = np.abs(sum_outer).max(axis=(1, 2))[:, None] + 1e-6
+    np.testing.assert_allclose(got.sum_rel.numpy() / np.sqrt(scale),
+                               sum_rel / np.sqrt(scale), atol=1e-4)
+    np.testing.assert_allclose(
+        got.sum_outer.numpy().reshape(-1, 9) / scale,
+        sum_outer.reshape(-1, 9) / scale, atol=1e-4)
+    assert (count > 5).mean() > min_live_share
+
+
+def _rescore_both(jl, tl, q, qv, res, nv, radius, k_nearest,
+                  max_candidates=0):
+    """The reference's moments on its rows and the port's through its
+    slots, at moved queries against the fresh radius, then at the queries
+    against a cached one. Returns [(want, got)] and the port's slots."""
+    jr, jcnt = jvm.gather_candidate_planes(
+        jl, jnp.asarray(q), jnp.asarray(qv), res, nv,
+        max_candidates=max_candidates)
+    ts, tcnt = tvm.gather_candidate_planes(
+        tl, torch.from_numpy(q), torch.from_numpy(qv), res, nv,
+        max_candidates=max_candidates)
+    np.testing.assert_array_equal(tcnt.numpy(), np.asarray(jcnt))
+    np.testing.assert_array_equal(_port_rows(tl, ts), np.asarray(jr))
     q2 = (q + 0.03).astype(np.float32)
     want = _jax_moments(jr, jcnt, jnp.asarray(q2), radius, k_nearest,
                         None, True)
-    got = tvm.moments_from_planes(tr, tcnt, torch.from_numpy(q2), radius,
-                                  k_nearest=k_nearest)
+    got = tvm.moments_from_planes(tl, ts, tcnt, torch.from_numpy(q2),
+                                  radius, k_nearest=k_nearest)
     cached = np.asarray(want[5]) * np.float32(0.8)
     want_c = _jax_moments(jr, jcnt, jnp.asarray(q), radius, k_nearest,
                           jnp.asarray(cached), False)
-    got_c = tvm.moments_from_planes(tr, tcnt, torch.from_numpy(q), radius,
-                                    k_nearest=k_nearest,
+    got_c = tvm.moments_from_planes(tl, ts, tcnt, torch.from_numpy(q),
+                                    radius, k_nearest=k_nearest,
                                     cached_r_eff2=torch.from_numpy(cached))
-    for w, g in ((want, got), (want_c, got_c)):
-        count, sum_rel, sum_outer, closest, cdist, r_eff2 = (
-            np.asarray(x) for x in w)
-        # counts, shells and the closest point come from compares of
-        # identically computed d2: exact
-        np.testing.assert_array_equal(g.count.numpy(), count)
-        np.testing.assert_array_equal(g.r_eff2.numpy(), r_eff2)
-        np.testing.assert_array_equal(g.closest.numpy(), closest)
-        # sqrt: the reference's XLA sqrt and torch's differ by <= 1 ulp
-        np.testing.assert_allclose(g.closest_dist.numpy(), cdist, rtol=1e-6)
-        # float sums: summation order differs; rtol 1e-4 of each query's
-        # second-moment scale
-        scale = np.abs(sum_outer).max(axis=(1, 2))[:, None] + 1e-6
-        np.testing.assert_allclose(g.sum_rel.numpy() / np.sqrt(scale),
-                                   sum_rel / np.sqrt(scale), atol=1e-4)
-        np.testing.assert_allclose(
-            g.sum_outer.numpy().reshape(-1, 9) / scale,
-            sum_outer.reshape(-1, 9) / scale, atol=1e-4)
-        assert (count > 5).mean() > 0.5
+    return [(want, got), (want_c, got_c)], ts
+
+
+@pytest.mark.parametrize("k_nearest", [40, 10, 0])
+def test_moments_from_planes_matches(k_nearest):
+    jl, tl, q, qv, res = _map_and_queries()
+    pairs, _ = _rescore_both(jl, tl, q, qv, res, 1, 0.75, k_nearest)
+    for want, got in pairs:
+        _assert_moments_match(want, got)
+
+
+@pytest.mark.parametrize("max_candidates", [48, 10])
+def test_robust_compaction_matches_reference(max_candidates):
+    """The robust profile's search: a 0.5 m map of 40 points a voxel, nv = 2
+    (125 voxels) kept to max_candidates by the reference's top_k: the
+    slots name its rows (the voxels it keeps, in its order, the unusable
+    ones by index) and the moments match."""
+    jl, tl, q, qv, res = _map_and_queries(seed=7, cap_log2=13, p=40,
+                                          res=0.5)
+    pairs, ts = _rescore_both(jl, tl, q, qv, res, 2, 0.8, 20,
+                              max_candidates)
+    assert ts.shape == (q.shape[0], max_candidates)
+    for want, got in pairs:
+        _assert_moments_match(want, got, min_live_share=0.4)
+
+
+def test_full_neighbourhoods_match_reference():
+    """A dense block: every voxel of every query's 3x3x3 neighbourhood holds
+    its full P points, so each query has 27 x P live candidates."""
+    rng = np.random.default_rng(11)
+    p, res = 12, 0.8
+    jl = jvm.make_level(12, p)
+    pts = rng.uniform(-2.4, 2.4, (30000, 3)).astype(np.float32)
+    jl, _, _ = _jax_insert(jl, pts, res, 0.0, 12)
+    tl = map_state_from_numpy([jl._asdict()])[0]
+    q = rng.uniform(-0.7, 0.7, (64, 3)).astype(np.float32)
+    qv = np.ones(q.shape[0], bool)
+    for k_nearest in (500, 20):
+        pairs, ts = _rescore_both(jl, tl, q, qv, res, 1, 1.5, k_nearest)
+        cnt = tvm.gather_candidate_planes(
+            tl, torch.from_numpy(q), torch.from_numpy(qv), res, 1)[1]
+        assert (cnt == p).all(), "a neighbourhood is not full"
+        for want, got in pairs:
+            _assert_moments_match(want, got, min_live_share=0.99)
+
+
+@pytest.mark.parametrize("max_candidates", [0, 48])
+def test_closest_without_candidates_matches_reference(max_candidates):
+    """No in-radius candidate: the reference's argmin over all-inf takes
+    flat index 0, point 0 of candidate 0. Candidate 0 is absent for a query
+    off the map (its slot 0) and present but unusable for an invalid query
+    inside it (its real slot)."""
+    jl, tl, q, qv, res = _map_and_queries(seed=7, cap_log2=13, p=40,
+                                          res=0.5)
+    q[0] = [100.0, 0.0, 0.0]                 # off the map
+    q[1] = [2.3, 1.3, 1.1]                   # its corner voxel on the ground
+    qv[1] = False
+    pairs, ts = _rescore_both(jl, tl, q, qv, res, 2, 0.8, 20,
+                              max_candidates)
+    slots0 = ts[:2, 0].numpy()
+    assert slots0[0] == 0 and slots0[1] != 0
+    for want, got in pairs:
+        _assert_moments_match(want, got, min_live_share=0.4)
+        assert (got.count[:2] == 0).all()
+        np.testing.assert_array_equal(
+            got.closest[:2].numpy(),
+            tl.points[torch.from_numpy(slots0).long()][:, [0, 40, 80]]
+            .numpy())
