@@ -32,11 +32,11 @@ when either is missing. Phases; any failure raises and exits non-zero:
      ran and the time a step, and the call with its host path. K3 is one
      launch per insert: its device time (a CUDA graph of one insert) beside
      its time with the host enqueue. torch.profiler's trace of one call of
-     each, at the driving
-     shapes, must show one device operation for K5 and at most two for K3
-     (where the profiler sees the device at all). The stages that stay
-     plain torch (ROADMAP B9-B11) are timed the same way, each with its
-     bound;
+     each, at the driving shapes, must show one device operation for K5,
+     at most two for K3 and two (K7 and K6) for a rebuild_level of the
+     driving map (where the profiler sees the device at all). The stages
+     that stay plain torch (ROADMAP B9-B11) are timed the same way, each
+     with its bound;
   4. the driving path: Odometry(default_driving_profile(), device="cuda")
      over the 80-frame synthetic corridor, seed 3, stream_frames(batch=16):
      median per-batch frames/s, failures, mean APE (against the 0.07 m gate
@@ -59,22 +59,25 @@ when either is missing. Phases; any failure raises and exits non-zero:
      Odometry(default_driving_profile()).stream_frames(batch=16) with the
      rebase distance cut from 500 m to 100 m so that the map rebase (K7
      rebuild_claim + K6 row_gather) runs inside the drive: 0 failures, at
-     least 2 rebases, segment RPE <= 0.50 %Tr on this seed, and K6 and K7
-     launched once per rebase and field (K6: points, normals, counts,
-     flags); median per-batch frames/s, %Tr, APE, map points, host syncs a
-     frame, render and stream wall times (the stream's includes the copy of
-     the first rebase's level that phase 9 is held on, and its host time);
+     least 2 rebases, segment RPE <= 0.50 %Tr on this seed, and K7 and K6
+     launched once each per rebase and level (K6 moves the points, normals,
+     counts and flags in one launch); median per-batch frames/s, %Tr, APE,
+     map points, host syncs a frame, render and stream wall times (the
+     stream's includes the copy of the first rebase's level that phase 9 is
+     held on, and its host time);
   8. the robust corridor of phase 5 again with a rebase distance of 20 m:
      the speculative streamer's deferred rebases ("rebase" statuses) run;
      0 failures, APE <= 0.10 m, at least 2 rebases, and the largest end-pose
      difference from phase 5's run;
-  9. K6 and K7 against their plain versions: the whole rebuild_level (K7,
-     then K6 on points, normals, counts and flags) bit-identical to the
-     plain one on the long drive's map (2^18 slots x 90 floats) and the
-     robust run's (2^19 x 120), each as it stood at its first rebase, with
-     that rebase's shift; K6 alone at the Pallas dma_gather_kernel's shapes
-     (2^18 x 128 float32, N = 16,384 and 110,592 random and sorted slots)
-     beside index_select;
+  9. K6 and K7 against their plain versions: K7 (its table, its writers,
+     num_points and the claim rounds it ran), K6's one launch over the
+     points, normals, counts and flags and the whole rebuild_level (one K7
+     and one K6 launch) bit-identical to the plain ones on the long drive's
+     map (2^18 slots x 90 floats) and the robust run's (2^19 x 120), each
+     as it stood at its first rebase, with that rebase's shift, timed with
+     the L2 flushed, the points alone beside them; K6 on one table at the
+     Pallas dma_gather_kernel's shapes (2^18 x 128 float32, N = 16,384 and
+     110,592 random and sorted slots) beside index_select;
   in 4-8 every kernel count and K5's device count of LM steps are set to
   0 just before the path and read just after it; each path must launch K5
   and its other kernels, and make fewer host syncs a frame than LM steps
@@ -110,7 +113,7 @@ from ct_icp_torch.mapping import voxel_map as vm
 from ct_icp_torch.odometry import pipeline as pl
 from ct_icp_torch.odometry.odometry import PRUNE_PERIOD, Odometry
 from ct_icp_torch.ops import voxel as vx
-from ct_icp_torch.tools.exp_gather import k6_bytes
+from ct_icp_torch.tools.exp_gather import k6_bytes, k6_fields_bytes
 from ct_icp_torch.tools.exp_moments import k2_bytes, live_work
 from ct_icp_torch.tools.timing import (HBM_BYTES_PER_S, bound, time_cold,
                                        time_graph, time_stateless)
@@ -168,7 +171,8 @@ WORK_KEYS = ("host_ms", "warm_ms", "library_warm_ms", "step_ms",
              "ms_per_step", "steps_run", "step_bound_ms",
              "device_ops_per_call", "cached_ms", "group", "live",
              "points_read", "rows_read", "per_query_bytes", "key_windows",
-             "slots_found")
+             "slots_found", "claim_rounds", "rebuild_level_ms",
+             "rebuild_level_plain_ms")
 # the kernels of the first three paths (the rebase runs on none of them)
 K1_K5 = ["candidate_gather", "plane_moments", "map_insert", "grid_sample",
          "lm_step"]
@@ -599,6 +603,12 @@ def phase_kernels_driving(dev, o, preps):
                                preps_by_fid[max(preps_by_fid)], 4,
                                "driving cruise")
     records["map_insert"] = rec
+    # the rebase's device operations, counted here (the profiler sees the
+    # device in a process's first uses only): one K7 and one K6 launch
+    shift = torch.tensor([3.3, -0.7, 0.1], device=dev)
+    records["rebuild_level_device_ops"] = _require_ops(
+        "rebuild_level", device_ops(lambda: vm.rebuild_level(
+            level, shift, res.resolution)), 2)
     del level
     # K5: the first LM call of a frame on the per-frame path
     records["lm_step"] = _kernel_k5(dev, _path_lm_call(
@@ -947,10 +957,10 @@ def _capture_first_rebase(odo, store):
 
 
 def _require_rebase_launches(path, launches, rebases, levels):
-    """K7 once a level and rebase, K6 four times (points, normals, counts,
-    flags)."""
+    """K7 and K6 once each a level and rebase (K6 moves the points,
+    normals, counts and flags in one launch)."""
     want = {"rebuild_claim": rebases * levels,
-            "row_gather": 4 * rebases * levels}
+            "row_gather": rebases * levels}
     got = {k: launches[k] for k in want}
     if got != want:
         raise RuntimeError(f"{path} path: rebase launches {got}, expected "
@@ -1066,21 +1076,31 @@ def _kernel_k6(table, slots, sub, tag, library=True):
         lib_warm_ms, _ = time_stateless(lambda: table.index_select(0, idx))
     n, w = slots.shape[0], table.shape[1]
     n_bytes = k6_bytes(table, slots, sub)
+    n_rows = int(((slots >= 0) & (slots < table.shape[0])).sum())
     log(f"K6 row_gather {tag} N={n} W={w}: identical to plain; {ms:.4f} ms "
         f"({how}; {warm_ms:.4f} ms back to back), plain {plain_ms:.4f} ms, "
         f"index_select {'-' if lib_ms is None else f'{lib_ms:.4f} ms'} "
         f"({'-' if lib_warm_ms is None else f'{lib_warm_ms:.4f} ms'} back "
         f"to back); {n_bytes / ms / 1e6:.1f} GB/s")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bytes=float(n_bytes), ops=0.0 if sub is None else n * w * 1.0,
+                bytes=float(n_bytes),
+                ops=0.0 if sub is None else n_rows * w * 1.0,
                 timing=how, warm_ms=warm_ms, library_warm_ms=lib_warm_ms,
                 shape=f"C={table.shape[0]} W={w} N={n} {tag}")
 
 
+def _rebase_fields(level):
+    """K6's tables in the rebase: points, normals, counts, flags."""
+    return (level.count[:, None], level.points, level.normals,
+            level.nflags[:, None])
+
+
 def _kernel_rebase(level, shift, res, tag):
-    """K7, then the whole rebuild_level (K7 + 4 x K6), against the plain
-    versions on a real level and shift; times of K7, of K6 on the points
-    (the rebase's largest gather) and of the whole rebuild."""
+    """K7 (table, writers, num_points), K6's one launch over the four
+    fields, then the whole rebuild_level (K7 + K6), against the plain
+    versions on a real level and shift; times of K7 (and the claim rounds it
+    ran), of K6 (and of K6 on the points alone, the rebase's largest field)
+    and of the whole rebuild."""
     out = checks.check_rebuild_level(level, shift, res)
     kargs = (level.keys, level.count, level.points, shift, res)
     ms, how = time_cold(lambda: k7.rebuild_claim(*kargs))
@@ -1089,32 +1109,50 @@ def _kernel_rebase(level, shift, res, tag):
     c = level.capacity
     # every key read and every table and writer slot written (12 B a
     # slot); the count of each row with a live key (4 B) and the first
-    # point of each occupied row (12 B); ~25 operations an occupied row
-    # (the shift, the voxel ids, the two hashes)
+    # point of each occupied row (12 B); num_points (4 B); ~25 operations
+    # an occupied row (the shift, the voxel ids, the two hashes)
     live = (level.keys != k3.EMPTY) & (level.keys != k3.TOMB)
     n_live = int(live.sum())
     n_occ = int((live & (level.count > 0)).sum())
     rec7 = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
-                bytes=12.0 * c + 4.0 * n_live + 12.0 * n_occ,
+                bytes=12.0 * c + 4.0 * n_live + 12.0 * n_occ + 4,
                 ops=25.0 * n_occ, timing=how, warm_ms=warm_ms,
+                claim_rounds=out["claim_rounds"],
                 shape=f"C={c} P={level.max_points} live={n_live} "
                       f"occupied={n_occ} rows={out['rows']} {tag}")
-    _table, src = k7.rebuild_claim(*kargs)
-    sub = shift.repeat_interleave(level.max_points).contiguous()
-    rec6 = _kernel_k6(level.points, src, sub, f"rebase points {tag}",
-                      library=False)
+    _table, src, _ = k7.rebuild_claim(*kargs)
+    tables = _rebase_fields(level)
+    subs = (None, shift, None, None)
+    checks.check_row_gather_fields(tables, src, subs)
+    ms6, how6 = time_cold(lambda: k6.row_gather_fields(tables, src, subs))
+    warm6, _ = time_stateless(lambda: k6.row_gather_fields(tables, src, subs))
+    plain6, _ = time_cold(
+        lambda: k6.row_gather_fields_plain(tables, src, subs))
+    n_rows = int(((src >= 0) & (src < c)).sum())
+    w = level.points.shape[1]
+    rec6 = dict(max_abs_err=0.0, ms=ms6, plain_ms=plain6, library_ms=None,
+                bytes=float(k6_fields_bytes(tables, src, subs)),
+                ops=float(n_rows * w), timing=how6, warm_ms=warm6,
+                shape=f"C={c} W={w}+3+1+1 N={c} rows={n_rows} rebase "
+                      f"fields {tag}")
+    log(f"K6 row_gather_fields rebase {tag} N={c} W={w}+3+1+1 ({n_rows} "
+        f"rows moved): identical to plain; {ms6:.4f} ms ({how6}; "
+        f"{warm6:.4f} ms back to back), plain {plain6:.4f} ms; "
+        f"{rec6['bytes'] / ms6 / 1e6:.1f} GB/s")
+    points = _kernel_k6(level.points, src, shift, f"rebase points {tag}",
+                        library=False)
     whole_ms, _ = time_cold(lambda: vm.rebuild_level(level, shift, res))
     whole_plain_ms, _ = time_cold(
         lambda: checks.plain_rebuild_level(level, shift, res), reps=3)
     log(f"K7 rebuild_claim {tag} C={c}: identical to plain ({out['rows']} "
         f"rows kept of {int((level.count > 0).sum())}, shift "
-        f"{shift.tolist()}); {ms:.4f} ms ({how}; {warm_ms:.4f} ms back to "
-        f"back), plain {plain_ms:.4f} ms; "
-        f"the whole rebuild_level {whole_ms:.4f} ms, plain "
-        f"{whole_plain_ms:.4f} ms")
+        f"{shift.tolist()}, {out['claim_rounds']} claim rounds run); "
+        f"{ms:.4f} ms ({how}; {warm_ms:.4f} ms back to back), plain "
+        f"{plain_ms:.4f} ms; the whole rebuild_level {whole_ms:.4f} ms, "
+        f"plain {whole_plain_ms:.4f} ms")
     rec7.update(rebuild_level_ms=whole_ms,
                 rebuild_level_plain_ms=whole_plain_ms)
-    return rec7, rec6
+    return rec7, rec6, points
 
 
 def phase_kernels_rebase(dev, long_capture, robust_capture, long_res,
@@ -1122,14 +1160,17 @@ def phase_kernels_rebase(dev, long_capture, robust_capture, long_res,
     """K7 and K6 on the long drive's and the robust run's maps at their
     first rebase, then K6 at the Pallas kernel's shapes."""
     records = {}
-    records["rebuild_claim"], records["row_gather"] = _kernel_rebase(
+    records["rebuild_claim"], records["row_gather"], points = _kernel_rebase(
         long_capture["level"], long_capture["shift"], long_res, "long drive")
     del long_capture["level"]
-    r7, r6 = _kernel_rebase(robust_capture["level"], robust_capture["shift"],
-                            robust_res, "robust")
+    r7, r6, r_points = _kernel_rebase(robust_capture["level"],
+                                      robust_capture["shift"], robust_res,
+                                      "robust")
     del robust_capture["level"]
     records["rebuild_claim"]["others"] = {"robust": r7}
-    records["row_gather"]["others"] = {"robust": r6}
+    records["row_gather"]["others"] = {
+        "robust": r6, "points alone (long drive)": points,
+        "points alone (robust)": r_points}
     torch.cuda.empty_cache()
     rng = np.random.default_rng(SEED)
     table = torch.from_numpy(rng.standard_normal(
@@ -1198,7 +1239,8 @@ def main() -> int:
     for name, spec in KERNELS.items():
         # K1-K5: the robust shapes (every kernel runs there), the driving
         # shapes and K5's jolt frame beside them; K6, K7: the long drive's
-        # rebase, the robust run's and K6 at exp_gather's shapes beside it;
+        # rebase, the robust run's, and K6 on the points alone and at
+        # exp_gather's shapes beside it;
         # the largest error over every shape checked
         r = primary[name]
         b_ms, b_by = bound(r["bytes"], r["ops"])
@@ -1217,8 +1259,7 @@ def main() -> int:
                 o["max_abs_err"] for o in others.values() if o]),
             ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=b_ms, bound_by=b_by,
             library_ms=r["library_ms"], timing=r["timing"], shape=r["shape"])
-        for key in WORK_KEYS + ("rebuild_level_ms", "rebuild_level_plain_ms",
-                                "plain_step_ms", "loop_steps"):
+        for key in WORK_KEYS + ("plain_step_ms", "loop_steps"):
             if r.get(key) is not None:
                 rec[key] = r[key]
         if name == "lm_step":
@@ -1227,6 +1268,9 @@ def main() -> int:
         if name in ("lm_step", "map_insert"):
             rec["device_ops_per_call"] = \
                 driving_records[name]["device_ops_per_call"]
+        if name == "rebuild_claim":
+            rec["rebuild_level_device_ops"] = \
+                driving_records["rebuild_level_device_ops"]
         rec["ptxas"] = spec.get("ptxas")
         for key, o in others.items():
             if o is None:

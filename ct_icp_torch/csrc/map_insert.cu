@@ -169,7 +169,7 @@ __global__ void __launch_bounds__(kThreads)
       claimant = flags == kValid;
       // claim round 0's probe (round 0 has no re-read)
       if (claimant)
-        cticp::claim_attempt(table, claim, i, cap_mask, 0, stamp, rows);
+        cticp::claim_attempt(table, claim, i, i, cap_mask, 0, stamp, rows);
     }
     const int at = warp_append(cnt + kNClaim, claimant);
     if (claimant) s.list[at] = i;
@@ -182,9 +182,10 @@ __global__ void __launch_bounds__(kThreads)
   const int n_claim = cnt[kNClaim];
   int live = n_claim;
   for (int r = 0; live > 0 && r < cticp::kMaxProbes; ++r) {
-    for (int e = tid; e < n_claim; e += stride)
-      cticp::claim_write(table, claim, s.list[e], cap_mask, r, stamp + r,
-                         rows);
+    for (int e = tid; e < n_claim; e += stride) {
+      const int i = s.list[e];
+      cticp::claim_write(table, claim, i, i, cap_mask, r, stamp + r, rows);
+    }
     grid.sync();
     for (int e0 = first; e0 < n_claim; e0 += stride) {
       const int e = e0 + threadIdx.x;
@@ -192,7 +193,7 @@ __global__ void __launch_bounds__(kThreads)
       if (e < n_claim) {
         const int i = s.list[e];
         if (s.flags[i] == kValid)
-          still = cticp::claim_attempt(table, claim, i, cap_mask, r + 1,
+          still = cticp::claim_attempt(table, claim, i, i, cap_mask, r + 1,
                                        stamp + r + 1, rows);
       }
       warp_count(cnt + kLive + r + 1, still);

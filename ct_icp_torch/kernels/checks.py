@@ -10,7 +10,8 @@ CUDA inputs and raises AssertionError on a disagreement. Tolerances:
     1e-3 (|cos| of the angle, sign free) where the neighborhood is planar
     (a2D > 0.5 and >= 10 points); a2D within 1e-3 where >= 5 points;
   * K4 (grid election): indices, count and validity identical;
-  * K6 (row gather) and K7 (the rebase's table and writers), and the whole
+  * K6 (row gather, one table or several in one launch) and K7 (the
+    rebase's table, writers and num_points), and the whole
     ``rebuild_level`` they make up: identical (keys, counts, points,
     normals, flags, num_points);
   * K5 (LM loop), one step from the same state: J^T W J and J^T W r within
@@ -128,10 +129,22 @@ def check_row_gather(table, slots, sub=None):
     return {"max_abs_err": 0.0}
 
 
+def check_row_gather_fields(tables, slots, subs=None):
+    """The one-launch gather of several tables against one
+    ``row_gather_plain`` a field."""
+    outs = k6.row_gather_fields(tables, slots, subs)
+    want = k6.row_gather_fields_plain(tables, slots, subs)
+    torch.cuda.synchronize()
+    for f, (a, b) in enumerate(zip(outs, want)):
+        _same(a, b, f"row_gather_fields field {f}")
+    return {"max_abs_err": 0.0}
+
+
 def plain_rebuild_level(level, shift, resolution):
-    """rebuild_level through the plain versions of K7 and K6."""
-    table, src = k7.rebuild_claim_plain(level.keys, level.count,
-                                        level.points, shift, resolution)
+    """rebuild_level through the plain versions of K7 and K6, a field at a
+    time, and the sum of the moved counts."""
+    table, src, _ = k7.rebuild_claim_plain(level.keys, level.count,
+                                           level.points, shift, resolution)
     p = level.max_points
     count = k6.row_gather_plain(level.count[:, None], src)[:, 0]
     return vm.MapLevel(
@@ -145,7 +158,10 @@ def plain_rebuild_level(level, shift, resolution):
 
 def check_rebuild_level(level, shift, resolution):
     """K7 against its plain version, then the whole ``rebuild_level``
-    (K7 + K6) against the plain one. Returns the rows kept too."""
+    (K7 + one K6 over the four fields) against the plain one. Returns the
+    rows kept and the claim rounds K7 ran too."""
+    rounds = k7.rounds_counter(level.keys.device)
+    before = int(rounds[0])
     got = k7.rebuild_claim(level.keys, level.count, level.points, shift,
                            resolution)
     want = k7.rebuild_claim_plain(level.keys, level.count, level.points,
@@ -153,13 +169,17 @@ def check_rebuild_level(level, shift, resolution):
     torch.cuda.synchronize()
     _same(got[0], want[0], "rebuild_claim table")
     _same(got[1], want[1], "rebuild_claim src")
+    _same(got[2], want[2], "rebuild_claim num_points")
+    ran = int(rounds[0]) - before
+    if not 0 <= ran <= k3.MAX_PROBES:
+        raise AssertionError(f"rebuild_claim ran {ran} claim rounds")
     new = vm.rebuild_level(level, shift, resolution)
     ref = plain_rebuild_level(level, shift, resolution)
     torch.cuda.synchronize()
     for name in vm.MapLevel._fields:
         _same(getattr(new, name), getattr(ref, name), f"rebuild_level {name}")
     return {"max_abs_err": 0.0, "rows": int((want[1] >= 0).sum()),
-            "num_points": int(ref.num_points[0])}
+            "num_points": int(ref.num_points[0]), "claim_rounds": ran}
 
 
 def _rel_err(a, b):

@@ -146,22 +146,20 @@ def rebuild_level(level: MapLevel, shift, resolution: float) -> MapLevel:
     """Rebase the level's frame: subtract ``shift`` (f32[3] on the level's
     device) from every stored point and rebuild the hash table from scratch
     (row-level rehash; clears tombstones). Returns a new level. K7 claims
-    the fresh table and elects each slot's writer row; K6 moves the rows
-    (the points with the shift repeated per plane subtracted, the normals,
-    counts and flags as they are); empty slots come out zero. Rows whose
-    first points land in one voxel after the shift share its slot and only
-    the writer's row is kept (off the voxel grid, a good share of rows: the
-    reference's docstring calls them rare); rows left unresolved after
-    MAX_PROBES rounds are dropped too (reference voxel_map.py:619-657)."""
-    p = level.max_points
-    table, src = k7.rebuild_claim(level.keys, level.count, level.points,
-                                  shift, resolution)
-    count = k6.row_gather(level.count[:, None], src)[:, 0]
-    return MapLevel(
-        keys=table,
-        count=count,
-        points=k6.row_gather(level.points, src,
-                             shift.repeat_interleave(p).contiguous()),
-        normals=k6.row_gather(level.normals, src),
-        nflags=k6.row_gather(level.nflags[:, None], src)[:, 0],
-        num_points=count.sum(dtype=torch.int32).reshape(1))
+    the fresh table, elects each slot's writer row and sums the writers'
+    counts into num_points; K6, in one launch, moves the rows (the points
+    with the shift subtracted from each plane, the normals, counts and
+    flags as they are); empty slots come out zero. Two launches on the
+    card. Rows whose first points land in one voxel after the shift share
+    its slot and only the writer's row is kept (off the voxel grid, a good
+    share of rows: the reference's docstring calls them rare); rows left
+    unresolved after MAX_PROBES rounds are dropped too (reference
+    voxel_map.py:619-657)."""
+    table, src, num_points = k7.rebuild_claim(level.keys, level.count,
+                                              level.points, shift, resolution)
+    count, points, normals, nflags = k6.row_gather_fields(
+        (level.count[:, None], level.points, level.normals,
+         level.nflags[:, None]), src, (None, shift, None, None))
+    return MapLevel(keys=table, count=count[:, 0], points=points,
+                    normals=normals, nflags=nflags[:, 0],
+                    num_points=num_points)

@@ -40,11 +40,23 @@ C = 1 << 18
 def k6_bytes(table, slots, sub=None) -> int:
     """The bytes ``row_gather(table, slots, sub)`` must move: each distinct
     row it reads, the slots, ``sub``, and every output row written."""
-    row_b = table.shape[1] * 4
-    read = torch.unique(slots[slots >= 0]).numel()
+    return k6_fields_bytes((table,), slots, (sub,))
+
+
+def k6_fields_bytes(tables, slots, subs) -> int:
+    """The bytes ``row_gather_fields(tables, slots, subs)`` must move: each
+    distinct row of each table it reads, the slots once, each sub and every
+    output row written."""
+    c = tables[0].shape[0]
+    valid = slots[(slots >= 0) & (slots < c)]
+    read = torch.unique(valid).numel()
     n = slots.numel()
-    return (read * row_b + n * 4 + n * row_b
-            + (row_b if sub is not None else 0))
+    total = n * 4
+    for table, sub in zip(tables, subs):
+        row_b = table.shape[1] * 4
+        total += read * row_b + n * row_b
+        total += 0 if sub is None else sub.numel() * 4
+    return total
 
 
 def main() -> int:

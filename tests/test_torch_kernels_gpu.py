@@ -1,6 +1,7 @@
 """CUDA kernels K1-K7 against their plain PyTorch versions, on the card
 (K5 as one launch per LM call, K3 as one launch per insert, K1 one launch a
-call returning slots, K2 reading the live points through them).
+call returning slots, K2 reading the live points through them, the rebase
+as one K7 and one K6 launch).
 
 Needs an NVIDIA GPU and nvcc (the kernels build from ct_icp_torch/csrc at
 first use); skips elsewhere. Run on a machine with the card (this file needs
@@ -20,7 +21,10 @@ from ct_icp_torch.kernels import candidate_gather as k1
 from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.kernels import map_insert as k3
 from ct_icp_torch.kernels import plane_moments as k2
+from ct_icp_torch.kernels import rebuild as k7
+from ct_icp_torch.kernels import row_gather as k6
 from ct_icp_torch.mapping import voxel_map as vm
+from torch_rebase_cases import chain_level, merge_level
 
 pytestmark = pytest.mark.gpu
 
@@ -358,3 +362,80 @@ def test_rebuild_level_matches_plain(cuda, cap_log2, shift):
     out = checks.check_rebuild_level(
         level, torch.tensor(shift, dtype=torch.float32, device=cuda), 0.8)
     assert 0 < out["rows"] and out["num_points"] > 0
+    assert 1 <= out["claim_rounds"] <= k3.MAX_PROBES
+
+
+@pytest.mark.parametrize("case", ["chain", "merge"])
+def test_rebuild_claim_hand_built_matches_plain(cuda, case):
+    """K7 (and the whole rebuild) on the 64-slot levels of
+    torch_rebase_cases.py: 20 rows on one probe chain (16 rounds run, 16
+    rows kept, 4 dropped) and two rows merged into one voxel."""
+    if case == "chain":
+        level, shift, _chain = chain_level()
+    else:
+        level, shift = merge_level()
+    level = vm.MapLevel(*(t.to(cuda) for t in level))
+    out = checks.check_rebuild_level(level, shift.to(cuda), 0.5)
+    if case == "chain":
+        assert out["rows"] == 16 and out["claim_rounds"] == k3.MAX_PROBES
+    else:
+        assert out["rows"] == 11 and out["claim_rounds"] >= 1
+
+
+def _rebase_tables(rng, dev, c, p, offset):
+    """The rebase's fields (points, normals, counts, flags), each a view
+    starting ``offset`` elements into its buffer."""
+    def view(a):
+        buf = torch.empty(a.size + offset, dtype=torch.from_numpy(a).dtype,
+                          device=dev)
+        t = buf[offset:].view(a.shape)
+        t.copy_(torch.from_numpy(a))
+        return t
+    return (view((rng.standard_normal((c, 3 * p)) * 100).astype(np.float32)),
+            view(rng.standard_normal((c, 3)).astype(np.float32)),
+            view(rng.integers(0, p + 1, (c, 1)).astype(np.int32)),
+            view(rng.integers(0, 4, (c, 1)).astype(np.int32)))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2])
+@pytest.mark.parametrize("n, p", [(1, 30), (4093, 30), (20011, 40)])
+def test_row_gather_fields_matches_plain(cuda, n, p, offset):
+    """The one-launch gather of the rebase's four fields (W = 3P, 3, 1, 1;
+    the shift subtracted per plane) at N not a multiple of a tile, from
+    aligned tables and from views off a 16-byte (offset 1) and an 8-byte
+    (offset 2) boundary."""
+    rng = np.random.default_rng(n + offset)
+    c = 1 << 14
+    tables = _rebase_tables(rng, cuda, c, p, offset)
+    slots = rng.integers(0, c, n)
+    slots[rng.uniform(size=n) < 0.9] = -1
+    slots[rng.uniform(size=n) < 0.01] = c + 3
+    slots = torch.from_numpy(slots.astype(np.int32)).to(cuda)
+    shift = torch.tensor([101.5, -7.25, 0.125], device=cuda)
+    launches = k6.launches
+    checks.check_row_gather_fields(tables, slots, (shift, None, None, None))
+    assert k6.launches == launches + 1
+
+
+def test_rebuild_level_is_one_k7_and_one_k6_operation(cuda):
+    """A rebuild_level on the card is two device operations, the K7 and
+    the K6 kernels, and no memset or copy; one launch of each."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(3)
+    level = _warm_level(rng, cuda, cap_log2=14)
+    shift = torch.tensor([2.3, -0.7, 0.1], device=cuda)
+    vm.rebuild_level(level, shift, 0.8)              # warm-up
+    torch.cuda.synchronize()
+    before = (k7.launches, k6.launches)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        vm.rebuild_level(level, shift, 0.8)
+        torch.cuda.synchronize()
+    assert (k7.launches, k6.launches) == (before[0] + 1, before[1] + 1)
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not names:
+        pytest.skip("the profiler saw no device activity")
+    assert len(names) == 2, names
+    assert any("rebuild_claim" in x for x in names), names
+    assert any("row_gather" in x for x in names), names

@@ -5,7 +5,11 @@ K7 rebuild_claim and K6 row_gather) against ct_icp_tpu.
 num_points) on levels of 2^8-2^10 slots: (a) tombstones left by
 ``prune_level``; (b) a shift that merges rows near the origin (voxels
 either side of the shift truncate to one voxel id); (c) a table above 0.9
-load, where some rows find no slot in 16 probes and are dropped.
+load, where some rows find no slot in 16 probes and are dropped. Then on
+two 64-slot levels built by hand (``torch_rebase_cases.py``): 20 rows on
+one probe chain, of which the 4 with the largest indices are still
+unresolved after 16 rounds and dropped; two rows that merge into one voxel
+after the shift, of which the larger index is kept.
 
 Then the odometry's rebases, forced mid-run with a small rebase distance on
 test_torch_odometry.py's driving scene: the streamed path (batch 4) and the
@@ -35,6 +39,7 @@ from ct_icp_tpu.mapping import voxel_map as jvm
 from ct_icp_tpu.odometry import pipeline as jpl
 from ct_icp_tpu.odometry.odometry import Odometry as JOdometry
 from test_torch_odometry import _frames, _jax_options
+from torch_rebase_cases import MERGE_ROWS, chain_level, merge_level
 # the autouse fixture, imported so that it applies here too
 from test_torch_robust import single_torch_thread  # noqa: F401
 
@@ -97,6 +102,21 @@ def _case(name):
     return _level(8, 4, batches, 2), np.array([0.7, 0.3, -0.2])
 
 
+def _assert_rebuild_matches(level, shift, res=RES):
+    """The port's rebuild_level (CPU) equals ct_icp_tpu's bit for bit;
+    returns the port's level."""
+    shift = np.asarray(shift, np.float32)
+    jnew = jvm.rebuild_level(_jax_level(level), jnp.asarray(shift), res)
+    tnew = tvm.rebuild_level(level, torch.as_tensor(shift), res)
+    np.testing.assert_array_equal(tnew.keys.numpy(),
+                                  np.asarray(jnew.keys).view(np.int32))
+    for field in ("count", "points", "normals", "nflags"):
+        np.testing.assert_array_equal(getattr(tnew, field).numpy(),
+                                      np.asarray(getattr(jnew, field)))
+    assert int(tnew.num_points[0]) == int(jnew.num_points)
+    return tnew
+
+
 @pytest.mark.parametrize("name", ["tombstones", "merge", "overload"])
 def test_rebuild_level_matches_reference(name):
     level, shift = _case(name)
@@ -105,22 +125,39 @@ def test_rebuild_level_matches_reference(name):
         assert int((level.keys == 1).sum()) > 20
     if name == "overload":
         assert before > 0.9 * level.capacity
-    jnew = jvm.rebuild_level(_jax_level(level), jnp.asarray(shift,
-                                                            jnp.float32), RES)
-    tnew = tvm.rebuild_level(level, torch.as_tensor(shift.astype(np.float32)),
-                             RES)
-    np.testing.assert_array_equal(tnew.keys.numpy(),
-                                  np.asarray(jnew.keys).view(np.int32))
-    for field in ("count", "points", "normals", "nflags"):
-        np.testing.assert_array_equal(getattr(tnew, field).numpy(),
-                                      np.asarray(getattr(jnew, field)))
-    assert int(tnew.num_points[0]) == int(jnew.num_points)
+    tnew = _assert_rebuild_matches(level, shift)
     after = _occupied(tnew)
     assert int((tnew.keys == 1).sum()) == 0          # tombstones cleared
     if name == "tombstones":
         assert after == before
     else:       # merged rows, rows without a slot: dropped
         assert 0 < after < before
+
+
+def test_rebuild_level_drops_rows_after_16_rounds():
+    level, shift, chain = chain_level()
+    tnew = _assert_rebuild_matches(level, shift.numpy())
+    # 16 rounds resolve 16 rows of the chain, a round the smallest index
+    # left; the other 4 keep no slot, and their points are gone
+    assert _occupied(tnew) == 16
+    first = level.points[:, 0] - shift[0]
+    assert sorted(tnew.points[tnew.count > 0][:, 0].tolist()) == \
+        sorted(first[chain[:16]].tolist())
+    assert int(tnew.num_points[0]) == int(level.count[chain[:16]].sum())
+
+
+def test_rebuild_level_merges_two_rows():
+    level, shift = merge_level()
+    tnew = _assert_rebuild_matches(level, shift.numpy())
+    assert int(level.keys[62]) > 1 and int(level.count[62]) == 0
+    assert _occupied(level) == 12 and _occupied(tnew) == 11
+    a, b = MERGE_ROWS
+    # the larger row index writes the merged voxel's slot
+    moved = level.points - shift.repeat_interleave(4)
+    rows_equal = (tnew.points[:, None, :] == moved[None]).all(-1)
+    assert int(rows_equal[:, b].sum()) == 1
+    assert not bool(rows_equal[:, a].any())
+    assert int(tnew.num_points[0]) == int(level.count.sum() - level.count[a])
 
 
 REBASE_DISTANCE = 0.35

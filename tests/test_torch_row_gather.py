@@ -90,3 +90,63 @@ def test_row_gather_bound_counts_distinct_rows():
     assert timing.bound(timing.HBM_BYTES_PER_S * 1e-3, 0.0) == (1.0, "bytes")
     assert timing.bound(0.0, timing.FP32_OPS_PER_S * 1e-3) == \
         (1.0, "operations")
+
+
+def _rebase_fields(rng, c, n, p):
+    """The rebase's four fields (points [C, 3P] f32, normals [C, 3] f32,
+    counts and flags [C, 1] int32), the shift and slots with empty (-1),
+    out-of-range (C, C + 9) and repeated rows."""
+    tables = (rng.standard_normal((c, 3 * p)).astype(np.float32) * 50.0,
+              rng.standard_normal((c, 3)).astype(np.float32),
+              rng.integers(0, p + 1, (c, 1)).astype(np.int32),
+              rng.integers(0, 4, (c, 1)).astype(np.int32))
+    shift = rng.standard_normal(3).astype(np.float32) * 100.0
+    slots = rng.integers(0, c, n)
+    slots[rng.uniform(size=n) < 0.6] = -1
+    slots[:6] = (-1, c, c + 9, 7, 7, 7)
+    return tables, shift, slots.astype(np.int32)
+
+
+@pytest.mark.parametrize("n", [7, 301, 1700])
+def test_row_gather_fields_is_one_plain_gather_a_field(n):
+    """The rebase's one-launch form (points minus the shift per plane,
+    normals, counts, flags) equals four ``row_gather_plain`` calls, at
+    W = 90 / 3 / 1 / 1, and numpy's indexing; the counts' sum is K7's
+    num_points."""
+    rng = np.random.default_rng(n)
+    p, c = 30, 500
+    tables, shift, slots = _rebase_fields(rng, c, n, p)
+    tt = tuple(torch.from_numpy(t) for t in tables)
+    ts = torch.from_numpy(slots)
+    sub = torch.from_numpy(shift)
+    outs = k6.row_gather_fields(tt, ts, (sub, None, None, None))
+    want = (k6.row_gather_plain(tt[0], ts, sub.repeat_interleave(p)),
+            *(k6.row_gather_plain(t, ts) for t in tt[1:]))
+    assert [o.shape[1] for o in outs] == [90, 3, 1, 1]
+    ok = (slots >= 0) & (slots < c)
+    for got, w, t in zip(outs, want, tables):
+        assert got.dtype == w.dtype
+        assert torch.equal(got, w)
+        ref = np.zeros((n, t.shape[1]), t.dtype)
+        ref[ok] = t[slots[ok]]
+        if t.shape[1] == 3 * p:
+            ref[ok] -= np.repeat(shift, p)
+        np.testing.assert_array_equal(got.numpy(), ref)
+    assert int(outs[2].sum()) == int(tables[2][slots[ok]].sum())
+    # the repeated row, and zero rows for -1, C, C + 9
+    assert torch.equal(outs[0][3], outs[0][5])
+    assert not outs[0][:3].any() and not outs[2][:3].any()
+
+
+def test_row_gather_sub_by_plane_is_its_repeat():
+    """A sub of S entries (S dividing W) is the same as its W-entry repeat:
+    entry j // (W / S) on column j."""
+    rng = np.random.default_rng(3)
+    table = torch.from_numpy(rng.standard_normal((64, 12)).astype(
+        np.float32))
+    slots = torch.from_numpy(rng.integers(-2, 70, 200).astype(np.int32))
+    sub = torch.tensor([1.5, -2.0, 3.25])
+    assert torch.equal(k6.row_gather(table, slots, sub),
+                       k6.row_gather(table, slots, sub.repeat_interleave(4)))
+    (out,) = k6.row_gather_fields((table,), slots)
+    assert torch.equal(out, k6.row_gather_plain(table, slots))
