@@ -21,7 +21,9 @@ when either is missing. Phases; any failure raises and exits non-zero:
      with the work its bound counts: K1's distinct key windows probed and
      slots found, K2's distinct live map points and rows read, K3 at
      P = 40 and C = 2^19, K4 on a robust corridor frame's sub-sample at
-     1.0 m with a 2^22 table and in the Pallas configuration). K5 is held
+     1.0 m with a 2^22 table and in the Pallas configuration: three calls
+     in a row on its persistent table, then its device time with the L2
+     flushed, back to back, and with its host side). K5 is held
      on the first LM call of real frames as the per-frame path gives it
      (frames before it registered, the call starting from the frame's
      motion-model initial pose): a driving and a robust startup frame and,
@@ -32,9 +34,9 @@ when either is missing. Phases; any failure raises and exits non-zero:
      ran and the time a step, and the call with its host path. K3 is one
      launch per insert: its device time (a CUDA graph of one insert) beside
      its time with the host enqueue. torch.profiler's trace of one call of
-     each, at the driving shapes, must show one device operation for K5,
-     at most two for K3 and two (K7 and K6) for a rebuild_level of the
-     driving map (where the profiler sees the device at all). The stages
+     each, at the driving shapes, must show one device operation for K5
+     and K4, at most two for K3 and two (K7 and K6) for a rebuild_level of
+     the driving map (where the profiler sees the device at all). The stages
      that stay plain torch (ROADMAP B9-B11) are timed the same way, each
      with its bound;
   4. the driving path: Odometry(default_driving_profile(), device="cuda")
@@ -78,12 +80,34 @@ when either is missing. Phases; any failure raises and exits non-zero:
      the L2 flushed, the points alone beside them; K6 on one table at the
      Pallas dma_gather_kernel's shapes (2^18 x 128 float32, N = 16,384 and
      110,592 random and sorted slots) beside index_select;
-  in 4-8 every kernel count and K5's device count of LM steps are set to
-  0 just before the path and read just after it; each path must launch K5
-  and its other kernels, and make fewer host syncs a frame than LM steps
-  (one per ICP iteration and readback where no batch rolled back); the
-  driving path one K5 launch per ICP iteration;
-  10. one JSON line of the kernels, the card's line, and the result line.
+  10. the indoor walk: the 240 frames of configs/synthetic_indoor_walk.yaml
+     (seed 7, 60,000 points a frame, rendered beforehand) through
+     Odometry(default_robust_outdoor_low_inertia()).stream_frames(batch=4),
+     the port's three-level map (0.2 m x 50 points at 2^20 slots, 0.5 m x
+     40 at 2^19, 1.5 m x 40 at 2^17; searched on level 1, inserted into
+     all three), escalating on the doorway turns: 0 failures, mean APE <=
+     0.10 m, K1-K5 launched, K3 three times (once a level) for each insert
+     and at least three times a frame; %Tr (INDOOR segments), frames/s,
+     attempts and host syncs a frame, the device memory peak, then on the
+     walk's map the checkpoint's clone of the three levels
+     (pipeline.snapshot, once a speculative batch) and prune_level on each
+     level, timed;
+  11. K1-K5 against their plain versions at the indoor walk's shapes, and
+     timed as in phase 3: K5 on the first LM call of walk frame 10 (600
+     residuals at most, 10 LM steps, WeightingScheme.ALL); K1 and K2 on
+     the searched level of the map frames 0-10 built, with frame 11's
+     keypoints as queries; K3 inserting frame 11 into each of the three
+     levels (P = 50 at 2^20 with min distance 0.03, P = 40 at 2^19 with
+     0.1, P = 40 at 2^17 with 0.15); K4 on the walk's first escalated
+     election as phase 10 met it (its sub-sample, voxel and capacity);
+  in 4-8 and 10 every kernel count and K5's device count of LM steps are
+  set to 0 just before the path and read just after it; each path must
+  launch K5 and its other kernels, and make fewer host syncs a frame than
+  LM steps (one per ICP iteration and readback where no batch rolled
+  back); the driving path one K5 launch per ICP iteration;
+  12. one JSON line of the kernels (K1-K5 with an "indoor" record, K3
+     with "indoor level 1" and "indoor level 2" as well), the card's line,
+     and the result line.
 """
 
 import dataclasses
@@ -97,9 +121,12 @@ import numpy as np
 import torch
 
 from ct_icp_torch.config.options import (default_driving_profile,
+                                         default_robust_outdoor_low_inertia,
                                          robust_driving_profile)
 from ct_icp_torch.datasets import corridor as cor
+from ct_icp_torch.datasets import indoor_walk as iw
 from ct_icp_torch.datasets import long_drive as ld
+from ct_icp_torch.datasets.streaming import stream_acquisition
 from ct_icp_torch.kernels import build
 from ct_icp_torch.kernels import candidate_gather as k1
 from ct_icp_torch.kernels import checks
@@ -112,11 +139,12 @@ from ct_icp_torch.kernels import row_gather as k6
 from ct_icp_torch.mapping import voxel_map as vm
 from ct_icp_torch.odometry import pipeline as pl
 from ct_icp_torch.odometry.odometry import PRUNE_PERIOD, Odometry
+from ct_icp_torch.ops import sampling as smp
 from ct_icp_torch.ops import voxel as vx
 from ct_icp_torch.tools.exp_gather import k6_bytes, k6_fields_bytes
 from ct_icp_torch.tools.exp_moments import k2_bytes, live_work
 from ct_icp_torch.tools.timing import (HBM_BYTES_PER_S, bound, time_cold,
-                                       time_graph, time_stateless)
+                                       time_graph, time_host, time_stateless)
 
 NUM_FRAMES = 80
 SEED = cor.APE_SEEDS[0]
@@ -130,6 +158,8 @@ K1_QUERIES = 1536
 LONG_SEED = ld.LONG_SEEDS[0]
 LONG_REBASE_DISTANCE = 100.0
 ROBUST_REBASE_DISTANCE = 20.0
+# the indoor walk: the timed seed of its 3-seed gate
+INDOOR_SEED = iw.INDOOR_SEEDS[0]
 # the Pallas dma_gather_kernel's configuration (tools/exp_gather.py:141-143)
 GATHER_C = 1 << 18
 GATHER_W = 128
@@ -141,6 +171,10 @@ GATHER_NS = (16384, 110592)
 K5_DRIVING_FRAME = 10
 K5_ROBUST_FRAME = 10
 K5_JOLT_FRAME = cor.ESC_BURST[0] + 2
+# the indoor walk's frame whose first LM call K5 is held to; frames
+# [0, K) build the three-level map K1-K3 are held on, frame K + 1 gives
+# them their queries and inserted points
+K5_INDOOR_FRAME = 10
 
 KERNELS = {
     "candidate_gather": dict(
@@ -345,6 +379,8 @@ def _kernel_k2(level, q, slots, cnt, radius, k_nearest, tag):
 
 
 def _kernel_k3(dev, level, res, prep, rounds, tag, count_ops=False):
+    """K3 against its plain version, inserting ``prep["xyz"]`` into a copy
+    of ``level`` at ``res``'s resolution and min distance, then timed."""
     pts = torch.as_tensor(prep["xyz"], dtype=torch.float32, device=dev)
     n = pts.shape[0]
     valid = torch.ones(n, dtype=torch.bool, device=dev)
@@ -396,10 +432,19 @@ def _kernel_k3(dev, level, res, prep, rounds, tag, count_ops=False):
                       f"C={level.capacity}")
 
 
-def _kernel_k4(dev, pts, valid, voxel, capacity, table_log2, tag):
-    out = checks.check_grid_sample(pts, valid, voxel, capacity, table_log2)
+def _kernel_k4(dev, pts, valid, voxel, capacity, table_log2=22, *, tag):
+    """K4 against its plain version (three calls in a row on its table),
+    then timed: on the device with the L2 flushed before each call
+    (``ms``), back to back in a CUDA graph (``warm_ms``, as the earlier
+    five-launch design was timed) and with its host side (``host_ms``:
+    events around the Python call)."""
+    for _ in range(3):
+        out = checks.check_grid_sample(pts, valid, voxel, capacity,
+                                       table_log2)
     args = (pts, valid, voxel, capacity, table_log2)
-    ms, how = time_stateless(lambda: k4.grid_sample(*args))
+    ms, how = time_cold(lambda: k4.grid_sample(*args))
+    warm_ms, _ = time_stateless(lambda: k4.grid_sample(*args))
+    host_ms, _ = time_host(lambda: k4.grid_sample(*args))
     plain_ms, _ = time_stateless(lambda: k4.grid_sample_plain(*args))
     n = pts.shape[0]
     # inputs read once (points, validity), outputs written once (indices,
@@ -407,12 +452,13 @@ def _kernel_k4(dev, pts, valid, voxel, capacity, table_log2, tag):
     n_bytes = n * 13 + capacity * 5 + 4
     table_ms = (1 << table_log2) * 4 / HBM_BYTES_PER_S * 1e3
     log(f"K4 grid_sample {tag} N={n} table 2^{table_log2} cap={capacity}: "
-        f"identical to plain ({out['count']} kept); {ms:.4f} ms ({how}), "
-        f"plain {plain_ms:.4f} ms; the table clear alone takes >= "
-        f"{table_ms:.5f} ms")
+        f"identical to plain ({out['count']} kept); {ms:.4f} ms ({how}; "
+        f"{warm_ms:.4f} ms back to back), {host_ms:.4f} ms with its host "
+        f"side, plain {plain_ms:.4f} ms; the five-launch design's table "
+        f"clear alone took >= {table_ms:.5f} ms")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
-                bytes=n_bytes, ops=n * 12.0, timing=how,
-                table_clear_floor_ms=table_ms,
+                bytes=n_bytes, ops=n * 12.0, timing=how, warm_ms=warm_ms,
+                host_ms=host_ms, table_clear_floor_ms=table_ms,
                 shape=f"N={n} table=2^{table_log2} capacity={capacity} "
                       f"kept={out['count']}")
 
@@ -609,6 +655,12 @@ def phase_kernels_driving(dev, o, preps):
     records["rebuild_level_device_ops"] = _require_ops(
         "rebuild_level", device_ops(lambda: vm.rebuild_level(
             level, shift, res.resolution)), 2)
+    # K4's, one launch: the election of frame 1's sub-sample at 1.0 m
+    sub = torch.as_tensor(p1["xyz"], dtype=torch.float32, device=dev)
+    ok = torch.ones(sub.shape[0], dtype=torch.bool, device=dev)
+    records["grid_sample_device_ops"] = _require_ops(
+        "K4 grid_sample", device_ops(lambda: k4.grid_sample(
+            sub, ok, 1.0, 4096)), 1)
     del level
     # K5: the first LM call of a frame on the per-frame path
     records["lm_step"] = _kernel_k5(dev, _path_lm_call(
@@ -656,13 +708,13 @@ def phase_kernels_robust(dev, odo, preps):
                                                o.voxel_size))
     records["grid_sample"] = _kernel_k4(
         dev, sub, torch.ones(sub.shape[0], dtype=torch.bool, device=dev),
-        voxel, o.max_keypoints, 22, "robust escalation")
+        voxel, o.max_keypoints, 22, tag="robust escalation")
     n_pad = (sub.shape[0] + 1023) // 1024 * 1024
     padded = torch.zeros((n_pad, 3), dtype=torch.float32, device=dev)
     padded[:sub.shape[0]] = sub
     records["grid_sample"]["pallas_config"] = _kernel_k4(
         dev, padded, torch.arange(n_pad, device=dev) < sub.shape[0], voxel,
-        o.max_keypoints, 21, "Pallas configuration")
+        o.max_keypoints, 21, tag="Pallas configuration")
     del level
     # K5: the first LM call of a robust frame on the per-frame path, at its K
     records["lm_step"] = _kernel_k5(dev, _path_lm_call(
@@ -976,8 +1028,7 @@ def phase_long(dev):
     captured = {}
     _capture_first_rebase(odo, captured)
     _reset_counts()
-    out = ld.stream_long_drive(odo, acq, ld.LONG_FRAMES, ld.LONG_BATCH,
-                               prerender=True)
+    out = stream_acquisition(odo, acq, ld.LONG_FRAMES, ld.LONG_BATCH)
     launches, lm_steps = _read_counts(), _read_steps()
     out.update(launches=launches, lm_steps=lm_steps, seed=LONG_SEED,
                rebase_distance_m=LONG_REBASE_DISTANCE,
@@ -1059,6 +1110,161 @@ def phase_robust_rebase(dev, robust_run, robust_out):
     del odo
     torch.cuda.empty_cache()
     return out, captured
+
+
+def phase_indoor(dev):
+    """The handheld indoor walk (seed 7, its 240 frames, batch 4) through
+    Odometry(default_robust_outdoor_low_inertia()).stream_frames: the
+    port's three-level map, its speculative streamer escalating on every
+    doorway turn (the device keypoint election, K4). Then, on the map the
+    walk left, the costs that grow with three levels: the checkpoint's
+    clone of the map (``pipeline.snapshot``, once a speculative batch) and
+    the plain ``prune_level`` over each level."""
+    acq = iw.load_acquisition(INDOOR_SEED)
+    odo = Odometry(default_robust_outdoor_low_inertia(), device=dev)
+    election = {}
+    elect = smp.voxel_subsample_indices
+
+    def spy(points, valid, *args, **kw):
+        # a copy of the first escalated attempt's election inputs, for
+        # K4's check at the walk's own shape after the path
+        if not election:
+            election.update(points=points.clone(), valid=valid.clone(),
+                            args=args, kw=kw, frame=len(odo.trajectory))
+        return elect(points, valid, *args, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    smp.voxel_subsample_indices = spy
+    _reset_counts()
+    try:
+        out = stream_acquisition(odo, acq, iw.INDOOR_FRAMES, iw.INDOOR_BATCH,
+                                 driving=False)
+    finally:
+        smp.voxel_subsample_indices = elect
+    launches, lm_steps = _read_counts(), _read_steps()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    levels = odo.map_state
+    map_gb = sum(t.numel() * t.element_size() for lv in levels
+                 for t in lv) / 1e9
+    out.update(launches=launches, lm_steps=lm_steps, seed=INDOOR_SEED,
+               map_points_by_level=[int(lv.num_points[0]) for lv in levels],
+               map_gb=map_gb, peak_device_memory_gb=peak_gb,
+               speculative_batches_committed={
+                   str(k): v for k, v in
+                   odo.speculative_batches_committed.items()},
+               speculative_prefix_commits=odo.speculative_prefix_commits,
+               speculative_rollbacks=odo.speculative_rollbacks)
+    # the checkpoint's clone of the three levels, and the plain prune of
+    # each (the walk's frames lie within max_distance: it prunes nothing,
+    # but reads every slot)
+    out["snapshot_ms"] = time_host(
+        lambda: pl.snapshot(levels, odo._odo_state), reps=5)[0]
+    loc = torch.zeros(3, device=dev)
+    out["prune_level_ms"] = [time_mutating(
+        lambda lv=lv: _level_copy(lv),
+        lambda lv2: vm.prune_level(lv2, loc, odo.options.max_distance))[0]
+        for lv in levels]
+    batch_ms = (iw.INDOOR_BATCH / out["median_batch_fps"] * 1e3
+                if out["median_batch_fps"] else None)
+    out["snapshot_share_of_batch"] = (out["snapshot_ms"] / batch_ms
+                                      if batch_ms else None)
+    log("indoor walk: " + json.dumps(out))
+    log(f"  {out['frames']} frames, batch {out['batch']}: {out['tr_pct']:.4f}"
+        f" %Tr (INDOOR segments; the gate is the mean of seeds "
+        f"{iw.INDOOR_SEEDS} <= {iw.INDOOR_TR_BOUND_PCT}), mean APE "
+        f"{out['mean_ape_m']:.4f} m, {out['mean_attempts']:.3f} attempts a "
+        f"frame, {out['host_syncs_per_frame']:.3f} host syncs a frame, "
+        f"median {out['median_batch_fps']:.2f} frames/s, K1-K5 launches "
+        f"{[launches[k] for k in K1_K5]}; map {map_gb:.3f} GB in three "
+        f"levels, device memory peak {peak_gb:.3f} GB; the checkpoint's "
+        f"clone {out['snapshot_ms']:.4f} ms "
+        f"({out['snapshot_share_of_batch']:.4f} of a median batch), "
+        f"prune_level by level "
+        f"{[round(x, 4) for x in out['prune_level_ms']]} ms")
+    if out["failures"]:
+        raise RuntimeError(f"indoor walk: {out['failures']} failed frames")
+    if not out["mean_ape_m"] <= APE_SMOKE_BOUND_M:
+        raise RuntimeError(f"indoor walk: mean APE {out['mean_ape_m']} m > "
+                           f"{APE_SMOKE_BOUND_M} m")
+    _require_launches("indoor walk", launches, K1_K5)
+    # every insert goes to all three levels: three K3 launches at least a
+    # registered frame (attempts, re-runs and deferred updates add more)
+    if (launches["map_insert"] % len(levels)
+            or launches["map_insert"] < len(levels) * out["frames"]):
+        raise RuntimeError(f"indoor walk: {launches['map_insert']} K3 "
+                           f"launches for {out['frames']} frames and "
+                           f"{len(levels)} levels")
+    if not out["host_syncs_per_frame"] < out["lm_steps"] / out["frames"]:
+        raise RuntimeError("indoor walk: a host sync per LM step")
+    if not election:
+        raise RuntimeError("indoor walk: no escalated attempt elected "
+                           "keypoints on the device")
+    del odo, levels
+    torch.cuda.empty_cache()
+    return out, election
+
+
+def phase_kernels_indoor(dev, election):
+    """K1-K5 against their plain versions at the indoor walk's shapes:
+    K5 on the first LM call of walk frame K5_INDOOR_FRAME (the low-inertia
+    profile: 600 residuals at most, 10 LM steps, WeightingScheme.ALL), on
+    the per-frame path; K1 and K2 on the searched level (1: 0.5 m, P = 40,
+    C = 2^19) of the three-level map that frames [0, K] built, with frame
+    K + 1's keypoints placed by frame K's end pose as queries; K3 on each of
+    the three levels (0.2 m x 50 at 2^20, 0.5 m x 40 at 2^19, 1.5 m x 40 at
+    2^17, each with its own min distance) inserting frame K + 1's points,
+    so placed, with the round budget the path gives that frame; K4 on the
+    walk's first escalated election (its sub-sample, its fs[1] voxel and
+    keypoint capacity, captured by ``phase_indoor``). Returns {name:
+    {tag: partial record}}."""
+    o = default_robust_outdoor_low_inertia()
+    acq = iw.load_acquisition(INDOOR_SEED)
+    k = K5_INDOOR_FRAME
+    odo = Odometry(o, device=dev)
+    preps = []
+    for i in range(k + 2):
+        fr = acq.frame(i)
+        preps.append(odo.prepare_frame(fr["xyz"], fr["timestamps"], i,
+                                       frame_id=i))
+    records = {"lm_step": {"indoor": _kernel_k5(
+        dev, _path_lm_call(odo, preps, k), f"indoor frame {k}")}}
+    levels = odo.map_state
+    ress = o.map_options.resolutions
+    statics = odo.registration.statics
+    icp = o.ct_icp_options
+    pose = odo.get_trajectory()[-1].end_pose
+    nxt = preps[k + 1]
+    world = torch.as_tensor(pose.apply(nxt["xyz"]), dtype=torch.float32,
+                            device=dev)
+    li = statics.level_index
+    log(f"indoor map after frame {k}: level sizes "
+        f"{[int(lv.num_points[0]) for lv in levels]}, searched level {li}; "
+        f"frame {k + 1}: {nxt['n']} points, {nxt['kp_n']} keypoints")
+    q = world[:nxt["kp_n"]].contiguous()
+    cg, (slots, cnt) = _kernel_k1(
+        dev, levels[li], ress[li], q, statics.voxel_neighborhood,
+        icp.threshold_voxel_occupancy, statics.max_candidate_voxels,
+        f"indoor level {li}")
+    records["candidate_gather"] = {"indoor": cg}
+    records["plane_moments"] = {"indoor": _kernel_k2(
+        levels[li], q, slots, cnt, float(o.map_options.default_radius),
+        icp.max_number_neighbors, f"indoor level {li}")}
+    del slots, cnt
+    rounds = (o.bootstrap_insert_rounds if k + 1 < o.bootstrap_frames
+              else 4)
+    records["map_insert"] = {
+        "indoor" if i == 0 else f"indoor level {i}": _kernel_k3(
+            dev, lv, res, {"xyz": world}, rounds, f"indoor level {i}")
+        for i, (lv, res) in enumerate(zip(levels, ress))}
+    del odo, levels, world, q
+    torch.cuda.empty_cache()
+    voxel, capacity, *rest = election["args"]
+    records["grid_sample"] = {"indoor": _kernel_k4(
+        dev, election["points"], election["valid"], voxel, capacity,
+        *rest, **election["kw"], tag=f"indoor escalated election (frame "
+        f"{election['frame']}, voxel {voxel} m)")}
+    return records
 
 
 def _kernel_k6(table, slots, sub, tag, library=True):
@@ -1231,14 +1437,19 @@ def main() -> int:
         dev, long_capture, robust_capture,
         default_driving_profile().map_options.resolutions[0].resolution,
         robust_driving_profile().map_options.resolutions[0].resolution)
+    indoor, election = phase_indoor(dev)
+    indoor_records = phase_kernels_indoor(dev, election)
+    del election
 
     paths = {"driving": driving, "robust": robust, "escalation": escalation,
-             "long_drive": long_drive, "robust_rebase": robust_rebase}
+             "long_drive": long_drive, "robust_rebase": robust_rebase,
+             "indoor": indoor}
     primary = {**robust_records, **rebase_records}
     kernels = []
     for name, spec in KERNELS.items():
         # K1-K5: the robust shapes (every kernel runs there), the driving
-        # shapes and K5's jolt frame beside them; K6, K7: the long drive's
+        # shapes, K5's jolt frame and the indoor walk's shapes beside them;
+        # K6, K7: the long drive's
         # rebase, the robust run's, and K6 on the points alone and at
         # exp_gather's shapes beside it;
         # the largest error over every shape checked
@@ -1249,6 +1460,7 @@ def main() -> int:
             others["driving"] = driving_records[name]
         if name == "lm_step":
             others["jolt"] = jolt_k5
+        others.update(indoor_records.get(name, {}))
         rec = dict(
             name=name, route="cuda", source=spec["source"],
             replaces=spec["replaces"],
@@ -1271,6 +1483,9 @@ def main() -> int:
         if name == "rebuild_claim":
             rec["rebuild_level_device_ops"] = \
                 driving_records["rebuild_level_device_ops"]
+        if name == "grid_sample":
+            rec["device_ops_per_call"] = \
+                driving_records["grid_sample_device_ops"]
         rec["ptxas"] = spec.get("ptxas")
         for key, o in others.items():
             if o is None:

@@ -5,152 +5,279 @@
 // voxel_subsample_indices (the XLA scatter-min it stands for). It computes
 // what they compute, not the Pallas kernel's sequential sweep:
 //
-//   1. clear the claim table (2^table_log2 int32 slots) to INT_MAX;
-//   2. hash every valid point's truncated voxel coords (the reference's
-//      3-prime hash, masked to the table) and atomicMin its scan index into
-//      its slot: the winner is the smallest index, whatever the order the
+//   1. claim: every valid point hashes its truncated voxel coords (the
+//      reference's 3-prime hash, masked to the 2^table_log2 table) and
+//      atomicMins its claim word, this call's stamp over its scan index,
+//      into its slot. The smallest index wins whatever the order the
 //      threads arrive in, so distinct voxels that collide in the table merge
 //      exactly as the reference's scatter-min merges them;
-//   3. a point is kept when its slot holds its own index;
-//   4. stable compaction in scan order: a per-block count, one scan of the
-//      block counts, then a block-local ballot scan that places each kept
-//      index at its rank; ranks at or past `capacity` are dropped and the
-//      count is min(kept, capacity).
+//   2. one grid barrier; a point is kept when its slot holds its own word
+//      (the slot is derived again from the point, not stored); each warp's
+//      kept bits and a block scan of their counts go to shared memory, the
+//      block's total to a per-block count;
+//   3. a second grid barrier; each block sums the counts of the blocks
+//      before it and of all of them, places its kept indices at their rank
+//      (ranks at or past `capacity` are dropped), and the threads zero idx
+//      and out_valid past min(kept, capacity), the count.
 //
-// Five launches, no host sync, no float atomics. Bound: bytes. Clearing the
-// table dominates them (16.8 MB at table_log2 = 22, about 5 us at
-// 3.35 TB/s); the points (12 B each) and the outputs are small beside it.
-// A stamped table, cleared once and reused with a per-call stamp as K3
-// does, would remove the clear; that is later work.
-#include <climits>
+// One cooperative launch of resident blocks, each owning a run of
+// 256-point tiles. The claim table persists per device and table size with
+// a small control block (the last stamp): each call takes the next stamp,
+// so words of earlier calls lose to every word of this one and no call
+// clears the table; the table is cleared (all ones) inside the launch only
+// by the call after the one that took stamp k4_stamp_limit(). Claim words
+// are 32 bits, the stamp counted down in the high 15 bits over a 17-bit
+// scan index: N is at most 2^17 (the path passes at most
+// max_subsampled_points, 2^16), and the table is cleared once every 32,767
+// calls. The persistent table costs 4 B a slot: 16.8 MB at table_log2 = 22
+// (8.4 MB at 21), one per device and size used.
+//
+// Measured and removed (tools/exp_sample.py, H100 80GB HBM3 at 700 W;
+// PERF.md): 64-bit claim words (a 32-bit stamp over a 32-bit index) took
+// the same time and twice the memory; one block of 1,024 threads looping
+// over the points with no grid barrier took 4.6x as long (one SM derives
+// every voxel id); storing each point's slot at the claim instead of
+// deriving it again saved nothing measurable and needs N ints of scratch.
+//
+// Bound: bytes. The function reads the points and their validity once
+// (13 B a point) and writes idx, out_valid and the count (5 B a slot of the
+// capacity, 4 B); the claim table is this design's scratch and is not
+// counted (chip_smoke.py). With the table counted the floor would be its
+// clear or its read, 16.8 MB. What sets the time is latency: the launch,
+// the two grid barriers and the dependent claim-then-read of random words.
+#include <cooperative_groups.h>
+
+#include <algorithm>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kBlock = 1024;   // threads per block of the scan passes
+using Word = unsigned int;
+constexpr int kIdxBits = 17;
+constexpr int kStampLimit = (1 << (32 - kIdxBits)) - 1;
+// the high field all ones is a cleared word (stamp 0, never taken)
+constexpr Word kHiMax = ~Word(0) >> kIdxBits;
+constexpr int kMaxPoints = 1 << kIdxBits;
 
-__global__ void gs_clear(int32_t* __restrict__ table, long long t,
-                         int32_t* __restrict__ idx, int capacity) {
-  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long end = t > capacity ? t : capacity;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < end; i += stride) {
-    if (i < t) table[i] = INT_MAX;
-    if (i < capacity) idx[i] = 0;
-  }
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxTiles = 64;              // tiles of kThreads points a block
+constexpr int kEntries = kMaxTiles * kWarps;
+constexpr int kMaxBlocks = 8192;           // entries of the block counts
+
+__device__ __forceinline__ Word claim_word(int stamp, int i) {
+  return (static_cast<Word>(kHiMax - static_cast<Word>(stamp)) << kIdxBits) |
+         static_cast<Word>(i);
 }
 
-__global__ void gs_claim(const float* __restrict__ pts,
-                         const uint8_t* __restrict__ valid, int n, float voxel,
-                         uint32_t mask, int32_t* __restrict__ table,
-                         int32_t* __restrict__ slot) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  if (!valid[i]) {
-    slot[i] = -1;
-    return;
-  }
+__device__ __forceinline__ uint32_t point_slot(const float* __restrict__ pts,
+                                               int i, float voxel,
+                                               uint32_t mask) {
   const int cx = cticp::voxel_coord(pts[3 * i + 0], voxel);
   const int cy = cticp::voxel_coord(pts[3 * i + 1], voxel);
   const int cz = cticp::voxel_coord(pts[3 * i + 2], voxel);
-  const uint32_t h = cticp::voxel_hash_u32(cx, cy, cz) & mask;
-  slot[i] = static_cast<int32_t>(h);
-  atomicMin(table + h, i);
+  return cticp::voxel_hash_u32(cx, cy, cz) & mask;
 }
 
-__device__ __forceinline__ bool gs_kept(const int32_t* __restrict__ slot,
-                                        const int32_t* __restrict__ table,
-                                        int n, int i) {
-  if (i >= n) return false;
-  const int32_t s = slot[i];
-  return s >= 0 && table[s] == i;
-}
-
-__global__ void gs_count(const int32_t* __restrict__ slot,
-                         const int32_t* __restrict__ table, int n,
-                         int32_t* __restrict__ block_cnt) {
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  const int c = __syncthreads_count(gs_kept(slot, table, n, i));
-  if (threadIdx.x == 0) block_cnt[blockIdx.x] = c;
-}
-
-// one thread: exclusive scan of the block counts (in place), then the
-// capped total
-__global__ void gs_scan(int32_t* __restrict__ block_cnt, int nblocks,
-                        int capacity, int32_t* __restrict__ count) {
-  int run = 0;
-  for (int b = 0; b < nblocks; ++b) {
-    const int c = block_cnt[b];
-    block_cnt[b] = run;
-    run += c;
+// In place: v[0..m) becomes its exclusive prefix sums; returns the total.
+// Every thread of the block calls it; tmp holds kWarps + 1 ints.
+__device__ int block_exclusive_scan(int* v, int m, int* tmp) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int per = (m + kThreads - 1) / kThreads;
+  const int b0 = threadIdx.x * per;
+  int own = 0;
+  for (int k = 0; k < per; ++k)
+    if (b0 + k < m) own += v[b0 + k];
+  int incl = own;
+  for (int d = 1; d < 32; d <<= 1) {
+    const int up = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += up;
   }
-  *count = run < capacity ? run : capacity;
-}
-
-__global__ void gs_scatter(const int32_t* __restrict__ slot,
-                           const int32_t* __restrict__ table, int n,
-                           int n_blocks, const int32_t* __restrict__ block_off,
-                           const int32_t* __restrict__ count, int capacity,
-                           int32_t* __restrict__ idx,
-                           uint8_t* __restrict__ out_valid) {
-  __shared__ int warp_off[kBlock / 32];
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const bool kept = gs_kept(slot, table, n, i);
-  const unsigned bits = __ballot_sync(0xffffffffu, kept);
-  if (lane == 0) warp_off[warp] = __popc(bits);
+  if (lane == 31) tmp[warp] = incl;
   __syncthreads();
   if (warp == 0) {
-    const int own = warp_off[lane];
-    int v = own;
+    const int x = lane < kWarps ? tmp[lane] : 0;
+    int xi = x;
     for (int d = 1; d < 32; d <<= 1) {
-      const int up = __shfl_up_sync(0xffffffffu, v, d);
-      if (lane >= d) v += up;
+      const int up = __shfl_up_sync(0xffffffffu, xi, d);
+      if (lane >= d) xi += up;
     }
-    warp_off[lane] = v - own;   // exclusive prefix over the warps
+    if (lane < kWarps) tmp[lane] = xi - x;
+    if (lane == 31) tmp[kWarps] = xi;
   }
   __syncthreads();
-  if (kept && blockIdx.x < n_blocks) {
-    const int pos = block_off[blockIdx.x] + warp_off[warp] +
-                    __popc(bits & ((1u << lane) - 1u));
-    if (pos < capacity) idx[pos] = i;
+  int run = tmp[warp] + incl - own;
+  for (int k = 0; k < per; ++k) {
+    if (b0 + k < m) {
+      const int c = v[b0 + k];
+      v[b0 + k] = run;
+      run += c;
+    }
   }
-  if (i < capacity) out_valid[i] = i < *count ? 1 : 0;
+  const int total = tmp[kWarps];
+  __syncthreads();
+  return total;
 }
+
+// Mutable arrays shared across blocks (table, ctrl, block_cnt) carry no
+// __restrict__/const and are read after a barrier through the L2 (__ldcg).
+__global__ void __launch_bounds__(kThreads)
+    grid_sample_kernel(const float* __restrict__ pts,
+                       const uint8_t* __restrict__ valid, int n, float voxel,
+                       uint32_t mask, int tiles_per_block, int capacity,
+                       Word* table, int32_t* ctrl, int32_t* block_cnt,
+                       int32_t* __restrict__ idx,
+                       uint8_t* __restrict__ out_valid,
+                       int32_t* __restrict__ count) {
+  __shared__ unsigned bits[kEntries];
+  __shared__ int prefix[kEntries];
+  __shared__ int tmp[2 * kWarps + 1];
+  cg::grid_group grid = cg::this_grid();
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tile0 = blockIdx.x * tiles_per_block;
+  const long long tid =
+      static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * kThreads;
+
+  // every block reads the last stamp before the first barrier
+  int stamp = ctrl[0];
+  if (stamp >= kStampLimit) {                  // every block agrees
+    for (long long j = tid; j <= static_cast<long long>(mask); j += stride)
+      table[j] = ~Word(0);
+    stamp = 0;
+    grid.sync();
+  }
+  ++stamp;
+
+  // ---- 1. claim
+  for (int t = 0; t < tiles_per_block; ++t) {
+    const int i = (tile0 + t) * kThreads + threadIdx.x;
+    if (i < n && valid[i]) {
+      atomicMin(table + point_slot(pts, i, voxel, mask),
+                claim_word(stamp, i));
+    }
+  }
+  grid.sync();
+  if (tid == 0) ctrl[0] = stamp;
+
+  // ---- 2. kept bits by warp and tile, their counts scanned in the block
+  for (int t = 0; t < tiles_per_block; ++t) {
+    const int i = (tile0 + t) * kThreads + threadIdx.x;
+    bool kept = false;
+    if (i < n && valid[i])
+      kept = __ldcg(table + point_slot(pts, i, voxel, mask)) ==
+             claim_word(stamp, i);
+    const unsigned b = __ballot_sync(0xffffffffu, kept);
+    if (lane == 0) {
+      bits[t * kWarps + warp] = b;
+      prefix[t * kWarps + warp] = __popc(b);
+    }
+  }
+  __syncthreads();
+  const int block_total =
+      block_exclusive_scan(prefix, tiles_per_block * kWarps, tmp);
+
+  // ---- 3. the block's offset and the total, then the scatter and the fill
+  if (threadIdx.x == 0) block_cnt[blockIdx.x] = block_total;
+  grid.sync();
+  int before = 0, total = 0;
+  for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += kThreads) {
+    const int c = __ldcg(block_cnt + b);
+    total += c;
+    if (b < static_cast<int>(blockIdx.x)) before += c;
+  }
+  for (int d = 16; d > 0; d >>= 1) {
+    before += __shfl_down_sync(0xffffffffu, before, d);
+    total += __shfl_down_sync(0xffffffffu, total, d);
+  }
+  if (lane == 0) {
+    tmp[warp] = before;
+    tmp[kWarps + warp] = total;
+  }
+  __syncthreads();
+  before = 0;
+  total = 0;
+  for (int w = 0; w < kWarps; ++w) {
+    before += tmp[w];
+    total += tmp[kWarps + w];
+  }
+  for (int t = 0; t < tiles_per_block; ++t) {
+    const unsigned b = bits[t * kWarps + warp];
+    if ((b >> lane) & 1u) {
+      const int pos = before + prefix[t * kWarps + warp] +
+                      __popc(b & ((1u << lane) - 1u));
+      if (pos < capacity) {
+        idx[pos] = (tile0 + t) * kThreads + threadIdx.x;
+        out_valid[pos] = 1;
+      }
+    }
+  }
+  const int cnt = total < capacity ? total : capacity;
+  for (long long j = tid + cnt; j < capacity; j += stride) {
+    idx[j] = 0;
+    out_valid[j] = 0;
+  }
+  if (tid == 0) *count = cnt;
+}
+
+int g_max_blocks = 0;   // blocks resident together: the cooperative limit
 
 }  // namespace
 
+// the last stamp before a call clears the table, the most points a call
+// takes, and the int32 entries of the block counts
+extern "C" int k4_stamp_limit() { return kStampLimit; }
+extern "C" int k4_max_points() { return kMaxPoints; }
+extern "C" int k4_block_ints() { return kMaxBlocks; }
+
+// points: f32 [n, 3]; valid: u8 [n]; table: uint32 [2^table_log2] and
+// ctrl: int32 [1], kept by the caller from call to call (table all ones,
+// ctrl 0 at first); block_cnt: int32 [k4_block_ints()]; idx: int32
+// [capacity], out_valid: u8 [capacity], count: int32 [1].
 extern "C" int k4_grid_sample(const void* points, const void* valid, int n,
                               float voxel, int table_log2, int capacity,
-                              void* table, void* slot, void* block_cnt,
+                              void* table, void* ctrl, void* block_cnt,
                               void* idx, void* out_valid, void* count,
                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long long t = 1LL << table_log2;
-  auto* tab = static_cast<int32_t*>(table);
-  auto* sl = static_cast<int32_t*>(slot);
+  if (n < 0 || n > kMaxPoints || capacity < 0 || table_log2 < 2 ||
+      table_log2 > 30)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (g_max_blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, grid_sample_kernel, kThreads, 0);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    g_max_blocks = std::min(per_sm * sms, kMaxBlocks);
+  }
+  // each block owns a run of `tiles` tiles of kThreads points
+  const int n_tiles = (n + kThreads - 1) / kThreads;
+  int tiles = 0, blocks = 1;
+  if (n_tiles > 0) {
+    tiles = (n_tiles + g_max_blocks - 1) / g_max_blocks;
+    blocks = (n_tiles + tiles - 1) / tiles;
+  }
+  if (tiles > kMaxTiles) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* p = static_cast<const float*>(points);
+  const auto* v = static_cast<const uint8_t*>(valid);
+  uint32_t mask = static_cast<uint32_t>((1LL << table_log2) - 1);
+  auto* tab = static_cast<Word*>(table);
+  auto* ct = static_cast<int32_t*>(ctrl);
   auto* bc = static_cast<int32_t*>(block_cnt);
-  auto* cnt = static_cast<int32_t*>(count);
   auto* out = static_cast<int32_t*>(idx);
   auto* ov = static_cast<uint8_t*>(out_valid);
-
-  gs_clear<<<1024, 256, 0, s>>>(tab, t, out, capacity);
-  const int nb = (n + kBlock - 1) / kBlock;
-  if (n > 0) {
-    gs_claim<<<(n + 255) / 256, 256, 0, s>>>(
-        static_cast<const float*>(points), static_cast<const uint8_t*>(valid),
-        n, voxel, static_cast<uint32_t>(t - 1), tab, sl);
-    gs_count<<<nb, kBlock, 0, s>>>(sl, tab, n, bc);
-  }
-  gs_scan<<<1, 1, 0, s>>>(bc, nb, capacity, cnt);
-  const int cap_blocks = (capacity + kBlock - 1) / kBlock;
-  const int grid = nb > cap_blocks ? nb : cap_blocks;
-  if (grid > 0) {
-    gs_scatter<<<grid, kBlock, 0, s>>>(sl, tab, n, nb, bc, cnt, capacity, out,
-                                       ov);
-  }
+  auto* cnt = static_cast<int32_t*>(count);
+  void* args[] = {&p, &v, &n, &voxel, &mask, &tiles, &capacity, &tab, &ct,
+                  &bc, &out, &ov, &cnt};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(grid_sample_kernel), dim3(blocks),
+      dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

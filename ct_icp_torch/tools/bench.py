@@ -4,6 +4,7 @@
     python -m ct_icp_torch.tools.bench --robust [N]
     python -m ct_icp_torch.tools.bench --escalation [N]
     python -m ct_icp_torch.tools.bench --long [N]
+    python -m ct_icp_torch.tools.bench --indoor [N]
 
 ``N`` cuts the frames (default: the gate's own count). Each gate prints one
 JSON line and exits 1 when its accuracy bound fails:
@@ -15,7 +16,11 @@ JSON line and exits 1 when its accuracy bound fails:
     batch 8), the reference's five conditions;
   * ``--long``: the 500-frame urban drive, ``default_driving_profile()``,
     batch 16; segment RPE over seeds 7, 8, 9 <= 0.50 %Tr and 0 failures.
-    The timed seed's frames are rendered beforehand, as the reference does.
+    The timed seed's frames are rendered beforehand, as the reference does;
+  * ``--indoor``: the 240-frame handheld indoor walk,
+    ``default_robust_outdoor_low_inertia()`` (three map levels), batch 4;
+    INDOOR segment RPE over seeds 7, 8, 9 <= 1.3 %Tr, mean APE <= 0.10 m
+    and 0 failures; the timed seed rendered beforehand, as for ``--long``.
 Frames/s is the median per-batch rate after two warm-up batches on the
 timed seed (the first), measured on the card and reported beside the
 card's name and power limit; the reference's frames/s floors are TPU
@@ -33,9 +38,12 @@ import numpy as np
 import torch
 
 from ct_icp_torch.config.options import (default_driving_profile,
+                                         default_robust_outdoor_low_inertia,
                                          robust_driving_profile)
 from ct_icp_torch.datasets import corridor as cor
+from ct_icp_torch.datasets import indoor_walk as iw
 from ct_icp_torch.datasets import long_drive as ld
+from ct_icp_torch.datasets.streaming import stream_acquisition
 from ct_icp_torch.odometry.concurrent import PrefetchIterator
 from ct_icp_torch.odometry.odometry import Odometry
 
@@ -153,7 +161,7 @@ def run_long(num_frames=None):
     runs = []
     for seed in ld.LONG_SEEDS:
         odo = Odometry(default_driving_profile(), device="cuda")
-        runs.append(ld.stream_long_drive(
+        runs.append(stream_acquisition(
             odo, ld.load_acquisition(seed), n, ld.LONG_BATCH,
             prerender=seed == ld.LONG_SEEDS[0]))
     tr = float(np.mean([r["tr_pct"] for r in runs]))
@@ -174,8 +182,40 @@ def run_long(num_frames=None):
         "accuracy_ok": bool(tr <= ld.LONG_TR_BOUND_PCT and failures == 0)}
 
 
+def run_indoor(num_frames=None):
+    n = num_frames or iw.INDOOR_FRAMES
+    runs = []
+    for seed in iw.INDOOR_SEEDS:
+        odo = Odometry(default_robust_outdoor_low_inertia(), device="cuda")
+        runs.append(stream_acquisition(
+            odo, iw.load_acquisition(seed), n, iw.INDOOR_BATCH,
+            prerender=seed == iw.INDOOR_SEEDS[0], driving=False))
+    tr = float(np.mean([r["tr_pct"] for r in runs]))
+    ape = float(np.mean([r["mean_ape_m"] for r in runs]))
+    failures = sum(r["failures"] for r in runs)
+    first = runs[0]
+    return {
+        "metric": "synthetic_indoor_low_inertia_segment_rpe", "value": tr,
+        "unit": "%Tr_indoor", "frames": first["frames"],
+        "batch": iw.INDOOR_BATCH, "failures": failures,
+        "tr_per_seed": [r["tr_pct"] for r in runs],
+        "mean_ape_m": ape, "ape_per_seed": [r["mean_ape_m"] for r in runs],
+        "mean_attempts": first["mean_attempts"],
+        "segments": first["segments"],
+        "frames_per_sec": first["median_batch_fps"],
+        "render_s": first["render_s"], "stream_s": first["stream_s"],
+        "host_syncs_per_frame": first["host_syncs_per_frame"],
+        "map_points": first["map_points"],
+        "tr_bound_pct": iw.INDOOR_TR_BOUND_PCT,
+        "ape_bound_m": iw.INDOOR_APE_BOUND_M,
+        "accuracy_ok": bool(tr <= iw.INDOOR_TR_BOUND_PCT
+                            and ape <= iw.INDOOR_APE_BOUND_M
+                            and failures == 0)}
+
+
 GATES = {"--driving": run_driving, "--robust": run_robust,
-         "--escalation": run_escalation, "--long": run_long}
+         "--escalation": run_escalation, "--long": run_long,
+         "--indoor": run_indoor}
 
 
 def main(argv=None) -> int:

@@ -5,6 +5,7 @@
         [--batch 8]
     python3 -m ct_icp_torch.tools.profile_stream --long [--frames 128]
     python3 -m ct_icp_torch.tools.profile_stream --escalation [--frames 48]
+    python3 -m ct_icp_torch.tools.profile_stream --indoor [--frames 36]
 
 Runs ``Odometry(default_driving_profile())`` over the synthetic corridor
 (seed 3), or with ``--robust`` ``Odometry(robust_driving_profile())`` over
@@ -15,7 +16,11 @@ surge, whose frames exhaust their attempts), or with ``--long`` the
 driving profile
 over the first frames of the 500-frame urban drive (seed 7, the rebase
 distance at 100 m, so that the batch of frames 112-127 holds the first
-rebase), with ``stream_frames(batch)``, and profiles the last batch with
+rebase), or with ``--indoor`` ``default_robust_outdoor_low_inertia()``
+(three map levels) over the first frames of the indoor walk (seed 7,
+batch 4: the batch of frames 32-35 lies in the first doorway turn, whose
+frames escalate), with ``stream_frames(batch)``, and profiles the last
+batch with
 ``torch.profiler`` (CPU and CUDA activities). The solver's and the map's
 stages are labelled with ``record_function`` ranges for the run (the
 package itself carries no instrumentation). Prints one JSON line: the
@@ -42,8 +47,10 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile, record_function
 
 from ct_icp_torch.config.options import (default_driving_profile,
+                                         default_robust_outdoor_low_inertia,
                                          robust_driving_profile)
 from ct_icp_torch.datasets import corridor as cor
+from ct_icp_torch.datasets import indoor_walk as iw
 from ct_icp_torch.datasets import long_drive as ld
 from ct_icp_torch.icp import solver as slv
 from ct_icp_torch.mapping import voxel_map as vm
@@ -59,6 +66,7 @@ STAGES = (
     (vm, "prune_level", "B10 prune_level"),
     (vm, "insert_points", "K3 insert_points"),
     (vm, "rebuild_level", "K7+K6 rebuild_level"),
+    (pl, "snapshot", "checkpoint snapshot (map clone)"),
 )
 
 
@@ -78,11 +86,13 @@ def main():
     path.add_argument("--robust", action="store_true")
     path.add_argument("--long", action="store_true")
     path.add_argument("--escalation", action="store_true")
+    path.add_argument("--indoor", action="store_true")
     args = ap.parse_args()
     if args.frames is None:
-        args.frames = 128 if args.long else 48
+        args.frames = 128 if args.long else 36 if args.indoor else 48
     if args.batch is None:
-        args.batch = 8 if args.robust or args.escalation else 16
+        args.batch = (8 if args.robust or args.escalation else
+                      iw.INDOOR_BATCH if args.indoor else 16)
     if not torch.cuda.is_available():
         raise SystemExit("profile_stream: needs an NVIDIA GPU")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -91,12 +101,16 @@ def main():
     for mod, attr, label in STAGES:
         setattr(mod, attr, _labelled(getattr(mod, attr), label))
 
-    if args.long:
-        acq = ld.load_acquisition(ld.LONG_SEEDS[0])
+    if args.long or args.indoor:
+        acq = (iw.load_acquisition(iw.INDOOR_SEEDS[0]) if args.indoor else
+               ld.load_acquisition(ld.LONG_SEEDS[0]))
         with ThreadPoolExecutor(max_workers=os.cpu_count() or 1) as pool:
             frames = list(pool.map(acq.frame, range(args.frames)))
-        odo = Odometry(default_driving_profile())
-        odo.rebase_distance = 100.0
+        if args.indoor:
+            odo = Odometry(default_robust_outdoor_low_inertia())
+        else:
+            odo = Odometry(default_driving_profile())
+            odo.rebase_distance = 100.0
     else:
         if args.robust:
             traj = cor.robust_corridor_trajectory(args.frames)
@@ -147,7 +161,8 @@ def main():
     out = dict(
         card=card, profile=("robust" if args.robust else
                             "escalation" if args.escalation else
-                            "long" if args.long else "driving"),
+                            "long" if args.long else
+                            "indoor" if args.indoor else "driving"),
         frames=len(last), batch=args.batch,
         first_frame=last[0]["info"].registered_fid,
         wall_ms_per_frame=wall * 1e3 / len(last),
@@ -156,6 +171,8 @@ def main():
         device_ops_per_frame=len(device) / len(last),
         failures=sum(not s.success for s in summaries),
         host_syncs_per_frame=odo.host_syncs / len(preps),
+        mean_attempts=float(np.mean([s.number_of_attempts
+                                     for s in summaries])),
         speculative_rollbacks=odo.speculative_rollbacks,
         rebases=odo.rebases,
         stages=stages,

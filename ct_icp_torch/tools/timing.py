@@ -132,3 +132,23 @@ def time_graph(reset, fn, reps=20):
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / reps, "cuda-graph"
+
+
+def time_host(fn, reps=50):
+    """Mean ms of one ``fn()`` between an event recorded before the Python
+    call and one recorded after it, the device idle before each: the
+    host's enqueue (the wrapper's checks and allocations, the launch) and,
+    where the device outlasts it, the device time. Returns (ms, method)."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps, "events around the call"

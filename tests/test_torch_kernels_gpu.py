@@ -1,7 +1,8 @@
 """CUDA kernels K1-K7 against their plain PyTorch versions, on the card
 (K5 as one launch per LM call, K3 as one launch per insert, K1 one launch a
 call returning slots, K2 reading the live points through them, the rebase
-as one K7 and one K6 launch).
+as one K7 and one K6 launch, K4 one launch a call on a claim table kept
+from call to call).
 
 Needs an NVIDIA GPU and nvcc (the kernels build from ct_icp_torch/csrc at
 first use); skips elsewhere. Run on a machine with the card (this file needs
@@ -18,6 +19,7 @@ import torch
 
 from ct_icp_torch.kernels import build, checks
 from ct_icp_torch.kernels import candidate_gather as k1
+from ct_icp_torch.kernels import grid_sample as k4
 from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.kernels import map_insert as k3
 from ct_icp_torch.kernels import plane_moments as k2
@@ -258,15 +260,138 @@ def test_map_insert_across_stamp_wrap(cuda, max_rounds):
             assert int(stamps().max()) < per_call
 
 
-@pytest.mark.parametrize("table_log2, capacity, n", [
-    (22, 4096, 65536), (22, 512, 20000), (21, 1024, 4096), (10, 4096, 3000),
-    (22, 4096, 0)])
-def test_grid_sample_matches_plain(cuda, table_log2, capacity, n):
+@pytest.mark.parametrize("table_log2, capacity, n, frac", [
+    (22, 4096, 65536, 0.97), (22, 512, 20000, 0.97), (21, 1024, 4096, 0.97),
+    (10, 4096, 3000, 0.97), (22, 4096, 0, 0.97),
+    (22, 4096, 5000, 0.0),          # every point invalid
+    (22, 100, 16766, 0.97),         # kept far past the capacity
+    (21, 4096, 1001, 0.97),         # N not a multiple of a block
+    (22, 4096, 257, 1.0), (22, 0, 3000, 0.97)])
+def test_grid_sample_matches_plain(cuda, table_log2, capacity, n, frac):
+    """Bit for bit, and one launch a call."""
     rng = np.random.default_rng(table_log2 + n)
     pts = torch.from_numpy(_scene(rng, max(n // 2, 1))[:n]).to(cuda)
-    valid = torch.from_numpy(rng.uniform(size=pts.shape[0]) < 0.97).to(cuda)
+    valid = torch.from_numpy(rng.uniform(size=pts.shape[0]) < frac).to(cuda)
+    launches = k4.launches
     out = checks.check_grid_sample(pts, valid, 1.0, capacity, table_log2)
-    assert out["count"] > 0 or n == 0
+    assert k4.launches == launches + 1
+    assert out["count"] > 0 or n == 0 or frac == 0.0 or capacity == 0
+    if capacity == 100:
+        assert out["count"] == capacity
+
+
+def test_grid_sample_repeated_calls_on_one_table(cuda):
+    """Calls that alternate the table size (22 / 21) and the points, each
+    bit for bit: every call takes the next stamp of its table, and the
+    words earlier calls left in it never win."""
+    rng = np.random.default_rng(4)
+    stamps = {}
+    for call in range(8):
+        t_log2 = 22 if call % 2 == 0 else 21
+        pts = torch.from_numpy(_scene(rng, 6000) + np.float32(0.1 * call)).to(
+            cuda)
+        valid = torch.from_numpy(rng.uniform(size=pts.shape[0]) < 0.95).to(
+            cuda)
+        out = checks.check_grid_sample(pts, valid, 1.0, 4096, t_log2)
+        assert out["count"] > 0
+        # the wrapper keys its tables by the points' device (cuda:0)
+        _, ctrl, _ = k4._tables[(pts.device, t_log2)]
+        stamps.setdefault(t_log2, []).append(int(ctrl[0]))
+    for seq in stamps.values():
+        assert np.all(np.diff(seq) == 1), stamps
+
+
+def test_grid_sample_across_stamp_wrap(cuda):
+    """Calls on either side of the stamp's wrap, bit for bit. The last
+    stamp starts two below its limit: the first two calls take the last
+    stamps, leaving words whose stamps beat every stamp after the wrap;
+    the third call clears the table and starts again from stamp 1, so only
+    its own words are left."""
+    rng = np.random.default_rng(21)
+    t_log2 = 12                 # a small table: the words left are counted
+    word_bits = 32 - int(np.log2(build.launcher(
+        "grid_sample", "k4_max_points", ())()))
+    limit = build.launcher("grid_sample", "k4_stamp_limit", ())()
+    # the wrapper keys its tables by the points' device (cuda:0)
+    dev = torch.empty(1, device=cuda).device
+    table, ctrl, _ = k4._device_state(dev, t_log2, k4._constants()[1])
+    ctrl[0] = limit - 2
+
+    def stamps():           # the stamp of each word (0: cleared)
+        hi = (table.to(torch.int64) & 0xFFFFFFFF) >> (32 - word_bits)
+        return (1 << word_bits) - 1 - hi
+
+    for call, after in enumerate((limit - 1, limit, 1, 2)):
+        pts = torch.from_numpy(_scene(rng, 3000)).to(cuda)
+        valid = torch.from_numpy(rng.uniform(size=pts.shape[0]) < 0.95).to(
+            cuda)
+        out = checks.check_grid_sample(pts, valid, 1.0, 1024, t_log2)
+        assert out["count"] > 0
+        assert int(ctrl[0]) == after
+        if call == 1:
+            assert int((stamps() == limit - 1).sum()) > 0
+        if call == 2:
+            s = stamps()
+            assert set(torch.unique(s).tolist()) <= {0, 1}
+
+
+def test_grid_sample_is_one_device_operation(cuda):
+    """A call is one device operation: the kernel, no memset or copy."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(8)
+    pts = torch.from_numpy(_scene(rng, 8000)).to(cuda)
+    valid = torch.ones(pts.shape[0], dtype=torch.bool, device=cuda)
+    k4.grid_sample(pts, valid, 1.0, 4096)           # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        k4.grid_sample(pts, valid, 1.0, 4096)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not names:
+        pytest.skip("the profiler saw no device activity")
+    assert len(names) == 1 and "grid_sample" in names[0], names
+
+
+def test_map_insert_three_levels_restore_and_reinsert(cuda):
+    """The low-inertia profile's three levels (0.2 m x 50 points at 2^20
+    slots, 0.5 m x 40 at 2^19, 1.5 m x 40 at 2^17), each with its own
+    claim words: a frame inserted into all three, a checkpoint, a second
+    frame, the rollback to the checkpoint and the second frame inserted
+    again; keys, counts, rows and num_points bit for bit with the plain
+    version at every step."""
+    rng = np.random.default_rng(17)
+    levels = ((0.2, 0.03, 50, 20), (0.5, 0.1, 40, 19), (1.5, 0.15, 40, 17))
+    mine = [vm.make_level(c, p, cuda) for _, _, p, c in levels]
+    ref = [vm.make_level(c, p, cuda) for _, _, p, c in levels]
+    frames = [torch.from_numpy(_scene(rng, 12000) + np.float32(d)).to(cuda)
+              for d in (0.0, 0.07)]
+    ok = torch.ones(frames[0].shape[0], dtype=torch.bool, device=cuda)
+
+    def insert(frame):
+        for a, b, (res, md, _, _) in zip(mine, ref, levels):
+            n_a = vm.insert_points(a, frame, ok, res, md, 12)
+            n_b = k3.map_insert_plain(b.keys, b.count, b.points,
+                                      b.num_points, frame, ok, res, md, 12)
+            torch.cuda.synchronize()
+            assert torch.equal(n_a, n_b) and int(n_a[0]) > 0
+            for x, y in zip((a.keys, a.count, a.points, a.num_points),
+                            (b.keys, b.count, b.points, b.num_points)):
+                assert torch.equal(x, y)
+
+    launches = k3.launches
+    insert(frames[0])
+    saved = [vm.MapLevel(*(t.clone() for t in lv)) for lv in mine]
+    insert(frames[1])
+    for lv, sv in zip(mine, saved):
+        for t, s in zip(lv, sv):
+            t.copy_(s)
+    for lv, sv in zip(ref, saved):
+        for t, s in zip(lv, sv):
+            t.copy_(s)
+    insert(frames[1])
+    assert k3.launches == launches + 9
 
 
 def _lm_problem(rng, dev, k, moving):

@@ -183,7 +183,7 @@ def test_gate_constants_match_bench():
                                              bench.APE_SEEDS,
                                              bench.ROBUST_APE_BOUND_M)
     assert set(tbench.GATES) == {"--driving", "--robust", "--escalation",
-                                 "--long"} <= set(bench.GATES)
+                                 "--long", "--indoor"} <= set(bench.GATES)
     # without a card the tool refuses, and prints no result
     if not tbench.torch.cuda.is_available():
         assert tbench.main(["--long"]) == 2

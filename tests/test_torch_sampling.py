@@ -62,6 +62,33 @@ def test_election_matches_voxel_subsample_indices(table_log2, capacity,
         assert n == capacity < exact.shape[0]
 
 
+@pytest.mark.parametrize("n, frac, capacity", [
+    (0, 1.0, 4096),           # no point
+    (5000, 0.0, 4096),        # every point invalid
+    (16766, 0.97, 100),       # the robust shape's N, kept far past capacity
+    (1001, 0.97, 4096),       # N not a multiple of the kernel's block
+    (257, 1.0, 4096)])
+def test_election_edge_cases_match_voxel_subsample_indices(n, frac,
+                                                           capacity):
+    """The shapes the card tests hold K4 to (tests/test_torch_kernels_gpu.py)
+    through the plain version, against the reference's election."""
+    rng = np.random.default_rng(n + capacity)
+    pts = _scan(rng, n // 3 + 1)[:n]
+    valid = rng.uniform(size=n) < frac
+    want = jsmp.voxel_subsample_indices(
+        jnp.asarray(pts), jnp.asarray(valid), jnp.float32(1.0), capacity,
+        table_log2=22)
+    idx, ok, cnt = tsmp.voxel_subsample_indices(
+        torch.from_numpy(pts), torch.from_numpy(valid), 1.0, capacity, 22)
+    assert int(cnt) == int(want[2])
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(ok.numpy(), np.asarray(want[1]))
+    if capacity == 100:
+        assert int(cnt) == capacity
+    if n == 0 or frac == 0.0:
+        assert int(cnt) == 0 and not ok.any() and not idx.any()
+
+
 @pytest.mark.parametrize("n_valid, capacity", [(1900, 1024), (4096, 1024),
                                                (3000, 4096)])
 def test_election_matches_pallas_dedup_compact(monkeypatch, n_valid,
