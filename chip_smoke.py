@@ -9,7 +9,7 @@ It needs one CUDA device and nvcc, and exits non-zero without a result line
 when either is missing. Phases; any failure raises and exits non-zero:
 
   1. the card: nvidia-smi's name and power limit, torch's device name;
-  2. build the CUDA kernels K1-K7 from ct_icp_torch/csrc with nvcc (one
+  2. build the CUDA kernels K1-K8 from ct_icp_torch/csrc with nvcc (one
      process per source, all started together); print the build time and
      ptxas's register / shared-memory / spill lines (and keep each entry's
      registers and spills for the kernels line);
@@ -65,13 +65,35 @@ when either is missing. Phases; any failure raises and exits non-zero:
      launched once each per rebase and level (K6 moves the points, normals,
      counts and flags in one launch); median per-batch frames/s, %Tr, APE,
      map points, host syncs a frame, render and stream wall times (the
-     stream's includes the copy of the first rebase's level that phase 9 is
+     stream's includes the copy of the first rebase's level that phase 11 is
      held on, and its host time);
-  8. the robust corridor of phase 5 again with a rebase distance of 20 m:
+  8. the backend gate (tools/bench.py --backend): the long drive's first
+     320 frames (rendered in phase 7) through
+     Odometry(default_driving_profile() with backend.enabled)
+     .stream_frames(batch=16), the rebase at 500 m as in the gate: 0
+     failures, at least one refinement, segment RPE <= 0.42 %Tr, K1-K3, K5
+     and K8 launched, four K8 launches a refine (two CT-BA steps of two
+     block-Jacobi inner iterations), no synchronizing CUDA call inside a
+     refine's dispatch (torch's sync debug mode set to raise there; the
+     deferred apply's event wait, one a refine, is outside it and counted
+     beside the host syncs); then the same frames with the backend
+     off, in this process: frames/s, host syncs a frame and %Tr of both,
+     the refinements, the refine's host ms and its event waits; then the
+     two halves of the first refine over a full window (8 keyframes) on
+     its own inputs, the association (K1, K2 and the weighting) and the
+     two CT-BA steps, each on the device (a CUDA graph) and with its host
+     side;
+  9. K8 (both modes: one block-Jacobi inner iteration, and the point +
+     prior blocks of the coupled solver), K1 over all 27 voxels without
+     compaction and K2 without the k-NN cap against their plain versions at
+     that refine's shapes (8 keyframes x 4,096 keypoints, the padded rows
+     invalid), timed as in phase 3 (K8: a CUDA graph of 20 calls, and
+     with its host side), K8 launched twice to show it repeats bit for bit;
+  10. the robust corridor of phase 5 again with a rebase distance of 20 m:
      the speculative streamer's deferred rebases ("rebase" statuses) run;
      0 failures, APE <= 0.10 m, at least 2 rebases, and the largest end-pose
      difference from phase 5's run;
-  9. K6 and K7 against their plain versions: K7 (its table, its writers,
+  11. K6 and K7 against their plain versions: K7 (its table, its writers,
      num_points and the claim rounds it ran), K6's one launch over the
      points, normals, counts and flags and the whole rebuild_level (one K7
      and one K6 launch) bit-identical to the plain ones on the long drive's
@@ -80,7 +102,7 @@ when either is missing. Phases; any failure raises and exits non-zero:
      the L2 flushed, the points alone beside them; K6 on one table at the
      Pallas dma_gather_kernel's shapes (2^18 x 128 float32, N = 16,384 and
      110,592 random and sorted slots) beside index_select;
-  10. the indoor walk: the 240 frames of configs/synthetic_indoor_walk.yaml
+  12. the indoor walk: the 240 frames of configs/synthetic_indoor_walk.yaml
      (seed 7, 60,000 points a frame, rendered beforehand) through
      Odometry(default_robust_outdoor_low_inertia()).stream_frames(batch=4),
      the port's three-level map (0.2 m x 50 points at 2^20 slots, 0.5 m x
@@ -92,22 +114,23 @@ when either is missing. Phases; any failure raises and exits non-zero:
      walk's map the checkpoint's clone of the three levels
      (pipeline.snapshot, once a speculative batch) and prune_level on each
      level, timed;
-  11. K1-K5 against their plain versions at the indoor walk's shapes, and
+  13. K1-K5 against their plain versions at the indoor walk's shapes, and
      timed as in phase 3: K5 on the first LM call of walk frame 10 (600
      residuals at most, 10 LM steps, WeightingScheme.ALL); K1 and K2 on
      the searched level of the map frames 0-10 built, with frame 11's
      keypoints as queries; K3 inserting frame 11 into each of the three
      levels (P = 50 at 2^20 with min distance 0.03, P = 40 at 2^19 with
      0.1, P = 40 at 2^17 with 0.15); K4 on the walk's first escalated
-     election as phase 10 met it (its sub-sample, voxel and capacity);
-  in 4-8 and 10 every kernel count and K5's device count of LM steps are
+     election as phase 12 met it (its sub-sample, voxel and capacity);
+  in 4-8, 10 and 12 every kernel count and K5's device count of LM steps are
   set to 0 just before the path and read just after it; each path must
   launch K5 and its other kernels, and make fewer host syncs a frame than
   LM steps (one per ICP iteration and readback where no batch rolled
   back); the driving path one K5 launch per ICP iteration;
-  12. one JSON line of the kernels (K1-K5 with an "indoor" record, K3
-     with "indoor level 1" and "indoor level 2" as well), the card's line,
-     and the result line.
+  14. one JSON line of the kernels (K1-K5 with an "indoor" record, K3
+     with "indoor level 1" and "indoor level 2" as well, K1 and K2 with a
+     "backend" record, K8 with its "blocks" mode beside its "gn" one), the
+     card's line, and the result line.
 """
 
 import dataclasses
@@ -126,10 +149,12 @@ from ct_icp_torch.config.options import (default_driving_profile,
 from ct_icp_torch.datasets import corridor as cor
 from ct_icp_torch.datasets import indoor_walk as iw
 from ct_icp_torch.datasets import long_drive as ld
-from ct_icp_torch.datasets.streaming import stream_acquisition
+from ct_icp_torch.datasets.streaming import (CachedAcquisition,
+                                             stream_acquisition)
 from ct_icp_torch.kernels import build
 from ct_icp_torch.kernels import candidate_gather as k1
 from ct_icp_torch.kernels import checks
+from ct_icp_torch.kernels import ct_ba_block as k8
 from ct_icp_torch.kernels import grid_sample as k4
 from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.kernels import map_insert as k3
@@ -141,6 +166,8 @@ from ct_icp_torch.odometry import pipeline as pl
 from ct_icp_torch.odometry.odometry import PRUNE_PERIOD, Odometry
 from ct_icp_torch.ops import sampling as smp
 from ct_icp_torch.ops import voxel as vx
+from ct_icp_torch.parallel import ct_ba
+from ct_icp_torch.tools import bench as gates
 from ct_icp_torch.tools.exp_gather import k6_bytes, k6_fields_bytes
 from ct_icp_torch.tools.exp_moments import k2_bytes, live_work
 from ct_icp_torch.tools.timing import (HBM_BYTES_PER_S, bound, time_cold,
@@ -198,6 +225,9 @@ KERNELS = {
     "rebuild_claim": dict(
         module=k7, source="ct_icp_torch/csrc/rebuild_claim.cu",
         replaces="ct_icp_tpu/mapping/voxel_map.py:619"),
+    "ct_ba_block": dict(
+        module=k8, source="ct_icp_torch/csrc/ct_ba_block.cu",
+        replaces="ct_icp_tpu/parallel/ct_ba.py:120"),
 }
 # a kernel record's further times and work counts, copied to the kernels
 # line where present
@@ -206,7 +236,7 @@ WORK_KEYS = ("host_ms", "warm_ms", "library_warm_ms", "step_ms",
              "device_ops_per_call", "cached_ms", "group", "live",
              "points_read", "rows_read", "per_query_bytes", "key_windows",
              "slots_found", "claim_rounds", "rebuild_level_ms",
-             "rebuild_level_plain_ms")
+             "rebuild_level_plain_ms", "rows_live", "d_tr_m", "d_rot_deg")
 # the kernels of the first three paths (the rebase runs on none of them)
 K1_K5 = ["candidate_gather", "plane_moments", "map_insert", "grid_sample",
          "lm_step"]
@@ -305,11 +335,13 @@ def _warm_level(dev, res, prep):
     return level
 
 
-def _kernel_k1(dev, level, res, q, nv, thr, max_c, tag):
-    """K1 against its plain version and timed, at one shape. Returns its
-    record and its (slots, cnt_ok)."""
+def _kernel_k1(dev, level, res, q, nv, thr, max_c, tag, query_valid=None):
+    """K1 against its plain version and timed, at one shape (every query
+    valid unless ``query_valid`` says otherwise). Returns its record and
+    its (slots, cnt_ok)."""
     m = q.shape[0]
-    qv = torch.ones(m, dtype=torch.bool, device=dev)
+    qv = (torch.ones(m, dtype=torch.bool, device=dev) if query_valid is None
+          else query_valid)
     err = checks.check_candidate_gather(level, q, qv, res.resolution, nv, thr,
                                         max_c)
     args = (level.keys, level.count, q, qv, res.resolution, nv, thr, max_c)
@@ -501,15 +533,12 @@ def _slerp_branch(state):
     return branch, float(np.degrees(2.0 * np.arccos(min(float(d), 1.0))))
 
 
-def _lm_row_ops(branch: str) -> int:
-    """Float operations one LM step needs per kept row, counted from the
-    step's formulas (csrc/lm_step.cu) for the function, not for the
-    kernel's design (which runs the primal in each of its two 6-tangent
-    passes): the residual once at delta = 0, its 12 tangents by forward mode
-    with the primal shared, the normal equations and the trial cost. The
-    pose-level work (apply_delta and its tangents, the slerp's angle, the
-    prior rows, the 12x12 solve: a few thousand operations a step) is not
-    per row and is left out."""
+def _row_residual_ops(branch: str):
+    """(primal, tangents): float operations of one point-to-plane row's
+    residual at delta = 0 and of its 12 forward-mode tangents with the
+    primal shared (the formulas of csrc/dual.cuh), counted for the function,
+    not for the kernels' design (which run the primal in each of their two
+    6-tangent passes)."""
     slerp = branch == "slerp"
     # interpolated rotation: the slerp weights sin((1-a)th)/sin(th) and
     # sin(a th)/sin(th) (7) or the lerp weight (1), the blend (12), the
@@ -522,10 +551,29 @@ def _lm_row_ops(branch: str) -> int:
     # normalisation (29), the rotation (48) and the residual (6)
     rot_col = (10 + 28 if slerp else 12) + 29 + 48 + 6
     jac = 6 * rot_col + 6 * 2 + (2 if slerp else 0)  # 6 translation columns
+    return primal, jac
+
+
+def _lm_row_ops(branch: str) -> int:
+    """Float operations one LM step needs per kept row: the residual once
+    at delta = 0, its 12 tangents, the normal equations and the trial
+    cost. The pose-level work (apply_delta and its tangents, the slerp's
+    angle, the prior rows, the 12x12 solve: a few thousand operations a
+    step) is not per row and is left out."""
+    primal, jac = _row_residual_ops(branch)
     irls = 4 + 3                # the Cauchy weight and cost at delta = 0
     normal = 12 + 2 * 90        # J w, then the 78 + 12 products and sums
     trial = primal + 4          # the residual and its Cauchy cost at delta
     return primal + jac + irls + normal + trial
+
+
+def _ct_ba_row_ops(branch: str) -> int:
+    """Float operations K8 needs per live point row: the residual and its
+    12 tangents (as K5's row), then the 78 + 12 products and sums of
+    J^T J and J^T r and r^2. The 16 pose-level rows and the solve (a few
+    thousand operations a frame) are left out."""
+    primal, jac = _row_residual_ops(branch)
+    return primal + jac + 2 * (78 + 12 + 1)
 
 
 def _require_ops(kernel, ops, most):
@@ -1021,8 +1069,9 @@ def _require_rebase_launches(path, launches, rebases, levels):
 
 def phase_long(dev):
     """The 500-frame urban drive (seed 7) through the user's entry points,
-    with the rebase distance at 100 m."""
-    acq = ld.load_acquisition(LONG_SEED)
+    with the rebase distance at 100 m. Returns (path record, the first
+    rebase's capture, the acquisition with its rendered frames kept)."""
+    acq = CachedAcquisition(ld.load_acquisition(LONG_SEED))
     odo = Odometry(default_driving_profile(), device=dev)
     odo.rebase_distance = LONG_REBASE_DISTANCE
     captured = {}
@@ -1059,7 +1108,226 @@ def phase_long(dev):
         raise RuntimeError("long drive: a host sync per LM step")
     del odo
     torch.cuda.empty_cache()
-    return out, captured
+    return out, captured, acq
+
+
+def _capture_full_refine(backend, store):
+    """Keep device copies of the inputs of the first refine over a full
+    window (``backend.window`` keyframes; the first refine has fewer: the
+    first frames are never refined), as the backend's ``assemble`` and the
+    CT-BA steps receive them: the searched level, the keypoints, poses,
+    radius and edge_alpha, and the assembled problem (the inputs K1, K2 and
+    K8 are held on after the path). The copies are made inside the path's
+    run: ``capture_host_s`` is their host time."""
+    inner = backend.assemble
+
+    def spy(levels, raw, alphas, valid, qb, tb, qe, te, radius, ea):
+        problem = inner(levels, raw, alphas, valid, qb, tb, qe, te, radius,
+                        ea)
+        if not store and raw.shape[0] == backend.window:
+            t0 = time.perf_counter()
+            lvl = backend.odometry.registration.level_index
+            store.update(
+                level=_level_copy(levels[lvl]),
+                args=tuple(x.clone() for x in (raw, alphas, valid, qb, tb,
+                                               qe, te)),
+                radius=radius, edge_alpha=ea.clone(),
+                problem=ct_ba.CTBAProblem(*(x.clone() for x in problem)),
+                frame=len(backend.odometry.trajectory))
+            store["capture_host_s"] = time.perf_counter() - t0
+        return problem
+
+    backend.assemble = spy
+
+
+def _refines_must_not_sync(backend):
+    """Make every synchronizing CUDA call inside a refine's dispatch raise
+    (``torch.cuda.set_sync_debug_mode("error")``): a refine reads nothing
+    back. The deferred apply's event wait is its one host wait, outside."""
+    refine, apply = backend._refine, backend._apply_pending
+
+    def apply_outside():
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            apply()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+    def refine_checked():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            refine()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    backend._apply_pending = apply_outside
+    backend._refine = refine_checked
+
+
+def phase_backend(dev, acq):
+    """The backend gate (tools/bench.py --backend, the reference's
+    run_backend): the long drive's first 320 frames (seed 7, rendered by
+    phase 7) through Odometry(default_driving_profile() with the backend
+    on).stream_frames(batch=16), the rebase at 500 m as in the gate, then
+    the same frames with the backend off, in this process; every refine's
+    dispatch runs with synchronizing CUDA calls made errors. Then the
+    refine's
+    two halves on the inputs of the first refine over a full window: the
+    association (K1, K2 and the weighting) and the two CT-BA steps (four K8
+    launches), on the device (a CUDA graph of the call) and with the host
+    side."""
+    runs, capture = {}, {}
+    for name, on in (("on", True), ("off", False)):
+        odo = Odometry(gates.backend_profile(on), device=dev)
+        if on:
+            _capture_full_refine(odo.backend, capture)
+            _refines_must_not_sync(odo.backend)
+        _reset_counts()
+        out = stream_acquisition(odo, acq, gates.BACKEND_FRAMES,
+                                 gates.BACKEND_BATCH)
+        out.update(launches=_read_counts(), lm_steps=_read_steps())
+        if on:
+            b = odo.backend
+            out.update(refinements=b.refinements,
+                       refine_dispatches=len(b.refine_ms),
+                       refine_ms_median=float(np.median(b.refine_ms)),
+                       refine_ms_max=float(np.max(b.refine_ms)),
+                       event_waits=b.event_waits,
+                       event_waits_per_frame=b.event_waits / out["frames"],
+                       capture_host_s=capture.get("capture_host_s"))
+        runs[name] = out
+        del odo
+        torch.cuda.empty_cache()
+    on, off = runs["on"], runs["off"]
+    launches = on["launches"]
+    log("backend gate, backend on: " + json.dumps(on))
+    log("backend gate, backend off: " + json.dumps(off))
+    if not capture:
+        raise RuntimeError("backend gate: no refine over a full window")
+    # the refine's halves on a full window's inputs
+    c = capture
+    reg_o = gates.backend_profile(True)
+    odo = Odometry(reg_o, device=dev)
+    levels = [None] * len(odo.map_state)
+    levels[odo.registration.level_index] = c["level"]
+    assemble = odo.backend.assemble
+    step = odo.backend.step
+    state0 = ct_ba.CTBAState(*c["args"][3:7])
+
+    def run_assemble():
+        return assemble(levels, *c["args"], c["radius"], c["edge_alpha"])
+
+    def run_steps():
+        s = state0
+        for _ in range(reg_o.backend.num_steps):
+            s, _cost = step(s, c["problem"])
+        return s
+
+    halves = {}
+    for name, fn in (("assemble", run_assemble), ("steps", run_steps)):
+        dev_ms, how = time_stateless(fn)
+        host_ms, _ = time_host(fn)
+        halves[name] = dict(device_ms=dev_ms, timing=how, host_ms=host_ms)
+    on["refine_halves"] = halves
+    f, k = c["args"][0].shape[:2]
+    log(f"  refine halves at F={f} K={k} (frame {c['frame']}): "
+        f"{json.dumps(halves)}")
+    log(f"  {on['frames']} frames, batch {on['batch']}: {on['tr_pct']:.4f} "
+        f"%Tr (bound {gates.BACKEND_TR_BOUND_PCT}; backend off "
+        f"{off['tr_pct']:.4f}), {on['refinements']} refinements, median "
+        f"refine {on['refine_ms_median']:.3f} ms on the host; median "
+        f"frames/s backend on {on['median_batch_fps']:.2f}, off "
+        f"{off['median_batch_fps']:.2f}; host syncs a frame on "
+        f"{on['host_syncs_per_frame']:.4f}, off "
+        f"{off['host_syncs_per_frame']:.4f}, event waits a frame "
+        f"{on['event_waits_per_frame']:.4f}; K8 launches "
+        f"{launches['ct_ba_block']}")
+    if on["failures"]:
+        raise RuntimeError(f"backend gate: {on['failures']} failed frames")
+    if not on["refinements"] > 0:
+        raise RuntimeError("backend gate: no refinement")
+    if not on["tr_pct"] <= gates.BACKEND_TR_BOUND_PCT:
+        raise RuntimeError(f"backend gate: {on['tr_pct']} %Tr > "
+                           f"{gates.BACKEND_TR_BOUND_PCT}")
+    _require_launches("backend gate", launches,
+                      ["candidate_gather", "plane_moments", "map_insert",
+                       "lm_step", "ct_ba_block"])
+    # two CT-BA steps of two inner iterations: four K8 launches a refine
+    if launches["ct_ba_block"] != 4 * on["refine_dispatches"]:
+        raise RuntimeError(f"backend gate: {launches['ct_ba_block']} K8 "
+                           f"launches for {on['refine_dispatches']} refines")
+    if off["launches"]["ct_ba_block"]:
+        raise RuntimeError("backend off: K8 launched")
+    if not on["host_syncs_per_frame"] < on["lm_steps"] / on["frames"]:
+        raise RuntimeError("backend gate: a host sync per LM step")
+    if on["event_waits"] > on["refine_dispatches"]:
+        raise RuntimeError("backend gate: more event waits than refines")
+    del odo
+    return runs, capture
+
+
+def _kernel_k8(problem, poses, mode, tag):
+    """K8 against its plain version in ``mode`` on a window of the backend,
+    then timed: a CUDA graph of 20 calls, and with its host side (events
+    around the wrapper); the plain version with its host side."""
+    beta = gates.backend_profile(True).backend.continuity_beta
+    damping = 1e-3
+    err = checks.check_ct_ba_block(poses, problem, beta, damping, mode)
+
+    def call():
+        return k8.ct_ba_block(poses, problem, beta, damping, mode)
+
+    ms, how = time_stateless(call)
+    host_ms, _ = time_host(call)
+    plain_ms, _ = time_host(lambda: k8.ct_ba_block_plain(
+        poses, problem, beta, damping, mode), reps=5)
+    f, k = problem.raw.shape[:2]
+    live = int((problem.weights != 0).sum())
+    # every row's weight read, the live rows' 40 other bytes, the poses,
+    # priors, prior weights and edge alphas read once; the outputs
+    n_bytes = (f * k * 4 + live * 40 + f * (14 + 14 + 2) * 4
+               + f * ((14 if mode == "gn" else 0) + 1 + 144 + 12) * 4)
+    branch, angle = _slerp_branch(torch.cat([poses[0], torch.zeros(
+        k5.STATE_SIZE - 14, device=poses.device)]))
+    ops = live * float(_ct_ba_row_ops(branch))
+    log(f"K8 ct_ba_block {tag} mode={mode} F={f} K={k} live={live} "
+        f"({branch} on frame 0, {angle:.4f} deg): within tolerance "
+        f"({json.dumps(err)}); {ms:.4f} ms on the device ({how}), "
+        f"{host_ms:.4f} ms with its host side, plain {plain_ms:.4f} ms")
+    return dict(max_abs_err=err["max_abs_err"], ms=ms, plain_ms=plain_ms,
+                library_ms=None, bytes=n_bytes, ops=ops, timing=how,
+                host_ms=host_ms, rows_live=live, d_tr_m=err.get("d_tr_m"),
+                d_rot_deg=err.get("d_rot_deg"), relative=err["relative"],
+                shape=f"F={f} K={k} live={live} mode={mode}")
+
+
+def phase_kernels_backend(dev, capture):
+    """K8 (both modes), K1 (all 27 voxels, no compaction) and K2 (no k-NN)
+    against their plain versions at a full refine window's shapes, and
+    timed."""
+    c = capture
+    problem = c["problem"]
+    records = {"ct_ba_block": _kernel_k8(
+        problem, ct_ba.pack_state(ct_ba.CTBAState(*c["args"][3:7])), "gn",
+        "backend")}
+    records["ct_ba_block"]["others"] = {"blocks": _kernel_k8(
+        problem, ct_ba.pack_state(ct_ba.CTBAState(*c["args"][3:7])),
+        "blocks", "backend")}
+    o = gates.backend_profile(True)
+    res = o.map_options.resolutions[0]
+    world = ct_ba.interp_world_points(*c["args"][3:7], *c["args"][0:2])
+    f, k = world.shape[:2]
+    q = world.reshape(f * k, 3).contiguous()
+    qv = c["args"][2].reshape(f * k)
+    nv = Odometry(o, device=dev).registration.statics.voxel_neighborhood
+    records["candidate_gather"], (slots, cnt) = _kernel_k1(
+        dev, c["level"], res, q, nv, 1, 0, "backend", query_valid=qv)
+    records["plane_moments"] = _kernel_k2(c["level"], q, slots, cnt,
+                                          c["radius"], None, "backend")
+    del slots, cnt
+    torch.cuda.empty_cache()
+    return records
 
 
 def phase_robust_rebase(dev, robust_run, robust_out):
@@ -1429,7 +1697,11 @@ def main() -> int:
         stages[name]["calls_per_frame"] = per_frame
     robust, robust_records, robust_run = phase_robust(dev)
     escalation, jolt_k5 = phase_escalation(dev)
-    long_drive, long_capture = phase_long(dev)
+    long_drive, long_capture, long_acq = phase_long(dev)
+    backend_runs, refine_capture = phase_backend(dev, long_acq)
+    del long_acq
+    backend_records = phase_kernels_backend(dev, refine_capture)
+    del refine_capture
     robust_rebase, robust_capture = phase_robust_rebase(dev, robust_run,
                                                         robust)
     del robust_run
@@ -1443,8 +1715,10 @@ def main() -> int:
 
     paths = {"driving": driving, "robust": robust, "escalation": escalation,
              "long_drive": long_drive, "robust_rebase": robust_rebase,
-             "indoor": indoor}
-    primary = {**robust_records, **rebase_records}
+             "indoor": indoor, "backend": backend_runs["on"],
+             "backend_off": backend_runs["off"]}
+    primary = {**robust_records, **rebase_records,
+               "ct_ba_block": backend_records["ct_ba_block"]}
     kernels = []
     for name, spec in KERNELS.items():
         # K1-K5: the robust shapes (every kernel runs there), the driving
@@ -1461,6 +1735,8 @@ def main() -> int:
         if name == "lm_step":
             others["jolt"] = jolt_k5
         others.update(indoor_records.get(name, {}))
+        if name in ("candidate_gather", "plane_moments"):
+            others["backend"] = backend_records[name]
         rec = dict(
             name=name, route="cuda", source=spec["source"],
             replaces=spec["replaces"],
@@ -1510,6 +1786,7 @@ def main() -> int:
             robust_records["grid_sample"]["pallas_config"],
         "grid_sample table clear floor ms":
             robust_records["grid_sample"]["table_clear_floor_ms"],
+        "backend refine halves": backend_runs["on"]["refine_halves"],
         "lm_step calls (robust, driving, jolt)": [
             {k: r[k] for k in ("ms", "plain_ms", "loop_steps", "steps_run",
                                "step_ms", "plain_step_ms",

@@ -5,6 +5,8 @@
   layout, is dropped).
 * :func:`options_from_dict` builds the port's ``OdometryOptions`` (or any
   options dataclass) from ``dataclasses.asdict`` of the reference's.
+* :func:`ct_ba_from_numpy` / :func:`ct_ba_to_numpy` carry a CT-BA state
+  and problem (``parallel/ct_ba.py``) across as numpy arrays.
 
 The parity tests use both so the two packages compute from the same state.
 """
@@ -18,6 +20,7 @@ import torch
 
 from ct_icp_torch.config import options as opt
 from ct_icp_torch.mapping.voxel_map import MapLevel
+from ct_icp_torch.parallel.ct_ba import CTBAProblem, CTBAState
 
 _LEVEL_FIELDS = ("keys", "count", "points", "normals", "nflags", "num_points")
 
@@ -79,3 +82,26 @@ def options_from_dict(d, cls=opt.OdometryOptions):
     kwargs = {f.name: _build(hints[f.name], d[f.name])
               for f in dataclasses.fields(cls) if f.name in d}
     return cls(**kwargs)
+
+
+def _named_fields(x, names):
+    if isinstance(x, dict):
+        return [x[n] for n in names]
+    return [getattr(x, n) for n in names]
+
+
+def ct_ba_from_numpy(state, problem, device="cpu"):
+    """A CT-BA state and problem (the reference's NamedTuples, or mappings,
+    of array-likes with the same fields) -> the port's (``CTBAState``,
+    ``CTBAProblem``) of float32 tensors on ``device``."""
+    def f32(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+    return (CTBAState(*(f32(a) for a in _named_fields(
+                state, CTBAState._fields))),
+            CTBAProblem(*(f32(a) for a in _named_fields(
+                problem, CTBAProblem._fields))))
+
+
+def ct_ba_to_numpy(x):
+    """A port ``CTBAState`` or ``CTBAProblem`` -> {field: numpy array}."""
+    return {n: v.detach().cpu().numpy() for n, v in x._asdict().items()}

@@ -6,7 +6,9 @@ reference's ``bench.py`` runs its long drive and its indoor walk
 pool, when ``prerender``; else in the prefetch workers), prepares them in a
 :class:`~ct_icp_torch.odometry.concurrent.PrefetchIterator` and streams
 them through ``odo.stream_frames(batch)``, then grades the trajectory by
-segment RPE and APE.
+segment RPE and APE. :class:`CachedAcquisition` keeps the rendered frames,
+so that a second stream of the same frames (the backend gate's backend-off
+run) renders nothing.
 """
 
 from __future__ import annotations
@@ -20,6 +22,23 @@ import torch
 
 from ct_icp_torch.evaluation.kitti import evaluate_poses
 from ct_icp_torch.odometry.concurrent import PrefetchIterator
+
+
+class CachedAcquisition:
+    """An acquisition whose frames are rendered once and kept."""
+
+    def __init__(self, acq):
+        self.acq = acq
+        self._frames = {}
+
+    def num_frames(self) -> int:
+        return self.acq.num_frames()
+
+    def frame(self, i: int):
+        fr = self._frames.get(i)
+        if fr is None:
+            fr = self._frames[i] = self.acq.frame(i)
+        return fr
 
 
 def stream_acquisition(odo, acq, num_frames: int, batch: int,

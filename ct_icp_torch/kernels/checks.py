@@ -22,7 +22,14 @@ CUDA inputs and raises AssertionError on a disagreement. Tolerances:
     Jacobi scaling); a whole call (up to the same number of steps, each
     stopping at done) ends within 1 mm and 0.01 deg, its accept/reject
     decisions, and so its step count, being free to differ where a trial
-    cost ties the current one within rounding.
+    cost ties the current one within rounding;
+  * K8 (CT-BA block), both modes on the same window: J^T J and J^T r
+    within 1e-4 of their largest entry (rows summed by warps and CTAs vs
+    BLAS), the per-frame cost within 1e-5 relative (1e-12 absolute, for an
+    empty frame); in mode "gn" the updated poses within 1e-5 m and 1e-4 deg
+    (the 12x12 solve carries the sums' rounding); a second launch
+    bit-identical to the first (the CTAs' partials are summed in a fixed
+    order).
 Each returns {"max_abs_err": float} for the float outputs (0 if identical).
 """
 
@@ -32,6 +39,7 @@ import torch
 from ct_icp_torch.config.options import LeastSquares
 from ct_icp_torch.core import se3_np as s3n
 from ct_icp_torch.kernels import candidate_gather as k1
+from ct_icp_torch.kernels import ct_ba_block as k8
 from ct_icp_torch.kernels import grid_sample as k4
 from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.kernels import map_insert as k3
@@ -236,4 +244,50 @@ def check_lm_step(rows, prior, n_res, state, sigma, tolerant_a,
                        "plain_steps_run": plain_steps,
                        "d_tr_m": float(d_tr), "d_rot_deg": float(d_rot),
                        "done": (float(a[k5.S_DONE]), float(b[k5.S_DONE]))}
+    return out
+
+
+def check_ct_ba_block(poses, problem, beta, damping, mode,
+                      compare_poses=True):
+    """K8 against ``ct_ba_block_plain`` on the same window, and a second
+    launch against the first. Returns the errors and, in mode "gn", the
+    largest pose differences (``compare_poses=False`` leaves the updated
+    poses to the two-launch check alone: for a system too ill-conditioned
+    for two solves to agree)."""
+    a = k8.ct_ba_block(poses, problem, beta, damping, mode)
+    again = k8.ct_ba_block(poses, problem, beta, damping, mode)
+    b = k8.ct_ba_block_plain(poses, problem, beta, damping, mode)
+    torch.cuda.synchronize()
+    for x, y, what in ((a.jtj, again.jtj, "J^T J"), (a.jtr, again.jtr,
+                                                     "J^T r"),
+                       (a.cost, again.cost, "cost")):
+        _same(x, y, f"ct_ba_block {mode} {what}, two launches")
+    errs = {"jtj": _rel_err(a.jtj, b.jtj), "jtr": _rel_err(a.jtr, b.jtr),
+            "cost": float(((a.cost - b.cost).abs()
+                           / torch.clamp_min(b.cost.abs(), 1e-7)).max())}
+    limits = {"jtj": 1e-4, "jtr": 1e-4, "cost": 1e-5}
+    for name, lim in limits.items():
+        if not errs[name] <= lim:
+            raise AssertionError(f"ct_ba_block {mode} {name}: relative "
+                                 f"error {errs[name]:.3g} > {lim}")
+    out = {"max_abs_err": float(max((a.jtj - b.jtj).abs().max(),
+                                    (a.jtr - b.jtr).abs().max(),
+                                    (a.cost - b.cost).abs().max())),
+           "relative": errs}
+    if mode == "gn":
+        _same(a.poses, again.poses, "ct_ba_block gn poses, two launches")
+    if mode == "gn" and compare_poses:
+        pa = a.poses.double().cpu().numpy()
+        pb = b.poses.double().cpu().numpy()
+        d_tr = float(max(np.abs(pa[:, 4:7] - pb[:, 4:7]).max(),
+                         np.abs(pa[:, 11:14] - pb[:, 11:14]).max()))
+        d_rot = float(max(max(s3n.angular_distance_deg(x[0:4], y[0:4]),
+                              s3n.angular_distance_deg(x[7:11], y[7:11]))
+                          for x, y in zip(pa, pb)))
+        if not (d_tr <= 1e-5 and d_rot <= 1e-4):
+            raise AssertionError(f"ct_ba_block gn: poses {d_tr:.3g} m, "
+                                 f"{d_rot:.3g} deg apart")
+        out.update(d_tr_m=d_tr, d_rot_deg=d_rot)
+        out["max_abs_err"] = max(out["max_abs_err"],
+                                 float((a.poses - b.poses).abs().max()))
     return out

@@ -110,6 +110,22 @@ def moments_from_planes(level: MapLevel, slots, cnt_ok, queries,
                             k_nearest, cached_r_eff2)
 
 
+def ball_search_moments(level: MapLevel, queries, query_valid,
+                        radius: float, resolution: float, nv: int,
+                        threshold_voxel_occupancy: int = 1) -> k2.Moments:
+    """Moments of every in-radius map point around each query (reference
+    ``voxel_map.py:845-887`` with no normal filter and no k-NN cap): K1
+    over all (2nv+1)^3 voxels, no compaction, then K2 with
+    ``k_nearest=None``. Returns K2's ``Moments``: the reference's (count,
+    sum_rel, sum_outer, closest, closest_dist) and, beyond them, the
+    descriptor (normal, a2D) its callers compute from the moments."""
+    slots, cnt_ok = k1.candidate_gather(level.keys, level.count, queries,
+                                        query_valid, resolution, nv,
+                                        threshold_voxel_occupancy, 0)
+    return k2.plane_moments(level.points, slots, cnt_ok, queries, radius,
+                            None)
+
+
 def insert_points(level: MapLevel, pts, valid, resolution: float,
                   min_dist: float, max_rounds: int = 4):
     """Insert a point batch into the level in place (kernel K3; the

@@ -24,9 +24,15 @@ host-deduped GRID path:
     later batch is in flight (its "rebase" / "levelchange_rebase"
     statuses).
 
-Not ported (they raise NotImplementedError): the frame ring, the CT-BA
-backend, ``profile_registration`` and the CONSTANT_VELOCITY motion
-compensation.
+The CT-BA backend (``odometry/backend.py``) attaches when
+``options.backend.enabled``: it registers a FINISHED_REGISTRATION callback,
+which the streamer fires after each frame's bookkeeping (and rebase) with
+the frame's keypoints reconstructed on the host (``_host_keypoints``), and
+the non-robust per-frame path with the keypoints its frame step used.
+
+Not ported (they raise NotImplementedError): the frame ring (and the
+backend's ``replay``), the backend on a robust profile,
+``profile_registration`` and the CONSTANT_VELOCITY motion compensation.
 """
 
 from __future__ import annotations
@@ -100,6 +106,7 @@ class RegistrationSummary:
     error_message: str = ""
     icp_summary: ICPSummary = dataclasses.field(default_factory=ICPSummary)
     logged_values: Dict[str, float] = dataclasses.field(default_factory=dict)
+    keypoints: Optional[tuple] = None   # (raw, alphas, valid), numpy
 
 
 class _InsertionTracker:
@@ -210,8 +217,13 @@ class Odometry:
         if options.motion_compensation == MotionCompensation.CONSTANT_VELOCITY:
             raise NotImplementedError(
                 "CONSTANT_VELOCITY motion compensation is not ported")
-        if options.backend.enabled:
-            raise NotImplementedError("the CT-BA backend is not ported")
+        if options.backend.enabled and options.backend.replay:
+            raise NotImplementedError(
+                "backend replay needs the frame ring, which is not ported")
+        if options.backend.enabled and options.robust_registration:
+            raise NotImplementedError(
+                "the CT-BA backend on a robust profile (the escalated "
+                "attempt's keypoints) is not ported")
         if options.profile_registration:
             raise NotImplementedError("profile_registration is not ported")
         self.device = resolve_device(device)
@@ -266,13 +278,43 @@ class Odometry:
         # readbacks of frame results (one per attempt or per batch)
         self.host_syncs = 0
         self.result_reads = 0
+        self.callbacks: Dict[str, list] = {}
+        # streamed frames' keypoint prefixes until their results are read:
+        # fid -> (kp_n, xyz, alphas)
+        self._pending_kp: Dict[int, tuple] = {}
+        # the sliding-window CT-BA backend, attached last: it registers a
+        # FINISHED_REGISTRATION callback
+        self.backend = None
+        if options.backend.enabled:
+            from ct_icp_torch.odometry.backend import CTBABackend
+            b = options.backend
+            self.backend = CTBABackend(
+                self, window=b.window, period=b.period,
+                num_steps=b.num_steps, keep_first_frames=b.keep_first_frames,
+                replay=b.replay, prior_weight=b.prior_weight,
+                continuity_beta=b.continuity_beta)
 
     # ------------------------------------------------------------- public API —
     def map_size(self) -> int:
         return int(self.map_state[0].num_points[0])
 
     def get_trajectory(self) -> List[TrajectoryFrame]:
+        if self.backend is not None:
+            self.backend.flush()   # apply a deferred refinement window
         return [f.copy() for f in self.trajectory]
+
+    # the callback event of a registered frame (reference OdometryCallback,
+    # odometry.h:207-224; the per-iteration events are not fired here)
+    FINISHED_REGISTRATION = "FINISHED_REGISTRATION"
+
+    def register_callback(self, event: str, callback):
+        """callback(odometry, summary, keypoints_or_None) -> bool."""
+        self.callbacks.setdefault(event, []).append(callback)
+
+    def _fire_callbacks(self, event: str, summary):
+        for cb in self.callbacks.get(event, []):
+            if cb(self, summary, None) is False:
+                raise RuntimeError("Callback returned false")
 
     def replay_refined_frames(self, refined_frames) -> int:
         raise NotImplementedError(
@@ -413,7 +455,7 @@ class Odometry:
     def _prepare_device_scan(self, xyz, timestamps, info: FrameInfo, prep):
         """The packed scan on the device for the frame step (from ``prep``
         when given, else prepared here as prepare_frame would) -> (scan,
-        n, kp_n, kp_voxel)."""
+        n, kp_n, kp_voxel, prep)."""
         if prep is None:
             n = xyz.shape[0]
             cap = self.options.max_scan_points
@@ -423,7 +465,53 @@ class Odometry:
             prep = self._dedup_and_pack(xyz, timestamps, info)
         scan = torch.from_numpy(prep["scan_host"].view(np.int16)).to(
             self.device)
-        return scan, prep["n"], prep.get("kp_n", 0), prep.get("kp_voxel", 0.0)
+        return (scan, prep["n"], prep.get("kp_n", 0),
+                prep.get("kp_voxel", 0.0), prep)
+
+    def _stash_keypoints(self, prep: dict):
+        """Keep a streamed frame's keypoint prefix until its result is read
+        (one batch behind), for :meth:`_host_keypoints`."""
+        if self.callbacks.get(self.FINISHED_REGISTRATION) \
+                and prep.get("kp_n", 0) > 0:
+            self._pending_kp[prep["info"].registered_fid] = (
+                prep["kp_n"], prep["xyz"], prep.get("alphas"))
+
+    def _keypoint_prefix(self, kp_n: int, xyz, alphas, keep=None):
+        """The solver's keypoints rebuilt on the host from a prep's prefix
+        (reference odometry.py:442-482): the first ``kp_n`` prepared points
+        on their wire-quantized coordinates and alphas, then (``keep``) the
+        residual-cap decimation's indices, compacted and padded to
+        max_keypoints. Returns (raw f32 [K, 3], alphas f32 [K], valid bool
+        [K]), or None without alphas."""
+        if alphas is None:
+            return None
+        cap = self.options.max_keypoints
+        kp_n = min(int(kp_n), cap)
+        q = np.rint(xyz[:kp_n] * pl.SCAN_QUANT) / pl.SCAN_QUANT
+        a = np.rint(np.clip(alphas[:kp_n], 0.0, 1.0) * 65535.0) / 65535.0
+        if keep is not None:
+            q, a = q[keep], a[keep]
+        n = q.shape[0]
+        raw = np.zeros((cap, 3), np.float32)
+        raw[:n] = q
+        al = np.zeros((cap,), np.float32)
+        al[:n] = a
+        valid = np.zeros((cap,), bool)
+        valid[:n] = True
+        return raw, al, valid
+
+    def _host_keypoints(self, k: int):
+        """The keypoints of streamed frame ``k``, rebuilt on the host with
+        no device read. Exact by construction of the keypoint-prefix path:
+        prepare_frame stable-partitions the deduped scan so the sample-grid
+        winners are the first kp_n rows, and the streamed frame takes its
+        keypoints as that prefix (frame scalar fs[16]). Returns the
+        (raw, alphas, valid) of :meth:`_keypoint_prefix`, or None when no
+        prefix was stashed."""
+        kp_info = self._pending_kp.pop(k, None)
+        if kp_info is None:
+            return None
+        return self._keypoint_prefix(*kp_info)
 
     # ------------------------------------------------------------ motion init —
     def _initialize_motion(self, info: FrameInfo,
@@ -529,7 +617,7 @@ class Odometry:
         non-robust per-frame path."""
         o = self.options
         k = info.registered_fid
-        scan, n, kp_n, kp_voxel = self._prepare_device_scan(
+        scan, n, kp_n, kp_voxel, prep = self._prepare_device_scan(
             xyz, timestamps, info, prep)
         frame = self.trajectory[k]
         summary = RegistrationSummary()
@@ -582,6 +670,18 @@ class Odometry:
         else:
             tracker.skip_frame()
         self._maybe_rebase()
+        if self.callbacks.get(self.FINISHED_REGISTRATION):
+            # the keypoints the frame step solved with: the prefix after
+            # the residual-cap decimation (the reference hands over its
+            # device arrays; they are the same points)
+            kp_prefix = self._kp_prefix_scalar(kp_n, kp_voxel, fs1)
+            if kp_prefix > 0:
+                cnt = min(int(kp_prefix), o.max_keypoints)
+                summary.keypoints = self._keypoint_prefix(
+                    cnt, prep["xyz"], prep.get("alphas"),
+                    pl.decimation_indices(
+                        cnt, int(dyn[pl._MNR_INDEX])))
+        self._fire_callbacks(self.FINISHED_REGISTRATION, summary)
         return summary
 
     @staticmethod
@@ -623,7 +723,7 @@ class Odometry:
         inserted, how many points)."""
         o = self.options
         k = info.registered_fid
-        scan, n, kp_n, kp_voxel = self._prepare_device_scan(
+        scan, n, kp_n, kp_voxel, _ = self._prepare_device_scan(
             xyz, timestamps, info, prep)
         attempt_opts = self._effective_icp_options(info)
         startup = k < o.init_num_frames
@@ -897,6 +997,7 @@ class Odometry:
             if prep["info"].registered_fid != self.registered_frames:
                 raise ValueError("Prepared frames must be streamed in order")
             self.registered_frames += 1
+            self._stash_keypoints(prep)
         scans, ns, ks = self._upload(group)
         dyns = [self.registration.dynamics(
             self._effective_icp_options(p["info"])) for p in group]
@@ -958,6 +1059,9 @@ class Odometry:
             tracker.skip_frame()
         if allow_rebase and self._strayed():
             self._rebase_stream_head()
+        if self.callbacks.get(self.FINISHED_REGISTRATION):
+            summary.keypoints = self._host_keypoints(k)
+            self._fire_callbacks(self.FINISHED_REGISTRATION, summary)
         return summary
 
     # ------------------------------------------------------- robust streaming —

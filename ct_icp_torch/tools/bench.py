@@ -5,6 +5,7 @@
     python -m ct_icp_torch.tools.bench --escalation [N]
     python -m ct_icp_torch.tools.bench --long [N]
     python -m ct_icp_torch.tools.bench --indoor [N]
+    python -m ct_icp_torch.tools.bench --backend [N]
 
 ``N`` cuts the frames (default: the gate's own count). Each gate prints one
 JSON line and exits 1 when its accuracy bound fails:
@@ -20,7 +21,14 @@ JSON line and exits 1 when its accuracy bound fails:
   * ``--indoor``: the 240-frame handheld indoor walk,
     ``default_robust_outdoor_low_inertia()`` (three map levels), batch 4;
     INDOOR segment RPE over seeds 7, 8, 9 <= 1.3 %Tr, mean APE <= 0.10 m
-    and 0 failures; the timed seed rendered beforehand, as for ``--long``.
+    and 0 failures; the timed seed rendered beforehand, as for ``--long``;
+  * ``--backend``: the long drive's first 320 frames (seed 7), batch 16,
+    ``default_driving_profile()`` with the CT-BA backend on (window 8,
+    period 8): <= 0.42 %Tr, 0 failures and at least one refinement (the
+    reference's ``run_backend``). It prints the refinements, the median
+    host ms of a refine and frames/s, and streams the same rendered frames
+    again with the backend off in the same process, so that both rates
+    come from one card and one host.
 Frames/s is the median per-batch rate after two warm-up batches on the
 timed seed (the first), measured on the card and reported beside the
 card's name and power limit; the reference's frames/s floors are TPU
@@ -43,12 +51,18 @@ from ct_icp_torch.config.options import (default_driving_profile,
 from ct_icp_torch.datasets import corridor as cor
 from ct_icp_torch.datasets import indoor_walk as iw
 from ct_icp_torch.datasets import long_drive as ld
-from ct_icp_torch.datasets.streaming import stream_acquisition
+from ct_icp_torch.datasets.streaming import (CachedAcquisition,
+                                             stream_acquisition)
 from ct_icp_torch.odometry.concurrent import PrefetchIterator
 from ct_icp_torch.odometry.odometry import Odometry
 
 DRIVING_BATCH = 16
 ROBUST_BATCH = 8
+# the backend gate (reference bench.py:864-867): the port's own copies
+BACKEND_TR_BOUND_PCT = 0.42
+BACKEND_FRAMES = 320
+BACKEND_SEED = 7
+BACKEND_BATCH = 16
 
 
 def _card() -> str:
@@ -213,9 +227,51 @@ def run_indoor(num_frames=None):
                             and failures == 0)}
 
 
+def backend_profile(enabled: bool = True):
+    """``default_driving_profile()`` with the CT-BA backend on (or off)."""
+    o = default_driving_profile()
+    return dataclasses.replace(o, backend=dataclasses.replace(
+        o.backend, enabled=enabled))
+
+
+def run_backend(num_frames=None):
+    n = num_frames or BACKEND_FRAMES
+    acq = CachedAcquisition(ld.load_acquisition(BACKEND_SEED))
+    runs = {}
+    for name, on in (("on", True), ("off", False)):
+        odo = Odometry(backend_profile(on), device="cuda")
+        runs[name] = stream_acquisition(odo, acq, n, BACKEND_BATCH)
+        if on:
+            b = odo.backend
+            runs[name].update(
+                refinements=b.refinements, refine_ms=list(b.refine_ms),
+                event_waits_per_frame=b.event_waits / runs[name]["frames"])
+    on, off = runs["on"], runs["off"]
+    return {
+        "metric": "synthetic_backend_long_drive_segment_rpe",
+        "value": on["tr_pct"], "unit": "%Tr", "frames": on["frames"],
+        "batch": BACKEND_BATCH, "seed": BACKEND_SEED,
+        "failures": on["failures"], "refinements": on["refinements"],
+        "refine_ms_median": float(np.median(on["refine_ms"]))
+        if on["refine_ms"] else None,
+        "mean_ape_m": on["mean_ape_m"],
+        "frames_per_sec": on["median_batch_fps"],
+        "frames_per_sec_backend_off": off["median_batch_fps"],
+        "tr_pct_backend_off": off["tr_pct"],
+        "host_syncs_per_frame": on["host_syncs_per_frame"],
+        "host_syncs_per_frame_backend_off": off["host_syncs_per_frame"],
+        "event_waits_per_frame": on["event_waits_per_frame"],
+        "render_s": on["render_s"], "stream_s": on["stream_s"],
+        "stream_s_backend_off": off["stream_s"],
+        "tr_bound_pct": BACKEND_TR_BOUND_PCT,
+        "accuracy_ok": bool(on["tr_pct"] <= BACKEND_TR_BOUND_PCT
+                            and on["failures"] == 0
+                            and on["refinements"] > 0)}
+
+
 GATES = {"--driving": run_driving, "--robust": run_robust,
          "--escalation": run_escalation, "--long": run_long,
-         "--indoor": run_indoor}
+         "--indoor": run_indoor, "--backend": run_backend}
 
 
 def main(argv=None) -> int:

@@ -1,8 +1,8 @@
-"""CUDA kernels K1-K7 against their plain PyTorch versions, on the card
+"""CUDA kernels K1-K8 against their plain PyTorch versions, on the card
 (K5 as one launch per LM call, K3 as one launch per insert, K1 one launch a
 call returning slots, K2 reading the live points through them, the rebase
 as one K7 and one K6 launch, K4 one launch a call on a claim table kept
-from call to call).
+from call to call, K8 one launch per CT-BA inner iteration).
 
 Needs an NVIDIA GPU and nvcc (the kernels build from ct_icp_torch/csrc at
 first use); skips elsewhere. Run on a machine with the card (this file needs
@@ -17,8 +17,10 @@ import numpy as np
 import pytest
 import torch
 
+from ct_icp_torch.core import se3_np as s3n
 from ct_icp_torch.kernels import build, checks
 from ct_icp_torch.kernels import candidate_gather as k1
+from ct_icp_torch.kernels import ct_ba_block as k8
 from ct_icp_torch.kernels import grid_sample as k4
 from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.kernels import map_insert as k3
@@ -26,6 +28,7 @@ from ct_icp_torch.kernels import plane_moments as k2
 from ct_icp_torch.kernels import rebuild as k7
 from ct_icp_torch.kernels import row_gather as k6
 from ct_icp_torch.mapping import voxel_map as vm
+from ct_icp_torch.parallel import ct_ba
 from torch_rebase_cases import chain_level, merge_level
 
 pytestmark = pytest.mark.gpu
@@ -564,3 +567,83 @@ def test_rebuild_level_is_one_k7_and_one_k6_operation(cuda):
     assert len(names) == 2, names
     assert any("rebuild_claim" in x for x in names), names
     assert any("row_gather" in x for x in names), names
+
+
+def _ct_ba_window(dev, f, k, edge_alpha, pad=37, seed=0):
+    """A CT-BA window on ``dev`` shaped like the backend's: the synthetic
+    problem with the backend's prior weight, prior poses off the state,
+    a2D-like weights with a padded tail of ``pad`` zero rows a frame, and
+    ``edge_alpha`` on every edge."""
+    rng = np.random.default_rng(seed)
+    state, p, _ = ct_ba.build_synthetic_problem(rng, f, k, noise=0.02)
+    w = rng.uniform(0.0, 0.5, (f, k)).astype(np.float32)
+    w[:, k - pad:] = 0.0
+
+    def moved(x, scale):
+        return x + torch.from_numpy(rng.normal(
+            scale=scale, size=tuple(x.shape)).astype(np.float32))
+
+    p = p._replace(weights=torch.from_numpy(w),
+                   prior_tr_begin=moved(p.prior_tr_begin, 0.01),
+                   prior_tr_end=moved(p.prior_tr_end, 0.01),
+                   prior_quat_begin=moved(p.prior_quat_begin, 0.003),
+                   prior_quat_end=moved(p.prior_quat_end, 0.003),
+                   prior_weight=torch.full((f,), 1.5),
+                   edge_alpha=torch.full((f,), float(edge_alpha)))
+    state = ct_ba.CTBAState(*(x.to(dev) for x in state))
+    p = ct_ba.CTBAProblem(*(x.contiguous().to(dev) for x in p))
+    return state, p
+
+
+@pytest.mark.parametrize("edge_alpha", [1.0, 1.3])
+@pytest.mark.parametrize("mode", ["gn", "blocks"])
+@pytest.mark.parametrize("f, k", [(8, 4096), (3, 300), (1, 17)])
+def test_ct_ba_block_matches_plain(cuda, mode, edge_alpha, f, k):
+    """K8 at the backend gate's window (F = 8, K = 4,096) and off the CTA
+    size, with a padded tail, at edge_alpha 1.0 and 1.3 (extrapolation)."""
+    state, p = _ct_ba_window(cuda, f, k, edge_alpha, pad=min(37, k // 3))
+    poses = ct_ba.pack_state(state)
+    launches = k8.launches
+    checks.check_ct_ba_block(poses, p, 2.0, 1e-3, mode)
+    assert k8.launches == launches + 2          # one launch a call
+
+
+def test_ct_ba_block_empty_frames(cuda):
+    """K = 0 (no point rows): the pose-level rows alone, one CTA a frame.
+    Their rotation block has rank 4 of 6 (four quaternion-dot rows), so the
+    damped solve amplifies rounding by ~1/damping and the updated poses are
+    held to a second launch only; J^T J, J^T r and the cost to the plain
+    version."""
+    state, p = _ct_ba_window(cuda, 4, 40, 1.0, pad=40)
+    p = p._replace(**{n: getattr(p, n)[:, :0].contiguous()
+                      for n in ("raw", "alphas", "anchors", "normals",
+                                "weights")})
+    poses = ct_ba.pack_state(state)
+    for mode in ("gn", "blocks"):
+        checks.check_ct_ba_block(poses, p, 2.0, 1e-3, mode,
+                                 compare_poses=False)
+
+
+@pytest.mark.parametrize("solver", ["jacobi", "pcg"])
+def test_ct_ba_step_on_card_matches_cpu(cuda, solver):
+    """Two CT-BA steps (two inner iterations each, as the backend runs
+    them) on the card (K8) and on the CPU (the plain version): poses within
+    1e-5 m and 1e-4 deg; the jacobi step is two K8 launches a step."""
+    state, p = _ct_ba_window(cuda, 8, 4096, 1.3)
+    step = ct_ba.make_ct_ba_step(num_inner_iters=2, beta=2.0, solver=solver)
+    cpu = (ct_ba.CTBAState(*(x.cpu() for x in state)),
+           ct_ba.CTBAProblem(*(x.cpu() for x in p)))
+    launches = k8.launches
+    a, b = state, cpu[0]
+    for _ in range(2):
+        a, _ = step(a, p)
+        b, _ = step(b, cpu[1])
+    torch.cuda.synchronize()
+    assert k8.launches == launches + 4
+    pa = ct_ba.pack_state(a).double().cpu().numpy()
+    pb = ct_ba.pack_state(b).double().numpy()
+    assert np.abs(pa[:, 4:7] - pb[:, 4:7]).max() <= 1e-5
+    assert np.abs(pa[:, 11:14] - pb[:, 11:14]).max() <= 1e-5
+    for x, y in zip(pa, pb):
+        assert s3n.angular_distance_deg(x[0:4], y[0:4]) <= 1e-4
+        assert s3n.angular_distance_deg(x[7:11], y[7:11]) <= 1e-4

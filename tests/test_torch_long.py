@@ -183,7 +183,12 @@ def test_gate_constants_match_bench():
                                              bench.APE_SEEDS,
                                              bench.ROBUST_APE_BOUND_M)
     assert set(tbench.GATES) == {"--driving", "--robust", "--escalation",
-                                 "--long", "--indoor"} <= set(bench.GATES)
+                                 "--long", "--indoor",
+                                 "--backend"} <= set(bench.GATES)
+    assert (tbench.BACKEND_TR_BOUND_PCT, tbench.BACKEND_FRAMES,
+            tbench.BACKEND_SEED) == (bench.BACKEND_TR_BOUND_PCT,
+                                     bench.BACKEND_FRAMES,
+                                     bench.BACKEND_SEED)
     # without a card the tool refuses, and prints no result
     if not tbench.torch.cuda.is_available():
         assert tbench.main(["--long"]) == 2

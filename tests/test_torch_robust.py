@@ -202,24 +202,33 @@ def test_robust_corridor_frames_match_bench(scene):
                                   bench.seq_ape(est, jf))
 
 
-@pytest.mark.parametrize("path", ["backend", "profile_registration",
+@pytest.mark.parametrize("path", ["backend", "backend_replay",
+                                  "profile_registration",
                                   "constant_velocity", "frame_ring",
                                   "rebase"])
 def test_paths_out_of_the_port_raise_not_implemented(path):
     """The paths this port does not carry yet refuse to run, always with
-    NotImplementedError. The rebase is ported: a frame past the rebase
-    distance moves the origin to its end position and the map with it."""
+    NotImplementedError: the CT-BA backend on a robust profile ("backend")
+    and its replay (the frame ring) on any profile. The backend itself and
+    the rebase are ported: a frame past the rebase distance moves the
+    origin to its end position and the map with it."""
     opts = options_from_dict(dataclasses.asdict(robust_options()))
     if path == "backend":
         opts = dataclasses.replace(opts, backend=dataclasses.replace(
             opts.backend, enabled=True))
+    elif path == "backend_replay":
+        opts = dataclasses.replace(
+            opts, robust_registration=False,
+            backend=dataclasses.replace(opts.backend, enabled=True,
+                                        replay=True))
     elif path == "profile_registration":
         opts = dataclasses.replace(opts, profile_registration=True)
     elif path == "constant_velocity":
         opts = dataclasses.replace(
             opts, motion_compensation=type(opts.motion_compensation)(
                 "CONSTANT_VELOCITY"))
-    if path in ("backend", "profile_registration", "constant_velocity"):
+    if path in ("backend", "backend_replay", "profile_registration",
+                "constant_velocity"):
         with pytest.raises(NotImplementedError):
             TOdometry(opts, device="cpu")
         return
