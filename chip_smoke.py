@@ -9,7 +9,7 @@ It needs one CUDA device and nvcc, and exits non-zero without a result line
 when either is missing. Phases; any failure raises and exits non-zero:
 
   1. the card: nvidia-smi's name and power limit, torch's device name;
-  2. build the CUDA kernels K1-K8 from ct_icp_torch/csrc with nvcc (one
+  2. build the CUDA kernels K1-K10 from ct_icp_torch/csrc with nvcc (one
      process per source, all started together); print the build time and
      ptxas's register / shared-memory / spill lines (and keep each entry's
      registers and spills for the kernels line);
@@ -122,15 +122,49 @@ when either is missing. Phases; any failure raises and exits non-zero:
      levels (P = 50 at 2^20 with min distance 0.03, P = 40 at 2^19 with
      0.1, P = 40 at 2^17 with 0.15); K4 on the walk's first escalated
      election as phase 12 met it (its sub-sample, voxel and capacity);
-  in 4-8, 10 and 12 every kernel count and K5's device count of LM steps are
-  set to 0 just before the path and read just after it; each path must
-  launch K5 and its other kernels, and make fewer host syncs a frame than
-  LM steps (one per ICP iteration and readback where no batch rolled
-  back); the driving path one K5 launch per ICP iteration;
-  14. one JSON line of the kernels (K1-K5 with an "indoor" record, K3
+  14. the backend with replay (tools/bench.py --replay): the reference's
+     replay test (tests/test_ct_ba.py:182-224) at the default profile's
+     capacities (the three-level map at 2^20 / 2^19 / 2^17 slots, 2^17
+     scan points, 4,096 keypoints), the room (datasets/room.py, seed 47,
+     5 mm noise), 15 frames of 6,000 points through register_frame,
+     backend off then on (window 6, period 3, 2 steps, replay): APE on <
+     0.8 x off, >= 2 refinements, 0 failures, K9 launched once a level a
+     replay; then the same room at 60,000 points a frame for 60 frames, off
+     then on: 0 failures, >= 2 refinements, APE on and off, the replays,
+     the points each evicted and re-inserted and their host ms, and the
+     device ms of the first replay's device half (a CUDA graph of its K9
+     and K3 launches on a restored copy of the map);
+  15. the map export of that room's map: get_map_points on each level
+     (one K10 launch each, over the level's occupied slots; finite points,
+     as many as the level holds);
+  16. K9 on the first replay's evict list on each level, and K10 on each
+     level's occupied slots of the room's map (the export's slot list),
+     against their plain versions (K9 identical;
+     K10's flags and refit slots identical, its normals within the
+     tolerance of kernels/checks.py) and timed as in phase 3 (K9: a CUDA
+     graph of one eviction on a restored copy; K10: a graph of 20 calls;
+     both also with their host side);
+  17. K1 and K2 built from this tree give, on tools/exp_header_trees.py's
+     inputs, the outputs the parent tree's build gave before their device
+     code moved into csrc/probe.cuh and csrc/eigh3.cuh (SHA-256 digests);
+  18. the robust corridor (80 frames, batch 8) and the escalation scene (48
+     frames, 3 attempts, batch 8) through robust_driving_profile() with the
+     CT-BA backend on: 0 failures, APE <= 0.10 m, >= 1 refinement, one
+     callback for each committed frame in order; K4 launched in the
+     escalation scene; the corridor once more with the backend off, timed
+     the same way (frames prepared by prefetch workers in the timed loop),
+     for the pair's frames/s;
+  in 4-8, 10, 12, 14, 15 and 18 every kernel count and K5's device count of
+  LM steps are set to 0 just before the path and read just after it; each
+  path must launch its kernels (4-8, 10 and 12: K5 and the others), and
+  the paths of 4-8, 10 and 12 make fewer host syncs a frame than LM steps
+  (one per ICP iteration and readback where no batch rolled back); the
+  driving path one K5 launch per ICP iteration;
+  19. one JSON line of the kernels (K1-K5 with an "indoor" record, K3
      with "indoor level 1" and "indoor level 2" as well, K1 and K2 with a
-     "backend" record, K8 with its "blocks" mode beside its "gn" one), the
-     card's line, and the result line.
+     "backend" record, K8 with its "blocks" mode beside its "gn" one, K9
+     and K10 on level 0 with "level 1" and "level 2" records), the card's
+     line, and the result line.
 """
 
 import dataclasses
@@ -139,6 +173,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -149,13 +184,16 @@ from ct_icp_torch.config.options import (default_driving_profile,
 from ct_icp_torch.datasets import corridor as cor
 from ct_icp_torch.datasets import indoor_walk as iw
 from ct_icp_torch.datasets import long_drive as ld
+from ct_icp_torch.datasets import room
 from ct_icp_torch.datasets.streaming import (CachedAcquisition,
                                              stream_acquisition)
 from ct_icp_torch.kernels import build
 from ct_icp_torch.kernels import candidate_gather as k1
 from ct_icp_torch.kernels import checks
 from ct_icp_torch.kernels import ct_ba_block as k8
+from ct_icp_torch.kernels import evict_voxels as k9
 from ct_icp_torch.kernels import grid_sample as k4
+from ct_icp_torch.kernels import level_normals as k10
 from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.kernels import map_insert as k3
 from ct_icp_torch.kernels import plane_moments as k2
@@ -168,6 +206,7 @@ from ct_icp_torch.ops import sampling as smp
 from ct_icp_torch.ops import voxel as vx
 from ct_icp_torch.parallel import ct_ba
 from ct_icp_torch.tools import bench as gates
+from ct_icp_torch.tools import exp_header_trees as eht
 from ct_icp_torch.tools.exp_gather import k6_bytes, k6_fields_bytes
 from ct_icp_torch.tools.exp_moments import k2_bytes, live_work
 from ct_icp_torch.tools.timing import (HBM_BYTES_PER_S, bound, time_cold,
@@ -198,6 +237,24 @@ GATHER_NS = (16384, 110592)
 K5_DRIVING_FRAME = 10
 K5_ROBUST_FRAME = 10
 K5_JOLT_FRAME = cor.ESC_BURST[0] + 2
+# the room of the replay gate at a real density: 60,000 points a frame, 60
+# frames (datasets/room.py; the gate itself: 6,000 and 15)
+ROOM_POINTS = 60000
+ROOM_FRAMES = 60
+# K1's and K2's outputs on tools/exp_header_trees.py's inputs as the parent
+# tree's build (b3f8a7c, before their device code moved into
+# csrc/probe.cuh and csrc/eigh3.cuh) gave them on an H100 80GB HBM3
+DIGESTS_BEFORE_MOVE = {
+    "k1 27": "29122a929326a66a9b842bb2a4c432a97e86f234fe79d3baeb15e25081d514d2",
+    "k1 10 of 125":
+        "7beb558d4c68073515454fa3e4a7b798ae87fb63366cc797908e02c4054e2257",
+    "k2 fresh":
+        "08443cb06c613ad3070b697818be036664d24c7ba1a3a3a103d527f88ffe745f",
+    "k2 cached":
+        "08443cb06c613ad3070b697818be036664d24c7ba1a3a3a103d527f88ffe745f",
+    "k2 full":
+        "aab09d10cae8cf47c4581cf319f952de55880ba7c4457168ec1edc562afdf288",
+}
 # the indoor walk's frame whose first LM call K5 is held to; frames
 # [0, K) build the three-level map K1-K3 are held on, frame K + 1 gives
 # them their queries and inserted points
@@ -228,6 +285,12 @@ KERNELS = {
     "ct_ba_block": dict(
         module=k8, source="ct_icp_torch/csrc/ct_ba_block.cu",
         replaces="ct_icp_tpu/parallel/ct_ba.py:120"),
+    "evict_voxels": dict(
+        module=k9, source="ct_icp_torch/csrc/evict_voxels.cu",
+        replaces="ct_icp_tpu/mapping/voxel_map.py:564"),
+    "level_normals": dict(
+        module=k10, source="ct_icp_torch/csrc/level_normals.cu",
+        replaces="ct_icp_tpu/mapping/voxel_map.py:549"),
 }
 # a kernel record's further times and work counts, copied to the kernels
 # line where present
@@ -236,7 +299,8 @@ WORK_KEYS = ("host_ms", "warm_ms", "library_warm_ms", "step_ms",
              "device_ops_per_call", "cached_ms", "group", "live",
              "points_read", "rows_read", "per_query_bytes", "key_windows",
              "slots_found", "claim_rounds", "rebuild_level_ms",
-             "rebuild_level_plain_ms", "rows_live", "d_tr_m", "d_rot_deg")
+             "rebuild_level_plain_ms", "rows_live", "d_tr_m", "d_rot_deg",
+             "left_out")
 # the kernels of the first three paths (the rebase runs on none of them)
 K1_K5 = ["candidate_gather", "plane_moments", "map_insert", "grid_sample",
          "lm_step"]
@@ -1661,6 +1725,345 @@ def phase_kernels_rebase(dev, long_capture, robust_capture, long_res,
     return records
 
 
+def _capture_first_replay(odo, store):
+    """Keep device copies of the first replay's inputs as its device half
+    (``Odometry._replay_apply``) receives them: every level before the
+    eviction, the uploaded coordinates and points and their row counts (K9
+    and the replay's device time are held on them after the path). The
+    copies are made inside the path's run: ``capture_host_s``."""
+    inner = odo._replay_apply
+
+    def spy(arrays, counts):
+        if not store:
+            t0 = time.perf_counter()
+            store.update(levels=[_level_copy(lv) for lv in odo.map_state],
+                         arrays=[a.clone() for a in arrays],
+                         counts=list(counts), frame=len(odo.trajectory))
+            store["capture_host_s"] = time.perf_counter() - t0
+        return inner(arrays, counts)
+
+    odo._replay_apply = spy
+
+
+def _room_run(on, frames, points, capture=None):
+    """The room (seed 47, 5 mm noise, ``points`` a frame) through
+    register_frame for ``frames`` frames: the replay gate's options (the
+    reference test's front end degraded, at the default profile's
+    capacities), the backend ``on`` or off; counts reset just before and
+    read just after. Returns (odo, record)."""
+    acq = room.make_acquisition(seed=room.REPLAY_SEED, noise=room.REPLAY_NOISE,
+                                num_frames=max(frames, 25),
+                                points_per_frame=points)
+    setup = None
+    if capture is not None:
+        def setup(odo):
+            _capture_first_replay(odo, capture)
+    _reset_counts()
+    odo, out = gates.run_room(room.replay_options(on), acq, frames,
+                              setup=setup)
+    out.update(launches=_read_counts(), lm_steps=_read_steps())
+    return odo, out
+
+
+def phase_replay():
+    """The backend with replay (tools/bench.py --replay): the reference's
+    replay test (tests/test_ct_ba.py:182-224) at the default profile's
+    capacities (the three-level map at 2^20 / 2^19 / 2^17 slots, 2^17 scan
+    points, 4,096 keypoints), 15 frames of 6,000 points, backend off then
+    on: APE on < 0.8 x off, >= 2 refinements, 0 failures, K9 launched once
+    a level a replay. Then the same room at 60,000 points a frame for 60
+    frames, off then on: 0 failures, >= 2 refinements; APE on and off, the
+    replays, the points each evicted and re-inserted, their host ms, and
+    the device ms of the first replay's device half (a CUDA graph of K9
+    and the inserts on a restored copy of the map). Returns the records,
+    the big room's odometry (for the export) and the first replay's
+    inputs."""
+    runs = {}
+    for name, on in (("off", False), ("on", True)):
+        _, runs[name] = _room_run(on, room.REPLAY_FRAMES,
+                                  room.POINTS_PER_FRAME)
+    on, off = runs["on"], runs["off"]
+    bound = room.REPLAY_APE_FACTOR * off["mean_ape_m"]
+    log("replay gate, backend on: " + json.dumps(on))
+    log("replay gate, backend off: " + json.dumps(off))
+    log(f"  {room.REPLAY_FRAMES} frames: APE on {on['mean_ape_m']:.5f} m, "
+        f"off {off['mean_ape_m']:.5f} m (on must be < {bound:.5f}), "
+        f"{on['refinements']} refinements, {on['replays']} replays")
+    if on["failures"] or off["failures"]:
+        raise RuntimeError("replay gate: failed frames")
+    if not on["mean_ape_m"] < bound:
+        raise RuntimeError(f"replay gate: APE on {on['mean_ape_m']} >= "
+                           f"{room.REPLAY_APE_FACTOR} x off")
+    if on["refinements"] < room.REPLAY_MIN_REFINEMENTS:
+        raise RuntimeError("replay gate: fewer than 2 refinements")
+    n_lv = len(room.replay_options(True).map_options.resolutions)
+    _require_launches("replay gate", on["launches"],
+                      ["evict_voxels", "map_insert", "ct_ba_block"])
+    if on["launches"]["evict_voxels"] != n_lv * on["replays"]:
+        raise RuntimeError("replay gate: not one K9 launch a level a replay")
+    if off["launches"]["evict_voxels"]:
+        raise RuntimeError("backend off: K9 launched")
+
+    big, capture = {}, {}
+    odo = None
+    for name, on_ in (("off", False), ("on", True)):
+        odo, big[name] = _room_run(on_, ROOM_FRAMES, ROOM_POINTS,
+                                   capture if on_ else None)
+        if not on_:
+            del odo
+            torch.cuda.empty_cache()
+    bon, boff = big["on"], big["off"]
+    log("room 60,000 points x 60 frames, backend on: " + json.dumps(bon))
+    log("room, backend off: " + json.dumps(boff))
+    if bon["failures"] or boff["failures"]:
+        raise RuntimeError("room: failed frames")
+    if bon["refinements"] < room.REPLAY_MIN_REFINEMENTS:
+        raise RuntimeError("room: fewer than 2 refinements")
+    if not capture:
+        raise RuntimeError("room: no replay")
+    # the first replay's device half on a restored copy of the map
+    saved = capture["levels"]
+    work = [_level_copy(lv) for lv in saved]
+    holder = odo.map_state
+    odo.map_state = tuple(work)
+
+    def reset():
+        for lv, sv in zip(work, saved):
+            for t, s in zip(lv, sv):
+                t.copy_(s)
+
+    try:
+        dev_ms, how = time_graph(reset, lambda: odo._replay_apply(
+            capture["arrays"], capture["counts"]))
+    finally:
+        odo.map_state = holder
+    bon["first_replay_device_ms"] = dev_ms
+    bon["first_replay_timing"] = how
+    bon["first_replay_frames"] = len(capture["arrays"]) - n_lv
+    bon["capture_host_s"] = capture["capture_host_s"]
+    log(f"  room: APE on {bon['mean_ape_m']:.5f} m, off "
+        f"{boff['mean_ape_m']:.5f} m; {bon['refinements']} refinements, "
+        f"{bon['replays']} replays, points evicted "
+        f"{bon['replay_evicted']}, re-inserted {bon['replay_inserted']}; "
+        f"replay host ms median "
+        f"{float(np.median(bon['replay_host_ms'])):.2f}; the first "
+        f"replay's device half {dev_ms:.4f} ms ({how}); frames/s on "
+        f"{bon['frames_per_sec']:.2f}, off {boff['frames_per_sec']:.2f}")
+    return {"gate_on": on, "gate_off": off, "room_on": bon,
+            "room_off": boff}, odo, capture
+
+
+def _kernel_k9(level, coords, valid, tag):
+    """K9 against its plain version on one level's evict list, then timed:
+    a CUDA graph of one eviction on a restored copy (count, flags and
+    num_points put back before each replay), and with its host side."""
+    err = checks.check_evict_voxels(level, coords, valid)
+    work = _level_copy(level)
+
+    def reset():
+        for t, s in ((work.count, level.count), (work.nflags, level.nflags),
+                     (work.num_points, level.num_points)):
+            t.copy_(s)
+
+    def call():
+        return vm.evict_voxels(work, coords, valid)
+
+    ms, how = time_graph(reset, call)
+    host_ms, _ = time_mutating(lambda: reset() or work, lambda _w: call())
+    plain = _level_copy(level)
+    plain_ms, _ = time_host(lambda: k9.evict_voxels_plain(
+        plain.keys, plain.count.clone(), plain.nflags.clone(),
+        plain.num_points.clone(), coords, valid), reps=5)
+    m, n_valid = coords.shape[0], int(valid.sum())
+    found = err["emptied"]
+    # every valid flag read; a valid coordinate read with its 16-byte key
+    # window (the kernel reads no other); a found slot's count read and
+    # count and flag written; num_points
+    n_bytes = m * 1 + n_valid * (12 + 16) + found * 12 + 8
+    log(f"K9 evict_voxels {tag}: M = {m} ({n_valid} valid, {found} slots "
+        f"emptied, {err['removed']} points): identical; {ms:.4f} ms on the "
+        f"device ({how}), {host_ms:.4f} ms with its host side, plain "
+        f"{plain_ms:.4f} ms")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bytes=n_bytes, ops=0.0, timing=how, host_ms=host_ms,
+                shape=f"C={level.capacity} M={m} valid={n_valid} "
+                      f"emptied={found} removed={err['removed']}")
+
+
+def _kernel_k10(level, location, tag):
+    """K10 against its plain version on one level's occupied slots (the
+    export's slot list), then timed: a CUDA graph of 20 calls, and with
+    its host side; the plain version."""
+    slots = vm.occupied_slots(level)
+    err = checks.check_level_normals(level, location, slots)
+
+    def call():
+        return vm.refit_normals(level, location, slots)
+
+    ms, how = time_stateless(call)
+    host_ms, _ = time_host(call)
+    plain_ms, _ = time_host(lambda: k10.level_normals_plain(
+        level.keys, level.count, level.points, level.normals, level.nflags,
+        location, slots), reps=5)
+    p, s = level.max_points, slots.shape[0]
+    listed = slots.long()
+    refit = k10.refit_mask(level.keys[listed], level.count[listed])
+    live = int(level.count[listed][refit].clamp_max(p).sum())
+    n_refit = int(refit.sum())
+    # each listed slot's index, key and count read and normal and flag
+    # written, the normal and flag of each listed slot not refit read, each
+    # refit slot's live points
+    n_bytes = s * 28 + (s - n_refit) * 16 + live * 12
+    # 3 differences and 9 products and sums a point, ~400 operations of
+    # the eigensolve and orientation a slot
+    ops = live * 21.0 + n_refit * 400.0
+    log(f"K10 level_normals {tag}: C = {level.capacity}, P = {p}, {s} "
+        f"occupied slots listed, {n_refit} refit ({live} points, "
+        f"{err['left_out']} left out of the normal comparison): within "
+        f"tolerance ({json.dumps(err)}); {ms:.4f} ms on the device ({how}), "
+        f"{host_ms:.4f} ms with its host side, plain {plain_ms:.4f} ms")
+    return dict(max_abs_err=err["max_abs_err"], ms=ms, plain_ms=plain_ms,
+                library_ms=None, bytes=n_bytes, ops=ops, timing=how,
+                host_ms=host_ms, left_out=err["left_out"],
+                shape=f"C={level.capacity} P={p} listed={s} "
+                      f"refit={n_refit} points={live}")
+
+
+def phase_export(odo):
+    """The map export of the 60,000-point room's map: get_map_points on
+    each level, one K10 launch each (counts reset before, read after);
+    finite points and normals, as many as the level holds, the refit
+    normals of unit length."""
+    out = {"levels": []}
+    _reset_counts()
+    t0 = time.perf_counter()
+    for li, level in enumerate(odo.map_state):
+        pn = odo.get_map_points(li)
+        n = int(level.num_points[0])
+        if pn.shape != (n, 6) or not np.isfinite(pn).all() or n == 0:
+            raise RuntimeError(f"export level {li}: {pn.shape} for {n} points")
+        norms = np.linalg.norm(pn[:, 3:6], axis=1)
+        unit = float(np.mean(np.abs(norms - 1.0) < 1e-4))
+        out["levels"].append({"points": n, "unit_normal_share": unit})
+    out["host_s"] = time.perf_counter() - t0
+    out["launches"] = _read_counts()
+    out["lm_steps"] = _read_steps()
+    log("export: " + json.dumps(out))
+    if out["launches"]["level_normals"] != len(odo.map_state):
+        raise RuntimeError("export: not one K10 launch a level")
+    return out
+
+
+def phase_kernels_replay(dev, odo, capture):
+    """K9 on the first replay's evict list on each level (the map as that
+    replay found it) and K10 on each level of the room's map, against their
+    plain versions and timed."""
+    counts, arrays = capture["counts"], capture["arrays"]
+    records = {}
+    for li, level in enumerate(capture["levels"]):
+        coords = arrays[li]
+        valid = torch.arange(coords.shape[0], device=dev) < counts[li]
+        rec = _kernel_k9(level, coords, valid, f"level {li}")
+        if li == 0:
+            records["evict_voxels"] = rec
+            rec["others"] = {}
+        else:
+            records["evict_voxels"]["others"][f"level {li}"] = rec
+    loc = torch.as_tensor(odo.trajectory[-1].end_pose.tr - odo.origin,
+                          dtype=torch.float32, device=dev)
+    for li, level in enumerate(odo.map_state):
+        rec = _kernel_k10(level, loc, f"level {li}")
+        if li == 0:
+            records["level_normals"] = rec
+            rec["others"] = {}
+        else:
+            records["level_normals"]["others"][f"level {li}"] = rec
+    return records
+
+
+def phase_header_move():
+    """K1 and K2 built from this tree against their outputs before their
+    device code moved into csrc/probe.cuh and csrc/eigh3.cuh: the digests
+    of tools/exp_header_trees.py's inputs must equal those the build of
+    the parent tree gave on the card."""
+    res = eht.run_tree(Path(__file__).resolve().parent)
+    same = {k: res["digest"][k] == v for k, v in DIGESTS_BEFORE_MOVE.items()}
+    log("K1/K2 after the header moves: " + json.dumps(
+        {"identical": same, "sass": {k: v for k, v in res.items()
+                                     if "sass" in k}}))
+    if not all(same.values()):
+        raise RuntimeError(f"K1/K2 outputs changed by the header move: {same}")
+    return same
+
+
+def _backend_robust_run(name, opts, frames, batch):
+    """``frames`` streamed through Odometry(opts) (a robust profile with the
+    backend on) in batches of ``batch``: 0 failures, APE <= 0.10 m,
+    refinements >= 1, one callback for each committed frame."""
+    fired = []
+    _reset_counts()
+    odo, summaries, fps = gates._stream(opts, frames, batch, callbacks=fired)
+    traj = odo.get_trajectory()
+    out = dict(frames=len(frames), batch=batch,
+               failures=sum(not s.success for s in summaries),
+               mean_ape_m=float(np.mean(cor.seq_ape(odo, frames))),
+               refinements=odo.backend.refinements,
+               callbacks=len(fired),
+               callbacks_in_order=fired == list(range(len(frames))),
+               speculative_rollbacks=odo.speculative_rollbacks,
+               mean_attempts=float(np.mean([s.number_of_attempts
+                                            for s in summaries])),
+               median_batch_fps=fps, host_syncs_per_frame=odo.host_syncs
+               / len(frames), launches=_read_counts(), lm_steps=_read_steps())
+    del traj, odo
+    log(f"{name} with the backend: " + json.dumps(out))
+    if out["failures"] or not out["mean_ape_m"] <= APE_SMOKE_BOUND_M:
+        raise RuntimeError(f"{name} with the backend: {out['failures']} "
+                           f"failures, APE {out['mean_ape_m']}")
+    if out["refinements"] < 1 or not out["callbacks_in_order"]:
+        raise RuntimeError(f"{name} with the backend: {out['refinements']} "
+                           f"refinements, callbacks {out['callbacks']} for "
+                           f"{len(frames)} frames")
+    _require_launches(f"{name} with the backend", out["launches"],
+                      ["candidate_gather", "plane_moments", "map_insert",
+                       "lm_step", "ct_ba_block"])
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_backend_robust():
+    """The robust corridor (phase 5's frames, batch 8) and the escalation
+    scene (phase 6's, 3 attempts, batch 8) with the CT-BA backend on. The
+    corridor also streams with the backend off, timed the same way (frames
+    prepared by prefetch workers inside the timed loop, as the gate
+    ``tools/bench.py --backend-robust`` does; phase 5 prepares them before
+    it), so that the backend's cost reads from a pair."""
+    corridor = cor.render_corridor(cor.build_scene(),
+                                   cor.robust_corridor_trajectory(NUM_FRAMES),
+                                   NUM_FRAMES, SEED)
+    robust = _backend_robust_run("robust corridor",
+                                 gates.backend_robust_profile(), corridor,
+                                 ROBUST_BATCH)
+    odo, summaries, fps = gates._stream(gates.backend_robust_profile(False),
+                                        corridor, ROBUST_BATCH)
+    robust["backend_off_median_batch_fps"] = fps
+    robust["backend_off_failures"] = sum(not s.success for s in summaries)
+    log(f"robust corridor with the backend off, timed as with it on: "
+        f"median {fps:.2f} frames/s against {robust['median_batch_fps']:.2f} "
+        f"on")
+    del odo
+    esc = cor.render_corridor(cor.build_scene(),
+                              cor.escalation_trajectory(ESC_FRAMES),
+                              ESC_FRAMES, SEED)
+    opts = dataclasses.replace(gates.backend_robust_profile(),
+                               robust_num_attempts=3)
+    escalation = _backend_robust_run("escalation scene", opts, esc,
+                                     ROBUST_BATCH)
+    _require_launches("escalation scene with the backend",
+                      escalation["launches"], ["grid_sample"])
+    return robust, escalation
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this script "
@@ -1712,13 +2115,27 @@ def main() -> int:
     indoor, election = phase_indoor(dev)
     indoor_records = phase_kernels_indoor(dev, election)
     del election
+    replay_runs, room_odo, replay_capture = phase_replay()
+    export = phase_export(room_odo)
+    replay_records = phase_kernels_replay(dev, room_odo, replay_capture)
+    del room_odo, replay_capture
+    torch.cuda.empty_cache()
+    header_move = phase_header_move()
+    robust_backend, escalation_backend = phase_backend_robust()
 
     paths = {"driving": driving, "robust": robust, "escalation": escalation,
              "long_drive": long_drive, "robust_rebase": robust_rebase,
              "indoor": indoor, "backend": backend_runs["on"],
-             "backend_off": backend_runs["off"]}
+             "backend_off": backend_runs["off"],
+             "replay_gate": replay_runs["gate_on"],
+             "replay_gate_off": replay_runs["gate_off"],
+             "room": replay_runs["room_on"],
+             "room_off": replay_runs["room_off"], "export": export,
+             "robust_backend": robust_backend,
+             "escalation_backend": escalation_backend}
     primary = {**robust_records, **rebase_records,
-               "ct_ba_block": backend_records["ct_ba_block"]}
+               "ct_ba_block": backend_records["ct_ba_block"],
+               **replay_records}
     kernels = []
     for name, spec in KERNELS.items():
         # K1-K5: the robust shapes (every kernel runs there), the driving
@@ -1787,6 +2204,9 @@ def main() -> int:
         "grid_sample table clear floor ms":
             robust_records["grid_sample"]["table_clear_floor_ms"],
         "backend refine halves": backend_runs["on"]["refine_halves"],
+        "room replay device ms (first replay)":
+            replay_runs["room_on"]["first_replay_device_ms"],
+        "K1/K2 identical after the header moves": header_move,
         "lm_step calls (robust, driving, jolt)": [
             {k: r[k] for k in ("ms", "plain_ms", "loop_steps", "steps_run",
                                "step_ms", "plain_step_ms",

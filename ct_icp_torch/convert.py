@@ -7,6 +7,12 @@
   options dataclass) from ``dataclasses.asdict`` of the reference's.
 * :func:`ct_ba_from_numpy` / :func:`ct_ba_to_numpy` carry a CT-BA state
   and problem (``parallel/ct_ba.py``) across as numpy arrays.
+* :func:`map_state_to_numpy` gives a port map's levels as numpy arrays in
+  the reference's layout (uint32 keys).
+* :func:`frame_ring_from_numpy` / :func:`frame_ring_to_numpy` carry a frame
+  ring (``mapping/frame_ring.py``) across; :func:`map_points_to_numpy`
+  splits an exported level (``Odometry.get_map_points``) into its points
+  and normals.
 
 The parity tests use both so the two packages compute from the same state.
 """
@@ -19,6 +25,8 @@ import numpy as np
 import torch
 
 from ct_icp_torch.config import options as opt
+from ct_icp_torch.core.pose import Pose, TrajectoryFrame
+from ct_icp_torch.mapping.frame_ring import FrameRing
 from ct_icp_torch.mapping.voxel_map import MapLevel
 from ct_icp_torch.parallel.ct_ba import CTBAProblem, CTBAState
 
@@ -105,3 +113,61 @@ def ct_ba_from_numpy(state, problem, device="cpu"):
 def ct_ba_to_numpy(x):
     """A port ``CTBAState`` or ``CTBAProblem`` -> {field: numpy array}."""
     return {n: v.detach().cpu().numpy() for n, v in x._asdict().items()}
+
+
+def map_state_to_numpy(levels):
+    """Port ``MapLevel``s -> list of {field: numpy array} in the reference's
+    layout (keys uint32, num_points a scalar)."""
+    out = []
+    for level in levels:
+        d = {f: getattr(level, f).detach().cpu().numpy()
+             for f in _LEVEL_FIELDS}
+        d["keys"] = d["keys"].view(np.uint32)
+        d["num_points"] = d["num_points"].reshape(())
+        out.append(d)
+    return out
+
+
+def _pose(p) -> Pose:
+    """A pose-like (``quat``, ``tr``, ``timestamp``, ``frame_id`` as
+    attributes or keys) -> a port ``Pose``."""
+    f = p if isinstance(p, dict) else {
+        k: getattr(p, k) for k in ("quat", "tr", "timestamp", "frame_id")}
+    return Pose(np.array(f["quat"], np.float64), np.array(f["tr"], np.float64),
+                float(f["timestamp"]), int(f["frame_id"]))
+
+
+def frame_ring_from_numpy(frames, max_frames: int) -> FrameRing:
+    """Ordered (frame_id, record) pairs, oldest first, each record holding
+    ``xyz``, ``timestamps``, ``begin_pose`` and ``end_pose`` (pose-likes, or
+    the mappings :func:`frame_ring_to_numpy` gives) -> a port
+    ``FrameRing`` of ``max_frames`` holding them."""
+    ring = FrameRing(max_frames)
+    for fid, rec in frames:
+        ring.push(fid, np.array(rec["xyz"]), np.array(rec["timestamps"]),
+                  TrajectoryFrame(_pose(rec["begin_pose"]),
+                                  _pose(rec["end_pose"])))
+    return ring
+
+
+def frame_ring_to_numpy(ring: FrameRing):
+    """A port ``FrameRing`` -> [(frame_id, record)], oldest first: the raw
+    scan, the timestamps, the poses as mappings and the world points."""
+    out = []
+    for fid in ring.frame_ids():
+        rec = ring.get_frame(fid)
+        out.append((fid, {
+            "xyz": rec["xyz"], "timestamps": rec["timestamps"],
+            "world": rec["world"],
+            **{k: {"quat": rec[k].quat, "tr": rec[k].tr,
+                   "timestamp": rec[k].timestamp,
+                   "frame_id": rec[k].frame_id}
+               for k in ("begin_pose", "end_pose")}}))
+    return out
+
+
+def map_points_to_numpy(points_normals):
+    """An exported level, [N, 6] float64 -> (points [N, 3], normals
+    [N, 3])."""
+    pn = np.asarray(points_normals, np.float64)
+    return pn[:, 0:3], pn[:, 3:6]

@@ -68,6 +68,22 @@ class Pose:
         ts = (1.0 - alpha) * self.timestamp + alpha * other.timestamp
         return Pose(q, t, ts, self.frame_id)
 
+    def continuous_transform(self, raw_points, other: "Pose", timestamps):
+        """Per-point interpolated transform (reference types.h:414-419):
+        ``raw_points`` [N, 3], ``timestamps`` [N] -> world points [N, 3],
+        each point moved by the pose interpolated at its alpha-timestamp
+        between this pose and ``other``."""
+        raw_points = np.asarray(raw_points, dtype=np.float64)
+        alphas = self.alpha_timestamp(
+            np.asarray(timestamps, dtype=np.float64), other)
+        n = raw_points.shape[0]
+        q, t = s3.se3_interpolate(
+            np.broadcast_to(self.quat, (n, 4)),
+            np.broadcast_to(self.tr, (n, 3)),
+            np.broadcast_to(other.quat, (n, 4)),
+            np.broadcast_to(other.tr, (n, 3)), alphas)
+        return s3.quat_rotate(q, raw_points) + t
+
     # ------------------------------------------------------------ distances —
     def angular_distance(self, other: "Pose") -> float:
         return float(s3.angular_distance_deg(self.quat, other.quat))

@@ -12,8 +12,8 @@
 //
 // Every (query, voxel) pair hashes its voxel, loads the PROBE_WINDOW keys
 // from h & (C-1) (16-byte vector loads, the later ones only where the first
-// does not settle the probe), takes the first key match before the first
-// EMPTY and loads its count.
+// does not settle the probe; csrc/probe.cuh, shared with K9), takes the
+// first key match before the first EMPTY and loads its count.
 //   * All O = (2nv+1)^3 voxels (x fastest, the order of _neighbor_offsets):
 //     one thread per pair; each pair writes its slot and count (8 B).
 //   * With 0 < max_candidates < O (the reference's max_candidate_voxels, 48
@@ -31,67 +31,23 @@
 // there is no arithmetic to speak of (three divisions and two hashes per
 // pair).
 #include "common.cuh"
+#include "probe.cuh"
 
 namespace {
 
 constexpr int kWarpsPerBlock = 4;
 
-// Key p of the probe window held in w (the aligned 16-byte chunks from the
-// window's first slot, which lies at w[shift]).
-__device__ __forceinline__ uint32_t window_key(const uint32_t (&w)[12],
-                                               uint32_t shift, int p) {
-  return shift == 0u ? w[p] : shift == 1u ? w[p + 1]
-                              : shift == 2u ? w[p + 2] : w[p + 3];
-}
-
-// The reference's lookup of voxel (cx, cy, cz): slot and count, or hit =
-// false (slot 0, count 0) where it is absent. The window's 8 keys lie in the
-// three aligned 16-byte chunks from (h & (C-1)) & ~3 (C is a power of two
-// >= 8, so no chunk wraps). The first chunk settles most probes (a sparse
-// table: its first key is the voxel's or EMPTY); the other two are loaded
-// only where it does not.
+// The reference's lookup of voxel (cx, cy, cz) (csrc/probe.cuh): slot and
+// count, or hit = false (slot 0, count 0) where it is absent.
 __device__ __forceinline__ bool probe(const uint32_t* __restrict__ keys,
                                       const int32_t* __restrict__ count,
                                       uint32_t cap_mask, int cx, int cy,
                                       int cz, int& slot, int& cnt) {
-  const uint32_t h = cticp::voxel_hash_u32(cx, cy, cz);
-  const uint32_t k2 = cticp::voxel_key_u32(cx, cy, cz);
-  const uint32_t at = h & cap_mask;
-  const uint32_t shift = at & 3u;
-  const uint4* chunks = reinterpret_cast<const uint4*>(keys);
-  uint32_t w[12];
-  int found = -1;
-  bool stop = false;
-  auto look = [&](int p) {
-    const uint32_t key = window_key(w, shift, p);
-    if (!stop && key == cticp::kEmpty) stop = true;
-    if (!stop && key == k2) {
-      found = p;
-      stop = true;
-    }
-  };
-  auto load = [&](int c) {
-    const uint4 v = __ldg(chunks + ((((at & ~3u) + 4u * c) & cap_mask) >> 2));
-    w[4 * c + 0] = v.x;
-    w[4 * c + 1] = v.y;
-    w[4 * c + 2] = v.z;
-    w[4 * c + 3] = v.w;
-  };
-  load(0);
-#pragma unroll
-  for (int p = 0; p < 4; ++p)
-    if (static_cast<uint32_t>(p) + shift < 4u) look(p);
-  if (!stop) {
-    load(1);
-    load(2);
-#pragma unroll
-    for (int p = 1; p < cticp::kProbeWindow; ++p)
-      if (static_cast<uint32_t>(p) + shift >= 4u) look(p);
-  }
+  const int found = cticp::probe_slot(keys, cap_mask, cx, cy, cz);
   slot = 0;
   cnt = 0;
   if (found < 0) return false;
-  slot = static_cast<int>((at + static_cast<uint32_t>(found)) & cap_mask);
+  slot = found;
   cnt = __ldg(count + slot);
   return true;
 }

@@ -29,7 +29,18 @@ CUDA inputs and raises AssertionError on a disagreement. Tolerances:
     empty frame); in mode "gn" the updated poses within 1e-5 m and 1e-4 deg
     (the 12x12 solve carries the sums' rounding); a second launch
     bit-identical to the first (the CTAs' partials are summed in a fixed
-    order).
+    order);
+  * K9 (eviction): each copy's keys, counts, flags and num_points and the
+    points removed identical;
+  * K10 (the export's normal refit of the listed slots): the flags, the
+    set of refit slots and the normals of the other slots identical; a
+    refit slot's normal within
+    1e-4 by component where the two smallest eigenvalues of its
+    covariance (float64) are more than 5 % of the largest apart, with
+    sign where the orientation is decided (|(barycenter - location) .
+    normal| > 1e-3 m) and up to sign where it is not (where the two
+    eigenvalues meet, the eigenvector is not defined, and sums taken in
+    another order turn it freely: those slots are counted, not compared).
 Each returns {"max_abs_err": float} for the float outputs (0 if identical).
 """
 
@@ -40,7 +51,9 @@ from ct_icp_torch.config.options import LeastSquares
 from ct_icp_torch.core import se3_np as s3n
 from ct_icp_torch.kernels import candidate_gather as k1
 from ct_icp_torch.kernels import ct_ba_block as k8
+from ct_icp_torch.kernels import evict_voxels as k9
 from ct_icp_torch.kernels import grid_sample as k4
+from ct_icp_torch.kernels import level_normals as k10
 from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.kernels import map_insert as k3
 from ct_icp_torch.kernels import plane_moments as k2
@@ -291,3 +304,68 @@ def check_ct_ba_block(poses, problem, beta, damping, mode,
         out["max_abs_err"] = max(out["max_abs_err"],
                                  float((a.poses - b.poses).abs().max()))
     return out
+
+
+def check_evict_voxels(level, coords, valid):
+    """Both versions evict from their own copy of ``level``'s keys, counts,
+    flags and num_points; the copies and the points removed must be
+    identical. Returns the points removed and the slots emptied too."""
+    a = [t.clone() for t in (level.keys, level.count, level.nflags,
+                             level.num_points)]
+    b = [t.clone() for t in a]
+    r_a = k9.evict_voxels(*a, coords, valid)
+    r_b = k9.evict_voxels_plain(*b, coords, valid)
+    torch.cuda.synchronize()
+    for x, y, name in zip(a + [r_a], b + [r_b],
+                          ("keys", "count", "nflags", "num_points",
+                           "removed")):
+        _same(x, y, f"evict_voxels {name}")
+    emptied = int(((level.count > 0) & (a[1] == 0)).sum())
+    return {"max_abs_err": 0.0, "removed": int(r_b[0]), "emptied": emptied}
+
+
+# K10's comparison: eigenvalue gap, orientation margin, normal tolerance
+NORMALS_EIG_GAP = 5e-2
+NORMALS_ORIENT_MARGIN_M = 1e-3
+NORMALS_ATOL = 1e-4
+
+
+def check_level_normals(level, location, slots):
+    """K10 against its plain version on the listed ``slots`` of ``level``
+    (see the module docstring). Returns the refit slots, the slots left out
+    of the normal comparison, and the largest normal difference
+    compared."""
+    args = (level.keys, level.count, level.points, level.normals,
+            level.nflags, location, slots)
+    got_n, got_f = k10.level_normals(*args)
+    want_n, want_f = k10.level_normals_plain(*args)
+    torch.cuda.synchronize()
+    _same(got_f, want_f, "level_normals nflags")
+    listed = slots.long()
+    refit = k10.refit_mask(level.keys[listed], level.count[listed])
+    _same(got_f == k10.REFIT_FLAG, refit, "level_normals refit slots")
+    _same(got_n[~refit], want_n[~refit], "level_normals kept normals")
+    got_n, want_n = got_n[refit], want_n[refit]
+    slots = listed[refit]
+    p = level.max_points
+    rows = level.points[slots].double().view(-1, 3, p)
+    cnt = level.count[slots].clamp_max(p)
+    mask = (torch.arange(p, device=rows.device)[None, :]
+            < cnt[:, None]).double()[:, None, :]
+    n = cnt.double()[:, None]
+    mean = (rows * mask).sum(-1) / n
+    dev = (rows - mean[:, :, None]) * mask
+    cov = dev @ dev.transpose(1, 2) / n[:, :, None]
+    w, v = torch.linalg.eigh(cov)                 # ascending
+    apart = (w[:, 1] - w[:, 0]) > NORMALS_EIG_GAP * w[:, 2].clamp_min(1e-30)
+    dot = ((mean - location.double()) * v[:, :, 0]).sum(-1)
+    decided = dot.abs() > NORMALS_ORIENT_MARGIN_M
+    a, b = got_n, want_n
+    err = (a - b).abs().amax(-1)
+    err = torch.where(decided, err, torch.minimum(err, (a + b).abs().amax(
+        -1)))[apart]
+    worst = float(err.max()) if err.numel() else 0.0
+    if worst >= NORMALS_ATOL:
+        raise AssertionError(f"level_normals: a normal differs by {worst}")
+    return {"max_abs_err": worst, "refit": int(slots.shape[0]),
+            "left_out": int((~apart).sum())}

@@ -7,16 +7,19 @@ Counterpart of ``ct_icp_tpu/mapping/voxel_map.py``; the layout is the same:
                            voxel_key_u32), stored as its int32 bit pattern
     count      int32[C]
     points     f32[C, 3P]  PLANAR rows: x-plane | y-plane | z-plane
-    normals    f32[C, 3]   per-voxel normal (not maintained on this path)
+    normals    f32[C, 3]   per-voxel normal (not maintained by the insert;
+                           the export refits them: refit_normals)
     nflags     int32[C]
     num_points int32[1]
 
 The reference's rolled [C, 2R] probe window (``win``) is TPU layout and is
 dropped: the lookup kernel probes ``keys`` directly.
 
-Unlike the reference, insert and prune update the level in place (the map is
-~100 MB at driving capacity and a frame rewrites a few rows of it); the
-rebase (``rebuild_level``) returns a new level, as the reference does.
+Unlike the reference, insert, prune and eviction update the level in place
+(the map is ~100 MB at driving capacity and a frame rewrites a few rows of
+it); the rebase (``rebuild_level``) and the export's normal refit
+(``refit_normals``, ``recompute_level_normals``) return new tensors, as the
+reference does.
 """
 
 from typing import NamedTuple, Tuple
@@ -24,6 +27,8 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ct_icp_torch.kernels import candidate_gather as k1
+from ct_icp_torch.kernels import evict_voxels as k9
+from ct_icp_torch.kernels import level_normals as k10
 from ct_icp_torch.kernels import map_insert as k3
 from ct_icp_torch.kernels import plane_moments as k2
 from ct_icp_torch.kernels import rebuild as k7
@@ -156,6 +161,45 @@ def prune_level(level: MapLevel, location, max_distance: float, gate=None):
                                  level.keys))
     level.count.copy_(torch.where(drop, zero, level.count))
     level.nflags.copy_(torch.where(drop, zero, level.nflags))
+
+
+def evict_voxels(level: MapLevel, coords, valid):
+    """Empty, in place, the voxels at ``coords`` int32[M, 3] where ``valid``
+    holds (kernel K9): counts and flags drop to 0, keys stay claimed, so
+    probe chains stay intact and a later insert of a voxel refills its
+    slot (reference voxel_map.py:564-593, the backend replay's eviction).
+    Returns the points removed, int32[1] on the device."""
+    return k9.evict_voxels(level.keys, level.count, level.nflags,
+                           level.num_points, coords, valid)
+
+
+def occupied_slots(level: MapLevel):
+    """int32[S]: the slots holding a voxel's key and points, in slot order
+    (the map export's rows)."""
+    occupied = ((level.keys != EMPTY) & (level.keys != TOMB)
+                & (level.count > 0))
+    return torch.nonzero(occupied)[:, 0].to(torch.int32)
+
+
+def refit_normals(level: MapLevel, location, slots):
+    """The normals and flags of the listed ``slots`` int32[S], those of
+    every occupied voxel of >= 5 points refit and oriented toward
+    ``location`` (f32[3] on the device), flag 2 (kernel K10; reference
+    voxel_map.py:524-561, the map export's refresh): new tensors
+    (f32[S, 3], int32[S]); the level is left as it is."""
+    return k10.level_normals(level.keys, level.count, level.points,
+                             level.normals, level.nflags, location, slots)
+
+
+def recompute_level_normals(level: MapLevel, location) -> MapLevel:
+    """The level with the normal of every occupied voxel of >= 5 points
+    refit and oriented toward ``location`` (:func:`refit_normals` over
+    every slot). The normals and flags are new tensors; the level itself
+    is left as it is."""
+    slots = torch.arange(level.capacity, dtype=torch.int32,
+                         device=level.keys.device)
+    normals, nflags = refit_normals(level, location, slots)
+    return level._replace(normals=normals, nflags=nflags)
 
 
 def rebuild_level(level: MapLevel, shift, resolution: float) -> MapLevel:

@@ -18,8 +18,18 @@ included: the stall the reference measured at 340 ms a refine. A refine
 reads nothing else back. Its event waits are counted in ``event_waits``,
 beside (not in) ``Odometry.host_syncs``.
 
-Not ported: ``replay`` (re-inserting the refined frames needs the frame
-ring, ROADMAP queue A item 2) and the mesh (queue A item 3).
+With ``replay`` the apply is synchronous, as in the reference: the refine
+reads the refined poses back at once (one host sync), writes them into the
+trajectory and calls ``Odometry.replay_refined_frames``, so that the map
+reflects them before the next frame registers.
+
+A frame's keypoints arrive as numpy arrays (the streamer's and the
+per-frame prefix path's host reconstructions) or as tensors on the device
+(a frame step's device election, the robust profiles' escalated attempts);
+a refine uploads the former in one pinned copy and stacks all on the
+device.
+
+Not ported: the mesh (ROADMAP queue A item 3).
 """
 
 from __future__ import annotations
@@ -32,6 +42,7 @@ import torch
 
 from ct_icp_torch.core import se3_np as s3n
 from ct_icp_torch.mapping import voxel_map as vm
+from ct_icp_torch.odometry import pipeline as pl
 from ct_icp_torch.parallel import ct_ba
 
 
@@ -85,27 +96,6 @@ def make_assemble_fn(level_index: int, nv: int, resolution: float,
     return assemble
 
 
-def _to_device(arrays, dev):
-    """float32 numpy arrays -> tensors on ``dev``: on the card one pinned
-    buffer and one copy that does not block the host (a pageable copy
-    would wait for the whole stream); on the CPU, views of the arrays."""
-    if dev.type != "cuda":
-        return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
-    sizes = [a.size for a in arrays]
-    host = torch.empty(sum(sizes), dtype=torch.float32, pin_memory=True)
-    flat = host.numpy()
-    at = 0
-    for a, n in zip(arrays, sizes):
-        flat[at:at + n] = a.reshape(-1)
-        at += n
-    buf = host.to(dev, non_blocking=True)
-    out, at = [], 0
-    for a, n in zip(arrays, sizes):
-        out.append(buf[at:at + n].view(a.shape))
-        at += n
-    return out
-
-
 class CTBABackend:
     """Attachable sliding-window refinement for an ``Odometry``."""
 
@@ -113,14 +103,13 @@ class CTBABackend:
                  num_steps: int = 2, keep_first_frames: int = 2,
                  replay: bool = False, prior_weight: float = 1.5,
                  continuity_beta: float = 2.0):
-        if replay:
-            raise NotImplementedError(
-                "backend replay needs the frame ring, which is not ported")
         self.odometry = odometry
         self.window = window
         self.period = period
         self.num_steps = num_steps
         self.keep_first = keep_first_frames
+        # propagate refinements into the map (Odometry.replay_refined_frames)
+        self.replay = replay
         reg = odometry.registration
         self.assemble = make_assemble_fn(
             reg.level_index, reg.statics.voxel_neighborhood,
@@ -206,10 +195,12 @@ class CTBABackend:
                 ea[i] = (f1.begin_pose.timestamp
                          - f0.begin_pose.timestamp) / dur
         f32 = np.float32
-        host = [
-            np.stack([kp[1] for kp in kps]).astype(f32),
-            np.stack([kp[2] for kp in kps]).astype(f32),
-            np.stack([kp[3] for kp in kps]).astype(f32),
+        # the keypoints held on the host go up in the poses' upload, three
+        # arrays a frame (raw, alphas, valid as float32)
+        on_host = [i for i, kp in enumerate(kps)
+                   if isinstance(kp[1], np.ndarray)]
+        host = [np.asarray(kps[i][j], f32) for i in on_host for j in (1, 2, 3)]
+        host += [
             np.stack([s3n.quat_normalize(fr.begin_pose.quat)
                       for fr in frames]).astype(f32),
             np.stack([fr.begin_pose.tr - origin for fr in frames]).astype(f32),
@@ -217,16 +208,30 @@ class CTBABackend:
                       for fr in frames]).astype(f32),
             np.stack([fr.end_pose.tr - origin for fr in frames]).astype(f32),
             ea]
-        raw, alphas, valid, qb, tb, qe, te, ea_d = _to_device(host,
-                                                              odo.device)
-        problem = self.assemble(odo.map_state, raw, alphas, valid != 0, qb,
-                                tb, qe, te,
+        dev = pl.upload(host, odo.device)
+        qb, tb, qe, te, ea_d = dev[-5:]
+        rows = [kp[1:] for kp in kps]
+        for n, i in enumerate(on_host):
+            rows[i] = (dev[3 * n], dev[3 * n + 1], dev[3 * n + 2] != 0)
+        raw = torch.stack([r[0] for r in rows])
+        alphas = torch.stack([r[1] for r in rows])
+        valid = torch.stack([r[2] for r in rows])
+        problem = self.assemble(odo.map_state, raw, alphas, valid, qb, tb,
+                                qe, te,
                                 float(f32(odo.registration.search_radius)),
                                 ea_d)
         state = ct_ba.CTBAState(qb, tb, qe, te)
         for _ in range(self.num_steps):
             state, _cost = self.step(state, problem)
         packed = ct_ba.pack_state(state)
+        if self.replay:
+            # the map must reflect the refined poses before the next frame
+            # registers, or its inserts wash the refinement out: apply now
+            self._pending = (packed.cpu(), None, fids, origin)
+            odo.host_syncs += 1
+            self._apply_pending()
+            odo.replay_refined_frames([odo.trajectory[f] for f in fids])
+            return
         if packed.device.type == "cuda":
             out = torch.empty(packed.shape, dtype=packed.dtype,
                               pin_memory=True)

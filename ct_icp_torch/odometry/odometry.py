@@ -24,15 +24,26 @@ host-deduped GRID path:
     later batch is in flight (its "rebase" / "levelchange_rebase"
     statuses).
 
+Inserted frames are retained in a host frame ring
+(``mapping/frame_ring.py``, ``map_options.max_frames_to_keep`` frames, the
+raw scan and the poses) on every path. ``replay_refined_frames`` evicts the
+voxels of retained frames' old world points (kernel K9) and re-inserts them
+at refined poses (K3); ``get_map_points`` exports a level's points with
+refit normals (K10).
+
 The CT-BA backend (``odometry/backend.py``) attaches when
 ``options.backend.enabled``: it registers a FINISHED_REGISTRATION callback,
-which the streamer fires after each frame's bookkeeping (and rebase) with
-the frame's keypoints reconstructed on the host (``_host_keypoints``), and
-the non-robust per-frame path with the keypoints its frame step used.
+which every path fires once for each frame it keeps: the streamer after a
+frame's bookkeeping (and rebase), with the frame's keypoint prefix
+reconstructed on the host (``_host_keypoints``; as in the reference, also
+for a frame of a speculative batch at an escalated robust level, whose
+solver elected its keypoints on the device instead); the per-frame paths
+with the keypoints the kept attempt's frame step used. A speculative
+frame that is rolled back fires nothing; its replay through the per-frame
+path fires once.
 
-Not ported (they raise NotImplementedError): the frame ring (and the
-backend's ``replay``), the backend on a robust profile,
-``profile_registration`` and the CONSTANT_VELOCITY motion compensation.
+Not ported (they raise NotImplementedError): ``profile_registration`` and
+the CONSTANT_VELOCITY motion compensation.
 """
 
 from __future__ import annotations
@@ -53,6 +64,7 @@ from ct_icp_torch.core import se3_np as s3n
 from ct_icp_torch.core.pose import Pose, TrajectoryFrame
 from ct_icp_torch.icp.registration import CTICPRegistration, make_prior
 from ct_icp_torch.mapping import voxel_map as vm
+from ct_icp_torch.mapping.frame_ring import FrameRing
 from ct_icp_torch.odometry import pipeline as pl
 from ct_icp_torch.odometry.motion_model import PreviousFrameMotionModel
 
@@ -106,7 +118,9 @@ class RegistrationSummary:
     error_message: str = ""
     icp_summary: ICPSummary = dataclasses.field(default_factory=ICPSummary)
     logged_values: Dict[str, float] = dataclasses.field(default_factory=dict)
-    keypoints: Optional[tuple] = None   # (raw, alphas, valid), numpy
+    # the solver's keypoints (raw, alphas, valid): numpy arrays, or tensors
+    # on the device where the frame step elected them there
+    keypoints: Optional[tuple] = None
 
 
 class _InsertionTracker:
@@ -141,6 +155,31 @@ def _host_voxel_dedup(xyz: np.ndarray, voxel_size: float,
     _, first = np.unique(key, return_index=True)
     first.sort()
     return first[:capacity]
+
+
+def _unique_voxels(coords: np.ndarray) -> np.ndarray:
+    """``np.unique(coords, axis=0)`` of int32 voxel coords [N, 3]: the
+    distinct rows in lexicographic order. Within +/-2^20 voxels per axis
+    each row packs, offset to be non-negative, into one int64 key in the
+    same order, and a 1-D unique of the keys replaces the row unique (a
+    sort of a void view), which took most of the host half of a replay of
+    60,000-point frames (PERF.md §6, PR 9)."""
+    half = 1 << 20
+    if coords.shape[0] == 0 or np.abs(coords).max() >= half:
+        return np.unique(coords, axis=0)
+    b = coords.astype(np.int64) + half
+    u = np.unique((b[:, 0] << 42) | (b[:, 1] << 21) | b[:, 2])
+    return np.stack([u >> 42, (u >> 21) & 0x1FFFFF, u & 0x1FFFFF],
+                    axis=1).astype(np.int32) - np.int32(half)
+
+
+def _pad_pow2(arr: np.ndarray) -> np.ndarray:
+    """``arr`` padded with zero rows to the next power of two rows (at
+    least 1): the reference's replay rungs."""
+    n = max(arr.shape[0], 1)
+    m = 1 << (n - 1).bit_length()
+    pad = np.zeros((m - arr.shape[0],) + arr.shape[1:], arr.dtype)
+    return np.concatenate([arr, pad], axis=0)
 
 
 def _escalate_once(opts: CTICPOptions, base_sample_voxel: float,
@@ -217,13 +256,6 @@ class Odometry:
         if options.motion_compensation == MotionCompensation.CONSTANT_VELOCITY:
             raise NotImplementedError(
                 "CONSTANT_VELOCITY motion compensation is not ported")
-        if options.backend.enabled and options.backend.replay:
-            raise NotImplementedError(
-                "backend replay needs the frame ring, which is not ported")
-        if options.backend.enabled and options.robust_registration:
-            raise NotImplementedError(
-                "the CT-BA backend on a robust profile (the escalated "
-                "attempt's keypoints) is not ported")
         if options.profile_registration:
             raise NotImplementedError("profile_registration is not ported")
         self.device = resolve_device(device)
@@ -278,9 +310,15 @@ class Odometry:
         # readbacks of frame results (one per attempt or per batch)
         self.host_syncs = 0
         self.result_reads = 0
+        # one record a replay: frames, points inserted and evicted, host ms
+        self.replay_stats: List[dict] = []
         self.callbacks: Dict[str, list] = {}
-        # streamed frames' keypoint prefixes until their results are read:
-        # fid -> (kp_n, xyz, alphas)
+        # the last max_frames_to_keep inserted frames (reference map.h:124,
+        # 246-253): the replay and export surface
+        self.frame_ring = FrameRing(self.map_options.max_frames_to_keep)
+        # streamed frames' scans and keypoint prefixes until their results
+        # are read: fid -> (xyz, timestamps) and fid -> (kp_n, xyz, alphas)
+        self._pending_scans: Dict[int, tuple] = {}
         self._pending_kp: Dict[int, tuple] = {}
         # the sliding-window CT-BA backend, attached last: it registers a
         # FINISHED_REGISTRATION callback
@@ -288,6 +326,9 @@ class Odometry:
         if options.backend.enabled:
             from ct_icp_torch.odometry.backend import CTBABackend
             b = options.backend
+            if self.frame_ring.max_frames < b.window:
+                # replay needs the ring to still hold the refined frames
+                self.frame_ring = FrameRing(b.window)
             self.backend = CTBABackend(
                 self, window=b.window, period=b.period,
                 num_steps=b.num_steps, keep_first_frames=b.keep_first_frames,
@@ -317,9 +358,138 @@ class Odometry:
                 raise RuntimeError("Callback returned false")
 
     def replay_refined_frames(self, refined_frames) -> int:
-        raise NotImplementedError(
-            "the frame ring (retained frame clouds and their replay into "
-            "the map) is not ported")
+        """Propagate refined poses into the map (reference
+        odometry.py:486-583): re-point the retained frames at
+        ``refined_frames`` (matched by the end pose's frame id), empty on
+        every level the voxels of their OLD world points (the host-deduped
+        union, padded to a power of two; kernel K9), and re-insert each
+        refined frame's world points, host-deduped at ``voxel_size``, with
+        the refill budget of 12 election rounds (K3). Without it the next
+        inserts wash a refinement out of the map. Returns the points
+        re-inserted: summed on the device and read once a replay (with the
+        points evicted, kept in ``replay_stats``). One pinned upload carries
+        every level's coordinates and every frame's points. The reference
+        also passes the begin pose to its insert, for the per-voxel normals
+        of ``with_normals``, which the port's insert does not keep."""
+        t0 = time.perf_counter()
+        prep = self._replay_inputs(refined_frames)
+        if prep is None:
+            return 0
+        n_frames, host, counts = prep
+        inserted, evicted = self._replay_apply(
+            pl.upload(host, self.device), counts)
+        ins, ev = torch.cat([inserted, evicted]).tolist()
+        self.host_syncs += 1
+        self.replay_stats.append({
+            "frames": n_frames, "inserted": ins, "evicted": ev,
+            "host_ms": (time.perf_counter() - t0) * 1e3})
+        return ins
+
+    def _replay_inputs(self, refined_frames):
+        """The host half of a replay: re-point the ring, and the arrays the
+        device half needs (one a level: the old points' voxel coordinates,
+        int32 [M, 3]; one a refined frame: its host-deduped world points,
+        f32 [N, 3]; each padded to a power of two) with their true row
+        counts. None when the ring holds none of ``refined_frames``."""
+        ring = self.frame_ring
+        if not ring.enabled:
+            return None
+        by_id = {}
+        for f in refined_frames:
+            fid = f.end_pose.frame_id
+            if fid is not None and fid >= 0:
+                by_id[int(fid)] = f
+        fids = [fid for fid in ring.frame_ids() if fid in by_id]
+        if not fids:
+            return None
+        # the OLD-pose world points (the ring still holds the old poses)
+        old_local = np.concatenate(
+            [ring.get_frame(fid)["world"] for fid in fids], axis=0) \
+            - self.origin
+        ring.update_trajectory(refined_frames)
+        host, counts = [], []
+        for rp in self.map_options.resolutions:
+            coords = _unique_voxels(np.trunc(
+                old_local / rp.resolution).astype(np.int32))
+            host.append(_pad_pow2(coords))
+            counts.append(coords.shape[0])
+        for fid in fids:
+            w = ring.get_frame(fid)["world"] - self.origin
+            keep = _host_voxel_dedup(w, self.options.voxel_size, w.shape[0])
+            w = np.asarray(w[keep], np.float32)
+            host.append(_pad_pow2(w))
+            counts.append(w.shape[0])
+        return len(fids), host, counts
+
+    def _replay_apply(self, arrays, counts):
+        """The device half of a replay, on the arrays of
+        :meth:`_replay_inputs` on the device: on each level one K9 eviction
+        of its coordinates, then one K3 insert a refined frame (12 election
+        rounds). Returns (points inserted, points evicted), int32[1] each on
+        the device; reads nothing back."""
+        valid = [torch.arange(a.shape[0], device=self.device) < n
+                 for a, n in zip(arrays, counts)]
+        n_lv = len(self.map_state)
+        inserted = torch.zeros(1, dtype=torch.int32, device=self.device)
+        evicted = torch.zeros(1, dtype=torch.int32, device=self.device)
+        for li, (level, rp) in enumerate(zip(self.map_state,
+                                             self.map_options.resolutions)):
+            evicted = evicted + vm.evict_voxels(level, arrays[li], valid[li])
+            for w, wv in zip(arrays[n_lv:], valid[n_lv:]):
+                inserted = inserted + vm.insert_points(
+                    level, w, wv, rp.resolution,
+                    rp.min_distance_between_points, max_rounds=12)
+        return inserted, evicted
+
+    def get_map_points(self, level: int = 0) -> np.ndarray:
+        """World points and normals of one map level, [N, 6] float64, in
+        the reference's order (slot, then point; reference GetMapPoints,
+        map.h:354-380, odometry.py:1264-1290). The normals of the occupied
+        slots are refit for the export (K10, oriented toward the last
+        frame's end position) into new tensors, the map's own left alone.
+        The points are compacted on the device and copied to the host
+        once."""
+        lvl = self.map_state[level]
+        slots = vm.occupied_slots(lvl)
+        idx = slots.long()
+        if self.registration.statics.use_normal_filter:
+            normals = lvl.normals[idx]
+        else:
+            loc = (self.trajectory[-1].end_pose.tr - self.origin
+                   if self.trajectory else np.zeros(3))
+            normals, _ = vm.refit_normals(lvl, torch.as_tensor(
+                loc, dtype=torch.float32, device=self.device), slots)
+        p = lvl.max_points
+        rows = lvl.points[idx].view(-1, 3, p)
+        in_cap = (torch.arange(p, device=rows.device)[None, :]
+                  < lvl.count[idx][:, None])
+        si, j = torch.nonzero(in_cap, as_tuple=True)
+        pn = torch.cat([rows[si, :, j], normals[si]], dim=1)
+        pn = pn.cpu().numpy().astype(np.float64)
+        pn[:, 0:3] += self.origin
+        return pn
+
+    def reset(self, options: Optional[OdometryOptions] = None):
+        """Reference Odometry::Reset (odometry.cpp:956-975): an empty map
+        at the origin, no trajectory, the frame ring cleared."""
+        if options is not None:
+            self.__init__(options, device=self.device)
+            return
+        self.map_state = vm.make_map(self.map_options, self.device)
+        self.origin = np.zeros(3, dtype=np.float64)
+        self._odo_state = torch.as_tensor(pl.init_odo_state(),
+                                          device=self.device)
+        self.trajectory = []
+        self.registered_frames = 0
+        self.robust_num_consecutive_failures = 0
+        self.suspect_registration_error = False
+        self.next_robust_level = self.options.robust_minimal_level
+        self.insertion_tracker = _InsertionTracker()
+        self.frame_ring.clear()
+        self._pending_scans.clear()
+        self._pending_kp.clear()
+        self._prune_owed = False
+        self.default_motion_model.reset()
 
     def prepare_frame(self, xyz: np.ndarray, timestamps: np.ndarray,
                       registered_fid: int, frame_id: Optional[int] = None
@@ -357,6 +527,7 @@ class Odometry:
         self._initialize_motion(info, initial_estimate)
         summary = self._do_register(prep["xyz"], prep["timestamps"], info,
                                     prep=prep)
+        self._record_frame(info, prep["xyz"], prep["timestamps"], summary)
         summary.logged_values["odometry_total"] = (time.time() - t_start) * 1e3
         return summary
 
@@ -378,6 +549,7 @@ class Odometry:
         self.registered_frames += 1
         self._initialize_motion(info, initial_estimate)
         summary = self._do_register(xyz, timestamps, info)
+        self._record_frame(info, xyz, timestamps, summary)
         summary.logged_values["odometry_total"] = (time.time() - t_start) * 1e3
         return summary
 
@@ -468,13 +640,28 @@ class Odometry:
         return (scan, prep["n"], prep.get("kp_n", 0),
                 prep.get("kp_voxel", 0.0), prep)
 
-    def _stash_keypoints(self, prep: dict):
-        """Keep a streamed frame's keypoint prefix until its result is read
-        (one batch behind), for :meth:`_host_keypoints`."""
+    def _stash_scan(self, prep: dict):
+        """Keep a streamed frame's scan (for the frame ring) and keypoint
+        prefix (for :meth:`_host_keypoints`) until its insertion outcome is
+        read, one batch behind (reference odometry.py:430-439)."""
+        fid = prep["info"].registered_fid
+        if self.frame_ring.enabled:
+            self._pending_scans[fid] = (prep["xyz"], prep["timestamps"])
         if self.callbacks.get(self.FINISHED_REGISTRATION) \
                 and prep.get("kp_n", 0) > 0:
-            self._pending_kp[prep["info"].registered_fid] = (
-                prep["kp_n"], prep["xyz"], prep.get("alphas"))
+            self._pending_kp[fid] = (prep["kp_n"], prep["xyz"],
+                                     prep.get("alphas"))
+
+    def _record_frame(self, info: FrameInfo, xyz, timestamps,
+                      summary: RegistrationSummary):
+        """Retain a per-frame path's frame in the ring if its points were
+        inserted (reference odometry.py:474-484; the reference map keeps
+        only frames that went through InsertPointCloud)."""
+        self._pending_scans.pop(info.registered_fid, None)
+        self._pending_kp.pop(info.registered_fid, None)
+        if summary.points_added and self.frame_ring.enabled:
+            self.frame_ring.push(info.frame_id, xyz, timestamps,
+                                 summary.frame)
 
     def _keypoint_prefix(self, kp_n: int, xyz, alphas, keep=None):
         """The solver's keypoints rebuilt on the host from a prep's prefix
@@ -713,6 +900,7 @@ class Odometry:
                               device_inserted=inserted,
                               device_inserted_count=count)
         self._maybe_rebase()
+        self._fire_callbacks(self.FINISHED_REGISTRATION, summary)
         return summary
 
     def _robust_registration_fused(self, xyz, timestamps, info: FrameInfo,
@@ -720,10 +908,13 @@ class Odometry:
                                    prep=None):
         """Reference RobustRegistration (odometry.cpp:780-852) on the frame
         step. Returns (the last attempt's FrameResult, whether the device
-        inserted, how many points)."""
+        inserted, how many points). With callbacks registered,
+        ``summary.keypoints`` gets the kept (last) attempt's keypoints: the
+        host reconstruction of the prefix where it ran on the prefix, its
+        device election otherwise (reference odometry.py:1734)."""
         o = self.options
         k = info.registered_fid
-        scan, n, kp_n, kp_voxel, _ = self._prepare_device_scan(
+        scan, n, kp_n, kp_voxel, prep = self._prepare_device_scan(
             xyz, timestamps, info, prep)
         attempt_opts = self._effective_icp_options(info)
         startup = k < o.init_num_frames
@@ -798,6 +989,15 @@ class Odometry:
             else:
                 break
 
+        if self.callbacks.get(self.FINISHED_REGISTRATION):
+            kp_prefix = self._kp_prefix_scalar(kp_n, kp_voxel,
+                                               sample_voxel_size)
+            summary.keypoints = out.keypoints
+            if kp_prefix > 0:
+                cnt = min(int(kp_prefix), o.max_keypoints)
+                summary.keypoints = self._keypoint_prefix(
+                    cnt, prep["xyz"], prep.get("alphas"),
+                    pl.decimation_indices(cnt, int(dyn[pl._MNR_INDEX])))
         if summary.number_of_attempts >= o.robust_num_attempts:
             self.robust_num_consecutive_failures += 1
         else:
@@ -997,7 +1197,7 @@ class Odometry:
             if prep["info"].registered_fid != self.registered_frames:
                 raise ValueError("Prepared frames must be streamed in order")
             self.registered_frames += 1
-            self._stash_keypoints(prep)
+            self._stash_scan(prep)
         scans, ns, ks = self._upload(group)
         dyns = [self.registration.dynamics(
             self._effective_icp_options(p["info"])) for p in group]
@@ -1020,10 +1220,12 @@ class Odometry:
     def _finish_streamed(self, info, r, origin,
                          allow_rebase: bool = True) -> RegistrationSummary:
         """Host bookkeeping of one streamed frame from its packed result,
-        computed in the map frame of ``origin`` (the dispatch-time origin).
-        ``allow_rebase=False`` defers the rebase to the caller: the
-        speculative robust streamer must not rebase while a later batch is
-        in flight (its checkpoint would straddle the change of frame)."""
+        computed in the map frame of ``origin`` (the dispatch-time origin):
+        the trajectory, the tracker, the frame ring, the rebase and the
+        callbacks (reference odometry.py:808-873). ``allow_rebase=False``
+        defers the rebase to the caller: the speculative robust streamer
+        must not rebase while a later batch is in flight (its checkpoint
+        would straddle the change of frame)."""
         k = info.registered_fid
         frame = TrajectoryFrame(
             Pose(timestamp=info.begin_timestamp, frame_id=info.frame_id),
@@ -1057,6 +1259,9 @@ class Odometry:
             tracker.insert_frame(k)
         else:
             tracker.skip_frame()
+        scan = self._pending_scans.pop(k, None)
+        if scan is not None and summary.points_added:
+            self.frame_ring.push(info.frame_id, scan[0], scan[1], frame)
         if allow_rebase and self._strayed():
             self._rebase_stream_head()
         if self.callbacks.get(self.FINISHED_REGISTRATION):
@@ -1182,6 +1387,8 @@ class Odometry:
             return dyns, fss
 
         def stack_upload(group):
+            for prep in group:
+                self._stash_scan(prep)
             scans, ns, ks = self._upload(group)
             per_level = {lv: level_inputs(group, lv) for lv in spec_levels}
             return group, scans, ns, ks, per_level

@@ -111,6 +111,9 @@ class FrameResult(NamedTuple):
     add: torch.Tensor         # bool: the frame's points went into the map
     world: torch.Tensor       # f32[sub_cnt, 3] corrected sub-frame points
     host_syncs: int           # device->host reads the solver made
+    # the solver's keypoints (raw f32[K, 3], alphas f32[K], valid bool[K]):
+    # the prefix (K its length) or the device election (K the capacity)
+    keypoints: tuple
 
 
 def make_frame_core(map_options, statics, sub_capacity: int):
@@ -222,7 +225,8 @@ def make_frame_core(map_options, statics, sub_capacity: int):
             host, kp_count.reshape(1), inserted.to(torch.float32),
             add.to(**f32).reshape(1), assess_ok.to(**f32).reshape(1),
             rot_within.to(**f32).reshape(1)])
-        return FrameResult(packed, add, world, result.host_syncs)
+        return FrameResult(packed, add, world, result.host_syncs,
+                           (kp_raw, kp_alphas, kp_valid))
 
     return core
 
@@ -278,6 +282,27 @@ def update_map(map_state, map_options, world, valid, location,
         inserted = inserted + vm.insert_points(
             level, world, valid, r.resolution, r.min_distance_between_points)
     return inserted
+
+
+def upload(arrays, device):
+    """numpy arrays -> tensors of the same dtypes and shapes on ``device``.
+    On the card one pinned staging buffer and one copy that does not block
+    the host (a pageable copy waits for everything queued on the stream);
+    on the CPU, tensors over the arrays."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    if torch.device(device).type != "cuda":
+        return [torch.from_numpy(a) for a in arrays]
+    offsets, at = [], 0
+    for a in arrays:
+        offsets.append(at)
+        at += (a.nbytes + 15) // 16 * 16
+    host = torch.empty(max(at, 16), dtype=torch.uint8, pin_memory=True)
+    flat = host.numpy()
+    for a, o in zip(arrays, offsets):
+        flat[o:o + a.nbytes] = a.reshape(-1).view(np.uint8)
+    buf = host.to(device, non_blocking=True)
+    return [buf[o:o + a.nbytes].view(torch.from_numpy(a[:0]).dtype)
+            .view(a.shape) for a, o in zip(arrays, offsets)]
 
 
 def snapshot(map_state, odo_state):
@@ -357,9 +382,9 @@ def make_stream_body(map_options, statics, sub_capacity: int,
         else:
             force_insert = (total_ins < 0.5).to(torch.float32)
 
-        packed, add, _world, syncs = core(
-            map_state, raw, alphas, n_points, qb0, tb0, qe0, te0, prior,
-            dyn_packed, fs, k > 0, force_insert, skipped)
+        out = core(map_state, raw, alphas, n_points, qb0, tb0, qe0, te0,
+                   prior, dyn_packed, fs, k > 0, force_insert, skipped)
+        packed, add = out.packed, out.add
 
         # ---- tracker + state update
         addf = add.to(torch.float32)
@@ -370,7 +395,7 @@ def make_stream_body(map_options, statics, sub_capacity: int,
             torch.stack([s[28] + 1.0, new_skipped, total_ins + addf,
                          torch.zeros_like(addf)]),
         ])
-        return new_state, packed, syncs
+        return new_state, packed, out.host_syncs
 
     return stream_body
 

@@ -2,8 +2,9 @@
 
 Counterpart of ``ct_icp_tpu/ops/eigen3.py``: eigenvalues by the
 trigonometric closed form, eigenvectors by cross-product null-space
-extraction. The CUDA kernel ``csrc/plane_moments.cu`` runs the same steps in
-registers as its epilogue; this is its plain version.
+extraction. The CUDA kernels run the same steps in registers
+(``csrc/eigh3.cuh``: K2's descriptor epilogue, K10's plane fit); this is
+their plain version.
 """
 
 import torch

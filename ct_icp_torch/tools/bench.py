@@ -6,6 +6,8 @@
     python -m ct_icp_torch.tools.bench --long [N]
     python -m ct_icp_torch.tools.bench --indoor [N]
     python -m ct_icp_torch.tools.bench --backend [N]
+    python -m ct_icp_torch.tools.bench --replay [N]
+    python -m ct_icp_torch.tools.bench --backend-robust [N]
 
 ``N`` cuts the frames (default: the gate's own count). Each gate prints one
 JSON line and exits 1 when its accuracy bound fails:
@@ -28,7 +30,20 @@ JSON line and exits 1 when its accuracy bound fails:
     reference's ``run_backend``). It prints the refinements, the median
     host ms of a refine and frames/s, and streams the same rendered frames
     again with the backend off in the same process, so that both rates
-    come from one card and one host.
+    come from one card and one host;
+  * ``--replay``: the reference's replay test (tests/test_ct_ba.py:182-224,
+    ``datasets/room.py``): the room, seed 47, 5 mm noise, 15 frames per
+    frame (``register_frame``), the test's front end degraded to 2 ICP
+    iterations of 1 LM step at the default profile's capacities, the
+    backend on (window 6, period 3, 2 steps, replay) against off: mean
+    relative APE on < 0.8 x off, at least 2 refinements, 0 failures. It
+    prints the replays, the points each evicted and re-inserted, their
+    host ms and host syncs a frame;
+  * ``--backend-robust``: the robust gate's corridor (80 frames, 8 m/s,
+    seeds 3, 4, 5, batch 8) through ``robust_driving_profile()`` with the
+    backend on: mean APE <= 0.058 m (the robust gate's bound), 0 failures,
+    at least one refinement on every seed, and one callback for each
+    committed frame.
 Frames/s is the median per-batch rate after two warm-up batches on the
 timed seed (the first), measured on the card and reported beside the
 card's name and power limit; the reference's frames/s floors are TPU
@@ -51,6 +66,7 @@ from ct_icp_torch.config.options import (default_driving_profile,
 from ct_icp_torch.datasets import corridor as cor
 from ct_icp_torch.datasets import indoor_walk as iw
 from ct_icp_torch.datasets import long_drive as ld
+from ct_icp_torch.datasets import room
 from ct_icp_torch.datasets.streaming import (CachedAcquisition,
                                              stream_acquisition)
 from ct_icp_torch.odometry.concurrent import PrefetchIterator
@@ -73,11 +89,16 @@ def _card() -> str:
         else torch.cuda.get_device_name(0)
 
 
-def _stream(opts, frames, batch):
+def _stream(opts, frames, batch, callbacks=None):
     """Stream ``frames`` through a new Odometry(opts) on the card, prepared
-    in prefetch workers. Returns (odo, summaries, median per-batch
-    frames/s after two warm-up batches or None)."""
+    in prefetch workers; a list given as ``callbacks`` gets the frame index
+    of every FINISHED_REGISTRATION callback. Returns (odo, summaries,
+    median per-batch frames/s after two warm-up batches or None)."""
     odo = Odometry(opts, device="cuda")
+    if callbacks is not None:
+        odo.register_callback(
+            Odometry.FINISHED_REGISTRATION,
+            lambda o, s, kp: callbacks.append(len(o.trajectory) - 1) or True)
 
     def prepare(item):
         i, fr = item
@@ -269,9 +290,104 @@ def run_backend(num_frames=None):
                             and on["refinements"] > 0)}
 
 
+def run_room(opts, acq, num_frames, setup=None):
+    """The room's frames ``acq`` through ``register_frame`` of a new
+    Odometry(opts) on the card (given to ``setup`` first, when given):
+    failures, mean relative APE, refinements, the replays' records, host
+    syncs a frame and frames/s (synchronized at the end). Returns (odo,
+    that record)."""
+    odo = Odometry(opts, device="cuda")
+    if setup is not None:
+        setup(odo)
+    frames = [acq.frame(i) for i in range(num_frames)]
+    gt, summaries = [], []
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for i, fr in enumerate(frames):
+        summaries.append(odo.register_frame(fr["xyz"], fr["timestamps"],
+                                            frame_id=i))
+        gt.append(fr["end_pose"])
+    traj = odo.get_trajectory()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    b = odo.backend
+    return odo, {
+        "frames": num_frames,
+        "failures": sum(not s.success for s in summaries),
+        "mean_ape_m": room.relative_ape(traj, gt),
+        "refinements": b.refinements if b is not None else 0,
+        "replays": len(odo.replay_stats),
+        "replayed_frames": [r["frames"] for r in odo.replay_stats],
+        "replay_inserted": [r["inserted"] for r in odo.replay_stats],
+        "replay_evicted": [r["evicted"] for r in odo.replay_stats],
+        "replay_host_ms": [r["host_ms"] for r in odo.replay_stats],
+        "refine_host_ms": list(b.refine_ms) if b is not None else [],
+        "host_syncs_per_frame": odo.host_syncs / num_frames,
+        "frames_per_sec": num_frames / wall,
+        "map_points": [int(lv.num_points[0]) for lv in odo.map_state]}
+
+
+def run_replay(num_frames=None):
+    n = num_frames or room.REPLAY_FRAMES
+    runs = {}
+    for name, on in (("off", False), ("on", True)):
+        acq = room.make_acquisition(seed=room.REPLAY_SEED,
+                                    noise=room.REPLAY_NOISE)
+        _, runs[name] = run_room(room.replay_options(on), acq, n)
+    on, off = runs["on"], runs["off"]
+    bound = room.REPLAY_APE_FACTOR * off["mean_ape_m"]
+    return {
+        "metric": "synthetic_room_backend_replay_ape",
+        "value": on["mean_ape_m"], "unit": "m", "frames": n,
+        "seed": room.REPLAY_SEED, "mean_ape_m_backend_off": off["mean_ape_m"],
+        "ape_bound_m": bound, "on": on, "off": off,
+        "failures": on["failures"] + off["failures"],
+        "refinements": on["refinements"],
+        "accuracy_ok": bool(on["mean_ape_m"] < bound
+                            and on["refinements"]
+                            >= room.REPLAY_MIN_REFINEMENTS
+                            and on["failures"] == 0
+                            and off["failures"] == 0)}
+
+
+def backend_robust_profile(enabled: bool = True):
+    """``robust_driving_profile()`` with the CT-BA backend on (or off)."""
+    o = robust_driving_profile()
+    return dataclasses.replace(o, backend=dataclasses.replace(
+        o.backend, enabled=enabled))
+
+
+def run_backend_robust(num_frames=None):
+    n = num_frames or 80
+    scene = cor.build_scene()
+    traj = cor.robust_corridor_trajectory(n)
+    apes, failures, fps, refinements, callbacks_ok = [], 0, None, [], True
+    for seed in cor.APE_SEEDS:
+        frames = cor.render_corridor(scene, traj, n, seed)
+        fired = []
+        odo, summaries, f = _stream(backend_robust_profile(), frames,
+                                    ROBUST_BATCH, callbacks=fired)
+        if seed == cor.APE_SEEDS[0]:
+            fps = f
+        apes.append(float(np.mean(cor.seq_ape(odo, frames))))
+        failures += sum(not s.success for s in summaries)
+        refinements.append(odo.backend.refinements)
+        callbacks_ok &= fired == list(range(len(frames)))
+    ape = float(np.mean(apes))
+    return {
+        "metric": "synthetic_robust_backend_odometry", "frames": n,
+        "batch": ROBUST_BATCH, "failures": failures, "mean_ape_m": ape,
+        "ape_per_seed": apes, "ape_bound_m": cor.ROBUST_APE_BOUND_M,
+        "refinements": refinements, "callbacks_per_frame_ok": callbacks_ok,
+        "frames_per_sec": fps,
+        "accuracy_ok": bool(ape <= cor.ROBUST_APE_BOUND_M and failures == 0
+                            and min(refinements) >= 1 and callbacks_ok)}
+
+
 GATES = {"--driving": run_driving, "--robust": run_robust,
          "--escalation": run_escalation, "--long": run_long,
-         "--indoor": run_indoor, "--backend": run_backend}
+         "--indoor": run_indoor, "--backend": run_backend,
+         "--replay": run_replay, "--backend-robust": run_backend_robust}
 
 
 def main(argv=None) -> int:

@@ -1,8 +1,10 @@
-"""CUDA kernels K1-K8 against their plain PyTorch versions, on the card
+"""CUDA kernels K1-K10 against their plain PyTorch versions, on the card
 (K5 as one launch per LM call, K3 as one launch per insert, K1 one launch a
 call returning slots, K2 reading the live points through them, the rebase
 as one K7 and one K6 launch, K4 one launch a call on a claim table kept
-from call to call, K8 one launch per CT-BA inner iteration).
+from call to call, K8 one launch per CT-BA inner iteration, K9 one launch
+an eviction on a per-device accumulator it leaves zero, K10 one launch a
+level's normal refit).
 
 Needs an NVIDIA GPU and nvcc (the kernels build from ct_icp_torch/csrc at
 first use); skips elsewhere. Run on a machine with the card (this file needs
@@ -21,7 +23,9 @@ from ct_icp_torch.core import se3_np as s3n
 from ct_icp_torch.kernels import build, checks
 from ct_icp_torch.kernels import candidate_gather as k1
 from ct_icp_torch.kernels import ct_ba_block as k8
+from ct_icp_torch.kernels import evict_voxels as k9
 from ct_icp_torch.kernels import grid_sample as k4
+from ct_icp_torch.kernels import level_normals as k10
 from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.kernels import map_insert as k3
 from ct_icp_torch.kernels import plane_moments as k2
@@ -647,3 +651,65 @@ def test_ct_ba_step_on_card_matches_cpu(cuda, solver):
     for x, y in zip(pa, pb):
         assert s3n.angular_distance_deg(x[0:4], y[0:4]) <= 1e-4
         assert s3n.angular_distance_deg(x[7:11], y[7:11]) <= 1e-4
+
+
+def _evict_coords(rng, level, res, m_found, m_absent, repeat):
+    """Voxel coords of ``m_found`` occupied voxels of a street level, plus
+    ``m_absent`` absent ones and ``repeat`` repeats, shuffled, padded to a
+    power of two, with a mask that drops every 13th and the padding."""
+    pts = torch.from_numpy(_scene(rng, 20000)).to(level.keys.device)
+    coords = torch.unique(torch.trunc(pts / res).to(torch.int32), dim=0)
+    coords = coords[torch.randperm(coords.shape[0],
+                                   device=coords.device)][:m_found]
+    absent = coords[:m_absent] + torch.tensor([0, 0, 1000], dtype=torch.int32,
+                                              device=coords.device)
+    coords = torch.cat([coords, absent, coords[:repeat]])
+    n = coords.shape[0]
+    m = 1 << max(n - 1, 0).bit_length() if n else 0
+    coords = torch.cat([coords, torch.zeros((m - n, 3), dtype=torch.int32,
+                                            device=coords.device)])
+    valid = torch.arange(m, device=coords.device) < n
+    valid[::13] = False
+    return coords.contiguous(), valid
+
+
+@pytest.mark.parametrize("m_found, m_absent, repeat", [
+    (0, 0, 0), (1, 0, 0), (700, 40, 5), (100000, 100, 300)])
+def test_evict_voxels_matches_plain(cuda, m_found, m_absent, repeat):
+    rng = np.random.default_rng(m_found)
+    level = _warm_level(rng, cuda)
+    level.nflags.copy_(torch.where(level.count > 0, 3, 0).to(torch.int32))
+    coords, valid = _evict_coords(rng, level, 0.8, m_found, m_absent, repeat)
+    before = k9.launches
+    out = checks.check_evict_voxels(level, coords, valid)
+    assert k9.launches == before + 1
+    if m_found > 1:
+        assert out["removed"] > 0 and out["emptied"] > 0
+    # the accumulator is left zero: a second eviction agrees again
+    checks.check_evict_voxels(level, coords, valid)
+
+
+@pytest.mark.parametrize("cap_log2, p, res", [(14, 30, 0.8), (16, 50, 0.2),
+                                              (12, 40, 1.5)])
+def test_level_normals_matches_plain(cuda, cap_log2, p, res):
+    rng = np.random.default_rng(cap_log2)
+    level = vm.make_level(cap_log2, p, cuda)
+    pts = torch.from_numpy(_scene(rng, 30000)).to(cuda)
+    vm.insert_points(level, pts, torch.ones(pts.shape[0], dtype=torch.bool,
+                                            device=cuda), res, 0.02, 12)
+    # a tombstone with points and a flag: kept as it is
+    occ = torch.nonzero(level.count >= 5)[:, 0]
+    level.keys[occ[0]] = 1
+    level.nflags[occ[1]] = 7
+    location = torch.tensor([1.0, -2.0, 1.5], device=cuda)
+    # every slot (the tombstone and the empty slots copied through), and
+    # the export's list of occupied slots
+    every = torch.arange(level.capacity, dtype=torch.int32, device=cuda)
+    for slots in (every, vm.occupied_slots(level)):
+        before = k10.launches
+        out = checks.check_level_normals(level, location, slots)
+        assert k10.launches == before + 1
+        assert out["refit"] > 100
+        assert out["left_out"] <= 0.1 * out["refit"]
+    new = vm.recompute_level_normals(level, location)
+    assert new.nflags is not level.nflags and new.keys is level.keys

@@ -182,9 +182,14 @@ def test_gate_constants_match_bench():
             corridor.ROBUST_APE_BOUND_M) == (bench.APE_BOUND_M,
                                              bench.APE_SEEDS,
                                              bench.ROBUST_APE_BOUND_M)
-    assert set(tbench.GATES) == {"--driving", "--robust", "--escalation",
-                                 "--long", "--indoor",
-                                 "--backend"} <= set(bench.GATES)
+    # the reference's gates, and the port's own beside them: the replay
+    # gate of the reference's tests/test_ct_ba.py and the backend on a
+    # robust profile
+    reference_gates = {"--driving", "--robust", "--escalation", "--long",
+                       "--indoor", "--backend"}
+    assert reference_gates <= set(bench.GATES)
+    assert set(tbench.GATES) == reference_gates | {"--replay",
+                                                   "--backend-robust"}
     assert (tbench.BACKEND_TR_BOUND_PCT, tbench.BACKEND_FRAMES,
             tbench.BACKEND_SEED) == (bench.BACKEND_TR_BOUND_PCT,
                                      bench.BACKEND_FRAMES,

@@ -208,10 +208,13 @@ def test_robust_corridor_frames_match_bench(scene):
                                   "rebase"])
 def test_paths_out_of_the_port_raise_not_implemented(path):
     """The paths this port does not carry yet refuse to run, always with
-    NotImplementedError: the CT-BA backend on a robust profile ("backend")
-    and its replay (the frame ring) on any profile. The backend itself and
-    the rebase are ported: a frame past the rebase distance moves the
-    origin to its end position and the map with it."""
+    NotImplementedError: profile_registration and the CONSTANT_VELOCITY
+    motion compensation. The others are ported: the CT-BA backend on a
+    robust profile ("backend"), its replay and the frame ring on any
+    profile (the ring grows to the backend's window; a replay of frames the
+    ring does not hold inserts nothing), and the rebase: a frame past the
+    rebase distance moves the origin to its end position and the map with
+    it."""
     opts = options_from_dict(dataclasses.asdict(robust_options()))
     if path == "backend":
         opts = dataclasses.replace(opts, backend=dataclasses.replace(
@@ -219,6 +222,8 @@ def test_paths_out_of_the_port_raise_not_implemented(path):
     elif path == "backend_replay":
         opts = dataclasses.replace(
             opts, robust_registration=False,
+            map_options=dataclasses.replace(opts.map_options,
+                                            max_frames_to_keep=3),
             backend=dataclasses.replace(opts.backend, enabled=True,
                                         replay=True))
     elif path == "profile_registration":
@@ -227,15 +232,21 @@ def test_paths_out_of_the_port_raise_not_implemented(path):
         opts = dataclasses.replace(
             opts, motion_compensation=type(opts.motion_compensation)(
                 "CONSTANT_VELOCITY"))
-    if path in ("backend", "backend_replay", "profile_registration",
-                "constant_velocity"):
+    if path in ("profile_registration", "constant_velocity"):
         with pytest.raises(NotImplementedError):
             TOdometry(opts, device="cpu")
         return
     odo = TOdometry(opts, device="cpu")
+    if path in ("backend", "backend_replay"):
+        assert odo.backend is not None
+        assert odo.backend.replay == (path == "backend_replay")
+        assert odo.frame_ring.max_frames == (
+            opts.backend.window if path == "backend_replay"
+            else opts.map_options.max_frames_to_keep)
+        return
     if path == "frame_ring":
-        with pytest.raises(NotImplementedError):
-            odo.replay_refined_frames(odo.get_trajectory())
+        assert odo.frame_ring.enabled and len(odo.frame_ring) == 0
+        assert odo.replay_refined_frames(odo.get_trajectory()) == 0
         return
     f0, f1 = room_frames(2)
     odo.register_frame(f0["xyz"], f0["timestamps"])  # the origin's frame
