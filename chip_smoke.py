@@ -32,8 +32,11 @@ when either is missing. Phases; any failure raises and exits non-zero:
      launch per LM call: its times are the device time of the call and of a
      call of one step (each a CUDA graph of one launch), the steps the call
      ran and the time a step, and the call with its host path. K3 is one
-     launch per insert: its device time (a CUDA graph of one insert) beside
-     its time with the host enqueue. torch.profiler's trace of one call of
+     launch per insert: its device time (the profiler's kernel duration of
+     one insert on a restored copy, where the profiler sees the device;
+     the graph of one insert between events, which holds the graph's
+     submission, beside it) and its time with the host enqueue.
+     torch.profiler's trace of one call of
      each, at the driving shapes, must show one device operation for K5
      and K4, at most two for K3 and two (K7 and K6) for a rebuild_level of
      the driving map (where the profiler sees the device at all). The stages
@@ -72,8 +75,9 @@ when either is missing. Phases; any failure raises and exits non-zero:
      Odometry(default_driving_profile() with backend.enabled)
      .stream_frames(batch=16), the rebase at 500 m as in the gate: 0
      failures, at least one refinement, segment RPE <= 0.42 %Tr, K1-K3, K5
-     and K8 launched, four K8 launches a refine (two CT-BA steps of two
-     block-Jacobi inner iterations), no synchronizing CUDA call inside a
+     and K8 launched, one K8 launch a refine (its two CT-BA steps of two
+     block-Jacobi inner iterations run as one launch of four), no
+     synchronizing CUDA call inside a
      refine's dispatch (torch's sync debug mode set to raise there; the
      deferred apply's event wait, one a refine, is outside it and counted
      beside the host syncs); then the same frames with the backend
@@ -81,14 +85,18 @@ when either is missing. Phases; any failure raises and exits non-zero:
      the refinements, the refine's host ms and its event waits; then the
      two halves of the first refine over a full window (8 keyframes) on
      its own inputs, the association (K1, K2 and the weighting) and the
-     two CT-BA steps, each on the device (a CUDA graph) and with its host
-     side;
-  9. K8 (both modes: one block-Jacobi inner iteration, and the point +
-     prior blocks of the coupled solver), K1 over all 27 voxels without
-     compaction and K2 without the k-NN cap against their plain versions at
-     that refine's shapes (8 keyframes x 4,096 keypoints, the padded rows
-     invalid), timed as in phase 3 (K8: a CUDA graph of 20 calls, and
-     with its host side), K8 launched twice to show it repeats bit for bit;
+     CT-BA work (one K8 launch), each on the device (a CUDA graph) and
+     with its host side;
+  9. K8 (the backend's launch of four block-Jacobi inner iterations, one
+     iteration, a step of two, and the point + prior blocks of the coupled
+     solver), K1 over all 27 voxels without compaction and K2 without the
+     k-NN cap against their plain versions at that refine's shapes (8
+     keyframes x 4,096 keypoints, the padded rows invalid), timed as in
+     phase 3 (K8: a CUDA graph of 20 calls, and with its host side), K8
+     launched twice to show it repeats bit for bit, its launch of four
+     iterations against four launches of one (identical), and the clock
+     cycles of each of its phases (the -DK8_MARKS variant, built in
+     phase 2);
   10. the robust corridor of phase 5 again with a rebase distance of 20 m:
      the speculative streamer's deferred rebases ("rebase" statuses) run;
      0 failures, APE <= 0.10 m, at least 2 rebases, and the largest end-pose
@@ -124,26 +132,30 @@ when either is missing. Phases; any failure raises and exits non-zero:
      election as phase 12 met it (its sub-sample, voxel and capacity);
   14. the backend with replay (tools/bench.py --replay): the reference's
      replay test (tests/test_ct_ba.py:182-224) at the default profile's
-     capacities (the three-level map at 2^20 / 2^19 / 2^17 slots, 2^17
-     scan points, 4,096 keypoints), the room (datasets/room.py, seed 47,
-     5 mm noise), 15 frames of 6,000 points through register_frame,
-     backend off then on (window 6, period 3, 2 steps, replay): APE on <
-     0.8 x off, >= 2 refinements, 0 failures, K9 launched once a level a
-     replay; then the same room at 60,000 points a frame for 60 frames, off
-     then on: 0 failures, >= 2 refinements, APE on and off, the replays,
-     the points each evicted and re-inserted and their host ms, and the
-     device ms of the first replay's device half (a CUDA graph of its K9
-     and K3 launches on a restored copy of the map);
+     capacities (the three-level map at 2^20 / 2^19 / 2^17 slots, 2^17 scan
+     points, 4,096 keypoints), the room (datasets/room.py, seed 47, 5 mm
+     noise), 15 frames of 6,000 points through register_frame, backend off
+     then on (window 6, period 3, 2 steps, replay): APE on < 0.8 x off, >= 2
+     refinements, 0 failures, K9 launched once a replay (every level in one
+     launch); then the same room at 60,000 points a frame for 60 frames, off
+     then on: 0 failures, >= 2 refinements, APE on and off, the replays, the
+     points each evicted and re-inserted and their host ms, and the device ms
+     of the first replay's device half (a CUDA graph of its K9 and K3 launches
+     on a restored copy of the map);
   15. the map export of that room's map: get_map_points on each level
      (one K10 launch each, over the level's occupied slots; finite points,
      as many as the level holds);
-  16. K9 on the first replay's evict list on each level, and K10 on each
-     level's occupied slots of the room's map (the export's slot list),
-     against their plain versions (K9 identical;
-     K10's flags and refit slots identical, its normals within the
-     tolerance of kernels/checks.py) and timed as in phase 3 (K9: a CUDA
-     graph of one eviction on a restored copy; K10: a graph of 20 calls;
-     both also with their host side);
+  16. K9 on the first replay's evict lists, every level in one launch (the
+     replay's call) and each level alone, and K10 on each level's occupied
+     slots of the room's map (the export's slot list), against their plain
+     versions (K9 identical; K10's flags and refit slots identical, its
+     normals within the tolerance of kernels/checks.py) and timed: K9 by
+     the profiler's kernel duration of one eviction on a restored copy, a
+     CUDA graph of 20 evictions of an already evicted copy, and an empty
+     kernel of the same grid both ways (the floor of each method; the graph
+     of one eviction between events, which holds the graph's submission,
+     is kept beside them); K10 a graph of 20 calls; both also with their
+     host side;
   17. K1 and K2 built from this tree give, on tools/exp_header_trees.py's
      inputs, the outputs the parent tree's build gave before their device
      code moved into csrc/probe.cuh and csrc/eigh3.cuh (SHA-256 digests);
@@ -172,6 +184,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -210,7 +223,8 @@ from ct_icp_torch.tools import exp_header_trees as eht
 from ct_icp_torch.tools.exp_gather import k6_bytes, k6_fields_bytes
 from ct_icp_torch.tools.exp_moments import k2_bytes, live_work
 from ct_icp_torch.tools.timing import (HBM_BYTES_PER_S, bound, time_cold,
-                                       time_graph, time_host, time_stateless)
+                                       time_graph, time_host, time_kernels,
+                                       time_stateless)
 
 NUM_FRAMES = 80
 SEED = cor.APE_SEEDS[0]
@@ -255,6 +269,8 @@ DIGESTS_BEFORE_MOVE = {
     "k2 full":
         "aab09d10cae8cf47c4581cf319f952de55880ba7c4457168ec1edc562afdf288",
 }
+# the measurement variant of K8 whose clock marks phase 9 reads
+K8_MARKS = ("K8_MARKS",)
 # the indoor walk's frame whose first LM call K5 is held to; frames
 # [0, K) build the three-level map K1-K3 are held on, frame K + 1 gives
 # them their queries and inserted points
@@ -300,7 +316,9 @@ WORK_KEYS = ("host_ms", "warm_ms", "library_warm_ms", "step_ms",
              "points_read", "rows_read", "per_query_bytes", "key_windows",
              "slots_found", "claim_rounds", "rebuild_level_ms",
              "rebuild_level_plain_ms", "rows_live", "d_tr_m", "d_rot_deg",
-             "left_out")
+             "left_out", "with_submission_ms", "graph20_ms", "floor_ms",
+             "floor_graph20_ms", "iters", "cluster", "phase_cycles",
+             "one_launch_equals_chain", "removed")
 # the kernels of the first three paths (the rebase runs on none of them)
 K1_K5 = ["candidate_gather", "plane_moments", "map_insert", "grid_sample",
          "lm_step"]
@@ -366,7 +384,13 @@ def phase_build():
         raise RuntimeError(f"kernel sources {build.kernel_names()} are not "
                            f"the kernels checked here {sorted(names)}")
     t0 = time.time()
+    # K8's phase-mark variant (phase 9) builds beside the kernels
+    marks = threading.Thread(target=build.build_all,
+                             args=(["ct_ba_block"], K8_MARKS))
+    marks.start()
     build.build_all(names)
+    marks.join()
+    build.launcher("ct_ba_block", "k8_read_marks", (build.PTR,), K8_MARKS)
     log(f"build: {len(names)} kernels in {time.time() - t0:.2f} s "
         f"(nvcc {' '.join(build.NVCC_FLAGS)})")
     for name in names:
@@ -492,7 +516,12 @@ def _kernel_k3(dev, level, res, prep, rounds, tag, count_ops=False):
     def insert():
         vm.insert_points(lv, pts, valid, res.resolution, md, rounds)
 
-    ms, how = time_graph(reset, insert)
+    # the card's own time (the profiler's kernel duration); the graph of
+    # one call between events also holds the graph's submission
+    sub_ms, _ = time_graph(reset, insert)
+    ms, how = time_kernels(insert, reset)
+    if ms is None:
+        ms, how = sub_ms, "cuda-graph of one call (with its submission)"
     host_ms, _ = time_mutating(lambda: _level_copy(level), lambda lv2:
                                vm.insert_points(lv2, pts, valid,
                                                 res.resolution, md, rounds))
@@ -522,7 +551,7 @@ def _kernel_k3(dev, level, res, prep, rounds, tag, count_ops=False):
         f"{plain_ms:.4f} ms")
     return dict(ms=ms, plain_ms=plain_ms, library_ms=None, bytes=n_bytes,
                 ops=float(ec.sum()) * 8, timing=how, host_ms=host_ms,
-                device_ops_per_call=ops,
+                with_submission_ms=sub_ms, device_ops_per_call=ops,
                 max_abs_err=out["max_abs_err"],
                 shape=f"N={n} rounds={rounds} P={level.max_points} "
                       f"C={level.capacity}")
@@ -1238,9 +1267,9 @@ def phase_backend(dev, acq):
     dispatch runs with synchronizing CUDA calls made errors. Then the
     refine's
     two halves on the inputs of the first refine over a full window: the
-    association (K1, K2 and the weighting) and the two CT-BA steps (four K8
-    launches), on the device (a CUDA graph of the call) and with the host
-    side."""
+    association (K1, K2 and the weighting) and the CT-BA work (its two
+    steps of two inner iterations as one K8 launch of four), on the device
+    (a CUDA graph of the call) and with the host side."""
     runs, capture = {}, {}
     for name, on in (("on", True), ("off", False)):
         odo = Odometry(gates.backend_profile(on), device=dev)
@@ -1283,10 +1312,7 @@ def phase_backend(dev, acq):
         return assemble(levels, *c["args"], c["radius"], c["edge_alpha"])
 
     def run_steps():
-        s = state0
-        for _ in range(reg_o.backend.num_steps):
-            s, _cost = step(s, c["problem"])
-        return s
+        return step(state0, c["problem"])[0]
 
     halves = {}
     for name, fn in (("assemble", run_assemble), ("steps", run_steps)):
@@ -1317,8 +1343,9 @@ def phase_backend(dev, acq):
     _require_launches("backend gate", launches,
                       ["candidate_gather", "plane_moments", "map_insert",
                        "lm_step", "ct_ba_block"])
-    # two CT-BA steps of two inner iterations: four K8 launches a refine
-    if launches["ct_ba_block"] != 4 * on["refine_dispatches"]:
+    # two CT-BA steps of two inner iterations, folded into one step of
+    # four: one K8 launch a refine
+    if launches["ct_ba_block"] != on["refine_dispatches"]:
         raise RuntimeError(f"backend gate: {launches['ct_ba_block']} K8 "
                            f"launches for {on['refine_dispatches']} refines")
     if off["launches"]["ct_ba_block"]:
@@ -1331,53 +1358,86 @@ def phase_backend(dev, acq):
     return runs, capture
 
 
-def _kernel_k8(problem, poses, mode, tag):
-    """K8 against its plain version in ``mode`` on a window of the backend,
-    then timed: a CUDA graph of 20 calls, and with its host side (events
-    around the wrapper); the plain version with its host side."""
+def _kernel_k8(problem, poses, mode, tag, iters=1):
+    """K8 against its plain version in ``mode`` (``iters`` inner iterations
+    in one launch) on a window of the backend, then timed: a CUDA graph of
+    20 calls, and with its host side (events around the wrapper); the plain
+    version with its host side."""
     beta = gates.backend_profile(True).backend.continuity_beta
     damping = 1e-3
-    err = checks.check_ct_ba_block(poses, problem, beta, damping, mode)
+    err = checks.check_ct_ba_block(poses, problem, beta, damping, mode,
+                                   iters=iters)
 
     def call():
-        return k8.ct_ba_block(poses, problem, beta, damping, mode)
+        return k8.ct_ba_block(poses, problem, beta, damping, mode, iters)
 
     ms, how = time_stateless(call)
     host_ms, _ = time_host(call)
     plain_ms, _ = time_host(lambda: k8.ct_ba_block_plain(
-        poses, problem, beta, damping, mode), reps=5)
+        poses, problem, beta, damping, mode, iters), reps=5)
     f, k = problem.raw.shape[:2]
     live = int((problem.weights != 0).sum())
     # every row's weight read, the live rows' 40 other bytes, the poses,
     # priors, prior weights and edge alphas read once; the outputs
     n_bytes = (f * k * 4 + live * 40 + f * (14 + 14 + 2) * 4
-               + f * ((14 if mode == "gn" else 0) + 1 + 144 + 12) * 4)
+               + f * ((14 if mode == "gn" else 0) + 1 + 144 + 12) * 4 + 4)
     branch, angle = _slerp_branch(torch.cat([poses[0], torch.zeros(
         k5.STATE_SIZE - 14, device=poses.device)]))
-    ops = live * float(_ct_ba_row_ops(branch))
-    log(f"K8 ct_ba_block {tag} mode={mode} F={f} K={k} live={live} "
-        f"({branch} on frame 0, {angle:.4f} deg): within tolerance "
-        f"({json.dumps(err)}); {ms:.4f} ms on the device ({how}), "
-        f"{host_ms:.4f} ms with its host side, plain {plain_ms:.4f} ms")
+    ops = iters * live * float(_ct_ba_row_ops(branch))
+    cluster = k8.cluster_size(f, k, poses.device, waits=False)
+    log(f"K8 ct_ba_block {tag} mode={mode} x{iters} F={f} K={k} live={live} "
+        f"({branch} on frame 0, {angle:.4f} deg; clusters of {cluster}): "
+        f"within tolerance ({json.dumps(err)}); {ms:.4f} ms on the device "
+        f"({how}), {host_ms:.4f} ms with its host side, plain "
+        f"{plain_ms:.4f} ms")
     return dict(max_abs_err=err["max_abs_err"], ms=ms, plain_ms=plain_ms,
                 library_ms=None, bytes=n_bytes, ops=ops, timing=how,
                 host_ms=host_ms, rows_live=live, d_tr_m=err.get("d_tr_m"),
                 d_rot_deg=err.get("d_rot_deg"), relative=err["relative"],
-                shape=f"F={f} K={k} live={live} mode={mode}")
+                iters=iters, cluster=cluster,
+                shape=f"F={f} K={k} live={live} mode={mode} iters={iters}")
+
+
+def _k8_phase_cycles(problem, poses, iters):
+    """The clock cycles of each phase of one launch of the -DK8_MARKS
+    variant (built in phase 2; the main path never loads it) on the
+    backend's window, for ranks 0 and 1 of frame 0."""
+    beta = gates.backend_profile(True).backend.continuity_beta
+    read = build.launcher("ct_ba_block", "k8_read_marks", (build.PTR,),
+                          K8_MARKS)
+    cyc = np.zeros(k8.MARK_SLOTS * len(k8.MARK_PHASES), np.int64)
+    build.check_status(read(cyc.ctypes.data), "k8_read_marks")
+    k8.launch(poses, problem, beta, 1e-3, "gn", iters, defines=K8_MARKS)
+    torch.cuda.synchronize()
+    build.check_status(read(cyc.ctypes.data), "k8_read_marks")
+    out = [dict(zip(k8.MARK_PHASES, r))
+           for r in cyc.reshape(k8.MARK_SLOTS, -1).tolist()]
+    log(f"K8 phase cycles (gn x{iters}; rank 0, rank 1 of frame 0): "
+        f"{json.dumps(out)}")
+    return out
 
 
 def phase_kernels_backend(dev, capture):
-    """K8 (both modes), K1 (all 27 voxels, no compaction) and K2 (no k-NN)
-    against their plain versions at a full refine window's shapes, and
-    timed."""
+    """K8 (the backend's one launch of its 2 steps x 2 inner iterations,
+    one iteration, a step of 2, and the blocks mode), K1 (all 27 voxels,
+    no compaction) and K2 (no k-NN) against their plain versions at a full
+    refine window's shapes, and timed; one launch of the backend's
+    iterations against as many launches of one, bit for bit; K8's phase
+    split."""
     c = capture
     problem = c["problem"]
-    records = {"ct_ba_block": _kernel_k8(
-        problem, ct_ba.pack_state(ct_ba.CTBAState(*c["args"][3:7])), "gn",
-        "backend")}
-    records["ct_ba_block"]["others"] = {"blocks": _kernel_k8(
-        problem, ct_ba.pack_state(ct_ba.CTBAState(*c["args"][3:7])),
-        "blocks", "backend")}
+    poses = ct_ba.pack_state(ct_ba.CTBAState(*c["args"][3:7]))
+    iters = 2 * gates.backend_profile(True).backend.num_steps
+    rec = _kernel_k8(problem, poses, "gn", "backend", iters)
+    rec["one_launch_equals_chain"] = checks.check_ct_ba_iterations(
+        poses, problem, gates.backend_profile(True).backend.continuity_beta,
+        1e-3, iters)["max_abs_err"] == 0.0
+    rec["phase_cycles"] = _k8_phase_cycles(problem, poses, iters)
+    rec["others"] = {
+        "gn x1": _kernel_k8(problem, poses, "gn", "backend"),
+        "gn x2 (a step)": _kernel_k8(problem, poses, "gn", "backend", 2),
+        "blocks": _kernel_k8(problem, poses, "blocks", "backend")}
+    records = {"ct_ba_block": rec}
     o = gates.backend_profile(True)
     res = o.map_options.resolutions[0]
     world = ct_ba.interp_world_points(*c["args"][3:7], *c["args"][0:2])
@@ -1769,15 +1829,14 @@ def phase_replay():
     """The backend with replay (tools/bench.py --replay): the reference's
     replay test (tests/test_ct_ba.py:182-224) at the default profile's
     capacities (the three-level map at 2^20 / 2^19 / 2^17 slots, 2^17 scan
-    points, 4,096 keypoints), 15 frames of 6,000 points, backend off then
-    on: APE on < 0.8 x off, >= 2 refinements, 0 failures, K9 launched once
-    a level a replay. Then the same room at 60,000 points a frame for 60
-    frames, off then on: 0 failures, >= 2 refinements; APE on and off, the
-    replays, the points each evicted and re-inserted, their host ms, and
-    the device ms of the first replay's device half (a CUDA graph of K9
-    and the inserts on a restored copy of the map). Returns the records,
-    the big room's odometry (for the export) and the first replay's
-    inputs."""
+    points, 4,096 keypoints), 15 frames of 6,000 points, backend off then on:
+    APE on < 0.8 x off, >= 2 refinements, 0 failures, K9 launched once a
+    replay (every level in one launch). Then the same room at 60,000 points a
+    frame for 60 frames, off then on: 0 failures, >= 2 refinements; APE on and
+    off, the replays, the points each evicted and re-inserted, their host ms,
+    and the device ms of the first replay's device half (a CUDA graph of K9
+    and the inserts on a restored copy of the map). Returns the records, the
+    big room's odometry (for the export) and the first replay's inputs."""
     runs = {}
     for name, on in (("off", False), ("on", True)):
         _, runs[name] = _room_run(on, room.REPLAY_FRAMES,
@@ -1799,8 +1858,8 @@ def phase_replay():
     n_lv = len(room.replay_options(True).map_options.resolutions)
     _require_launches("replay gate", on["launches"],
                       ["evict_voxels", "map_insert", "ct_ba_block"])
-    if on["launches"]["evict_voxels"] != n_lv * on["replays"]:
-        raise RuntimeError("replay gate: not one K9 launch a level a replay")
+    if on["launches"]["evict_voxels"] != on["replays"]:
+        raise RuntimeError("replay gate: not one K9 launch a replay")
     if off["launches"]["evict_voxels"]:
         raise RuntimeError("backend off: K9 launched")
 
@@ -1853,41 +1912,109 @@ def phase_replay():
             "room_off": boff}, odo, capture
 
 
-def _kernel_k9(level, coords, valid, tag):
-    """K9 against its plain version on one level's evict list, then timed:
-    a CUDA graph of one eviction on a restored copy (count, flags and
-    num_points put back before each replay), and with its host side."""
+def _k9_bytes(level, coords, n_valid, found, flags):
+    """K9's bytes on one level: each valid flag read (``flags``: the
+    single-level call's mask), each listed coordinate read with its 16-byte
+    key window, each found slot's count read and count and flag written,
+    num_points."""
+    return (coords.shape[0] if flags else 0) + n_valid * (12 + 16) \
+        + found * 12 + 8
+
+
+def _k9_times(call, reset, blocks):
+    """K9's own time on the card (the profiler's kernel duration, a call on
+    a restored copy), a CUDA graph of 20 calls on an already evicted copy
+    (eviction is idempotent: the same probes and stores, nothing removed),
+    the graph of one call between events after a restore (which holds the
+    graph's submission), and an empty kernel on the same grid the first two
+    ways: the floor of each method."""
+    ms, how = time_kernels(call, reset)
+    sub_ms, _ = time_graph(reset, call)
+    reset()
+    g20, _ = time_stateless(call)
+    floor_ms, _ = time_kernels(lambda: k9.empty_launch(blocks))
+    floor_g20, _ = time_stateless(lambda: k9.empty_launch(blocks))
+    if ms is None:
+        ms, how = g20, "cuda-graph of 20 calls on an evicted copy"
+    return dict(ms=ms, timing=how, graph20_ms=g20, with_submission_ms=sub_ms,
+                floor_ms=floor_ms, floor_graph20_ms=floor_g20)
+
+
+def _restore(works, levels):
+    def reset():
+        for w, lv in zip(works, levels):
+            for t, src in ((w.count, lv.count), (w.nflags, lv.nflags),
+                           (w.num_points, lv.num_points)):
+                t.copy_(src)
+    return reset
+
+
+def _kernel_k9(levels, coords, counts):
+    """K9 against its plain version on the first replay's evict lists, all
+    levels in one launch (the replay's call), then timed (``_k9_times``),
+    with its host side, and the plain version."""
+    err = checks.check_evict_levels(levels, coords, counts)
+    works = [_level_copy(lv) for lv in levels]
+    reset = _restore(works, levels)
+
+    def call():
+        return vm.evict_levels(works, coords, counts)
+
+    times = _k9_times(call, reset, k9.grid_blocks(counts))
+    host_ms, _ = time_mutating(lambda: reset() or works, lambda _w: call())
+    plains = [_level_copy(lv) for lv in levels]
+    plain_ms, _ = time_host(lambda: k9.evict_levels_plain(
+        [vm.MapLevel(lv.keys, lv.count.clone(), lv.points, lv.normals,
+                     lv.nflags.clone(), lv.num_points.clone())
+         for lv in plains], coords, counts), reps=5)
+    n_bytes, shapes = 0, []
+    for li, (lv, c, n) in enumerate(zip(levels, coords, counts)):
+        after = _level_copy(lv)
+        vm.evict_levels([after], [c], [n])
+        found = int(((lv.count > 0) & (after.count == 0)).sum())
+        n_bytes += _k9_bytes(lv, c, n, found, flags=False)
+        shapes.append(f"C={lv.capacity} M={c.shape[0]} valid={n} "
+                      f"emptied={found}")
+    log(f"K9 evict_voxels, every level in one launch: {'; '.join(shapes)}, "
+        f"removed {err['removed']}: identical; {times['ms']:.4f} ms on the "
+        f"device ({times['timing']}), a graph of 20 on an evicted copy "
+        f"{times['graph20_ms']:.4f} ms a call, one call with its graph's "
+        f"submission {times['with_submission_ms']:.4f}; an empty kernel of "
+        f"the grid {times['floor_ms']} ms (profiler), "
+        f"{times['floor_graph20_ms']:.4f} (graph of 20); {host_ms:.4f} ms "
+        f"with its host side, plain {plain_ms:.4f} ms")
+    return dict(max_abs_err=0.0, plain_ms=plain_ms, library_ms=None,
+                bytes=n_bytes, ops=0.0, host_ms=host_ms,
+                removed=err["removed"], shape=" | ".join(shapes), **times)
+
+
+def _kernel_k9_level(level, coords, valid, tag):
+    """K9 on one level's evict list with its mask (the single-level call),
+    against its plain version and timed as ``_kernel_k9``."""
     err = checks.check_evict_voxels(level, coords, valid)
     work = _level_copy(level)
-
-    def reset():
-        for t, s in ((work.count, level.count), (work.nflags, level.nflags),
-                     (work.num_points, level.num_points)):
-            t.copy_(s)
+    reset = _restore([work], [level])
 
     def call():
         return vm.evict_voxels(work, coords, valid)
 
-    ms, how = time_graph(reset, call)
-    host_ms, _ = time_mutating(lambda: reset() or work, lambda _w: call())
+    times = _k9_times(call, reset, k9.grid_blocks([coords.shape[0]]))
     plain = _level_copy(level)
     plain_ms, _ = time_host(lambda: k9.evict_voxels_plain(
         plain.keys, plain.count.clone(), plain.nflags.clone(),
         plain.num_points.clone(), coords, valid), reps=5)
     m, n_valid = coords.shape[0], int(valid.sum())
     found = err["emptied"]
-    # every valid flag read; a valid coordinate read with its 16-byte key
-    # window (the kernel reads no other); a found slot's count read and
-    # count and flag written; num_points
-    n_bytes = m * 1 + n_valid * (12 + 16) + found * 12 + 8
     log(f"K9 evict_voxels {tag}: M = {m} ({n_valid} valid, {found} slots "
-        f"emptied, {err['removed']} points): identical; {ms:.4f} ms on the "
-        f"device ({how}), {host_ms:.4f} ms with its host side, plain "
-        f"{plain_ms:.4f} ms")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
-                bytes=n_bytes, ops=0.0, timing=how, host_ms=host_ms,
-                shape=f"C={level.capacity} M={m} valid={n_valid} "
-                      f"emptied={found} removed={err['removed']}")
+        f"emptied, {err['removed']} points): identical; {times['ms']:.4f} ms "
+        f"on the device ({times['timing']}), graph of 20 "
+        f"{times['graph20_ms']:.4f}, floor {times['floor_ms']} / "
+        f"{times['floor_graph20_ms']:.4f}; plain {plain_ms:.4f} ms")
+    return dict(max_abs_err=0.0, plain_ms=plain_ms, library_ms=None,
+                bytes=_k9_bytes(level, coords, n_valid, found, flags=True),
+                ops=0.0, shape=f"C={level.capacity} M={m} valid={n_valid} "
+                               f"emptied={found} removed={err['removed']}",
+                **times)
 
 
 def _kernel_k10(level, location, tag):
@@ -1955,20 +2082,20 @@ def phase_export(odo):
 
 
 def phase_kernels_replay(dev, odo, capture):
-    """K9 on the first replay's evict list on each level (the map as that
-    replay found it) and K10 on each level of the room's map, against their
-    plain versions and timed."""
+    """K9 on the first replay's evict lists (the map as that replay found
+    it): every level in one launch, as the replay calls it, then each
+    level alone with a mask; K10 on each level of the room's map; against
+    their plain versions and timed."""
     counts, arrays = capture["counts"], capture["arrays"]
-    records = {}
+    n_lv = len(capture["levels"])
+    records = {"evict_voxels": _kernel_k9(capture["levels"], arrays[:n_lv],
+                                          counts[:n_lv])}
+    records["evict_voxels"]["others"] = {}
     for li, level in enumerate(capture["levels"]):
         coords = arrays[li]
         valid = torch.arange(coords.shape[0], device=dev) < counts[li]
-        rec = _kernel_k9(level, coords, valid, f"level {li}")
-        if li == 0:
-            records["evict_voxels"] = rec
-            rec["others"] = {}
-        else:
-            records["evict_voxels"]["others"][f"level {li}"] = rec
+        records["evict_voxels"]["others"][f"level {li}"] = _kernel_k9_level(
+            level, coords, valid, f"level {li}")
     loc = torch.as_tensor(odo.trajectory[-1].end_pose.tr - odo.origin,
                           dtype=torch.float32, device=dev)
     for li, level in enumerate(odo.map_state):

@@ -1,27 +1,35 @@
-"""K8 ct_ba_block: the per-keyframe Gauss-Newton block of the CT-BA backend.
+"""K8 ct_ba_block: the per-keyframe Gauss-Newton blocks of the CT-BA backend.
 
 Replaces ``ct_icp_tpu/parallel/ct_ba.py:120-152`` (``_frame_gn_update``,
-vmapped over the window by the block-Jacobi ``local_step``) and
-``:170-198`` (``_frame_blocks``, the coupled solver's row pass). One launch
-of ``csrc/ct_ba_block.cu`` does, for every keyframe of the window at once:
+vmapped over the window by the block-Jacobi ``local_step`` inside its
+``fori_loop`` over the inner iterations) and ``:170-198``
+(``_frame_blocks``, the coupled solver's row pass). One launch of
+``csrc/ct_ba_block.cu`` does, for every keyframe of the window at once:
 
-  * mode ``"gn"``: one block-Jacobi inner iteration: the residual of the K
-    point rows, the 8 continuity rows (against the neighbours' previous
-    iterate) and the 8 prior rows, their 12-tangent forward-mode Jacobian,
-    J^T J and J^T r, the Jacobi-scaled damped 12x12 solve and the updated
-    pose; the cost with the continuity rows halved;
-  * mode ``"blocks"``: J^T J, J^T r and the cost of the point and prior
-    rows only (the coupled solver adds its edges in torch).
+  * mode ``"gn"``: ``iters`` block-Jacobi inner iterations: the residual of
+    the K point rows, the 8 continuity rows (against the neighbours'
+    previous iterate) and the 8 prior rows, their 12-tangent forward-mode
+    Jacobian, J^T J and J^T r, the Jacobi-scaled damped 12x12 solve and the
+    updated pose, each iteration on the previous one's poses; the last
+    iteration's cost with the continuity rows halved, and its total;
+  * mode ``"blocks"`` (one iteration): J^T J, J^T r and the cost of the
+    point and prior rows only (the coupled solver adds its edges in torch).
 
-Each frame's rows are split over CTAs of 256 rows; the last CTA of a frame
-to finish sums their partials in CTA order (an integer counter, no float
-atomics: a run repeats bit for bit) and does the pose-level work. Bound on
-the card: bytes (44 B a row) or operations (850-1,000 a row), ~0.4-0.5 us
-at the backend's window (F = 8, K = 4,096); the launch is latency-bound.
+Each frame is a thread-block cluster (16 CTAs, or 8 where the window's
+clusters do not all fit on the card at once: :func:`cluster_size`) that
+keeps its rows in shared memory for the whole launch; its partial sums meet
+in rank order through distributed shared memory, and a frame waits only for
+its two neighbours' previous iterate (an iteration flag a frame). No float
+atomics: a launch repeats bit for bit, and one launch of ``iters``
+iterations equals ``iters`` launches of one. Bound on the card: bytes (44 B
+a row) or operations (850-1,000 a row an iteration), ~0.4-0.5 us an
+iteration at the backend's window (F = 8, K = 4,096); the launch is bound
+by its serial chain an iteration.
 
 A CPU tensor takes :func:`ct_ba_block_plain` (the same row pass over
-``core/dual.py``: ``parallel/ct_ba.py::_frame_gn_update`` and
-``_frame_blocks``); a CUDA tensor launches the kernel or raises.
+``core/dual.py``: ``parallel/ct_ba.py::_frame_gn_update`` in a loop, and
+``_frame_blocks``); a CUDA tensor launches the kernel or raises, also where
+a multi-iteration window's clusters cannot all be resident.
 """
 
 from typing import NamedTuple, Optional
@@ -31,14 +39,28 @@ import torch
 from ct_icp_torch.kernels import build
 from ct_icp_torch.parallel import ct_ba as ba
 
-SUMS = 91            # 78 of J^T J, 12 of J^T r, 1 r^2
 MODES = {"gn": 0, "blocks": 1}
+# the -DK8_MARKS variant's clock marks (tools/exp_ct_ba.py): for each of
+# MARK_SLOTS marked CTAs (ranks 0 and 1 of frame 0) the cycles of each
+# phase, its calls, and its span in globaltimer ns and in clock cycles
+MARK_PHASES = ("rows in + first tangents", "barrier A + tangent copy",
+               "row pass", "CTA sums", "barrier B", "cluster sums",
+               "J^T J assembly", "solve + new pose", "new tangents",
+               "pose warp: neighbour wait", "pose warp: pose rows",
+               "last cluster + total", "calls", "span ns", "span cycles")
+MARK_SLOTS = 2
+# the kernel's other measurement variants (tools/exp_ct_ba.py)
+VARIANTS = {"dual.cuh divisions": ("K8_IEEE_DUAL",)}
 
 # launches of the CUDA kernel by ct_ba_block (reset freely by callers)
 launches = 0
-# per device, the frame counters of the last-CTA handoff (zero between
-# launches: each launch leaves them zero)
-_counters = {}
+# per device: the int32 [1 + F] finished-cluster counter and iteration
+# flags (zero between launches: each launch leaves them zero), and the
+# f32 [2, F, 14] iterates the neighbours read
+_flags = {}
+_iterates = {}
+# per (device, F, K): the CTAs of a frame's cluster (csrc k8_cluster)
+_clusters = {}
 
 
 class Block(NamedTuple):
@@ -46,35 +68,86 @@ class Block(NamedTuple):
     cost: torch.Tensor              # f32 [F]
     jtj: torch.Tensor               # f32 [F, 12, 12] (hp in "blocks")
     jtr: torch.Tensor               # f32 [F, 12]     (gp in "blocks")
+    total: torch.Tensor             # f32 [] the costs summed in frame order
+
+
+def frame_order_sum(cost):
+    """The frames' costs summed one after another in frame order (the
+    kernel's order), a 0-dim tensor."""
+    total = cost[0]
+    for f in range(1, cost.shape[0]):
+        total = total + cost[f]
+    return total
 
 
 def ct_ba_block_plain(poses, problem, beta: float, damping: float,
-                      mode: str) -> Block:
-    """Plain PyTorch version of :func:`ct_ba_block`."""
+                      mode: str, iters: int = 1) -> Block:
+    """Plain PyTorch version of :func:`ct_ba_block`: ``iters`` calls of
+    ``_frame_gn_update``, each on the previous one's poses (the reference's
+    ``one_iter``), or ``_frame_blocks``."""
+    _check_iters(mode, iters)
     if mode == "gn":
-        return Block(*ba._frame_gn_update(poses, problem, beta, damping))
-    if mode == "blocks":
-        hp, gp, cost = ba._frame_blocks(poses, problem)
-        return Block(None, cost, hp, gp)
-    raise ValueError(f"ct_ba_block: unknown mode {mode!r}")
+        for _ in range(iters):
+            poses, cost, jtj, jtr = ba._frame_gn_update(poses, problem, beta,
+                                                        damping)
+        return Block(poses, cost, jtj, jtr, frame_order_sum(cost))
+    hp, gp, cost = ba._frame_blocks(poses, problem)
+    return Block(None, cost, hp, gp, frame_order_sum(cost))
 
 
-def ct_ba_block(poses, problem, beta: float, damping: float,
-                mode: str) -> Block:
-    """One block pass over the window: ``poses`` f32[F, 14] (qb, tb, qe,
-    te: the previous iterate), ``problem`` a ``parallel.ct_ba.CTBAProblem``
-    (raw, anchors, normals f32[F, K, 3]; alphas, weights f32[F, K]; the
-    prior poses; prior_weight and edge_alpha f32[F]), the continuity weight
-    ``beta`` and the damping. Returns a :class:`Block`; nothing is read
-    back. One launch of ``csrc/ct_ba_block.cu`` on the card."""
+def _check_iters(mode, iters):
+    if mode not in MODES:
+        raise ValueError(f"ct_ba_block: unknown mode {mode!r}")
+    if iters < 1 or (mode == "blocks" and iters != 1):
+        raise ValueError(f"ct_ba_block: {iters} iterations in mode {mode!r}")
+
+
+def ct_ba_block(poses, problem, beta: float, damping: float, mode: str,
+                iters: int = 1) -> Block:
+    """Block passes over the window: ``poses`` f32[F, 14] (qb, tb, qe, te:
+    the first iterate), ``problem`` a ``parallel.ct_ba.CTBAProblem`` (raw,
+    anchors, normals f32[F, K, 3]; alphas, weights f32[F, K]; the prior
+    poses; prior_weight and edge_alpha f32[F]), the continuity weight
+    ``beta``, the damping and the inner iterations (``"gn"``). Returns a
+    :class:`Block` of the last iteration; nothing is read back. One launch
+    of ``csrc/ct_ba_block.cu`` on the card."""
     if poses.device.type == "cpu":
-        return ct_ba_block_plain(poses, problem, beta, damping, mode)
+        return ct_ba_block_plain(poses, problem, beta, damping, mode, iters)
     global launches
+    out = launch(poses, problem, beta, damping, mode, iters)
+    launches += 1
+    return out
+
+
+def cluster_size(f: int, k: int, dev, waits: bool = True) -> int:
+    """The CTAs of a frame's cluster for a window of ``f`` frames of ``k``
+    rows on ``dev``: 16, or 8 where ``f`` clusters of 16 cannot all be
+    resident at once. A launch whose clusters wait for each other
+    (``waits``: several iterations of several frames) raises where ``f``
+    clusters of 8 cannot be resident either; one that does not takes 16."""
+    key = (dev, f, k)
+    c = _clusters.get(key)
+    if c is None:
+        c = build.launcher("ct_ba_block", "k8_cluster",
+                           (build.INT, build.INT))(f, k)
+        if c < 0:
+            build.check_status(-c, "ct_ba_block")
+        _clusters[key] = c
+    if c == 0 and waits:
+        raise ValueError(f"ct_ba_block: the {f} clusters of a multi-iteration "
+                         f"launch cannot all be resident on {dev}")
+    return c or 16
+
+
+def launch(poses, problem, beta: float, damping: float, mode: str,
+           iters: int = 1, defines=()) -> Block:
+    """One launch of ``csrc/ct_ba_block.cu`` on CUDA tensors, counted by no
+    launch counter; ``defines`` pick a measurement variant of the kernel
+    (``tools/exp_ct_ba.py``), none the main path's."""
     dev = poses.device
     if dev.type != "cuda":
         raise ValueError(f"ct_ba_block: no kernel for {dev}")
-    if mode not in MODES:
-        raise ValueError(f"ct_ba_block: unknown mode {mode!r}")
+    _check_iters(mode, iters)
     p = problem
     f, k = p.raw.shape[0], p.raw.shape[1]
     f32 = torch.float32
@@ -89,38 +162,42 @@ def ct_ba_block(poses, problem, beta: float, damping: float,
             (p.prior_weight, (f,), "prior_weight"),
             (p.edge_alpha, (f,), "edge_alpha")):
         build.check_tensor(t, f32, shape, "ct_ba_block", name, dev)
-    splits = build.launcher("ct_ba_block", "k8_splits", (build.INT,))(k)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    cluster = cluster_size(f, k, dev, waits=iters > 1 and f > 1)
     gn = mode == "gn"
     new = torch.empty((f, 14), dtype=f32, device=dev) if gn else None
     cost = torch.empty((f,), dtype=f32, device=dev)
+    total = torch.empty((), dtype=f32, device=dev)
     jtj = torch.empty((f, 12, 12), dtype=f32, device=dev)
     jtr = torch.empty((f, 12), dtype=f32, device=dev)
-    partial = torch.empty((f, splits, SUMS), dtype=f32, device=dev)
-    fn = build.launcher("ct_ba_block", "k8_ct_ba_block", _ARGTYPES)
+    fn = build.launcher("ct_ba_block", "k8_ct_ba_block", _ARGTYPES, defines)
     status = fn(build.ptr(poses), None if new is None else build.ptr(new),
+                build.ptr(_buffer(_iterates, dev, (2, f, 14), f32)),
                 *(build.ptr(t) for t in (
                     p.raw, p.alphas, p.anchors, p.normals, p.weights,
                     p.prior_quat_begin, p.prior_tr_begin, p.prior_quat_end,
                     p.prior_tr_end, p.prior_weight, p.edge_alpha)),
-                f, k, splits, float(beta), float(damping), MODES[mode],
-                build.ptr(partial), build.ptr(_counter_buffer(dev, f)),
-                build.ptr(cost), build.ptr(jtj), build.ptr(jtr),
-                build.stream_of(poses))
+                f, k, cluster, float(beta), float(damping), MODES[mode],
+                int(iters),
+                build.ptr(_buffer(_flags, dev, (1 + f,), torch.int32)),
+                build.ptr(cost), build.ptr(total), build.ptr(jtj),
+                build.ptr(jtr), build.stream_of(poses))
     build.check_status(status, "ct_ba_block")
-    launches += 1
-    return Block(new, cost, jtj, jtr)
+    return Block(new, cost, jtj, jtr, total)
 
 
-def _counter_buffer(dev, f: int):
-    dev = torch.device(dev)
-    if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    buf = _counters.get(dev)
-    if buf is None or buf.numel() < f:
-        buf = _counters[dev] = torch.zeros(max(f, 64), dtype=torch.int32,
-                                           device=dev)
+def _buffer(store, dev, shape, dtype):
+    """A flat per-device buffer of at least the elements of ``shape``, zero
+    when made; a larger request makes a larger one."""
+    n = 1
+    for s in shape:
+        n *= s
+    buf = store.get(dev)
+    if buf is None or buf.numel() < n:
+        buf = store[dev] = torch.zeros(max(n, 1024), dtype=dtype, device=dev)
     return buf
 
 
-_ARGTYPES = (build.PTR,) * 13 + (build.INT,) * 3 + (build.FLOAT,) * 2 \
-    + (build.INT,) + (build.PTR,) * 6
+_ARGTYPES = (build.PTR,) * 14 + (build.INT,) * 3 + (build.FLOAT,) * 2 \
+    + (build.INT,) * 2 + (build.PTR,) * 6

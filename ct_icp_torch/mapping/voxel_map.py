@@ -173,6 +173,14 @@ def evict_voxels(level: MapLevel, coords, valid):
                            level.num_points, coords, valid)
 
 
+def evict_levels(levels, coords, counts):
+    """:func:`evict_voxels` on every level at once (kernel K9, one launch):
+    level l empties the voxels at the first ``counts[l]`` (host ints) rows
+    of ``coords[l]`` int32[M_l, 3]. Returns int32[L + 1] on the device: the
+    points removed from each level, then their total."""
+    return k9.evict_levels(levels, coords, counts)
+
+
 def occupied_slots(level: MapLevel):
     """int32[S]: the slots holding a voxel's key and points, in slot order
     (the map export's rows)."""

@@ -5,8 +5,8 @@ keypoints of the last ``window`` keyframes (on the host, as the streamer
 reconstructs them), every ``period`` registered frames re-associate them
 against the current map (``make_assemble_fn``: one K1 + K2 search over all
 the window's keypoints) and refine their begin/end poses jointly with the
-CT-BA step of ``parallel/ct_ba.py`` (K8 launches). The front end stays as it
-is: the backend smooths the trajectory after the fact.
+CT-BA step of ``parallel/ct_ba.py`` (one K8 launch a refine). The front
+end stays as it is: the backend smooths the trajectory after the fact.
 
 The refinement is applied one period late, as the reference does: a refine
 dispatches its work, copies the packed [F, 14] result into pinned host
@@ -114,7 +114,11 @@ class CTBABackend:
         self.assemble = make_assemble_fn(
             reg.level_index, reg.statics.voxel_neighborhood,
             reg.voxel_resolution, prior_weight=prior_weight)
-        self.step = ct_ba.make_ct_ba_step(num_inner_iters=2,
+        # the num_steps steps of 2 inner iterations run as one step of
+        # 2 x num_steps (one K8 launch): a block-Jacobi step repacks the
+        # poses it returns, so the iterations chain as they would across
+        # steps, bit for bit
+        self.step = ct_ba.make_ct_ba_step(num_inner_iters=2 * num_steps,
                                           beta=continuity_beta)
         self._keypoints: List[tuple] = []   # (fid, raw, alphas, valid)
         self._count = 0
@@ -220,9 +224,7 @@ class CTBABackend:
                                 qe, te,
                                 float(f32(odo.registration.search_radius)),
                                 ea_d)
-        state = ct_ba.CTBAState(qb, tb, qe, te)
-        for _ in range(self.num_steps):
-            state, _cost = self.step(state, problem)
+        state, _cost = self.step(ct_ba.CTBAState(qb, tb, qe, te), problem)
         packed = ct_ba.pack_state(state)
         if self.replay:
             # the map must reflect the refined poses before the next frame

@@ -362,8 +362,9 @@ class Odometry:
         odometry.py:486-583): re-point the retained frames at
         ``refined_frames`` (matched by the end pose's frame id), empty on
         every level the voxels of their OLD world points (the host-deduped
-        union, padded to a power of two; kernel K9), and re-insert each
-        refined frame's world points, host-deduped at ``voxel_size``, with
+        union, padded to a power of two; kernel K9, one launch over the
+        levels), and re-insert each refined frame's world points,
+        host-deduped at ``voxel_size``, with
         the refill budget of 12 election rounds (K3). Without it the next
         inserts wash a refinement out of the map. Returns the points
         re-inserted: summed on the device and read once a replay (with the
@@ -423,19 +424,19 @@ class Odometry:
 
     def _replay_apply(self, arrays, counts):
         """The device half of a replay, on the arrays of
-        :meth:`_replay_inputs` on the device: on each level one K9 eviction
-        of its coordinates, then one K3 insert a refined frame (12 election
-        rounds). Returns (points inserted, points evicted), int32[1] each on
-        the device; reads nothing back."""
-        valid = [torch.arange(a.shape[0], device=self.device) < n
-                 for a, n in zip(arrays, counts)]
+        :meth:`_replay_inputs` on the device: one K9 launch evicts every
+        level's coordinates (their row counts passed as they are), then one
+        K3 insert a refined frame and level (12 election rounds). Returns
+        (points inserted, points evicted), int32[1] each on the device;
+        reads nothing back."""
         n_lv = len(self.map_state)
+        evicted = vm.evict_levels(self.map_state, arrays[:n_lv],
+                                  counts[:n_lv])[n_lv:]
+        valid = [torch.arange(a.shape[0], device=self.device) < n
+                 for a, n in zip(arrays[n_lv:], counts[n_lv:])]
         inserted = torch.zeros(1, dtype=torch.int32, device=self.device)
-        evicted = torch.zeros(1, dtype=torch.int32, device=self.device)
-        for li, (level, rp) in enumerate(zip(self.map_state,
-                                             self.map_options.resolutions)):
-            evicted = evicted + vm.evict_voxels(level, arrays[li], valid[li])
-            for w, wv in zip(arrays[n_lv:], valid[n_lv:]):
+        for level, rp in zip(self.map_state, self.map_options.resolutions):
+            for w, wv in zip(arrays[n_lv:], valid):
                 inserted = inserted + vm.insert_points(
                     level, w, wv, rp.resolution,
                     rp.min_distance_between_points, max_rounds=12)

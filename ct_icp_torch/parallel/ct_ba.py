@@ -23,8 +23,8 @@ Jacobian ``jax.jacfwd`` takes there).
 
 Solvers (:func:`make_ct_ba_step`):
   * ``"jacobi"``: damped block-Jacobi GN, one 12x12 solve a keyframe with
-    its neighbours held at the previous iterate; an inner iteration is one
-    launch of kernel K8 (``kernels/ct_ba_block.py``);
+    its neighbours held at the previous iterate; a step's inner iterations
+    are one launch of kernel K8 (``kernels/ct_ba_block.py``);
   * ``"pcg"``: the coupled block-tridiagonal GN step by preconditioned
     conjugate gradients; K8 gives the point + prior blocks, the 4 edge rows
     and the CG loop are F x 12 x 12 torch ops.
@@ -278,9 +278,10 @@ def make_ct_ba_step(num_inner_iters: int = 2, beta: float = 1.0,
     cost of the last inner iteration, a 0-dim tensor). Nothing is read back.
 
     ``solver``:
-      * ``"jacobi"``: damped block-Jacobi GN; each inner iteration is one
-        K8 launch that reads the previous iterate's poses and writes new
-        ones (two buffers, no halo glue);
+      * ``"jacobi"``: damped block-Jacobi GN; the ``num_inner_iters``
+        iterations are one K8 launch (each reads the previous iterate's
+        poses; the cost is the last one's, summed in frame order on the
+        device);
       * ``"pcg"``: the coupled GN step: the block-tridiagonal normal
         equations over all keyframes by ``num_cg_iters`` iterations of
         block-diagonal preconditioned CG, on K8's point + prior blocks."""
@@ -289,11 +290,12 @@ def make_ct_ba_step(num_inner_iters: int = 2, beta: float = 1.0,
 
     def step_jacobi(state: CTBAState, problem: CTBAProblem):
         poses = pack_state(state)
-        cost = torch.zeros((), dtype=poses.dtype, device=poses.device)
-        for _ in range(num_inner_iters):
-            out = k8.ct_ba_block(poses, problem, beta, damping, "gn")
-            poses, cost = out.poses, out.cost.sum()
-        return unpack_state(poses), cost
+        if num_inner_iters == 0:
+            return unpack_state(poses), torch.zeros(
+                (), dtype=poses.dtype, device=poses.device)
+        out = k8.ct_ba_block(poses, problem, beta, damping, "gn",
+                             num_inner_iters)
+        return unpack_state(out.poses), out.total
 
     def step_pcg(state: CTBAState, problem: CTBAProblem):
         poses = pack_state(state)

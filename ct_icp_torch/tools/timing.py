@@ -108,9 +108,12 @@ def time_cold(fn, reps=20):
 
 
 def time_graph(reset, fn, reps=20):
-    """Mean device ms of ``fn()`` captured once in a CUDA graph and replayed
+    """Mean ms of ``fn()`` captured once in a CUDA graph and replayed
     between two events, ``reset()`` (which restores the state ``fn``
-    updates) run before each replay outside them. Returns (ms, method)."""
+    updates) run before each replay outside them. The span holds the
+    graph's submission as well as the call's device time: for a call of a
+    few microseconds, most of it (:func:`time_kernels` is the kernels'
+    own time). Returns (ms, method)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -152,3 +155,30 @@ def time_host(fn, reps=50):
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
     return total / reps, "events around the call"
+
+
+def time_kernels(fn, reset=None, reps=5):
+    """Median device ms of one ``fn()`` call's device operations (their
+    durations in torch.profiler's trace, summed), over ``reps`` traced
+    calls, ``reset()`` (which restores the state ``fn`` updates) run before
+    each outside the trace: the card's own time, without the launch's host
+    side or a graph's submission. Returns (ms, method), ms None where the
+    profiler saw no device operation."""
+    from torch.profiler import ProfilerActivity, profile
+    spans = []
+    for _ in range(reps):
+        if reset is not None:
+            reset()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.elapsed_us() for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        if us:
+            spans.append(sum(us) / 1e3)
+    if not spans:
+        return None, "profiler (no device activity seen)"
+    spans.sort()
+    return spans[len(spans) // 2], "profiler kernel duration"

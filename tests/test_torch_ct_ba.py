@@ -12,7 +12,11 @@ Single frames of a problem with priors and gaps between keyframes
 J^T J, J^T r and GN delta as ``jax.jacfwd`` over the reference's residual
 functions: J^T J within rtol 1e-4 plus an absolute 1e-4 of its largest
 entry (the quaternion-dot rows sit at their minimum, where their tangent is
-0 up to rounding), the delta within 1e-5.
+0 up to rounding), the delta within 1e-5. K8's plain version over 1, 2 and
+4 inner iterations matches the reference's step of as many (its
+fori_loop) on that problem, with the step test's tolerances; one call of n
+iterations equals n calls of one, and the backend's 2 steps of 2 equal
+one step of 4, bit for bit (the kernel runs them in one launch).
 """
 
 import jax
@@ -250,3 +254,68 @@ def test_blocks_match_reference_frames(edge_alpha):
     np.testing.assert_allclose(
         (out.cost + (tce * tce).sum(-1)).numpy(), np.asarray(cost),
         rtol=COST_RTOL, atol=COST_ATOL)
+
+
+# the reference's block-Jacobi step by inner iterations, one jit each, on
+# the module's one-device mesh
+_JSTEPS = {}
+
+
+def _reference_step(mesh, iters, beta):
+    key = (iters, beta)
+    if key not in _JSTEPS:
+        _JSTEPS[key] = jba.make_ct_ba_step(mesh, num_inner_iters=iters,
+                                           beta=beta)
+    return _JSTEPS[key]
+
+
+@pytest.mark.parametrize("iters", [1, 2, 4])
+@pytest.mark.parametrize("edge_alpha", [1.0, 1.3])
+def test_gn_iterations_match_reference(mesh1, edge_alpha, iters):
+    """K8's plain version over ``iters`` inner iterations (each on the
+    previous one's poses) against the reference's block-Jacobi step (its
+    fori_loop of ``iters``), on a window with priors and gaps between the
+    keyframes: the poses and the last iteration's total cost."""
+    beta = 2.0
+    js, jp = _gapped_problem(edge_alpha)
+    ts, tp = ct_ba_from_numpy(js, jp)
+    out = k8.ct_ba_block_plain(tba.pack_state(ts), tp, beta, 1e-3, "gn",
+                               iters)
+    js, jp = jba.shard_problem(mesh1, js, jp)
+    js, jcost = _reference_step(mesh1, iters, beta)(js, jp)
+    _assert_states_agree(js, tba.unpack_state(out.poses))
+    np.testing.assert_allclose(float(out.total), float(jcost),
+                               rtol=COST_RTOL, atol=COST_ATOL)
+
+
+@pytest.mark.parametrize("iters", [2, 4])
+def test_gn_iterations_in_one_call(iters):
+    """One call of ``iters`` inner iterations gives, bit for bit, what
+    ``iters`` calls of one give, each on the previous one's poses (so the
+    kernel, which runs them in one launch, has one plain version)."""
+    js, jp = _gapped_problem(1.3)
+    ts, tp = ct_ba_from_numpy(js, jp)
+    poses = tba.pack_state(ts)
+    one = k8.ct_ba_block_plain(poses, tp, 2.0, 1e-3, "gn", iters)
+    for _ in range(iters):
+        step = k8.ct_ba_block_plain(poses, tp, 2.0, 1e-3, "gn")
+        poses = step.poses
+    for name in ("poses", "cost", "jtj", "jtr", "total"):
+        assert torch.equal(getattr(one, name), getattr(step, name)), name
+    # the total is the frames' costs summed in frame order
+    assert torch.equal(one.total, k8.frame_order_sum(one.cost))
+
+
+def test_backend_steps_fold_into_one():
+    """The backend's 2 CT-BA steps of 2 inner iterations and the one step
+    of 4 it runs instead: the same poses and cost, bit for bit."""
+    js, jp = _gapped_problem(1.3)
+    ts, tp = ct_ba_from_numpy(js, jp)
+    step2 = tba.make_ct_ba_step(num_inner_iters=2, beta=2.0)
+    a = ts
+    for _ in range(2):
+        a, cost_a = step2(a, tp)
+    b, cost_b = tba.make_ct_ba_step(num_inner_iters=4, beta=2.0)(ts, tp)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+    assert torch.equal(cost_a, cost_b)

@@ -2,9 +2,9 @@
 (K5 as one launch per LM call, K3 as one launch per insert, K1 one launch a
 call returning slots, K2 reading the live points through them, the rebase
 as one K7 and one K6 launch, K4 one launch a call on a claim table kept
-from call to call, K8 one launch per CT-BA inner iteration, K9 one launch
-an eviction on a per-device accumulator it leaves zero, K10 one launch a
-level's normal refit).
+from call to call, K8 one launch per CT-BA step (its inner iterations in
+one launch), K9 one launch an eviction of every level on per-device
+accumulators it leaves zero, K10 one launch a level's normal refit).
 
 Needs an NVIDIA GPU and nvcc (the kernels build from ct_icp_torch/csrc at
 first use); skips elsewhere. Run on a machine with the card (this file needs
@@ -600,16 +600,33 @@ def _ct_ba_window(dev, f, k, edge_alpha, pad=37, seed=0):
 
 
 @pytest.mark.parametrize("edge_alpha", [1.0, 1.3])
-@pytest.mark.parametrize("mode", ["gn", "blocks"])
-@pytest.mark.parametrize("f, k", [(8, 4096), (3, 300), (1, 17)])
-def test_ct_ba_block_matches_plain(cuda, mode, edge_alpha, f, k):
+@pytest.mark.parametrize("mode, iters", [("gn", 1), ("gn", 2), ("gn", 4),
+                                         ("blocks", 1)])
+@pytest.mark.parametrize("f, k", [(8, 4096), (3, 300), (1, 17),
+                                  (1, 70000)])
+def test_ct_ba_block_matches_plain(cuda, mode, iters, edge_alpha, f, k):
     """K8 at the backend gate's window (F = 8, K = 4,096) and off the CTA
-    size, with a padded tail, at edge_alpha 1.0 and 1.3 (extrapolation)."""
+    size, with a padded tail, at edge_alpha 1.0 and 1.3 (extrapolation),
+    for 1, 2 and 4 inner iterations in one launch; K = 70,000 puts more
+    rows on a CTA than its shared memory keeps, which it reads from global
+    memory."""
     state, p = _ct_ba_window(cuda, f, k, edge_alpha, pad=min(37, k // 3))
     poses = ct_ba.pack_state(state)
     launches = k8.launches
-    checks.check_ct_ba_block(poses, p, 2.0, 1e-3, mode)
-    assert k8.launches == launches + 2          # one launch a call
+    checks.check_ct_ba_block(poses, p, 2.0, 1e-3, mode, iters=iters)
+    # one launch a call: two of the kernel's, and one of its iterate before
+    # the last where there are several
+    assert k8.launches == launches + (2 if iters == 1 else 3)
+
+
+@pytest.mark.parametrize("f, k", [(8, 4096), (3, 300), (6, 4096)])
+@pytest.mark.parametrize("iters", [2, 4])
+def test_ct_ba_block_iterations_in_one_launch(cuda, f, k, iters):
+    """One launch of n inner iterations gives, bit for bit, what n launches
+    of one give, each on the previous one's poses."""
+    state, p = _ct_ba_window(cuda, f, k, 1.3, pad=min(37, k // 3))
+    checks.check_ct_ba_iterations(ct_ba.pack_state(state), p, 2.0, 1e-3,
+                                  iters)
 
 
 def test_ct_ba_block_empty_frames(cuda):
@@ -623,16 +640,35 @@ def test_ct_ba_block_empty_frames(cuda):
                       for n in ("raw", "alphas", "anchors", "normals",
                                 "weights")})
     poses = ct_ba.pack_state(state)
-    for mode in ("gn", "blocks"):
+    for mode, iters in (("gn", 1), ("gn", 2), ("blocks", 1)):
         checks.check_ct_ba_block(poses, p, 2.0, 1e-3, mode,
-                                 compare_poses=False)
+                                 compare_poses=False, iters=iters)
+
+
+def test_ct_ba_block_beyond_one_wave(cuda):
+    """A window of more clusters than the card holds at once: one inner
+    iteration (no cluster waits for another) runs in waves and agrees with
+    the plain version; several either run (every cluster resident) or
+    raise before launching, and never hang."""
+    state, p = _ct_ba_window(cuda, 300, 64, 1.0, pad=5)
+    poses = ct_ba.pack_state(state)
+    checks.check_ct_ba_block(poses, p, 2.0, 1e-3, "gn")
+    launches = k8.launches
+    with pytest.raises(ValueError, match="resident"):
+        k8.ct_ba_block(poses, p, 2.0, 1e-3, "gn", 2)
+    assert k8.launches == launches
+    # the flags are still zero: a window that fits runs after it
+    small, q = _ct_ba_window(cuda, 8, 4096, 1.3)
+    checks.check_ct_ba_block(ct_ba.pack_state(small), q, 2.0, 1e-3, "gn",
+                             iters=2)
 
 
 @pytest.mark.parametrize("solver", ["jacobi", "pcg"])
 def test_ct_ba_step_on_card_matches_cpu(cuda, solver):
     """Two CT-BA steps (two inner iterations each, as the backend runs
     them) on the card (K8) and on the CPU (the plain version): poses within
-    1e-5 m and 1e-4 deg; the jacobi step is two K8 launches a step."""
+    1e-5 m and 1e-4 deg; the jacobi step is one K8 launch a step (its two
+    inner iterations in one launch), the pcg step two (one a CG solve)."""
     state, p = _ct_ba_window(cuda, 8, 4096, 1.3)
     step = ct_ba.make_ct_ba_step(num_inner_iters=2, beta=2.0, solver=solver)
     cpu = (ct_ba.CTBAState(*(x.cpu() for x in state)),
@@ -643,7 +679,7 @@ def test_ct_ba_step_on_card_matches_cpu(cuda, solver):
         a, _ = step(a, p)
         b, _ = step(b, cpu[1])
     torch.cuda.synchronize()
-    assert k8.launches == launches + 4
+    assert k8.launches == launches + (2 if solver == "jacobi" else 4)
     pa = ct_ba.pack_state(a).double().cpu().numpy()
     pb = ct_ba.pack_state(b).double().numpy()
     assert np.abs(pa[:, 4:7] - pb[:, 4:7]).max() <= 1e-5
@@ -687,6 +723,32 @@ def test_evict_voxels_matches_plain(cuda, m_found, m_absent, repeat):
         assert out["removed"] > 0 and out["emptied"] > 0
     # the accumulator is left zero: a second eviction agrees again
     checks.check_evict_voxels(level, coords, valid)
+
+
+@pytest.mark.parametrize("counts", [(700, 300, 40), (0, 120, 9),
+                                    (4000, 0, 0)])
+def test_evict_levels_matches_plain(cuda, counts):
+    """Three levels (0.8, 0.5 and 1.5 m) in one launch, each with its own
+    row count (zero included; the rows past it, which a replay pads with,
+    are garbage and must not be read): identical to the plain version, one
+    launch, and a second call agrees again (the accumulators left zero)."""
+    rng = np.random.default_rng(sum(counts))
+    levels, coords = [], []
+    for (cap_log2, res), n in zip(((14, 0.8), (15, 0.5), (12, 1.5)), counts):
+        lv = _warm_level(rng, cuda, cap_log2=cap_log2, res=res)
+        lv.nflags.copy_(torch.where(lv.count > 0, 3, 0).to(torch.int32))
+        c, _ = _evict_coords(rng, lv, res, n, n // 10, n // 20)
+        # past the count: real voxels, which an eviction that read them
+        # would empty
+        tail = _evict_coords(rng, lv, res, 64, 0, 0)[0][:64]
+        coords.append(torch.cat([c, tail]).contiguous())
+        levels.append(lv)
+    counts = [c.shape[0] - 64 for c in coords]
+    before = k9.launches
+    out = checks.check_evict_levels(levels, coords, counts)
+    assert k9.launches == before + 1
+    assert out["removed"][-1] == sum(out["removed"][:-1])
+    checks.check_evict_levels(levels, coords, counts)
 
 
 @pytest.mark.parametrize("cap_log2, p, res", [(14, 30, 0.8), (16, 50, 0.2),

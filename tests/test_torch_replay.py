@@ -5,7 +5,10 @@ ct_icp_tpu's, on the same numpy inputs.
 * ``evict_voxels`` on each level of a three-level map built by the
   reference (the room's frames inserted at their true poses) and converted:
   count, flags, keys, num_points and the points removed, bit for bit; the
-  coordinates hold found, absent, repeated and masked voxels.
+  coordinates hold found, absent, repeated and masked voxels; and
+  ``evict_levels`` (kernel K9's one launch over every level) on all three
+  levels at once, each list with its own row count and a tail of real
+  voxels past it, against the reference's eviction of each level.
 * ``replay_refined_frames`` given the same map, the same frame ring and the
   same refined poses (a subset of the retained frames moved by a few cm and
   tenths of a degree), at the origin and off it: every level's keys,
@@ -167,6 +170,44 @@ def test_evict_voxels_matches_reference(room_map, level):
     assert int(tremoved[0]) == int(jremoved) > 0
     _assert_levels_equal([jl2], [tl])
     assert int(tl.num_points[0]) < int(np.asarray(jl.num_points))
+
+
+def test_evict_levels_matches_reference(room_map):
+    """The one-launch eviction of every level (its plain version here)
+    against the reference's evict_voxels on each level of the room map:
+    each level's list holds found voxels, absent ones and a coordinate
+    listed twice, and past its row count a tail of real voxels (a replay's
+    padding) that must stay. Keys, counts, flags, num_points and the points
+    removed a level and in total, bit for bit."""
+    frames, odos = room_map
+    jodo = odos["origin"]
+    rng = np.random.default_rng(17)
+    w = _frame(jpose, frames[2], 2).begin_pose.continuous_transform(
+        frames[2]["xyz"], _frame(jpose, frames[2], 2).end_pose,
+        frames[2]["timestamps"])
+    coords, counts, jlevels, jremoved = [], [], [], []
+    for li, rp in enumerate(jodo.map_options.resolutions):
+        c = np.unique(np.trunc(w / rp.resolution).astype(np.int32), axis=0)
+        c = c[rng.permutation(c.shape[0])]
+        keep, tail = c[: c.shape[0] // 2], c[c.shape[0] // 2:]
+        absent = keep[:25] + np.array([0, 1000, 0], np.int32)
+        listed = np.concatenate([keep, absent, keep[:3]])   # one twice
+        listed = listed[rng.permutation(listed.shape[0])]
+        rows = np.concatenate([listed, tail])
+        padded = _pad_pow2(rows)
+        n = listed.shape[0]
+        jl2, jr = jodometry._jit_evict(
+            jodo.map_state.levels[li], jnp.asarray(padded),
+            jnp.asarray(np.arange(padded.shape[0]) < n))
+        coords.append(torch.as_tensor(padded))
+        counts.append(n)
+        jlevels.append(jl2)
+        jremoved.append(int(jr))
+    tlevels = convert.map_state_from_numpy(jodo.map_state.levels)
+    removed = tvm.evict_levels(tlevels, coords, counts)
+    assert removed.tolist() == jremoved + [sum(jremoved)]
+    assert min(jremoved) > 0
+    _assert_levels_equal(jlevels, tlevels)
 
 
 @pytest.mark.parametrize("case", ["origin", "offset"])
