@@ -33,13 +33,17 @@ when either is missing. Phases; any failure raises and exits non-zero:
      call of one step (each a CUDA graph of one launch), the steps the call
      ran and the time a step, and the call with its host path. K3 is one
      launch per insert: its device time (the profiler's kernel duration of
-     one insert on a restored copy, where the profiler sees the device;
-     the graph of one insert between events, which holds the graph's
-     submission, beside it) and its time with the host enqueue.
-     torch.profiler's trace of one call of
-     each, at the driving shapes, must show one device operation for K5
-     and K4, at most two for K3 and two (K7 and K6) for a rebuild_level of
-     the driving map (where the profiler sees the device at all). The stages
+     one insert on a copy of the level; the graph of one insert between
+     events, which holds the graph's submission, beside it) and its time
+     with the host enqueue. torch.profiler's trace of one call of each, at
+     the driving shapes, must show one device operation for K5 and K4, at
+     most two for K3 and two (K7 and K6) for a rebuild_level of the driving
+     map (where one of ten traces sees the device at all). Every profiler
+     trace (K3, K9 and K10 times, the device operations) is taken in a
+     process whose first trace is recent, on this process's tensors
+     (tools/timing.py::fresh_process_traces): on some of the card's
+     machines a process's traces hold no device activity from about 10 s
+     after its first trace on. The stages
      that stay plain torch (ROADMAP B9-B11) are timed the same way, each
      with its bound;
   4. the driving path: Odometry(default_driving_profile(), device="cuda")
@@ -96,7 +100,15 @@ when either is missing. Phases; any failure raises and exits non-zero:
      launched twice to show it repeats bit for bit, its launch of four
      iterations against four launches of one (identical), and the clock
      cycles of each of its phases (the -DK8_MARKS variant, built in
-     phase 2);
+     phase 2); then the window beyond the card's residency: the largest
+     window whose multi-iteration K8 launch fits at K = 4,096 and K = 64
+     (the occupancy API), whether the reference test's F = 16 fits, and
+     make_ct_ba_step's jacobi step of 2 inner iterations over one frame
+     more than fits at K = 4,096 (counts set to 0 just before it, read
+     just after: two chained K8 launches), against the CPU run of the same
+     inputs (its first launch held by the K8 check, its second's J^T J
+     against the plain version from the first iterate), timed; K8 with 2
+     iterations in one launch at F = 300 raises before launching;
   10. the robust corridor of phase 5 again with a rebase distance of 20 m:
      the speculative streamer's deferred rebases ("rebase" statuses) run;
      0 failures, APE <= 0.10 m, at least 2 rebases, and the largest end-pose
@@ -154,8 +166,10 @@ when either is missing. Phases; any failure raises and exits non-zero:
      CUDA graph of 20 evictions of an already evicted copy, and an empty
      kernel of the same grid both ways (the floor of each method; the graph
      of one eviction between events, which holds the graph's submission,
-     is kept beside them); K10 a graph of 20 calls; both also with their
-     host side;
+     is kept beside them); K10 the same way (a call on a list, the lanes a
+     queued slot its grid takes, kernels/level_normals.py::lanes) on the
+     three levels and level 1's all-refit list; both also with their host
+     side;
   17. K1 and K2 built from this tree give, on tools/exp_header_trees.py's
      inputs, the outputs the parent tree's build gave before their device
      code moved into csrc/probe.cuh and csrc/eigh3.cuh (SHA-256 digests);
@@ -194,6 +208,7 @@ import torch
 from ct_icp_torch.config.options import (default_driving_profile,
                                          default_robust_outdoor_low_inertia,
                                          robust_driving_profile)
+from ct_icp_torch.core import se3_np as s3n
 from ct_icp_torch.datasets import corridor as cor
 from ct_icp_torch.datasets import indoor_walk as iw
 from ct_icp_torch.datasets import long_drive as ld
@@ -222,8 +237,10 @@ from ct_icp_torch.tools import bench as gates
 from ct_icp_torch.tools import exp_header_trees as eht
 from ct_icp_torch.tools.exp_gather import k6_bytes, k6_fields_bytes
 from ct_icp_torch.tools.exp_moments import k2_bytes, live_work
-from ct_icp_torch.tools.timing import (HBM_BYTES_PER_S, bound, time_cold,
-                                       time_graph, time_host, time_kernels,
+from ct_icp_torch.tools.timing import (HBM_BYTES_PER_S, bound,
+                                       copy_into, end_fresh_process,
+                                       fresh_process_traces, time_cold,
+                                       time_graph, time_host,
                                        time_stateless)
 
 NUM_FRAMES = 80
@@ -318,7 +335,7 @@ WORK_KEYS = ("host_ms", "warm_ms", "library_warm_ms", "step_ms",
              "rebuild_level_plain_ms", "rows_live", "d_tr_m", "d_rot_deg",
              "left_out", "with_submission_ms", "graph20_ms", "floor_ms",
              "floor_graph20_ms", "iters", "cluster", "phase_cycles",
-             "one_launch_equals_chain", "removed")
+             "one_launch_equals_chain", "removed", "lanes")
 # the kernels of the first three paths (the rebase runs on none of them)
 K1_K5 = ["candidate_gather", "plane_moments", "map_insert", "grid_sample",
          "lm_step"]
@@ -516,19 +533,20 @@ def _kernel_k3(dev, level, res, prep, rounds, tag, count_ops=False):
     def insert():
         vm.insert_points(lv, pts, valid, res.resolution, md, rounds)
 
-    # the card's own time (the profiler's kernel duration); the graph of
-    # one call between events also holds the graph's submission
+    # the card's own time (the profiler's kernel duration, in a young
+    # process, each traced call on the level restored); the graph of one
+    # call between events also holds the graph's submission
     sub_ms, _ = time_graph(reset, insert)
-    ms, how = time_kernels(insert, reset)
-    if ms is None:
-        ms, how = sub_ms, "cuda-graph of one call (with its submission)"
+    job = (vm.insert_points, (lv, pts, valid, res.resolution, md, rounds),
+           (list(lv), list(level)))
+    traced = _traced(f"K3 {tag}", [("ms",) + job]
+                     + ([("ops",) + job] if count_ops else []))
+    ms, how = traced[0]
     host_ms, _ = time_mutating(lambda: _level_copy(level), lambda lv2:
                                vm.insert_points(lv2, pts, valid,
                                                 res.resolution, md, rounds))
-    ops = None
-    if count_ops:
-        reset()
-        ops = _require_ops("K3 map_insert", device_ops(insert), 2)
+    ops = (_require_ops("K3 map_insert", traced[1], 2) if count_ops
+           else None)
     del lv
     plain_ms, _ = time_mutating(
         lambda: _level_copy(level), lambda lv: k3.map_insert_plain(
@@ -669,11 +687,14 @@ def _ct_ba_row_ops(branch: str) -> int:
     return primal + jac + 2 * (78 + 12 + 1)
 
 
-def _require_ops(kernel, ops, most):
-    """The count of device operations one call made (None where the
-    profiler saw none); fails past ``most``."""
+def _require_ops(kernel, traced, most):
+    """The count of device operations one call made, from a fresh process's
+    ("ops") trace (None where none of its traces saw the device); fails
+    past ``most``."""
+    ops, traces = traced
     if ops is None:
-        log(f"{kernel}: the profiler saw no device operation (not measured)")
+        log(f"{kernel}: the profiler saw no device operation in {traces} "
+            f"traces (not measured)")
         return None
     log(f"{kernel}: device operations of one call: {ops}")
     if not 1 <= len(ops) <= most:
@@ -682,21 +703,19 @@ def _require_ops(kernel, ops, most):
     return len(ops)
 
 
-def device_ops(fn):
-    """The device operations (kernels, memsets, copies) of one ``fn()``
-    call by torch.profiler's trace, after a warm-up call; None where the
-    profiler sees no device activity (in one process it has seen it in its
-    first uses only, so the script counts at the driving shapes)."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
-    return names or None
+def _traced(what, jobs):
+    """``tools/timing.py::fresh_process_traces(jobs)``: the profiler's
+    kernel durations ("ms": the median of five traced calls that saw the
+    device) and device operations ("ops") of module functions on this
+    process's tensors, traced in a process whose first trace is recent;
+    fails where an "ms"
+    job's traces saw no device operation."""
+    out = fresh_process_traces(jobs)
+    for job, res in zip(jobs, out):
+        if job[0] == "ms" and res[0] is None:
+            raise RuntimeError(f"{what}: the profiler saw no device "
+                               f"operation ({res[1]})")
+    return out
 
 
 def _kernel_k5(dev, call, tag, count_ops=False):
@@ -730,8 +749,9 @@ def _kernel_k5(dev, call, tag, count_ops=False):
     plain_step_ms, _ = time_mutating(
         state0.clone, lambda s: k5.lm_step_plain(rows, prior, n_res, s,
                                                  *lm_args))
-    ops = (_require_ops("K5 lm_loop", device_ops(call_of(steps)), 1)
-           if count_ops else None)
+    ops = (_require_ops("K5 lm_loop", _traced("K5", [(
+        "ops", k5.lm_loop, (rows, prior, n_res, st, steps) + tuple(lm_args),
+        ([st], [state0]))])[0], 1) if count_ops else None)
     k = rows.shape[0]
     n_ok = int(n_res)
     log(f"K5 lm_loop {tag} K={k} kept={n_ok} n_steps={steps} ran "
@@ -790,18 +810,19 @@ def phase_kernels_driving(dev, o, preps):
                                preps_by_fid[max(preps_by_fid)], 4,
                                "driving cruise")
     records["map_insert"] = rec
-    # the rebase's device operations, counted here (the profiler sees the
-    # device in a process's first uses only): one K7 and one K6 launch
+    # the rebase's device operations, counted here: one K7 and one K6
+    # launch; and K4's, one launch: the election of frame 1's sub-sample at
+    # 1.0 m
     shift = torch.tensor([3.3, -0.7, 0.1], device=dev)
-    records["rebuild_level_device_ops"] = _require_ops(
-        "rebuild_level", device_ops(lambda: vm.rebuild_level(
-            level, shift, res.resolution)), 2)
-    # K4's, one launch: the election of frame 1's sub-sample at 1.0 m
     sub = torch.as_tensor(p1["xyz"], dtype=torch.float32, device=dev)
     ok = torch.ones(sub.shape[0], dtype=torch.bool, device=dev)
+    rebuild_ops, k4_ops = _traced("driving device operations", [
+        ("ops", vm.rebuild_level, (level, shift, res.resolution), None),
+        ("ops", k4.grid_sample, (sub, ok, 1.0, 4096), None)])
+    records["rebuild_level_device_ops"] = _require_ops(
+        "rebuild_level", rebuild_ops, 2)
     records["grid_sample_device_ops"] = _require_ops(
-        "K4 grid_sample", device_ops(lambda: k4.grid_sample(
-            sub, ok, 1.0, 4096)), 1)
+        "K4 grid_sample", k4_ops, 1)
     del level
     # K5: the first LM call of a frame on the per-frame path
     records["lm_step"] = _kernel_k5(dev, _path_lm_call(
@@ -1454,6 +1475,157 @@ def phase_kernels_backend(dev, capture):
     return records
 
 
+def _synthetic_window(dev, f, k, edge_alpha=1.3, seed=0):
+    """A CT-BA window shaped like the backend's (``tools/exp_ct_ba.py``'s):
+    ``parallel/ct_ba.py::build_synthetic_problem`` with the backend's prior
+    weight, the prior poses moved off the state and uniform row weights."""
+    rng = np.random.default_rng(seed)
+    state, p, _ = ct_ba.build_synthetic_problem(rng, f, k, noise=0.02)
+
+    def moved(x, scale):
+        return x + torch.from_numpy(rng.normal(
+            scale=scale, size=tuple(x.shape)).astype(np.float32))
+
+    p = p._replace(
+        weights=torch.from_numpy(rng.uniform(0.0, 0.5, (f, k)).astype(
+            np.float32)),
+        prior_tr_begin=moved(p.prior_tr_begin, 0.01),
+        prior_tr_end=moved(p.prior_tr_end, 0.01),
+        prior_quat_begin=moved(p.prior_quat_begin, 0.003),
+        prior_quat_end=moved(p.prior_quat_end, 0.003),
+        prior_weight=torch.full((f,), 1.5),
+        edge_alpha=torch.full((f,), float(edge_alpha)))
+    return (ct_ba.CTBAState(*(x.to(dev) for x in state)),
+            ct_ba.CTBAProblem(*(x.contiguous().to(dev) for x in p)))
+
+
+def _state_gaps(a, b):
+    """Largest position (m) and rotation (deg) gaps of two CT-BA states."""
+    pa = ct_ba.pack_state(a).double().cpu().numpy()
+    pb = ct_ba.pack_state(b).double().cpu().numpy()
+    d_tr = float(max(np.abs(pa[:, 4:7] - pb[:, 4:7]).max(),
+                     np.abs(pa[:, 11:14] - pb[:, 11:14]).max()))
+    d_rot = max(max(s3n.angular_distance_deg(x[0:4], y[0:4]),
+                    s3n.angular_distance_deg(x[7:11], y[7:11]))
+                for x, y in zip(pa, pb))
+    return d_tr, float(d_rot)
+
+
+def phase_ct_ba_beyond(dev):
+    """The CT-BA window beyond the card's residency: the largest window
+    whose multi-iteration K8 launch fits at the backend's K = 4,096 and at
+    K = 64 (the occupancy API, ``ct_ba_block.max_resident_frames``), and
+    whether the reference test's F = 16 fits; make_ct_ba_step's jacobi
+    step of two inner iterations over one frame more than fits at K =
+    4,096 (counts set to 0 just before it, read just after): two chained
+    K8 launches of one iteration, against the CPU run of the same inputs
+    (poses within 1e-5 m and 1e-4 deg, the cost within rtol 1e-5), its
+    first launch held by the K8 check (``kernels/checks.py``) and its
+    second's J^T J against the plain version from the card's first
+    iterate (within the check's 1e-4 of its largest entry) and its J^T r
+    against that version in float64 (within 10 times the float32 plain
+    version's gap to it: a nearly converged gradient's rounding), timed (a CUDA
+    graph of 20 steps, and with its host side) beside the plain version on
+    the card; and K8 with two iterations in one launch at F = 300, K = 64
+    raises before launching."""
+    k = 4096
+    limits = {kk: k8.max_resident_frames(kk, dev) for kk in (k, 64)}
+    f = limits[k] + 1
+    beta = gates.backend_profile(True).backend.continuity_beta
+    damping = 1e-3
+    state, problem = _synthetic_window(dev, f, k)
+    step = ct_ba.make_ct_ba_step(num_inner_iters=2, beta=beta)
+    _reset_counts()
+    got, cost = step(state, problem)
+    torch.cuda.synchronize()
+    out = {"launches": _read_counts(), "lm_steps": _read_steps(),
+           "max_resident_frames": limits,
+           "reference_f16_fits": k8.resident(16, k, dev), "frames": f}
+    if out["launches"]["ct_ba_block"] != 2:
+        raise RuntimeError(f"CT-BA step at F = {f}: "
+                           f"{out['launches']['ct_ba_block']} K8 launches, "
+                           f"not 2 chained")
+    want, want_cost = step(ct_ba.CTBAState(*(x.cpu() for x in state)),
+                           ct_ba.CTBAProblem(*(x.cpu() for x in problem)))
+    d_tr, d_rot = _state_gaps(got, want)
+    cost_rel = abs(float(cost) - float(want_cost)) / abs(float(want_cost))
+    if not (d_tr <= 1e-5 and d_rot <= 1e-4 and cost_rel <= 1e-5):
+        raise RuntimeError(f"CT-BA step at F = {f} against the CPU: poses "
+                           f"{d_tr:.3g} m, {d_rot:.3g} deg, cost "
+                           f"{cost_rel:.3g}")
+    poses = ct_ba.pack_state(state)
+    # the chain's first launch against the plain version (the K8 check,
+    # from the window's poses), its second's J^T J from the first iterate
+    err = checks.check_ct_ba_block(poses, problem, beta, damping, "gn")
+    first = k8.ct_ba_block(poses, problem, beta, damping, "gn").poses
+    second = k8.ct_ba_block(first, problem, beta, damping, "gn")
+    plain_2 = k8.ct_ba_block_plain(first, problem, beta, damping, "gn")
+    jtj_2 = checks._rel_err(second.jtj, plain_2.jtj)
+    if not jtj_2 <= 1e-4:
+        raise RuntimeError(f"CT-BA step at F = {f}: the second launch's "
+                           f"J^T J {jtj_2:.3g} of its largest entry off")
+    # the second launch's J^T r is a nearly converged window's gradient,
+    # whose float32 sums round by 1e-4 of its largest entry: the kernel's
+    # and the plain version's gaps to the plain version in float64 from
+    # the same iterate, the kernel's held within 10 times the plain one's
+    p64 = ct_ba.CTBAProblem(*(x.double() if x.is_floating_point() else x
+                              for x in problem))
+    jtr_64 = k8.ct_ba_block_plain(first.double(), p64, beta, damping,
+                                  "gn").jtr
+    jtr_2 = {"kernel_vs_plain": checks._rel_err(second.jtr, plain_2.jtr),
+             "kernel_vs_float64": checks._rel_err(second.jtr.double(),
+                                                  jtr_64),
+             "plain_vs_float64": checks._rel_err(plain_2.jtr.double(),
+                                                 jtr_64)}
+    if not jtr_2["kernel_vs_float64"] <= max(
+            10 * jtr_2["plain_vs_float64"], 1e-6):
+        raise RuntimeError(f"CT-BA step at F = {f}: the second launch's "
+                           f"J^T r off the float64 version {jtr_2}")
+    ms, how = time_stateless(lambda: step(state, problem))
+    host_ms, _ = time_host(lambda: step(state, problem))
+    plain_ms, _ = time_host(lambda: k8.ct_ba_block_plain(
+        poses, problem, beta, damping, "gn", 2), reps=3)
+    big_state, big = _synthetic_window(dev, 300, 64)
+    before = k8.launches
+    try:
+        k8.ct_ba_block(ct_ba.pack_state(big_state), big, beta, damping, "gn",
+                       2)
+    except ValueError as e:
+        if "resident" not in str(e):
+            raise
+    else:
+        raise RuntimeError("K8 with 2 iterations at F = 300 did not raise")
+    if k8.launches != before:
+        raise RuntimeError("K8 launched before raising at F = 300")
+    live = int((problem.weights != 0).sum())
+    branch, _ = _slerp_branch(torch.cat([poses[0], torch.zeros(
+        k5.STATE_SIZE - 14, device=dev)]))
+    rec = dict(max_abs_err=err["max_abs_err"], ms=ms, plain_ms=plain_ms,
+               library_ms=None, timing=how, host_ms=host_ms, iters=2,
+               bytes=f * k * 4 + live * 40 + f * (14 + 14 + 2) * 4
+               + f * (14 + 1 + 144 + 12) * 4 + 4,
+               ops=2 * live * float(_ct_ba_row_ops(branch)), rows_live=live,
+               d_tr_m=d_tr, d_rot_deg=d_rot, relative=err["relative"],
+               cluster=16, shape=f"F={f} K={k} live={live} mode=gn iters=2 "
+                                 f"(two chained launches)")
+    out.update(d_tr_m=d_tr, d_rot_deg=d_rot, cost_rel=cost_rel,
+               check=err["relative"], second_jtj=jtj_2, second_jtr=jtr_2,
+               f300_raises=True)
+    log(f"CT-BA beyond residency: largest resident window {limits} "
+        f"(K: frames), the reference's F = 16 at K = {k} "
+        f"{'fits' if out['reference_f16_fits'] else 'does not fit'}; "
+        f"the jacobi step of 2 at F = {f}: 2 chained K8 launches, poses "
+        f"{d_tr:.3g} m / {d_rot:.3g} deg and cost {cost_rel:.3g} from the "
+        f"CPU run; the first launch's J^T J {err['relative']['jtj']:.3g} "
+        f"and J^T r {err['relative']['jtr']:.3g} of their largest entries "
+        f"from the plain version, the second's J^T J {jtj_2:.3g} and J^T r "
+        f"{json.dumps(jtr_2)}; "
+        f"{ms:.4f} ms on the device ({how}), "
+        f"{host_ms:.4f} with its host side, plain {plain_ms:.4f}; two "
+        f"iterations in one launch at F = 300 raise before launching")
+    return out, rec
+
+
 def phase_robust_rebase(dev, robust_run, robust_out):
     """Phase 5's robust corridor again (the same prepared frames) with the
     rebase distance at 20 m: the speculative streamer defers its rebases
@@ -1921,31 +2093,36 @@ def _k9_bytes(level, coords, n_valid, found, flags):
         + found * 12 + 8
 
 
-def _k9_times(call, reset, blocks):
-    """K9's own time on the card (the profiler's kernel duration, a call on
-    a restored copy), a CUDA graph of 20 calls on an already evicted copy
+def _k9_times(call, reset, job, blocks):
+    """K9's own time on the card (the profiler's kernel duration of
+    ``job``, (fn, args, restore), in a process whose first trace is
+    recent, each traced call on
+    the levels restored), a CUDA graph of 20 calls on an already evicted copy
     (eviction is idempotent: the same probes and stores, nothing removed),
     the graph of one call between events after a restore (which holds the
     graph's submission), and an empty kernel on the same grid the first two
     ways: the floor of each method."""
-    ms, how = time_kernels(call, reset)
+    (ms, how), (floor_ms, _) = _traced("K9", [
+        ("ms",) + job, ("ms", k9.empty_launch, (blocks,), None)])
     sub_ms, _ = time_graph(reset, call)
     reset()
     g20, _ = time_stateless(call)
-    floor_ms, _ = time_kernels(lambda: k9.empty_launch(blocks))
     floor_g20, _ = time_stateless(lambda: k9.empty_launch(blocks))
-    if ms is None:
-        ms, how = g20, "cuda-graph of 20 calls on an evicted copy"
     return dict(ms=ms, timing=how, graph20_ms=g20, with_submission_ms=sub_ms,
                 floor_ms=floor_ms, floor_graph20_ms=floor_g20)
 
 
+def _restored(works, levels):
+    """(dsts, srcs): the tensors an eviction updates in ``works`` and their
+    values in ``levels``."""
+    fields = ("count", "nflags", "num_points")
+    return ([getattr(w, f) for w in works for f in fields],
+            [getattr(lv, f) for lv in levels for f in fields])
+
+
 def _restore(works, levels):
     def reset():
-        for w, lv in zip(works, levels):
-            for t, src in ((w.count, lv.count), (w.nflags, lv.nflags),
-                           (w.num_points, lv.num_points)):
-                t.copy_(src)
+        copy_into(*_restored(works, levels))
     return reset
 
 
@@ -1960,7 +2137,9 @@ def _kernel_k9(levels, coords, counts):
     def call():
         return vm.evict_levels(works, coords, counts)
 
-    times = _k9_times(call, reset, k9.grid_blocks(counts))
+    times = _k9_times(call, reset, (vm.evict_levels, (works, coords, counts),
+                                    _restored(works, levels)),
+                      k9.grid_blocks(counts))
     host_ms, _ = time_mutating(lambda: reset() or works, lambda _w: call())
     plains = [_level_copy(lv) for lv in levels]
     plain_ms, _ = time_host(lambda: k9.evict_levels_plain(
@@ -1998,7 +2177,9 @@ def _kernel_k9_level(level, coords, valid, tag):
     def call():
         return vm.evict_voxels(work, coords, valid)
 
-    times = _k9_times(call, reset, k9.grid_blocks([coords.shape[0]]))
+    times = _k9_times(call, reset, (vm.evict_voxels, (work, coords, valid),
+                                    _restored([work], [level])),
+                      k9.grid_blocks([coords.shape[0]]))
     plain = _level_copy(level)
     plain_ms, _ = time_host(lambda: k9.evict_voxels_plain(
         plain.keys, plain.count.clone(), plain.nflags.clone(),
@@ -2017,17 +2198,24 @@ def _kernel_k9_level(level, coords, valid, tag):
                 **times)
 
 
-def _kernel_k10(level, location, tag):
-    """K10 against its plain version on one level's occupied slots (the
-    export's slot list), then timed: a CUDA graph of 20 calls, and with
-    its host side; the plain version."""
-    slots = vm.occupied_slots(level)
+def _kernel_k10(level, location, tag, slots=None):
+    """K10 against its plain version on a list of a level's slots (its
+    occupied slots, the export's list, by default), then timed: the
+    profiler's kernel duration, a CUDA graph of 20 calls, an empty kernel
+    of the same grid both ways, and with its host side; the plain
+    version."""
+    if slots is None:
+        slots = vm.occupied_slots(level)
     err = checks.check_level_normals(level, location, slots)
 
     def call():
         return vm.refit_normals(level, location, slots)
 
-    ms, how = time_stateless(call)
+    (ms, how), (floor_ms, _) = _traced(f"K10 {tag}", [
+        ("ms", vm.refit_normals, (level, location, slots), None),
+        ("ms", k10.empty_launch, (slots.shape[0],), None)])
+    g20, _ = time_stateless(call)
+    floor_g20, _ = time_stateless(lambda: k10.empty_launch(slots.shape[0]))
     host_ms, _ = time_host(call)
     plain_ms, _ = time_host(lambda: k10.level_normals_plain(
         level.keys, level.count, level.points, level.normals, level.nflags,
@@ -2044,14 +2232,19 @@ def _kernel_k10(level, location, tag):
     # 3 differences and 9 products and sums a point, ~400 operations of
     # the eigensolve and orientation a slot
     ops = live * 21.0 + n_refit * 400.0
+    lanes = k10.lanes(s)
     log(f"K10 level_normals {tag}: C = {level.capacity}, P = {p}, {s} "
-        f"occupied slots listed, {n_refit} refit ({live} points, "
+        f"slots listed ({lanes} lanes a queued slot), {n_refit} refit "
+        f"({live} points, "
         f"{err['left_out']} left out of the normal comparison): within "
         f"tolerance ({json.dumps(err)}); {ms:.4f} ms on the device ({how}), "
-        f"{host_ms:.4f} ms with its host side, plain {plain_ms:.4f} ms")
+        f"a graph of 20 {g20:.4f} ms a call; an empty kernel of the grid "
+        f"{floor_ms:.4f} / {floor_g20:.4f}; {host_ms:.4f} ms with its host "
+        f"side, plain {plain_ms:.4f} ms")
     return dict(max_abs_err=err["max_abs_err"], ms=ms, plain_ms=plain_ms,
                 library_ms=None, bytes=n_bytes, ops=ops, timing=how,
-                host_ms=host_ms, left_out=err["left_out"],
+                graph20_ms=g20, floor_ms=floor_ms, floor_graph20_ms=floor_g20,
+                host_ms=host_ms, left_out=err["left_out"], lanes=lanes,
                 shape=f"C={level.capacity} P={p} listed={s} "
                       f"refit={n_refit} points={live}")
 
@@ -2105,6 +2298,13 @@ def phase_kernels_replay(dev, odo, capture):
             rec["others"] = {}
         else:
             records["level_normals"]["others"][f"level {li}"] = rec
+    # every refit slot of level 1 and nothing else: the dirty-slot refit's
+    # shape
+    level = odo.map_state[1]
+    occ = vm.occupied_slots(level)
+    refit = k10.refit_mask(level.keys[occ.long()], level.count[occ.long()])
+    records["level_normals"]["others"]["all-refit (level 1)"] = _kernel_k10(
+        level, loc, "all-refit (level 1)", occ[refit].contiguous())
     return records
 
 
@@ -2232,6 +2432,9 @@ def main() -> int:
     del long_acq
     backend_records = phase_kernels_backend(dev, refine_capture)
     del refine_capture
+    ct_ba_beyond, beyond_record = phase_ct_ba_beyond(dev)
+    backend_records["ct_ba_block"]["others"][
+        "jacobi step x2 beyond residency"] = beyond_record
     robust_rebase, robust_capture = phase_robust_rebase(dev, robust_run,
                                                         robust)
     del robust_run
@@ -2258,6 +2461,7 @@ def main() -> int:
              "replay_gate_off": replay_runs["gate_off"],
              "room": replay_runs["room_on"],
              "room_off": replay_runs["room_off"], "export": export,
+             "ct_ba_beyond_residency": ct_ba_beyond,
              "robust_backend": robust_backend,
              "escalation_backend": escalation_backend}
     primary = {**robust_records, **rebase_records,
@@ -2354,4 +2558,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        end_fresh_process()
+    sys.exit(code)

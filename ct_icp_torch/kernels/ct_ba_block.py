@@ -119,12 +119,12 @@ def ct_ba_block(poses, problem, beta: float, damping: float, mode: str,
     return out
 
 
-def cluster_size(f: int, k: int, dev, waits: bool = True) -> int:
-    """The CTAs of a frame's cluster for a window of ``f`` frames of ``k``
-    rows on ``dev``: 16, or 8 where ``f`` clusters of 16 cannot all be
-    resident at once. A launch whose clusters wait for each other
-    (``waits``: several iterations of several frames) raises where ``f``
-    clusters of 8 cannot be resident either; one that does not takes 16."""
+def _resident_cluster(f: int, k: int, dev) -> int:
+    """``csrc`` ``k8_cluster``: the CTAs of a frame's cluster (16 or 8) with
+    which all ``f`` clusters of ``k`` rows are resident on ``dev`` at once,
+    0 where neither size fits (the occupancy API, cached)."""
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     key = (dev, f, k)
     c = _clusters.get(key)
     if c is None:
@@ -133,6 +133,35 @@ def cluster_size(f: int, k: int, dev, waits: bool = True) -> int:
         if c < 0:
             build.check_status(-c, "ct_ba_block")
         _clusters[key] = c
+    return c
+
+
+def resident(f: int, k: int, dev) -> bool:
+    """Whether one launch of several inner iterations over ``f`` frames of
+    ``k`` rows fits on ``dev``: every frame's cluster resident at once (a
+    frame waits on its neighbours' iteration flags), or a single frame.
+    Never raises for a window that does not fit."""
+    return f <= 1 or _resident_cluster(f, k, dev) != 0
+
+
+def max_resident_frames(k: int, dev, most: int = 4096) -> int:
+    """The largest window (frames of ``k`` rows, at most ``most``) whose
+    multi-iteration launch fits on ``dev`` (:func:`resident`)."""
+    lo, hi = 1, most
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if resident(mid, k, dev) else (lo, mid - 1)
+    return lo
+
+
+def cluster_size(f: int, k: int, dev, waits: bool = True) -> int:
+    """The CTAs of a frame's cluster for a window of ``f`` frames of ``k``
+    rows on ``dev``: 16, or 8 where ``f`` clusters of 16 cannot all be
+    resident at once. A launch whose clusters wait for each other
+    (``waits``: several iterations of several frames) raises where ``f``
+    clusters of 8 cannot be resident either (:func:`resident` asks
+    without raising); one that does not takes 16."""
+    c = _resident_cluster(f, k, dev)
     if c == 0 and waits:
         raise ValueError(f"ct_ba_block: the {f} clusters of a multi-iteration "
                          f"launch cannot all be resident on {dev}")

@@ -11,12 +11,17 @@ reference refits a copy of the level for the export. The export
 (``Odometry.get_map_points``) lists the occupied slots it copies out;
 ``voxel_map.recompute_level_normals`` lists every slot.
 
-Kernel: ``csrc/level_normals.cu`` — one launch over the S listed slots, a
-warp for each: a slot not refit is copied through, a refit slot's moments
-are summed by the warp (a lane a point) and its lane 0 runs the eigensolve
-(``csrc/eigh3.cuh``, K2's). Bound on the card: bytes (each listed
-slot's index, key, count, normal and flag out, the old normal and flag of
-the listed slots not refit, the refit slots' live points).
+Kernel: ``csrc/level_normals.cu`` — one launch over the S listed slots,
+blocks of 256 threads, a thread a listed slot (256 slots a block, fewer
+for a short list): a slot not refit is copied through by its thread, a
+refit slot goes into the block's queue in shared memory; a group of lanes
+a queued slot sums its moments (a lane a point, shuffles; a warp where the
+grid has at most one block an SM, else 8 lanes: :func:`lanes`), then a
+thread a queued slot runs the eigensolve (``csrc/eigh3.cuh``, K2's) and
+the orientation.
+Bound on the card: bytes (each listed slot's index, key, count, normal and
+flag out, the old normal and flag of the listed slots not refit, the refit
+slots' live points).
 
 A CPU tensor takes :func:`level_normals_plain`; a CUDA tensor launches the
 kernel or raises.
@@ -88,11 +93,11 @@ def level_normals(keys, count, points, normals, nflags, location, slots):
     points f32[C, 3P], normals f32[C, 3]) oriented toward ``location``
     f32[3] (on the level's device): returns new (normals f32[S, 3],
     nflags int32[S]); the level is left as it is."""
-    if keys.device.type == "cpu":
-        return level_normals_plain(keys, count, points, normals, nflags,
-                                   location, slots)
     global launches
     dev = keys.device
+    if dev.type == "cpu":
+        return level_normals_plain(keys, count, points, normals, nflags,
+                                   location, slots)
     if dev.type != "cuda":
         raise ValueError(f"level_normals: no kernel for {dev}")
     c, row_len, s = keys.shape[0], points.shape[1], slots.shape[0]
@@ -115,8 +120,25 @@ def level_normals(keys, count, points, normals, nflags, location, slots):
                 build.ptr(slots), s, row_len // 3, build.ptr(out_normals),
                 build.ptr(out_nflags), build.stream_of(keys))
     build.check_status(status, "level_normals")
-    launches += 1
+    if s:
+        launches += 1       # an empty list launches nothing
     return out_normals, out_nflags
+
+
+def lanes(n_slots: int) -> int:
+    """The lanes a queued slot's moments take in a kernel call over
+    ``n_slots`` listed slots on the current card (32 where the grid has at
+    most one block an SM, else 8)."""
+    return build.launcher("level_normals", "k10_lanes", (build.INT,))(n_slots)
+
+
+def empty_launch(n_slots: int):
+    """An empty kernel on the grid of a call over ``n_slots`` listed slots,
+    on the current stream: the floor of a launch of that shape
+    (measurement only; no launch counter sees it)."""
+    fn = build.launcher("level_normals", "k10_empty", (build.INT, build.PTR))
+    build.check_status(fn(n_slots, torch.cuda.current_stream().cuda_stream),
+                       "k10_empty")
 
 
 _ARGTYPES = (build.PTR,) * 7 + (build.INT, build.INT) + (build.PTR,) * 3

@@ -24,7 +24,8 @@ Jacobian ``jax.jacfwd`` takes there).
 Solvers (:func:`make_ct_ba_step`):
   * ``"jacobi"``: damped block-Jacobi GN, one 12x12 solve a keyframe with
     its neighbours held at the previous iterate; a step's inner iterations
-    are one launch of kernel K8 (``kernels/ct_ba_block.py``);
+    are one launch of kernel K8 (``kernels/ct_ba_block.py``), or one launch
+    an iteration where the window's clusters do not all fit on the card;
   * ``"pcg"``: the coupled block-tridiagonal GN step by preconditioned
     conjugate gradients; K8 gives the point + prior blocks, the 4 edge rows
     and the CG loop are F x 12 x 12 torch ops.
@@ -271,6 +272,19 @@ def edge_blocks(poses, edge_alpha, w_edge, beta: float):
     return ce.v, jac[..., 0:12], jac[..., 12:24]
 
 
+def jacobi_launches(f: int, k: int, iters: int, device) -> int:
+    """The K8 launches that run a block-Jacobi step of ``iters`` inner
+    iterations over ``f`` frames of ``k`` rows on ``device``: one where its
+    clusters can all be resident at once (its frames wait on each other's
+    iteration flags), or on the CPU (the plain version); else ``iters``
+    launches of one iteration, which wait on nothing and run in waves. The
+    two give the same poses and cost bit for bit."""
+    if iters <= 1 or device.type == "cpu" \
+            or k8.resident(f, k, device):
+        return 1
+    return iters
+
+
 def make_ct_ba_step(num_inner_iters: int = 2, beta: float = 1.0,
                     damping: float = 1e-3, solver: str = "jacobi",
                     num_cg_iters: int = 16):
@@ -281,7 +295,8 @@ def make_ct_ba_step(num_inner_iters: int = 2, beta: float = 1.0,
       * ``"jacobi"``: damped block-Jacobi GN; the ``num_inner_iters``
         iterations are one K8 launch (each reads the previous iterate's
         poses; the cost is the last one's, summed in frame order on the
-        device);
+        device), or a chain of single-iteration launches for a window
+        whose clusters do not all fit on the card (:func:`jacobi_launches`);
       * ``"pcg"``: the coupled GN step: the block-tridiagonal normal
         equations over all keyframes by ``num_cg_iters`` iterations of
         block-diagonal preconditioned CG, on K8's point + prior blocks."""
@@ -293,9 +308,13 @@ def make_ct_ba_step(num_inner_iters: int = 2, beta: float = 1.0,
         if num_inner_iters == 0:
             return unpack_state(poses), torch.zeros(
                 (), dtype=poses.dtype, device=poses.device)
-        out = k8.ct_ba_block(poses, problem, beta, damping, "gn",
-                             num_inner_iters)
-        return unpack_state(out.poses), out.total
+        n = jacobi_launches(poses.shape[0], problem.raw.shape[1],
+                            num_inner_iters, poses.device)
+        for _ in range(n):
+            out = k8.ct_ba_block(poses, problem, beta, damping, "gn",
+                                 num_inner_iters // n)
+            poses = out.poses
+        return unpack_state(poses), out.total
 
     def step_pcg(state: CTBAState, problem: CTBAProblem):
         poses = pack_state(state)

@@ -151,14 +151,15 @@ print(json.dumps(out))
 '''
 
 
-def run_child(child: str, root: Path) -> dict:
+def run_child(child: str, root: Path, *args: str) -> dict:
     """Run the program ``child`` in a process of its own on the tree
-    ``root`` (its ``ct_icp_torch`` first on the path, its own ``build/``),
-    and return the JSON of its last line."""
+    ``root`` (its ``ct_icp_torch`` first on the path, its own ``build/``;
+    ``args`` follow the tree on its command line), and return the JSON of
+    its last line."""
     env = dict(os.environ)
     cuda_bin = os.path.join(env.get("CUDA_HOME", "/usr/local/cuda"), "bin")
     env["PATH"] = cuda_bin + os.pathsep + env.get("PATH", "")
-    out = subprocess.run([sys.executable, "-c", child, str(root)],
+    out = subprocess.run([sys.executable, "-c", child, str(root), *args],
                          capture_output=True, text=True, env=env, cwd=root)
     if out.returncode:
         raise RuntimeError(f"{root}: {out.stderr[-3000:]}")

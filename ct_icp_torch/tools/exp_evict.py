@@ -16,7 +16,8 @@ power of two.
 
 For each level and tree, one eviction's time three ways:
   * ``profiler_us``: the kernel's duration in torch.profiler's trace (one
-    call on a restored copy, five times; what the card itself takes);
+    call on a restored copy, five times, 20 ms of idle host time on each
+    side inside the trace; what the card itself takes);
   * ``graph20_ms``: a CUDA graph of 20 calls on an already evicted copy,
     divided by 20 (eviction is idempotent: the same probes, exchanges and
     stores, nothing removed);
@@ -37,7 +38,7 @@ from pathlib import Path
 from ct_icp_torch.tools.exp_ct_ba import card_line, run_child
 
 _CHILD = r'''
-import json, statistics, sys
+import json, statistics, sys, time
 sys.path.insert(0, sys.argv[1])
 import numpy as np, torch
 from torch.profiler import ProfilerActivity, profile
@@ -93,8 +94,10 @@ def kernel_us(fn, reset, name, reps=5):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)       # idle margins: tools/timing.py
             fn()
             torch.cuda.synchronize()
+            time.sleep(0.02)
         d = [e.time_range.elapsed_us() for e in prof.events()
              if e.device_type == torch.autograd.DeviceType.CUDA
              and name in e.name]

@@ -7,12 +7,67 @@ the float32 rate. Times are CUDA-event spans on the current stream; the
 timers need a card, and nothing here touches it at import.
 """
 
+import queue
+import time
+
 import torch
 
 # One H100 SXM (NVIDIA data sheet, full 700 W power limit): HBM rate and
 # the float32 rate outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# Idle host time inside a torch.profiler trace on each side of the traced
+# call. Kineto keeps a device activity only where its CUPTI timestamps lie
+# inside the trace's host-clock window, and on the card's machines those
+# timestamps stand off the host clock by a few hundred us up to 2.7 ms,
+# differently from trace to trace: a trace that holds a few ms around a
+# call loses its kernels at random (tools/exp_profiler.py; PERF.md §6).
+PROFILE_MARGIN_S = 0.02
+# The tracing process of fresh_process_traces takes no job once this many
+# seconds have passed since its first trace (on some of the card's
+# machines a process's traces lose their kernels from about 10 s after its
+# first one on, margins or not: tools/exp_profiler.py, PERF.md §6), and is
+# ended where a call of its jobs takes longer than the timeout.
+FRESH_PROCESS_AGE_S = 5.0
+FRESH_PROCESS_TIMEOUT_S = 300.0
+
+
+def device_trace(fn):
+    """``fn()`` traced by torch.profiler (CPU and CUDA activities) with
+    :data:`PROFILE_MARGIN_S` of idle host time before the call and after
+    its synchronize; returns the profile."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_MARGIN_S)
+        fn()
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_MARGIN_S)
+    return prof
+
+
+def device_events(prof, name=""):
+    """The device events of a trace whose names hold ``name``."""
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and name in e.name]
+
+
+def first_device_trace(fn, most, reset=None):
+    """The device events of the first of up to ``most`` traced ``fn()``
+    calls (:func:`device_trace`, ``reset()`` before each outside the trace)
+    that saw the device, and the number of traces taken; (None, most)
+    where none did. A trace that saw nothing holds no measurement: on some
+    of the card's machines a process's traces hold no device activity from
+    about 10 s after its first trace on (PERF.md §6)."""
+    for traces in range(1, most + 1):
+        if reset is not None:
+            reset()
+        torch.cuda.synchronize()
+        events = device_events(device_trace(fn))
+        if events:
+            return events, traces
+    return None, most
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -157,28 +212,130 @@ def time_host(fn, reps=50):
     return total / reps, "events around the call"
 
 
-def time_kernels(fn, reset=None, reps=5):
+def time_kernels(fn, reset=None, reps=5, most=50):
     """Median device ms of one ``fn()`` call's device operations (their
     durations in torch.profiler's trace, summed), over ``reps`` traced
-    calls, ``reset()`` (which restores the state ``fn`` updates) run before
-    each outside the trace: the card's own time, without the launch's host
-    side or a graph's submission. Returns (ms, method), ms None where the
-    profiler saw no device operation."""
-    from torch.profiler import ProfilerActivity, profile
-    spans = []
-    for _ in range(reps):
-        if reset is not None:
-            reset()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        us = [e.time_range.elapsed_us() for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-        if us:
-            spans.append(sum(us) / 1e3)
+    calls that saw a device operation, ``reset()`` (which restores the
+    state ``fn`` updates) run before each outside the trace: the card's own
+    time, without the launch's host side or a graph's submission. Up to
+    ``most`` calls are traced in all (:func:`first_device_trace`); the
+    method names how many saw the device. Returns (ms, method), ms None
+    where none did."""
+    spans, traces = [], 0
+    while len(spans) < reps and traces < most:
+        events, n = first_device_trace(fn, most - traces, reset)
+        traces += n
+        if events:
+            spans.append(sum(e.time_range.elapsed_us() for e in events) / 1e3)
     if not spans:
-        return None, "profiler (no device activity seen)"
+        return None, f"profiler (no device activity in {traces} traces)"
     spans.sort()
-    return spans[len(spans) // 2], "profiler kernel duration"
+    return spans[len(spans) // 2], (f"profiler kernel duration ({len(spans)} "
+                                    f"of {traces} traces saw the device)")
+
+
+def copy_into(dsts, srcs):
+    """Copy each tensor of ``srcs`` into the tensor of ``dsts`` beside it."""
+    for dst, src in zip(dsts, srcs):
+        dst.copy_(src)
+
+
+def _run_job(kind, fn, args, restore):
+    reset = None if restore is None else (lambda: copy_into(*restore))
+
+    def call():
+        fn(*args)
+
+    if reset is not None:
+        reset()
+    call()                                      # warm-up
+    if kind == "ms":
+        return time_kernels(call, reset)
+    events, traces = first_device_trace(call, 10, reset)
+    return [e.name for e in events] if events else None, traces
+
+
+def _tracer_main(inbox, outbox):
+    first = None
+    while True:
+        jobs = inbox.get()
+        if jobs is None:
+            break
+        first = first or time.time()
+        results = [_run_job(*job) for job in jobs]
+        del jobs
+        torch.cuda.synchronize()
+        outbox.put((results, time.time() - first))
+
+
+# the tracing process: [process, its inbox, its outbox]
+_TRACER = []
+
+
+def _spawn_tracer():
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    inbox, outbox = ctx.Queue(), ctx.Queue()
+    proc = ctx.Process(target=_tracer_main, args=(inbox, outbox),
+                       daemon=True)
+    proc.start()
+    _TRACER[:] = [proc, inbox, outbox]
+
+
+def fresh_process_traces(jobs):
+    """Traces taken in a process whose first trace is recent: on some of
+    the card's machines a process's traces hold no device activity from
+    about 10 s after its first trace on (PERF.md §6). The process is
+    spawned at the first call; once it has traced for
+    :data:`FRESH_PROCESS_AGE_S` it is ended after the call and the next
+    one spawned, to start while this process goes on. ``jobs`` is a list
+    of (kind, fn, args, restore): ``fn`` a function a module defines,
+    ``args`` a tuple whose tensors are this process's, shared with the
+    tracing process (CUDA IPC, no copy) and updated in place by the calls,
+    ``restore`` None or (dsts, srcs), tensors whose srcs are copied into
+    the dsts before each traced ``fn(*args)`` call (outside the trace), so
+    that a call that updates its arguments starts from the same state
+    each time. Kind "ms" gives :func:`time_kernels`'s (ms, method), kind
+    "ops" the device operations' names of the first of up to ten traces
+    that saw the device (None where none did) and the traces taken.
+    Returns the results in the order of ``jobs``; :func:`end_fresh_process`
+    ends the process."""
+    if not _TRACER:
+        _spawn_tracer()
+    proc, inbox, outbox = _TRACER
+    torch.cuda.synchronize()
+    inbox.put(jobs)
+    t0 = time.time()
+    while True:
+        try:
+            results, traced_s = outbox.get(timeout=1.0)
+            break
+        except queue.Empty:
+            if not proc.is_alive():
+                _TRACER.clear()
+                raise RuntimeError("the tracing process exited with code "
+                                   f"{proc.exitcode}") from None
+            if time.time() - t0 > FRESH_PROCESS_TIMEOUT_S:
+                end_fresh_process()
+                raise RuntimeError("the tracing process took more than "
+                                   f"{FRESH_PROCESS_TIMEOUT_S} s") from None
+    torch.cuda.ipc_collect()
+    if traced_s > FRESH_PROCESS_AGE_S:
+        end_fresh_process()
+        _spawn_tracer()
+    return results
+
+
+def end_fresh_process():
+    """End the tracing process of :func:`fresh_process_traces`, if any."""
+    if not _TRACER:
+        return
+    proc, inbox, _ = _TRACER
+    _TRACER.clear()
+    if proc.is_alive():
+        inbox.put(None)
+        proc.join(timeout=30)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+    torch.cuda.ipc_collect()

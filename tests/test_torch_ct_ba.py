@@ -121,11 +121,11 @@ def test_converges_to_gt():
     assert np.all(dots > 1.0 - 1e-5)
 
 
-def _gapped_problem(edge_alpha):
+def _gapped_problem(edge_alpha, frames=6):
     """The synthetic problem with the backend's priors (weight 1.5, the
     prior poses moved off the state) and ``edge_alpha`` on every edge."""
     rng = np.random.default_rng(11)
-    js, jp, _ = jba.build_synthetic_problem(rng, 6, 128, noise=0.02)
+    js, jp, _ = jba.build_synthetic_problem(rng, frames, 128, noise=0.02)
     pn = {k: np.asarray(v) for k, v in jp._asdict().items()}
     for f in ("prior_tr_begin", "prior_tr_end"):
         pn[f] = (pn[f] + rng.normal(scale=0.01, size=pn[f].shape)
@@ -134,8 +134,8 @@ def _gapped_problem(edge_alpha):
         q = np.stack([s3n.quat_mul(s3n.quat_from_rotvec(
             rng.normal(scale=0.01, size=3)), x) for x in pn[f]])
         pn[f] = q.astype(np.float32)
-    pn["prior_weight"] = np.full(6, 1.5, np.float32)
-    pn["edge_alpha"] = np.full(6, edge_alpha, np.float32)
+    pn["prior_weight"] = np.full(frames, 1.5, np.float32)
+    pn["edge_alpha"] = np.full(frames, edge_alpha, np.float32)
     pn["weights"] = rng.uniform(0.0, 2.0, pn["weights"].shape).astype(
         np.float32)
     pn["weights"][:, -7:] = 0.0      # a padded tail
@@ -319,3 +319,46 @@ def test_backend_steps_fold_into_one():
     for x, y in zip(a, b):
         assert torch.equal(x, y)
     assert torch.equal(cost_a, cost_b)
+
+
+def test_jacobi_step_is_one_call_on_the_cpu():
+    """The plain version runs any window's inner iterations in one call."""
+    cpu = torch.device("cpu")
+    for f, iters in ((16, 2), (300, 4), (1, 4), (8, 1)):
+        assert tba.jacobi_launches(f, 4096, iters, cpu) == 1
+
+
+@pytest.mark.parametrize("edge_alpha", [1.0, 1.3])
+@pytest.mark.parametrize("frames", [16, 20])
+def test_chained_jacobi_step_matches(mesh1, monkeypatch, frames, edge_alpha):
+    """The block-Jacobi step of a window whose K8 clusters do not all fit
+    on the card (forced here through ``jacobi_launches``): its inner
+    iterations as a chain of single-iteration calls equal the one-call
+    path bit for bit, and the reference's ``make_ct_ba_step`` within
+    ``test_gn_iterations_match_reference``'s tolerances, at the reference
+    test's F = 16 and beyond."""
+    beta, iters = 2.0, 2
+    js, jp = _gapped_problem(edge_alpha, frames)
+    ts, tp = ct_ba_from_numpy(js, jp)
+    step = tba.make_ct_ba_step(num_inner_iters=iters, beta=beta)
+    one, one_cost = step(ts, tp)
+    calls = []
+    plain = k8.ct_ba_block_plain
+
+    def counted(poses, problem, beta, damping, mode, iters=1):
+        calls.append(iters)
+        return plain(poses, problem, beta, damping, mode, iters)
+
+    monkeypatch.setattr(tba, "jacobi_launches",
+                        lambda f, k, n, device: n)
+    monkeypatch.setattr(k8, "ct_ba_block_plain", counted)
+    chained, chained_cost = step(ts, tp)
+    assert calls == [1] * iters
+    for x, y in zip(one, chained):
+        assert torch.equal(x, y)
+    assert torch.equal(one_cost, chained_cost)
+    js, jp = jba.shard_problem(mesh1, js, jp)
+    js, jcost = _reference_step(mesh1, iters, beta)(js, jp)
+    _assert_states_agree(js, chained)
+    np.testing.assert_allclose(float(chained_cost), float(jcost),
+                               rtol=COST_RTOL, atol=COST_ATOL)

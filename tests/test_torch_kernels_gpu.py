@@ -15,6 +15,8 @@ no JAX, so skip the repo conftest that pins JAX to the CPU):
 Tolerances are those of ct_icp_torch/kernels/checks.py.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -775,3 +777,160 @@ def test_level_normals_matches_plain(cuda, cap_log2, p, res):
         assert out["left_out"] <= 0.1 * out["refit"]
     new = vm.recompute_level_normals(level, location)
     assert new.nflags is not level.nflags and new.keys is level.keys
+
+
+def _pose_gaps(a, b):
+    """Largest position (m) and rotation (deg) gaps of two CT-BA states."""
+    pa = ct_ba.pack_state(a).double().cpu().numpy()
+    pb = ct_ba.pack_state(b).double().cpu().numpy()
+    d_tr = max(np.abs(pa[:, 4:7] - pb[:, 4:7]).max(),
+               np.abs(pa[:, 11:14] - pb[:, 11:14]).max())
+    d_rot = max(max(s3n.angular_distance_deg(x[0:4], y[0:4]),
+                    s3n.angular_distance_deg(x[7:11], y[7:11]))
+                for x, y in zip(pa, pb))
+    return d_tr, d_rot
+
+
+@pytest.mark.parametrize("k, edge_alpha", [(4096, 1.3), (64, 1.0)])
+def test_ct_ba_step_beyond_residency_matches_cpu(cuda, k, edge_alpha):
+    """A block-Jacobi step (two inner iterations) over one frame more than
+    the card holds at once at K rows (``ct_ba_block.max_resident_frames``):
+    it runs as two single-iteration launches, where the one-launch kernel
+    raises, and agrees with the CPU run of the same inputs (poses within
+    1e-5 m and 1e-4 deg, the cost within rtol 1e-5); the first launch
+    held by the K8 check, the second's J^T J within the check's 1e-4 of
+    its largest entry from the plain version on the first iterate."""
+    f = k8.max_resident_frames(k, cuda) + 1
+    assert not k8.resident(f, k, cuda) and k8.resident(f - 1, k, cuda)
+    assert ct_ba.jacobi_launches(f, k, 2, cuda) == 2
+    state, p = _ct_ba_window(cuda, f, k, edge_alpha, pad=min(37, k // 3))
+    with pytest.raises(ValueError, match="resident"):
+        k8.ct_ba_block(ct_ba.pack_state(state), p, 2.0, 1e-3, "gn", 2)
+    step = ct_ba.make_ct_ba_step(num_inner_iters=2, beta=2.0)
+    launches = k8.launches
+    a, cost_a = step(state, p)
+    torch.cuda.synchronize()
+    assert k8.launches == launches + 2
+    b, cost_b = step(ct_ba.CTBAState(*(x.cpu() for x in state)),
+                     ct_ba.CTBAProblem(*(x.cpu() for x in p)))
+    d_tr, d_rot = _pose_gaps(a, b)
+    assert d_tr <= 1e-5 and d_rot <= 1e-4, (d_tr, d_rot)
+    np.testing.assert_allclose(float(cost_a), float(cost_b), rtol=1e-5)
+    poses = ct_ba.pack_state(state)
+    checks.check_ct_ba_block(poses, p, 2.0, 1e-3, "gn")
+    first = k8.ct_ba_block(poses, p, 2.0, 1e-3, "gn").poses
+    second = k8.ct_ba_block(first, p, 2.0, 1e-3, "gn")
+    want = k8.ct_ba_block_plain(first, p, 2.0, 1e-3, "gn")
+    assert checks._rel_err(second.jtj, want.jtj) <= 1e-4
+
+
+def test_backend_step_beyond_residency_matches_cpu(cuda):
+    """The backend's CT-BA step (its 2 steps of 2 inner iterations folded
+    into one of 4) with a window one frame beyond what the card holds at
+    the backend's K = 4,096 keypoints: four chained launches, poses and
+    cost as the CPU run of the same inputs."""
+    from ct_icp_torch.odometry.odometry import Odometry
+    from ct_icp_torch.tools import bench as gates
+    k = 4096
+    f = k8.max_resident_frames(k, cuda) + 1
+    o = gates.backend_profile(True)
+    o = dataclasses.replace(o, backend=dataclasses.replace(o.backend,
+                                                           window=f))
+    backend = Odometry(o, device=cuda).backend
+    assert backend.window == f
+    state, p = _ct_ba_window(cuda, f, k, 1.3)
+    launches = k8.launches
+    a, cost_a = backend.step(state, p)
+    torch.cuda.synchronize()
+    assert k8.launches == launches + 2 * o.backend.num_steps
+    b, cost_b = backend.step(ct_ba.CTBAState(*(x.cpu() for x in state)),
+                             ct_ba.CTBAProblem(*(x.cpu() for x in p)))
+    d_tr, d_rot = _pose_gaps(a, b)
+    assert d_tr <= 1e-5 and d_rot <= 1e-4, (d_tr, d_rot)
+    np.testing.assert_allclose(float(cost_a), float(cost_b), rtol=1e-5)
+
+
+def _dense_level(cuda, p, per_voxel, voxels=400, res=0.5, seed=5):
+    """A level of P-point rows where each of ``voxels`` voxels receives
+    ``per_voxel`` points of a tilted plane (counts up to P)."""
+    rng = np.random.default_rng(seed)
+    centers = (rng.integers(-40, 40, (voxels, 3)) + 0.5) * res
+    u = rng.uniform(-0.45, 0.45, (voxels, per_voxel, 2)) * res
+    pts = np.stack([u[..., 0], u[..., 1], 0.2 * u[..., 0] - 0.1 * u[..., 1]
+                    + rng.normal(scale=0.002, size=u.shape[:2])], -1)
+    pts = (pts + centers[:, None, :]).astype(np.float32)
+    level = vm.make_level(14, p, cuda)
+    # batches of 10 points a voxel (an insert adds up to one a round)
+    for j in range(0, per_voxel, 10):
+        t = torch.from_numpy(pts[:, j:j + 10].reshape(-1, 3)).to(cuda)
+        vm.insert_points(level, t, torch.ones(t.shape[0], dtype=torch.bool,
+                                              device=cuda), res, 1e-4, 12)
+    return level
+
+
+@pytest.mark.parametrize("case", ["all refit", "empty", "ragged",
+                                  "fifty points", "all refit, repeated"])
+def test_level_normals_lists(cuda, case):
+    """K10 on the lists beside the export's: every refit slot of a level
+    and nothing else (the dirty-slot refit's shape), an empty list (no
+    launch, no error), a list whose length is no multiple of any block's
+    slots, P = 50 rows holding more than 32 points (the lanes j and j + 32,
+    a warp a queued slot), and the refit slots listed again and again, on
+    a grid of more blocks than SMs (8 lanes a queued slot)."""
+    location = torch.tensor([1.0, -2.0, 1.5], device=cuda)
+    if case == "fifty points":
+        level = _dense_level(cuda, 50, 70)
+        assert int(level.count.max()) == 50
+    else:
+        rng = np.random.default_rng(21)
+        level = _warm_level(rng, cuda, cap_log2=15, p=40, res=0.5)
+    occupied = vm.occupied_slots(level)
+    refit = k10.refit_mask(level.keys[occupied.long()],
+                           level.count[occupied.long()])
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    slots = {"all refit": occupied[refit],
+             "empty": occupied[:0],
+             "ragged": occupied[:1000 + 37],
+             "fifty points": occupied,
+             "all refit, repeated": occupied[refit].repeat(
+                 32 * sms // max(int(refit.sum()), 1) + 1)}[case].contiguous()
+    before = k10.launches
+    if case == "empty":
+        normals, flags = vm.refit_normals(level, location, slots)
+        torch.cuda.synchronize()
+        assert normals.shape == (0, 3) and flags.shape == (0,)
+        assert k10.launches == before
+        return
+    out = checks.check_level_normals(level, location, slots)
+    assert k10.launches == before + 1
+    assert out["refit"] > 100 and out["left_out"] <= 0.1 * out["refit"]
+    if case == "all refit":
+        assert out["refit"] == slots.shape[0]
+    if case == "fifty points":
+        assert int((level.count[slots.long()] > 32).sum()) > 100
+        assert k10.lanes(slots.shape[0]) == 32
+    if case == "all refit, repeated":
+        assert out["refit"] == slots.shape[0]
+        assert k10.lanes(slots.shape[0]) == 8
+
+
+def test_level_normals_is_one_device_operation(cuda):
+    """A call is one device operation: the kernel, no memset or copy. The
+    first of up to ten traces (with idle margins) that saw the device is
+    counted (``tools/timing.py::first_device_trace``): on some of the
+    card's machines a process's traces hold no device activity from about
+    10 s after its first trace on (PERF.md §6), and such a trace counts
+    nothing."""
+    from ct_icp_torch.tools.timing import first_device_trace
+    rng = np.random.default_rng(23)
+    level = _warm_level(rng, cuda, cap_log2=15, p=40, res=0.5)
+    location = torch.tensor([1.0, -2.0, 1.5], device=cuda)
+    slots = vm.occupied_slots(level)
+    vm.refit_normals(level, location, slots)          # warm-up
+    torch.cuda.synchronize()
+    events, _ = first_device_trace(
+        lambda: vm.refit_normals(level, location, slots), 10)
+    if events is None:
+        pytest.skip("the profiler saw no device activity")
+    names = [e.name for e in events]
+    assert len(names) == 1 and "level_normals" in names[0], names
