@@ -9,7 +9,7 @@ It needs one CUDA device and nvcc, and exits non-zero without a result line
 when either is missing. Phases; any failure raises and exits non-zero:
 
   1. the card: nvidia-smi's name and power limit, torch's device name;
-  2. build the CUDA kernels K1-K10 from ct_icp_torch/csrc with nvcc (one
+  2. build the CUDA kernels K1-K11 from ct_icp_torch/csrc with nvcc (one
      process per source, all started together); print the build time and
      ptxas's register / shared-memory / spill lines (and keep each entry's
      registers and spills for the kernels line);
@@ -180,17 +180,43 @@ when either is missing. Phases; any failure raises and exits non-zero:
      escalation scene; the corridor once more with the backend off, timed
      the same way (frames prepared by prefetch workers in the timed loop),
      for the pair's frames/s;
-  in 4-8, 10, 12, 14, 15 and 18 every kernel count and K5's device count of
-  LM steps are set to 0 just before the path and read just after it; each
+  19. scale-out (parallel/distributed_odometry.py), (a): DistributedOdometry
+     (default_driving_profile()) in a world-size-1 NCCL group on the
+     driving phase's 80 frames, broadcast then partitioned insert (after a
+     two-frame warm-up): frames/s, host syncs a frame, APE (within 1.5
+     times the JAX package's on the same frames on the CPU), map points,
+     0 dropped, K1-K5, K10 and (partitioned) K11 launched; both modes store
+     the same points; the first 3 frames within 0.01 m and 0.5 deg of the
+     port's CPU run (the plain versions);
+  20. (b): two ranks sharing the card over gloo (parallel/comm.py::spawn):
+     the first 10 frames in both modes, each end pose within 0.02 m and
+     0.2 deg of (a)'s, or, on a frame where the reference's own 2-device
+     mesh leaves its 1-device mesh by more (frames 1 and 2), within twice
+     that gap (REF_2_DEVICE_GAPS, shard_bounds), the first frame's map (the
+     union of the shards) the same points as (a)'s, partitioned the same
+     points as broadcast, K11 launched on each rank; the CT-BA step at F =
+     16 (8 frames a rank, K = 4,096), block-Jacobi (2 inner iterations, a
+     K8 halo launch each) and PCG, against the one-device step on the card
+     (tolerances at CT_BA_MESH_TOL; bit for bit where the slices and the
+     window take one cluster size);
+  21. (c): K11 at the shapes of (a)'s partitioned insert (frame 1's; and at
+     two ranks'), bit for bit; K3's rank-0 slots and the refit of the dirty
+     list (K10's tolerance); K8's halo launch on rank 1's slice of (b)'s
+     window, its J^T r within 10 times the float32 plain version's gap to
+     the float64 one; each timed;
+  in 4-8, 10, 12, 14, 15, 18, 19 and 20 every kernel count and K5's device
+  count of LM steps are set to 0 just before the path and read just after
+  it (in 20, in each rank's process); each
   path must launch its kernels (4-8, 10 and 12: K5 and the others), and
   the paths of 4-8, 10 and 12 make fewer host syncs a frame than LM steps
   (one per ICP iteration and readback where no batch rolled back); the
   driving path one K5 launch per ICP iteration;
-  19. one JSON line of the kernels (K1-K5 with an "indoor" record, K3
+  22. one JSON line of the kernels (K1-K5 with an "indoor" record, K3
      with "indoor level 1" and "indoor level 2" as well, K1 and K2 with a
      "backend" record, K8 with its "blocks" mode beside its "gn" one, K9
-     and K10 on level 0 with "level 1" and "level 2" records), the card's
-     line, and the result line.
+     and K10 on level 0 with "level 1" and "level 2" records, K3's
+     rank-0 slots and K8's halo launch, K11 with a "2 ranks" record), the
+     card's line, and the result line.
 """
 
 import dataclasses
@@ -205,6 +231,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ct_icp_torch import convert
 from ct_icp_torch.config.options import (default_driving_profile,
                                          default_robust_outdoor_low_inertia,
                                          robust_driving_profile)
@@ -224,6 +251,7 @@ from ct_icp_torch.kernels import grid_sample as k4
 from ct_icp_torch.kernels import level_normals as k10
 from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.kernels import map_insert as k3
+from ct_icp_torch.kernels import owner_pack as k11
 from ct_icp_torch.kernels import plane_moments as k2
 from ct_icp_torch.kernels import rebuild as k7
 from ct_icp_torch.kernels import row_gather as k6
@@ -235,6 +263,7 @@ from ct_icp_torch.ops import voxel as vx
 from ct_icp_torch.parallel import ct_ba
 from ct_icp_torch.tools import bench as gates
 from ct_icp_torch.tools import exp_header_trees as eht
+from ct_icp_torch.tools import scale_out
 from ct_icp_torch.tools.exp_gather import k6_bytes, k6_fields_bytes
 from ct_icp_torch.tools.exp_moments import k2_bytes, live_work
 from ct_icp_torch.tools.timing import (HBM_BYTES_PER_S, bound,
@@ -292,6 +321,53 @@ K8_MARKS = ("K8_MARKS",)
 # [0, K) build the three-level map K1-K3 are held on, frame K + 1 gives
 # them their queries and inserted points
 K5_INDOOR_FRAME = 10
+# the scale-out phases: DistributedOdometry on the driving phase's frames
+# in both insert modes; the JAX package's DistributedOdometry on the same
+# 80 frames on the CPU (a 1-device mesh, tests/torch_scale_out_reference.py)
+# reaches a mean APE of 0.10286 m in both modes, and the port's is held
+# within 1.5 times that
+SCALE_OUT_MODES = ("broadcast", "partitioned")
+SCALE_OUT_STORE = Path(__file__).resolve().parent / "build" / "scale_out"
+SCALE_OUT_REF_APE_M = 0.10286
+SCALE_OUT_APE_BOUND_M = 1.5 * SCALE_OUT_REF_APE_M
+# the first frames on the card against the port's CPU run (the plain
+# versions: another summation order in K2 and the solver), within about
+# three times what the first full run read (0.00283 m, 0.168 deg)
+SCALE_OUT_CPU_FRAMES = 3
+SCALE_OUT_CPU_TOL_M, SCALE_OUT_CPU_TOL_DEG = 0.01, 0.5
+# two ranks against world size 1, frame by frame: the reference's own
+# shard-invariance bounds (tests/test_distributed_odometry.py:79-80, on
+# its own scene), except on a frame where the reference itself leaves
+# them between its 2-device and its 1-device mesh on these frames (the
+# same program summing its moments in another order); there twice the
+# reference's own gap. Its gaps (m, deg), frame by frame, from
+# tests/torch_scale_out_reference.py --modes "" --meshes 2,4 on the CPU:
+# frames 1 and 2, startup frames, leave the bounds (1.519 and 0.296 deg)
+RANK_FRAMES = 10
+SHARD_TOL_M, SHARD_TOL_DEG = 0.02, 0.2
+REF_2_DEVICE_GAPS = (
+    (0.0, 0.0), (0.020904, 1.5194), (0.015096, 0.29553), (0.010752, 0.14568),
+    (0.016087, 0.18165), (0.011689, 0.11367), (0.014859, 0.10165),
+    (0.011695, 0.14730), (0.0062544, 0.10363), (0.014927, 0.10023))
+
+
+def shard_bounds(frame):
+    """The (m, deg) bound of frame ``frame``'s end pose, two ranks against
+    one."""
+    return tuple(tol if gap <= tol else 2 * gap for gap, tol in
+                 zip(REF_2_DEVICE_GAPS[frame], (SHARD_TOL_M, SHARD_TOL_DEG)))
+
+
+# the 2-rank CT-BA window (the reference test's F = 16, the backend's
+# K = 4,096) and its steps; held to the one-device step: block-Jacobi
+# within K8's check (1e-5 m, 1e-4 deg) and the cost within 1e-5 relative
+# (bit for bit where the slices and the window take one cluster size), PCG
+# within 1e-4 m, 1e-3 deg and 1e-4 (its dot products summed over the
+# ranks, and K8's blocks at another cluster size)
+CT_BA_MESH_F = 16
+CT_BA_MESH_CONFIGS = [dict(num_inner_iters=2, solver="jacobi"),
+                      dict(num_inner_iters=1, solver="pcg", num_cg_iters=8)]
+CT_BA_MESH_TOL = {"jacobi": (1e-5, 1e-4, 1e-5), "pcg": (1e-4, 1e-3, 1e-4)}
 
 KERNELS = {
     "candidate_gather": dict(
@@ -324,6 +400,9 @@ KERNELS = {
     "level_normals": dict(
         module=k10, source="ct_icp_torch/csrc/level_normals.cu",
         replaces="ct_icp_tpu/mapping/voxel_map.py:549"),
+    "owner_pack": dict(
+        module=k11, source="ct_icp_torch/csrc/owner_pack.cu",
+        replaces="ct_icp_tpu/parallel/sharded_map.py:152"),
 }
 # a kernel record's further times and work counts, copied to the kernels
 # line where present
@@ -335,7 +414,8 @@ WORK_KEYS = ("host_ms", "warm_ms", "library_warm_ms", "step_ms",
              "rebuild_level_plain_ms", "rows_live", "d_tr_m", "d_rot_deg",
              "left_out", "with_submission_ms", "graph20_ms", "floor_ms",
              "floor_graph20_ms", "iters", "cluster", "phase_cycles",
-             "one_launch_equals_chain", "removed", "lanes")
+             "one_launch_equals_chain", "removed", "lanes", "dirty",
+             "refit_ms", "jtr_float64")
 # the kernels of the first three paths (the rebase runs on none of them)
 K1_K5 = ["candidate_gather", "plane_moments", "map_insert", "grid_sample",
          "lm_step"]
@@ -2391,6 +2471,361 @@ def phase_backend_robust():
     return robust, escalation
 
 
+# ------------------------------------------------------------ scale-out —
+
+def _nccl_group():
+    """A world-size-1 NCCL group joined through a FileStore (no network)."""
+    import torch.distributed as dist
+    SCALE_OUT_STORE.mkdir(parents=True, exist_ok=True)
+    store = dist.FileStore(str(SCALE_OUT_STORE / f"nccl-{time.time_ns()}"),
+                           1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    return dist.group.WORLD
+
+
+def _end_gaps(a, b):
+    """The position (m) and rotation (deg) gaps, frame by frame, of two
+    [F, 7] end pose lists (tr, quat), as the reference's
+    ``location_distance`` and ``angular_distance`` measure them."""
+    return [(float(np.linalg.norm(x[0:3] - y[0:3])),
+             float(s3n.angular_distance_deg(x[3:7], y[3:7])))
+            for x, y in zip(a, b)]
+
+
+def _same_points(a, b, what):
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x.shape != y.shape or not np.array_equal(x, y):
+            raise RuntimeError(f"{what}: level {i}'s points differ "
+                               f"({x.shape[0]} and {y.shape[0]} points)")
+
+
+def phase_scale_out(frames):
+    """(a) DistributedOdometry(default_driving_profile()) on the card in a
+    world-size-1 NCCL group, the driving phase's 80 frames, once a mode."""
+    import torch.distributed as dist
+    from ct_icp_torch.parallel.distributed_odometry import \
+        DistributedOdometry
+    group = _nccl_group()
+    warm = DistributedOdometry(default_driving_profile(), group,
+                               device="cuda")
+    for fr in frames[:2]:
+        warm.register_frame(fr["xyz"], fr["timestamps"])
+    del warm
+    runs, ends, first_maps = {}, {}, {}
+    for mode in SCALE_OUT_MODES:
+        odo = DistributedOdometry(default_driving_profile(), group,
+                                  device="cuda", map_update=mode)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.time()
+        for i, fr in enumerate(frames):
+            odo.register_frame(fr["xyz"], fr["timestamps"])
+            if i == 0:
+                # the map after the first frame (no registration: the same
+                # points as any shard count inserts), outside the timing
+                torch.cuda.synchronize()
+                t_snap = time.time()
+                first_maps[mode] = scale_out.live_points(
+                    convert.map_state_to_numpy(odo.map_state.levels))
+                t0 += time.time() - t_snap
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        launches, lm_steps = _read_counts(), _read_steps()
+        errs = scale_out.ape(odo.trajectory, frames)
+        out = dict(frames=len(frames), fps=len(frames) / wall, wall_s=wall,
+                   host_syncs_per_frame=odo.host_syncs / len(frames),
+                   mean_ape_m=float(np.mean(errs)), final_drift_m=errs[-1],
+                   map_points=odo.map_size(), dropped=odo.dropped_points,
+                   launches=launches, lm_steps=lm_steps,
+                   reference_cpu_ape_m=SCALE_OUT_REF_APE_M)
+        log(f"scale-out {mode} (NCCL, world size 1): " + json.dumps(out))
+        if out["dropped"]:
+            raise RuntimeError(f"scale-out {mode}: {out['dropped']} dropped")
+        if not out["mean_ape_m"] <= SCALE_OUT_APE_BOUND_M:
+            raise RuntimeError(f"scale-out {mode}: mean APE "
+                               f"{out['mean_ape_m']} m > "
+                               f"{SCALE_OUT_APE_BOUND_M} m")
+        _require_launches(f"scale-out {mode}", launches, [
+            "candidate_gather", "plane_moments", "map_insert", "grid_sample",
+            "lm_step", "level_normals"]
+            + (["owner_pack"] if mode == "partitioned" else []))
+        ends[mode] = np.array([np.concatenate([f.end_pose.tr,
+                                               f.end_pose.quat])
+                               for f in odo.trajectory])
+        runs[mode] = out
+        shard = convert.map_state_to_numpy(odo.map_state.levels)
+        runs[mode]["_points"] = scale_out.live_points(shard)
+        del odo, shard
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    # both modes store the same map (reference tests/test_sharded_map.py:
+    # 103-143)
+    _same_points(runs["partitioned"].pop("_points"),
+                 runs["broadcast"].pop("_points"),
+                 "scale-out world size 1, partitioned vs broadcast")
+    # the first frames against the port's own CPU run (the plain versions)
+    cpu = DistributedOdometry(default_driving_profile(), device="cpu")
+    for fr in frames[:SCALE_OUT_CPU_FRAMES]:
+        cpu.register_frame(fr["xyz"], fr["timestamps"])
+    cpu_end = np.array([np.concatenate([f.end_pose.tr, f.end_pose.quat])
+                        for f in cpu.trajectory])
+    gaps = _end_gaps(ends["broadcast"][:SCALE_OUT_CPU_FRAMES], cpu_end)
+    d_tr, d_rot = (max(g[i] for g in gaps) for i in (0, 1))
+    log(f"scale-out: the first {SCALE_OUT_CPU_FRAMES} frames on the card "
+        f"and on the CPU (plain versions) {d_tr:.3g} m, {d_rot:.3g} deg "
+        f"apart (bound {SCALE_OUT_CPU_TOL_M} m, {SCALE_OUT_CPU_TOL_DEG} deg)")
+    if not (d_tr <= SCALE_OUT_CPU_TOL_M and d_rot <= SCALE_OUT_CPU_TOL_DEG):
+        raise RuntimeError("scale-out: the card's first frames leave the "
+                           "CPU run's")
+    runs["broadcast"]["cpu_gap"] = [d_tr, d_rot]
+    return runs, ends, first_maps
+
+
+def phase_scale_out_ranks(frames, ends, first_maps):
+    """(b) two ranks sharing the card over gloo (comm.spawn): the first
+    RANK_FRAMES frames in both modes, and the CT-BA step at F = 16 (8
+    frames a rank, K = 4,096), block-Jacobi and PCG, against the one-device
+    step on the card."""
+    from ct_icp_torch.parallel import comm
+    state, problem = _synthetic_window(torch.device("cpu"), CT_BA_MESH_F,
+                                       4096)
+    state_np = convert.ct_ba_to_numpy(state)
+    problem_np = convert.ct_ba_to_numpy(problem)
+    t0 = time.time()
+    ranks = comm.spawn("ct_icp_torch.tools.scale_out:rank_scale_out", 2,
+                       SCALE_OUT_STORE,
+                       args=(frames[:RANK_FRAMES], SCALE_OUT_MODES,
+                             state_np, problem_np, CT_BA_MESH_CONFIGS))
+    wall = time.time() - t0
+    out = {"ranks": 2, "frames": RANK_FRAMES, "wall_s": wall}
+    for mode in SCALE_OUT_MODES:
+        got = [r["odometry"][mode] for r in ranks]
+        if not np.array_equal(got[0]["end"], got[1]["end"]):
+            raise RuntimeError(f"2 ranks {mode}: the ranks' poses differ")
+        gaps = _end_gaps(got[0]["end"], ends[mode][:RANK_FRAMES])
+        launches = {k: sum(r["launches"].get(k, 0) for r in got)
+                    for k in KERNELS}
+        out[mode] = dict(d_tr_m=max(g[0] for g in gaps),
+                         d_rot_deg=max(g[1] for g in gaps),
+                         gaps_by_frame=gaps,
+                         bounds_by_frame=[shard_bounds(f)
+                                          for f in range(len(gaps))],
+                         dropped=sum(r["dropped"] for r in got),
+                         launches=launches,
+                         fps=RANK_FRAMES / max(r["seconds"] for r in got))
+        log(f"2 ranks {mode} (gloo on one card): " + json.dumps(out[mode]))
+        for f, (gap, tol) in enumerate(zip(gaps, out[mode][
+                "bounds_by_frame"])):
+            if not (gap[0] <= tol[0] and gap[1] <= tol[1]):
+                raise RuntimeError(
+                    f"2 ranks {mode}: frame {f} {gap[0]} m, {gap[1]} deg "
+                    f"from world size 1 (bound {tol[0]} m, {tol[1]} deg)")
+        if out[mode]["dropped"]:
+            raise RuntimeError(f"2 ranks {mode}: points dropped")
+        _same_points(scale_out.merge_points([r["first_map"] for r in got]),
+                     first_maps[mode],
+                     f"2 ranks {mode}: the first frame's map")
+        if mode == "partitioned" and not all(
+                r["launches"]["owner_pack"] > 0 for r in got):
+            raise RuntimeError("2 ranks: a rank never launched owner_pack")
+    _same_points(scale_out.union_points(
+        [r["odometry"]["partitioned"]["levels"] for r in ranks]),
+        scale_out.union_points(
+        [r["odometry"]["broadcast"]["levels"] for r in ranks]),
+        "2 ranks: partitioned vs broadcast")
+    # the CT-BA step on the window's slices against one device
+    st, pr = convert.ct_ba_from_numpy(state_np, problem_np, device="cuda")
+    for i, cfg in enumerate(CT_BA_MESH_CONFIGS):
+        one, cost = ct_ba.make_ct_ba_step(**cfg)(st, pr)
+        got = {f: np.concatenate([r["ct_ba"][i]["state"][f] for r in ranks])
+               for f in ct_ba.CTBAState._fields}
+        got = ct_ba.CTBAState(*(torch.from_numpy(got[f])
+                                for f in ct_ba.CTBAState._fields))
+        one = ct_ba.CTBAState(*(x.cpu() for x in one))
+        d_tr, d_rot = _state_gaps(got, one)
+        rel = abs(ranks[0]["ct_ba"][i]["cost"] - float(cost)) / max(
+            abs(float(cost)), 1e-30)
+        tol_m, tol_deg, tol_cost = CT_BA_MESH_TOL[cfg["solver"]]
+        k8_launches = sum(r["ct_ba"][i]["launches"]["ct_ba_block"]
+                          for r in ranks)
+        clusters = (k8.cluster_size(CT_BA_MESH_F, 4096, torch.device(
+            "cuda", 0), False), k8.cluster_size(
+            CT_BA_MESH_F // 2, 4096, torch.device("cuda", 0), False))
+        rec = dict(d_tr_m=d_tr, d_rot_deg=d_rot, cost_rel=rel,
+                   k8_launches=k8_launches, clusters=clusters,
+                   bit_for_bit=all(torch.equal(a, b)
+                                   for a, b in zip(got, one)))
+        out[f"ct_ba {cfg['solver']}"] = rec
+        log(f"2 ranks CT-BA {cfg['solver']} F={CT_BA_MESH_F} against one "
+            f"device: " + json.dumps(rec))
+        if cfg["solver"] == "jacobi" and clusters[0] == clusters[1] \
+                and not rec["bit_for_bit"]:
+            raise RuntimeError("2 ranks CT-BA jacobi: not bit for bit at the "
+                               "same cluster size")
+        if not (d_tr <= tol_m and d_rot <= tol_deg and rel <= tol_cost):
+            raise RuntimeError(f"2 ranks CT-BA {cfg['solver']}: {rec}")
+        if k8_launches <= 0:
+            raise RuntimeError("2 ranks CT-BA: K8 never launched")
+    out["lm_steps"] = sum(r["odometry"][m]["lm_steps"] for r in ranks
+                          for m in SCALE_OUT_MODES)
+    out["launches"] = {k: out["broadcast"]["launches"][k]
+                       + out["partitioned"]["launches"][k]
+                       + sum(r["ct_ba"][i]["launches"].get(k, 0)
+                             for r in ranks
+                             for i in range(len(CT_BA_MESH_CONFIGS)))
+                       for k in KERNELS}
+    return out, (state, problem)
+
+
+def phase_kernels_scale_out(dev, frames, window):
+    """(c) K11, K3's rank-0 slots with the refit of the dirty list, and K8's
+    halo launch against their plain versions, timed as phase 3 times
+    kernels: K11 and K3 at the inputs of the partitioned insert of frame 1
+    at world size 1 (the shapes of every partitioned insert there; frame
+    1's map is warm) and K11 also at two ranks' shapes; K8 on rank 1's
+    slice of (b)'s window."""
+    from ct_icp_torch.parallel import sharded_map as shm
+    from ct_icp_torch.parallel.distributed_odometry import \
+        DistributedOdometry
+    seen = {}
+    pack, insert = k11.owner_pack, vm.insert_points
+
+    def spy_pack(world, valid, res, n, cap):
+        seen.setdefault("k11", []).append((world.clone(), valid.clone(), res,
+                                           n, cap))
+        return pack(world, valid, res, n, cap)
+
+    def spy_insert(level, pts, valid, res, md, rounds, begin_tr=None,
+                   max_dirty=None):
+        seen.setdefault("k3", []).append(
+            (_level_copy(level), pts.clone(), valid.clone(), res, md, rounds,
+             begin_tr.clone(), max_dirty))
+        return insert(level, pts, valid, res, md, rounds, begin_tr, max_dirty)
+
+    k11.owner_pack, vm.insert_points = spy_pack, spy_insert
+    try:
+        odo = DistributedOdometry(default_driving_profile(), device=dev,
+                                  map_update="partitioned")
+        for fr in frames[:2]:
+            odo.register_frame(fr["xyz"], fr["timestamps"])
+    finally:
+        k11.owner_pack, vm.insert_points = pack, insert
+    del odo
+    records = {}
+    world, valid, res, n, cap = seen["k11"][1]
+    records["owner_pack"] = _kernel_k11(world, valid, res, n, cap,
+                                        "world size 1")
+    m2 = (world.shape[0] + 1) // 2
+    records["owner_pack"]["others"] = {"2 ranks": _kernel_k11(
+        world[:m2].contiguous(), valid[:m2].contiguous(), res, 2,
+        shm.pair_capacity(m2, 2, 2.0), "2 ranks")}
+    records["map_insert"] = _kernel_k3_rank0(*seen["k3"][1])
+    state, problem = window
+    poses = ct_ba.pack_state(state).to(dev)
+    p = ct_ba.CTBAProblem(*(x.to(dev) for x in problem))
+    half = CT_BA_MESH_F // 2
+    sl = ct_ba.CTBAProblem(*(x[half:].contiguous() for x in p))
+    halo = torch.zeros((2, 16), device=dev)
+    halo[0, :14], halo[0, 14], halo[0, 15] = \
+        poses[half - 1], p.edge_alpha[half - 1], 1.0
+    records["ct_ba_block"] = _kernel_k8_halo(poses[half:].contiguous(), sl,
+                                             halo)
+    return records
+
+
+def _kernel_k11(world, valid, res, n, cap, tag):
+    """K11 against its plain version (bit for bit), then timed: a CUDA graph
+    of 20 calls, and with its host side; the plain version between
+    events."""
+    out = checks.check_owner_pack(world, valid, res, n, cap)
+    args = (world, valid, res, n, cap)
+    ms, how = time_stateless(lambda: k11.owner_pack(*args))
+    host_ms, _ = time_host(lambda: k11.owner_pack(*args))
+    plain_ms, _ = time_host(lambda: k11.owner_pack_plain(*args), reps=10)
+    m = world.shape[0]
+    # the chunk read once (points, flags), the send buffers and the
+    # dropped count written once
+    n_bytes = m * 13 + n * cap * 13 + 4
+    log(f"K11 owner_pack {tag} m={m} n={n} cap={cap}: identical to plain "
+        f"({out['sent']} sent, {out['dropped']} dropped); {ms:.4f} ms "
+        f"({how}), {host_ms:.4f} ms with its host side, plain "
+        f"{plain_ms:.4f} ms")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bytes=n_bytes, ops=m * 12.0, timing=how, host_ms=host_ms,
+                shape=f"m={m} n={n} cap={cap} sent={out['sent']}")
+
+
+def _kernel_k3_rank0(level, pts, valid, res, md, rounds, begin_tr,
+                     max_dirty):
+    """K3 with its rank-0 slots, and the with_normals insert's refit of the
+    dirty list (K10), against the plain versions, then timed: K3's launch
+    with the slots on a restored copy (events), the plain version the
+    same way, and K10 on the dirty list (a CUDA graph of 20)."""
+    out = checks.check_insert_with_normals(level, pts, valid, res, md,
+                                           rounds, begin_tr, max_dirty)
+    ms, how = time_mutating(lambda: _level_copy(level), lambda lv:
+                            k3.map_insert(*lv[:3], lv.num_points, pts, valid,
+                                          res, md, rounds, rank0=True))
+    plain_ms, _ = time_mutating(lambda: _level_copy(level), lambda lv:
+                                k3.map_insert_plain(*lv[:3], lv.num_points,
+                                                    pts, valid, res, md,
+                                                    rounds, rank0=True),
+                                reps=5)
+    after = _level_copy(level)
+    _, r0 = k3.map_insert(*after[:3], after.num_points, pts, valid, res, md,
+                          rounds, rank0=True)
+    dirty = r0[torch.nonzero(r0 >= 0)[:, 0]][:max_dirty]
+    refit_ms, _ = time_stateless(lambda: vm.refit_normals(after, begin_tr,
+                                                          dirty))
+    n = pts.shape[0]
+    # the points and flags read, the rank-0 slots written, the voxels'
+    # rows the inserted points land in written (12 B a point) and the
+    # slots' counts
+    n_bytes = n * 13 + n * 4 + out["inserted"] * 16
+    log(f"K3 map_insert with rank-0 slots N={n}: identical to plain "
+        f"({out['inserted']} inserted, {out['dirty']} dirty, "
+        f"{out['refit']} refit by K10 within its tolerance, "
+        f"{out['left_out']} left out); {ms:.4f} ms (restored copy, "
+        f"{how}), plain {plain_ms:.4f} ms; K10 on the dirty list "
+        f"{refit_ms:.4f} ms")
+    return dict(max_abs_err=out["max_abs_err"], ms=ms, plain_ms=plain_ms,
+                library_ms=None, bytes=n_bytes, ops=0.0, timing=how,
+                dirty=out["dirty"], refit_ms=refit_ms,
+                shape=f"N={n} rounds={rounds} P={level.max_points} "
+                      f"C={level.capacity} dirty={out['dirty']}")
+
+
+def _kernel_k8_halo(poses, problem, halo):
+    """K8's single-iteration launch with a halo (rank 1's slice of the
+    2-rank window) against its plain version, its J^T r against the
+    float64 plain version, then timed as ``_kernel_k8`` times."""
+    beta, damping = 1.0, 1e-3
+    err = checks.check_ct_ba_halo(poses, problem, halo, beta, damping)
+
+    def call():
+        return k8.ct_ba_block(poses, problem, beta, damping, "gn", 1, halo)
+
+    ms, how = time_stateless(call)
+    host_ms, _ = time_host(call)
+    plain_ms, _ = time_host(lambda: k8.ct_ba_block_plain(
+        poses, problem, beta, damping, "gn", 1, halo), reps=5)
+    f, k = problem.raw.shape[:2]
+    live = int((problem.weights != 0).sum())
+    n_bytes = (f * k * 4 + live * 40 + f * (14 + 14 + 2) * 4 + 2 * 16 * 4
+               + f * (14 + 1 + 144 + 12) * 4 + 4)
+    branch, _ = _slerp_branch(torch.cat([poses[0], torch.zeros(
+        k5.STATE_SIZE - 14, device=poses.device)]))
+    ops = live * float(_ct_ba_row_ops(branch))
+    log(f"K8 ct_ba_block halo launch F={f} K={k}: within tolerance "
+        f"({json.dumps(err)}); {ms:.4f} ms ({how}), {host_ms:.4f} ms with "
+        f"its host side, plain {plain_ms:.4f} ms")
+    return dict(max_abs_err=err["max_abs_err"], ms=ms, plain_ms=plain_ms,
+                library_ms=None, bytes=n_bytes, ops=ops, timing=how,
+                host_ms=host_ms, jtr_float64=err["jtr_float64"],
+                d_tr_m=err.get("d_tr_m"), d_rot_deg=err.get("d_rot_deg"),
+                shape=f"F={f} K={k} live={live} halo")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this script "
@@ -2452,6 +2887,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     header_move = phase_header_move()
     robust_backend, escalation_backend = phase_backend_robust()
+    scale_runs, scale_ends, first_maps = phase_scale_out(frames)
+    ranks_run, mesh_window = phase_scale_out_ranks(frames, scale_ends,
+                                                   first_maps)
+    del first_maps
+    scale_records = phase_kernels_scale_out(dev, frames, mesh_window)
 
     paths = {"driving": driving, "robust": robust, "escalation": escalation,
              "long_drive": long_drive, "robust_rebase": robust_rebase,
@@ -2463,10 +2903,13 @@ def main() -> int:
              "room_off": replay_runs["room_off"], "export": export,
              "ct_ba_beyond_residency": ct_ba_beyond,
              "robust_backend": robust_backend,
-             "escalation_backend": escalation_backend}
+             "escalation_backend": escalation_backend,
+             "scale_out_broadcast": scale_runs["broadcast"],
+             "scale_out_partitioned": scale_runs["partitioned"],
+             "scale_out_2_ranks": ranks_run}
     primary = {**robust_records, **rebase_records,
                "ct_ba_block": backend_records["ct_ba_block"],
-               **replay_records}
+               **replay_records, "owner_pack": scale_records["owner_pack"]}
     kernels = []
     for name, spec in KERNELS.items():
         # K1-K5: the robust shapes (every kernel runs there), the driving
@@ -2485,6 +2928,10 @@ def main() -> int:
         others.update(indoor_records.get(name, {}))
         if name in ("candidate_gather", "plane_moments"):
             others["backend"] = backend_records[name]
+        if name == "map_insert":
+            others["rank-0 slots (scale-out)"] = scale_records["map_insert"]
+        if name == "ct_ba_block":
+            others["halo (2 ranks)"] = scale_records["ct_ba_block"]
         rec = dict(
             name=name, route="cuda", source=spec["source"],
             replaces=spec["replaces"],

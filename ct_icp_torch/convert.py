@@ -13,13 +13,21 @@
   ring (``mapping/frame_ring.py``) across; :func:`map_points_to_numpy`
   splits an exported level (``Odometry.get_map_points``) into its points
   and normals.
+* :func:`sharded_map_from_numpy` / :func:`sharded_map_to_numpy` carry a
+  sharded map (``parallel/sharded_map.py``) across in the reference's
+  layout, a leading shard axis on every field;
+  :func:`write_sharded_checkpoint` / :func:`read_sharded_checkpoint` write
+  and read the reference ``DistributedOdometry``'s checkpoint (an .npz and
+  a .meta.json).
 
 The parity tests use both so the two packages compute from the same state.
 """
 
 import dataclasses
 import enum
+import json
 import typing
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -117,10 +125,11 @@ def ct_ba_to_numpy(x):
 
 def map_state_to_numpy(levels):
     """Port ``MapLevel``s -> list of {field: numpy array} in the reference's
-    layout (keys uint32, num_points a scalar)."""
+    layout (keys uint32, num_points a scalar), copies: the inserts update
+    a level in place."""
     out = []
     for level in levels:
-        d = {f: getattr(level, f).detach().cpu().numpy()
+        d = {f: getattr(level, f).detach().cpu().numpy().copy()
              for f in _LEVEL_FIELDS}
         d["keys"] = d["keys"].view(np.uint32)
         d["num_points"] = d["num_points"].reshape(())
@@ -171,3 +180,66 @@ def map_points_to_numpy(points_normals):
     [N, 3])."""
     pn = np.asarray(points_normals, np.float64)
     return pn[:, 0:3], pn[:, 3:6]
+
+
+def sharded_map_from_numpy(levels, rank: int, device="cpu"):
+    """Levels with a leading shard axis (mappings or NamedTuples of the
+    reference ``MapLevel`` fields, ``[n, ...]`` each) -> rank ``rank``'s
+    shard as a tuple of port ``MapLevel``s on ``device``."""
+    return map_state_from_numpy(
+        [{f: np.asarray(_fields(level)[f])[rank] for f in _LEVEL_FIELDS}
+         for level in levels], device)
+
+
+def sharded_map_to_numpy(shards):
+    """Each rank's levels as :func:`map_state_to_numpy` gives them, in rank
+    order -> the reference's layout: a {field: [n, ...]} per level, keys
+    uint32."""
+    return [{f: np.stack([r[i][f] for r in shards]) for f in _LEVEL_FIELDS}
+            for i in range(len(shards[0]))]
+
+
+def _checkpoint_base(path) -> str:
+    base = str(path)
+    return base[:-4] if base.endswith(".npz") else base
+
+
+def write_sharded_checkpoint(path, shards, trajectory, registered: int):
+    """The reference ``DistributedOdometry.save_checkpoint``'s files from
+    each rank's levels (:func:`sharded_map_to_numpy`'s input) and the
+    trajectory (``TrajectoryFrame``s): ``level{i}_{field}`` with a leading
+    shard axis (no ``win``), ``trajectory`` [F, 18], and the .meta.json."""
+    base = _checkpoint_base(path)
+    Path(base).parent.mkdir(parents=True, exist_ok=True)
+    arrays = {}
+    for i, level in enumerate(sharded_map_to_numpy(shards)):
+        for f, v in level.items():
+            arrays[f"level{i}_{f}"] = v
+    arrays["trajectory"] = np.stack([
+        np.concatenate([
+            f.begin_pose.quat, f.begin_pose.tr,
+            [f.begin_pose.timestamp, float(f.begin_pose.frame_id)],
+            f.end_pose.quat, f.end_pose.tr,
+            [f.end_pose.timestamp, float(f.end_pose.frame_id)]])
+        for f in trajectory]) if trajectory else np.zeros((0, 18))
+    np.savez_compressed(base + ".npz", **arrays)
+    meta = {"registered": int(registered), "num_levels": len(shards[0]),
+            "num_shards": len(shards)}
+    Path(base + ".meta.json").write_text(json.dumps(meta))
+
+
+def read_sharded_checkpoint(path):
+    """Read a ``DistributedOdometry`` checkpoint (the reference's or the
+    port's): (levels, a {field: [n, ...]} each; the trajectory as port
+    ``TrajectoryFrame``s; the meta dict)."""
+    base = _checkpoint_base(path)
+    meta = json.loads(Path(base + ".meta.json").read_text())
+    with np.load(base + ".npz") as data:
+        levels = [{f: data[f"level{i}_{f}"] for f in _LEVEL_FIELDS}
+                  for i in range(meta["num_levels"])]
+        rows = data["trajectory"]
+    trajectory = [TrajectoryFrame(
+        Pose(row[0:4], row[4:7], float(row[7]), int(row[8])),
+        Pose(row[9:13], row[13:16], float(row[16]), int(row[17])))
+        for row in rows]
+    return levels, trajectory, meta

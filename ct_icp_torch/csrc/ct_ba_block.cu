@@ -46,6 +46,16 @@
 // counter zero. No float atomics, fixed summation orders: a launch repeats
 // bit for bit, and `iters` iterations in one launch equal `iters` launches
 // of one.
+// A single-iteration "gn" launch may take a halo (the sharded window of
+// parallel/ct_ba.py: this rank's frames are a slice of the window): f32
+// [2, 16], row 0 the neighbour before the first frame (its iterate, 14
+// floats, its edge_alpha, then 1 or 0: whether that edge exists), row 1 the
+// neighbour after the last frame (its iterate, unused, 1 or 0). Those two
+// neighbours are read from it, in place of the window's ends; every other
+// frame reads its neighbours from the window as before. The neighbour's
+// pose is extrapolated here, by the same pose_at as a neighbour inside the
+// window, so a rank's launch gives the one-device launch's rows bit for
+// bit.
 // Mode 1 ("blocks", one iteration) leaves the continuity rows out (the
 // coupled solver's edges stay in torch) and solves nothing. A row of
 // weight 0 is skipped: the reference's row is exactly 0 there (0 times a
@@ -416,6 +426,7 @@ struct Args {
   const float* pte;        // [F, 3]
   const float* prior_weight;  // [F]
   const float* edge_alpha;    // [F]
+  const float* halo;       // [2, 16] or null (single-iteration "gn" only)
   int* flags;              // [1 + F]: the finished clusters, then each
                            // frame's finished iterations; left zero
   float* cost;             // [F] the last iteration's
@@ -439,10 +450,16 @@ __device__ __forceinline__ long long build_pose_rows(const Args& a,
   const long long t0 = clock64();
   const int grp = lane / 12, j = lane % 12;
   const bool gn = a.mode == 0;
-  const bool has_prev = gn && f > 0, has_next = gn && f < a.nf - 1;
-  const bool has = grp == 0 ? has_prev : has_next;
+  // the halo row of this group's neighbour, where it lies on another rank
+  const float* hrow = nullptr;
+  if (a.halo != nullptr && gn) {
+    if (grp == 0 && f == 0) hrow = a.halo;
+    if (grp == 1 && f == a.nf - 1) hrow = a.halo + 16;
+  }
+  const bool has = hrow != nullptr ? hrow[15] != 0.0f
+                   : gn && (grp == 0 ? f > 0 : f < a.nf - 1);
   const int nb = grp == 0 ? f - 1 : f + 1;
-  if (t > 1 && has)
+  if (t > 1 && has && hrow == nullptr)
     while (load_acquire(a.flags + 1 + nb) < t - 1) __nanosleep(32);
   const long long waited = clock64() - t0;
   const float* it =
@@ -450,12 +467,15 @@ __device__ __forceinline__ long long build_pose_rows(const Args& a,
   float nbr[14];
 #pragma unroll
   for (int v = 0; v < 14; ++v)
-    nbr[v] = has ? __ldcg(it + 14 * nb + v) : own[v];
+    nbr[v] = !has ? own[v] : hrow != nullptr ? hrow[v]
+                                             : __ldcg(it + 14 * nb + v);
   const Pose<KDual1> pd = seeded_pose(own, j);
   if (grp == 0) {
     Quat<float> qp;
     Vec3<float> tp;
-    pose_at(pose_from<float>(nbr), a.edge_alpha[has ? nb : f], qp, tp);
+    const float ea = !has ? a.edge_alpha[f]
+                     : hrow != nullptr ? hrow[14] : a.edge_alpha[nb];
+    pose_at(pose_from<float>(nbr), ea, qp, tp);
     const float qpa[4] = {qp.w, qp.x, qp.y, qp.z};
     const float tpa[3] = {tp.x, tp.y, tp.z};
     KDual1 rr[12];
@@ -861,17 +881,19 @@ extern "C" int k8_cluster(int nf, int rows) {
 // the last iteration's cost, total, J^T J, J^T r), mode 1 (iters 1) the
 // point + prior blocks (cost, total, J^T J, J^T r). `cluster` from
 // k8_cluster (or 16 where one iteration waits on no other cluster).
-// iterates: f32 [2, F, 14] scratch; flags: int32 [1 + F], zero, left zero.
+// iterates: f32 [2, F, 14] scratch; flags: int32 [1 + F], zero, left zero;
+// halo: f32 [2, 16] or null (mode 0 with one iteration only).
 extern "C" int k8_ct_ba_block(
     const void* poses_in, void* poses_out, void* iterates, const void* raw,
     const void* alphas, const void* anchors, const void* normals,
     const void* weights, const void* pqb, const void* ptb, const void* pqe,
     const void* pte, const void* prior_weight, const void* edge_alpha,
-    int nf, int k, int cluster, float beta, float damping, int mode,
-    int iters, void* flags, void* cost, void* total, void* jtj, void* jtr,
-    void* stream) {
+    const void* halo, int nf, int k, int cluster, float beta, float damping,
+    int mode, int iters, void* flags, void* cost, void* total, void* jtj,
+    void* jtr, void* stream) {
   if (nf < 1 || nf > 65535 || k < 0 || (mode != 0 && mode != 1) ||
       iters < 1 || (mode == 1 && iters != 1) ||
+      (halo != nullptr && (mode != 0 || iters != 1)) ||
       (cluster != 8 && cluster != 16))
     return static_cast<int>(cudaErrorInvalidValue);
   const int err = setup();
@@ -891,6 +913,7 @@ extern "C" int k8_ct_ba_block(
   a.pte = static_cast<const float*>(pte);
   a.prior_weight = static_cast<const float*>(prior_weight);
   a.edge_alpha = static_cast<const float*>(edge_alpha);
+  a.halo = static_cast<const float*>(halo);
   a.flags = static_cast<int*>(flags);
   a.cost = static_cast<float*>(cost);
   a.total = static_cast<float*>(total);

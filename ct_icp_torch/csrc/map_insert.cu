@@ -24,6 +24,9 @@
 //      claims into the other half of the claim words (two halves of C,
 //      used by round parity, so no claim of round r touches a word round
 //      r - 1's check reads).
+// With a `rank0` list (the with_normals insert's dirty voxels), each point
+// also reports the slot it was accepted into with election rank 0, -1 for
+// every other point (phase 1 writes the -1, phase 4 the slot).
 // The reference's two early exits are back: the claim rounds stop once every
 // claimant is resolved ("nearly every batch resolves within the first 1-3
 // probe rounds", voxel_map.py:276-284), the election once no eligible point
@@ -115,7 +118,7 @@ __global__ void __launch_bounds__(kThreads)
                       const uint8_t* __restrict__ valid, int n, int cap,
                       int p, float resolution, float min_d2, int max_rounds,
                       Scratch s, unsigned long long* claim, int32_t* ctrl,
-                      int32_t* inserted) {
+                      int32_t* inserted, int32_t* rank0) {
   cg::grid_group grid = cg::this_grid();
   const int stride = gridDim.x * kThreads;
   const int first = blockIdx.x * kThreads;     // a block's first item
@@ -150,6 +153,7 @@ __global__ void __launch_bounds__(kThreads)
       s.key[i] = key;
       s.attempt[i] = -1;
       s.rank[i] = -1;
+      if (rank0) rank0[i] = -1;
       int flags = valid[i] ? kValid : 0;
       int slot = -1;
       if (flags) {
@@ -264,6 +268,7 @@ __global__ void __launch_bounds__(kThreads)
               atomicAdd(count + slot, 1);
               atomicAdd(num_points, 1);
               atomicAdd(inserted, 1);
+              if (rank0 && r == 1) rank0[i] = slot;
             }
           } else if (r < max_rounds) {
             atomicMin(next + slot, claim_word(stamp + r, i));
@@ -296,13 +301,14 @@ extern "C" int k3_stamp_limit() { return kStampLimit; }
 // In place on (keys, count, points, num_points). scratch: int32
 // [kScratchRows * n]; claim: uint64 [2 * cap] and ctrl: int32 [kCtrlInts],
 // kept by the caller from call to call (claim all ones, ctrl zeros at
-// first); inserted: int32 [1].
+// first); inserted: int32 [1]; rank0: int32 [n] or null (each point's
+// slot where it was accepted with election rank 0, else -1).
 extern "C" int k3_map_insert(void* keys, void* count, void* points,
                              void* num_points, const void* pts,
                              const void* valid, int n, int cap, int p,
                              float resolution, float min_d2, int max_rounds,
                              void* scratch, void* claim, void* ctrl,
-                             void* inserted, void* stream) {
+                             void* inserted, void* rank0, void* stream) {
   if (max_rounds < 0 || max_rounds > kMaxRounds)
     return static_cast<int>(cudaErrorInvalidValue);
   if (g_max_blocks == 0) {
@@ -334,8 +340,10 @@ extern "C" int k3_map_insert(void* keys, void* count, void* points,
   auto* cl = static_cast<unsigned long long*>(claim);
   auto* ct = static_cast<int32_t*>(ctrl);
   auto* ins = static_cast<int32_t*>(inserted);
+  auto* r0 = static_cast<int32_t*>(rank0);
   void* args[] = {&table, &cnt, &pt, &np, &fpts, &vd, &n, &cap, &p,
-                  &resolution, &min_d2, &max_rounds, &s, &cl, &ct, &ins};
+                  &resolution, &min_d2, &max_rounds, &s, &cl, &ct, &ins,
+                  &r0};
   const int blocks =
       std::max(1, std::min((n + kThreads - 1) / kThreads, g_max_blocks));
   const cudaError_t e = cudaLaunchCooperativeKernel(

@@ -46,7 +46,15 @@ CUDA inputs and raises AssertionError on a disagreement. Tolerances:
     sign where the orientation is decided (|(barycenter - location) .
     normal| > 1e-3 m) and up to sign where it is not (where the two
     eigenvalues meet, the eigenvector is not defined, and sums taken in
-    another order turn it freely: those slots are counted, not compared).
+    another order turn it freely: those slots are counted, not compared);
+  * K11 (owner pack): the send buffers, their flags and the dropped count
+    identical (integer ranks, copied points);
+  * K3's rank-0 slots (the with_normals insert's dirty list) identical,
+    with the refit of those slots held as K10 is;
+  * K8's halo launch (a rank's slice of a sharded window): held as a
+    single-iteration "gn" launch is, and its J^T r also against the plain
+    version in float64 from the same poses: the kernel's gap to it within
+    10 times the float32 plain version's (or 1e-6 of its largest entry).
 Each returns {"max_abs_err": float} for the float outputs (0 if identical).
 """
 
@@ -62,6 +70,7 @@ from ct_icp_torch.kernels import grid_sample as k4
 from ct_icp_torch.kernels import level_normals as k10
 from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.kernels import map_insert as k3
+from ct_icp_torch.kernels import owner_pack as k11
 from ct_icp_torch.kernels import plane_moments as k2
 from ct_icp_torch.kernels import rebuild as k7
 from ct_icp_torch.kernels import row_gather as k6
@@ -268,7 +277,7 @@ def check_lm_step(rows, prior, n_res, state, sigma, tolerant_a,
 
 
 def check_ct_ba_block(poses, problem, beta, damping, mode,
-                      compare_poses=True, iters=1):
+                      compare_poses=True, iters=1, halo=None):
     """K8 against ``ct_ba_block_plain`` on the same window, and a second
     launch against the first. With ``iters`` inner iterations (mode "gn")
     the last iteration's J^T J, costs and update are held to the plain
@@ -280,11 +289,11 @@ def check_ct_ba_block(poses, problem, beta, damping, mode,
     (``compare_poses=False`` leaves the updated poses to the two-launch
     check alone: for a system too ill-conditioned for two solves to
     agree)."""
-    a = k8.ct_ba_block(poses, problem, beta, damping, mode, iters)
-    again = k8.ct_ba_block(poses, problem, beta, damping, mode, iters)
+    a = k8.ct_ba_block(poses, problem, beta, damping, mode, iters, halo)
+    again = k8.ct_ba_block(poses, problem, beta, damping, mode, iters, halo)
     start = poses if iters == 1 else k8.ct_ba_block(
         poses, problem, beta, damping, mode, iters - 1).poses
-    b = k8.ct_ba_block_plain(start, problem, beta, damping, mode)
+    b = k8.ct_ba_block_plain(start, problem, beta, damping, mode, 1, halo)
     torch.cuda.synchronize()
     for x, y, what in ((a.jtj, again.jtj, "J^T J"), (a.jtr, again.jtr,
                                                      "J^T r"),
@@ -453,3 +462,68 @@ def check_level_normals(level, location, slots):
         raise AssertionError(f"level_normals: a normal differs by {worst}")
     return {"max_abs_err": worst, "refit": int(slots.shape[0]),
             "left_out": int((~apart).sum())}
+
+
+def check_ct_ba_halo(poses, problem, halo, beta, damping):
+    """K8's single-iteration "gn" launch with ``halo`` held as
+    :func:`check_ct_ba_block` holds it, and its J^T r against the plain
+    version in float64 from the same poses (ROADMAP's watch item on K8's
+    J^T r): within 10 times the float32 plain version's gap (relative to
+    the largest entry), or 1e-6."""
+    out = check_ct_ba_block(poses, problem, beta, damping, "gn", halo=halo)
+    a = k8.ct_ba_block(poses, problem, beta, damping, "gn", 1, halo)
+    b = k8.ct_ba_block_plain(poses, problem, beta, damping, "gn", 1, halo)
+    p64 = ba.CTBAProblem(*(x.double() for x in problem))
+    jtr_64 = k8.ct_ba_block_plain(poses.double(), p64, beta, damping, "gn",
+                                  1, halo.double()).jtr
+    gaps = {"kernel_vs_float64": _rel_err(a.jtr.double(), jtr_64),
+            "plain_vs_float64": _rel_err(b.jtr.double(), jtr_64)}
+    if not gaps["kernel_vs_float64"] <= max(
+            10 * gaps["plain_vs_float64"], 1e-6):
+        raise AssertionError(f"ct_ba_block halo: J^T r off the float64 "
+                             f"version {gaps}")
+    out["jtr_float64"] = gaps
+    return out
+
+
+def check_owner_pack(world, valid, resolution, n, cap):
+    """K11 against its plain version, and a second call against the
+    first: identical."""
+    got = k11.owner_pack(world, valid, resolution, n, cap)
+    again = k11.owner_pack(world, valid, resolution, n, cap)
+    want = k11.owner_pack_plain(world, valid, resolution, n, cap)
+    torch.cuda.synchronize()
+    for a, b, c, name in zip(got, again, want,
+                             ("send", "send_valid", "dropped")):
+        _same(a, b, f"owner_pack {name}, two calls")
+        _same(a, c, f"owner_pack {name}")
+    return {"max_abs_err": 0.0, "dropped": int(want.dropped[0]),
+            "sent": int(want.send_valid.sum())}
+
+
+def check_insert_with_normals(level, pts, valid, resolution, min_dist,
+                              max_rounds, begin_tr, max_dirty):
+    """K3 with its rank-0 slots against the plain version, each on its own
+    copy of ``level`` (every field and the slots identical), then the
+    dirty list (the rank-0 slots in scan order, the first ``max_dirty``)
+    refit by K10 against its plain version (:func:`check_level_normals`)
+    on the kernel's copy. Returns the dirty slots and the refit's
+    errors."""
+    a = [t.clone() for t in (level.keys, level.count, level.points,
+                             level.num_points)]
+    b = [t.clone() for t in a]
+    n_a, r_a = k3.map_insert(*a, pts, valid, resolution, min_dist,
+                             max_rounds, rank0=True)
+    n_b, r_b = k3.map_insert_plain(*b, pts, valid, resolution, min_dist,
+                                   max_rounds, rank0=True)
+    torch.cuda.synchronize()
+    for x, y, name in zip(a + [n_a, r_a], b + [n_b, r_b],
+                          ("keys", "count", "points", "num_points",
+                           "inserted", "rank-0 slots")):
+        _same(x, y, f"map_insert {name}")
+    dirty = r_a[torch.nonzero(r_a >= 0)[:, 0]][:max_dirty]
+    after = level._replace(keys=a[0], count=a[1], points=a[2],
+                           num_points=a[3])
+    out = check_level_normals(after, begin_tr, dirty)
+    out.update(dirty=int(dirty.shape[0]), inserted=int(n_a[0]))
+    return out

@@ -15,6 +15,15 @@ vmapped over the window by the block-Jacobi ``local_step`` inside its
   * mode ``"blocks"`` (one iteration): J^T J, J^T r and the cost of the
     point and prior rows only (the coupled solver adds its edges in torch).
 
+A single-iteration ``"gn"`` launch may take a ``halo`` f32[2, 16]: the
+neighbours of the window's first and last frame where the window is one
+rank's slice of a sharded window (``parallel/ct_ba.py``'s mesh step): row 0
+the previous frame's iterate (14), its edge_alpha and 1 (0: no such
+edge), row 1 the next frame's iterate (14), 0 and 1 or 0
+(:func:`ct_ba.halo_rows`). The kernel extrapolates the previous frame
+itself, as it does a neighbour inside the window, so a rank's launch
+repeats the one-device launch's rows bit for bit.
+
 Each frame is a thread-block cluster (16 CTAs, or 8 where the window's
 clusters do not all fit on the card at once: :func:`cluster_size`) that
 keeps its rows in shared memory for the whole launch; its partial sums meet
@@ -81,40 +90,46 @@ def frame_order_sum(cost):
 
 
 def ct_ba_block_plain(poses, problem, beta: float, damping: float,
-                      mode: str, iters: int = 1) -> Block:
+                      mode: str, iters: int = 1, halo=None) -> Block:
     """Plain PyTorch version of :func:`ct_ba_block`: ``iters`` calls of
     ``_frame_gn_update``, each on the previous one's poses (the reference's
     ``one_iter``), or ``_frame_blocks``."""
-    _check_iters(mode, iters)
+    _check_iters(mode, iters, halo)
     if mode == "gn":
         for _ in range(iters):
             poses, cost, jtj, jtr = ba._frame_gn_update(poses, problem, beta,
-                                                        damping)
+                                                        damping, halo)
         return Block(poses, cost, jtj, jtr, frame_order_sum(cost))
     hp, gp, cost = ba._frame_blocks(poses, problem)
     return Block(None, cost, hp, gp, frame_order_sum(cost))
 
 
-def _check_iters(mode, iters):
+def _check_iters(mode, iters, halo=None):
     if mode not in MODES:
         raise ValueError(f"ct_ba_block: unknown mode {mode!r}")
     if iters < 1 or (mode == "blocks" and iters != 1):
         raise ValueError(f"ct_ba_block: {iters} iterations in mode {mode!r}")
+    if halo is not None and (mode != "gn" or iters != 1):
+        raise ValueError("ct_ba_block: a halo takes one 'gn' iteration")
 
 
 def ct_ba_block(poses, problem, beta: float, damping: float, mode: str,
-                iters: int = 1) -> Block:
+                iters: int = 1, halo=None) -> Block:
     """Block passes over the window: ``poses`` f32[F, 14] (qb, tb, qe, te:
     the first iterate), ``problem`` a ``parallel.ct_ba.CTBAProblem`` (raw,
     anchors, normals f32[F, K, 3]; alphas, weights f32[F, K]; the prior
     poses; prior_weight and edge_alpha f32[F]), the continuity weight
-    ``beta``, the damping and the inner iterations (``"gn"``). Returns a
+    ``beta``, the damping, the inner iterations (``"gn"``) and the halo of
+    a rank's slice (single-iteration ``"gn"`` only). Returns a
     :class:`Block` of the last iteration; nothing is read back. One launch
     of ``csrc/ct_ba_block.cu`` on the card."""
     if poses.device.type == "cpu":
-        return ct_ba_block_plain(poses, problem, beta, damping, mode, iters)
+        # the halo only where there is one: the plain version's callers
+        # (and stand-ins for it) keep its six-argument form
+        return ct_ba_block_plain(poses, problem, beta, damping, mode, iters,
+                                 *(() if halo is None else (halo,)))
     global launches
-    out = launch(poses, problem, beta, damping, mode, iters)
+    out = launch(poses, problem, beta, damping, mode, iters, halo=halo)
     launches += 1
     return out
 
@@ -169,14 +184,14 @@ def cluster_size(f: int, k: int, dev, waits: bool = True) -> int:
 
 
 def launch(poses, problem, beta: float, damping: float, mode: str,
-           iters: int = 1, defines=()) -> Block:
+           iters: int = 1, defines=(), halo=None) -> Block:
     """One launch of ``csrc/ct_ba_block.cu`` on CUDA tensors, counted by no
     launch counter; ``defines`` pick a measurement variant of the kernel
     (``tools/exp_ct_ba.py``), none the main path's."""
     dev = poses.device
     if dev.type != "cuda":
         raise ValueError(f"ct_ba_block: no kernel for {dev}")
-    _check_iters(mode, iters)
+    _check_iters(mode, iters, halo)
     p = problem
     f, k = p.raw.shape[0], p.raw.shape[1]
     f32 = torch.float32
@@ -191,6 +206,8 @@ def launch(poses, problem, beta: float, damping: float, mode: str,
             (p.prior_weight, (f,), "prior_weight"),
             (p.edge_alpha, (f,), "edge_alpha")):
         build.check_tensor(t, f32, shape, "ct_ba_block", name, dev)
+    if halo is not None:
+        build.check_tensor(halo, f32, (2, 16), "ct_ba_block", "halo", dev)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     cluster = cluster_size(f, k, dev, waits=iters > 1 and f > 1)
@@ -207,8 +224,8 @@ def launch(poses, problem, beta: float, damping: float, mode: str,
                     p.raw, p.alphas, p.anchors, p.normals, p.weights,
                     p.prior_quat_begin, p.prior_tr_begin, p.prior_quat_end,
                     p.prior_tr_end, p.prior_weight, p.edge_alpha)),
-                f, k, cluster, float(beta), float(damping), MODES[mode],
-                int(iters),
+                None if halo is None else build.ptr(halo), f, k, cluster,
+                float(beta), float(damping), MODES[mode], int(iters),
                 build.ptr(_buffer(_flags, dev, (1 + f,), torch.int32)),
                 build.ptr(cost), build.ptr(total), build.ptr(jtj),
                 build.ptr(jtr), build.stream_of(poses))
@@ -228,5 +245,5 @@ def _buffer(store, dev, shape, dtype):
     return buf
 
 
-_ARGTYPES = (build.PTR,) * 14 + (build.INT,) * 3 + (build.FLOAT,) * 2 \
+_ARGTYPES = (build.PTR,) * 15 + (build.INT,) * 3 + (build.FLOAT,) * 2 \
     + (build.INT,) * 2 + (build.PTR,) * 6

@@ -17,6 +17,11 @@ the rounds' grid barriers set the time at driving sizes.
 Unlike the reference (a pure function), both versions update the level's
 tensors in place: the map is ~100 MB and every frame rewrites a few rows.
 
+With ``rank0=True`` a call also returns, for each point, the slot it was
+accepted into with election rank 0 (-1 for every other point): the
+reference's ``accept_e & first_e``, whose slots are the dirty voxels of its
+``with_normals`` insert (:474-510; ``mapping/voxel_map.py::insert_points``).
+
 A CPU tensor takes :func:`map_insert_plain`; a CUDA tensor launches the
 kernel or raises.
 """
@@ -111,7 +116,8 @@ def _elect_ranks(slots, eligible, c: int, max_rounds: int):
 
 
 def map_insert_plain(keys, count, points, num_points, pts, valid,
-                     resolution: float, min_dist: float, max_rounds: int):
+                     resolution: float, min_dist: float, max_rounds: int,
+                     rank0: bool = False):
     """Plain PyTorch version of :func:`map_insert` (same rounds, same
     arbitration; compacts the claim subset and the eligible points as the
     reference does)."""
@@ -148,7 +154,12 @@ def map_insert_plain(keys, count, points, num_points, pts, valid,
     count.index_add_(0, s_a, torch.ones_like(s_a, dtype=torch.int32))
     inserted = accept.sum().to(torch.int32).reshape(1)
     num_points += inserted
-    return inserted
+    if not rank0:
+        return inserted
+    first = accept & (rank == 0)
+    r0 = torch.full((n,), -1, dtype=torch.int32, device=pts.device)
+    r0[e_idx[first]] = slot_e[first].to(torch.int32)
+    return inserted, r0
 
 
 def _claim_buffers(dev, c: int):
@@ -165,16 +176,18 @@ def _claim_buffers(dev, c: int):
 
 
 def map_insert(keys, count, points, num_points, pts, valid,
-               resolution: float, min_dist: float, max_rounds: int):
+               resolution: float, min_dist: float, max_rounds: int,
+               rank0: bool = False):
     """Insert ``pts`` f32[N, 3] (where ``valid`` bool[N]) into the level
     (keys int32[C] uint32 bit patterns, count int32[C], points f32[C, 3P],
     num_points int32[1]) in place: a new voxel takes the point; a voxel
     below capacity takes it iff it is farther than ``min_dist`` from every
     stored point; at most ``max_rounds`` points per voxel per call.
-    Returns the number inserted, int32[1]."""
+    Returns the number inserted, int32[1], and with ``rank0`` also each
+    point's rank-0 slot, int32[N] (-1 where none)."""
     if pts.device.type == "cpu":
         return map_insert_plain(keys, count, points, num_points, pts, valid,
-                                resolution, min_dist, max_rounds)
+                                resolution, min_dist, max_rounds, rank0)
     global launches
     dev = pts.device
     if dev.type != "cuda":
@@ -194,16 +207,18 @@ def map_insert(keys, count, points, num_points, pts, valid,
     scratch = torch.empty((_SCRATCH_ROWS * n,), dtype=torch.int32, device=dev)
     claim, ctrl = _claim_buffers(dev, c)
     inserted = torch.empty((1,), dtype=torch.int32, device=dev)
+    r0 = torch.empty((n,), dtype=torch.int32, device=dev) if rank0 else None
     fn = build.launcher("map_insert", "k3_map_insert", _ARGTYPES)
     status = fn(build.ptr(keys), build.ptr(count), build.ptr(points),
                 build.ptr(num_points), build.ptr(pts), build.ptr(valid), n, c,
                 row_len // 3, float(resolution), min_dist_sq(min_dist),
                 int(max_rounds), build.ptr(scratch), build.ptr(claim),
-                build.ptr(ctrl), build.ptr(inserted), build.stream_of(pts))
+                build.ptr(ctrl), build.ptr(inserted),
+                None if r0 is None else build.ptr(r0), build.stream_of(pts))
     build.check_status(status, "map_insert")
     launches += 1
-    return inserted
+    return inserted if r0 is None else (inserted, r0)
 
 
 _ARGTYPES = (build.PTR,) * 6 + (build.INT,) * 3 + (build.FLOAT,) * 2 \
-    + (build.INT,) + (build.PTR,) * 5
+    + (build.INT,) + (build.PTR,) * 6

@@ -7,8 +7,10 @@ Counterpart of ``ct_icp_tpu/mapping/voxel_map.py``; the layout is the same:
                            voxel_key_u32), stored as its int32 bit pattern
     count      int32[C]
     points     f32[C, 3P]  PLANAR rows: x-plane | y-plane | z-plane
-    normals    f32[C, 3]   per-voxel normal (not maintained by the insert;
-                           the export refits them: refit_normals)
+    normals    f32[C, 3]   per-voxel normal (maintained by the insert only
+                           when it is given the frame's begin location, as
+                           the sharded map's is; the export refits them:
+                           refit_normals)
     nflags     int32[C]
     num_points int32[1]
 
@@ -132,12 +134,36 @@ def ball_search_moments(level: MapLevel, queries, query_valid,
 
 
 def insert_points(level: MapLevel, pts, valid, resolution: float,
-                  min_dist: float, max_rounds: int = 4):
-    """Insert a point batch into the level in place (kernel K3; the
-    reference's ``with_normals=False`` path). Returns int32[1] inserted."""
-    return k3.map_insert(level.keys, level.count, level.points,
-                         level.num_points, pts, valid, resolution, min_dist,
-                         max_rounds)
+                  min_dist: float, max_rounds: int = 4, begin_tr=None,
+                  max_dirty=None):
+    """Insert a point batch into the level in place (kernel K3). Returns
+    int32[1] inserted.
+
+    Without ``begin_tr`` it is the reference's ``with_normals=False`` path.
+    With ``begin_tr`` (f32[3] on the level's device, the frame's begin
+    location) it is the ``with_normals`` path (reference :474-510): the
+    dirty voxels are the slots of the points accepted with election rank 0,
+    in scan order, the first ``max_dirty`` of them (all when None); K10
+    refits each one of at least 5 points, oriented toward ``begin_tr``, and
+    its normal and flag 2 are written back. Listing the dirty slots reads
+    their number back to the host (one sync)."""
+    if begin_tr is None:
+        return k3.map_insert(level.keys, level.count, level.points,
+                             level.num_points, pts, valid, resolution,
+                             min_dist, max_rounds)
+    inserted, r0 = k3.map_insert(level.keys, level.count, level.points,
+                                 level.num_points, pts, valid, resolution,
+                                 min_dist, max_rounds, rank0=True)
+    dirty = torch.nonzero(r0 >= 0)[:, 0]
+    if max_dirty is not None:
+        dirty = dirty[:max_dirty]
+    slots = r0[dirty]
+    if slots.numel():
+        normals, nflags = refit_normals(level, begin_tr, slots)
+        at = slots.long()
+        level.normals[at] = normals
+        level.nflags[at] = nflags
+    return inserted
 
 
 def prune_level(level: MapLevel, location, max_distance: float, gate=None):

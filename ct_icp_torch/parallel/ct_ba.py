@@ -1,12 +1,15 @@
-"""Continuous-time bundle adjustment of a window of keyframes, on one device.
+"""Continuous-time bundle adjustment of a window of keyframes.
 
-Counterpart of ``ct_icp_tpu/parallel/ct_ba.py`` without the mesh: the
-reference shards the keyframe axis over a TPU mesh (``shard_map``, a
-``ppermute`` halo of the neighbour poses, ``psum`` of the costs); here the
-whole window lies on one card, so the halo is a shift along the frame axis
-(``torch.roll``: the wrapped end values meet the zero end weights, as the
-reference's one-shard ``ppermute`` does) and the sums are plain sums.
-Sharding the window over several cards is ROADMAP queue A item 3.
+Counterpart of ``ct_icp_tpu/parallel/ct_ba.py``. The reference shards the
+keyframe axis over a TPU mesh (``shard_map``, a ``ppermute`` halo of the
+neighbour poses, ``psum`` of the costs). Here a window on one device
+shifts along its frame axis for the halo (``torch.roll``: the wrapped end
+values meet the zero end weights, as the reference's one-shard
+``ppermute`` does) and sums plainly; a window sharded over the ranks of a
+process group (``make_ct_ba_step(..., group=...)``, each rank a contiguous
+slice of the frames: :func:`shard_problem`) exchanges the slice's end
+poses with its neighbours (``parallel/comm.py::halo``) and sums over the
+ranks with all_reduce.
 
 Problem: per keyframe f, the 12-DoF continuous-time state (begin, end
 pose); residuals
@@ -40,6 +43,7 @@ from ct_icp_torch.core import dual
 from ct_icp_torch.core import se3 as s3
 from ct_icp_torch.core import se3_np as s3n
 from ct_icp_torch.kernels import ct_ba_block as k8
+from ct_icp_torch.parallel import comm
 
 # row layout of one keyframe's residual vector: K point rows, then
 # CONTINUITY_ROWS (prev position, prev rotation, next position, next
@@ -178,30 +182,63 @@ def _edge_residuals(d_self, d_next, qb, tb, qe, te, edge_alpha, qb_n, tb_n,
                           (bw * (1.0 - dq * dq))[:, None]], axis=-1)
 
 
-def neighbours(qb, tb, qe, te, edge_alpha):
-    """The halo of the block-Jacobi step on one device: each frame's
-    predecessor extrapolated to its begin timestamp, its successor's begin
-    pose, and the end weights (no continuity before the first frame or
-    after the last). Returns (q_prev_ext, t_prev_ext, q_next_begin,
-    t_next_begin, w_prev, w_next)."""
+def neighbours(qb, tb, qe, te, edge_alpha, halo=None):
+    """The halo of the block-Jacobi step: each frame's predecessor
+    extrapolated to its begin timestamp, its successor's begin pose, and
+    the end weights (no continuity before the first frame or after the
+    last). With ``halo`` f32[2, 16] (:func:`halo_rows`, the frames a rank's
+    slice of a sharded window) the first frame's predecessor and the last
+    frame's successor and their weights come from it. Returns (q_prev_ext,
+    t_prev_ext, q_next_begin, t_next_begin, w_prev, w_next)."""
     f = qb.shape[0]
     ext_q, ext_t = _pose_at(qb, tb, qe, te, edge_alpha)
     idx = torch.arange(f, device=qb.device)
     one = torch.ones(f, dtype=qb.dtype, device=qb.device)
     zero = torch.zeros_like(one)
-    return (torch.roll(ext_q, 1, 0), torch.roll(ext_t, 1, 0),
-            torch.roll(qb, -1, 0), torch.roll(tb, -1, 0),
-            torch.where(idx == 0, zero, one),
-            torch.where(idx == f - 1, zero, one))
+    q_prev, t_prev = torch.roll(ext_q, 1, 0), torch.roll(ext_t, 1, 0)
+    q_next, t_next = torch.roll(qb, -1, 0), torch.roll(tb, -1, 0)
+    w_prev = torch.where(idx == 0, zero, one)
+    w_next = torch.where(idx == f - 1, zero, one)
+    if halo is not None:
+        hq, ht = _pose_at(halo[0:1, 0:4], halo[0:1, 4:7], halo[0:1, 7:11],
+                          halo[0:1, 11:14], halo[0:1, 14])
+        first, last = idx == 0, idx == f - 1
+        on_prev = first & (halo[0, 15] != 0)
+        q_prev = torch.where(on_prev[:, None], hq, q_prev)
+        t_prev = torch.where(on_prev[:, None], ht, t_prev)
+        on_next = last & (halo[1, 15] != 0)
+        q_next = torch.where(on_next[:, None], halo[1:2, 0:4], q_next)
+        t_next = torch.where(on_next[:, None], halo[1:2, 4:7], t_next)
+        w_prev = torch.where(first, halo[0, 15], w_prev)
+        w_next = torch.where(last, halo[1, 15], w_next)
+    return q_prev, t_prev, q_next, t_next, w_prev, w_next
+
+
+def halo_rows(poses, edge_alpha, group):
+    """The halo of a rank's slice ``poses`` [F, 14] of a sharded window
+    (:func:`neighbours`, K8's ``halo``): f32[2, 16], row 0 the previous
+    rank's last frame (its iterate, its edge_alpha, 1; rank 0: 0, no
+    edge), row 1 the next rank's first frame (its iterate, 0, 1; the last
+    rank: 0). One ring exchange (``comm.halo``)."""
+    n, r = comm.size(group), comm.rank(group)
+    pad = poses.new_zeros((2,))
+    last = torch.cat([poses[-1], edge_alpha[-1:], pad[:1]])
+    first = torch.cat([poses[0], pad])
+    prev_last, next_first = comm.halo(first, last, group)
+    out = torch.stack([prev_last, next_first])
+    out[0, 15] = 0.0 if r == 0 else 1.0
+    out[1, 14] = 0.0
+    out[1, 15] = 0.0 if r == n - 1 else 1.0
+    return out.contiguous()
 
 
 def frame_system(poses, problem: CTBAProblem, beta: float,
-                 continuity: bool = True):
+                 continuity: bool = True, halo=None):
     """The row pass of every keyframe: residuals r0 [F, R] and their
     Jacobian [F, R, 12] at delta = 0 by forward mode (``core/dual.py``),
     with R = K + 8 + 8 (continuity rows, against the neighbours of
-    :func:`neighbours`, included) or K + 8 (``continuity=False``: the point
-    and prior rows of ``_frame_blocks``)."""
+    :func:`neighbours` with ``halo``, included) or K + 8
+    (``continuity=False``: the point and prior rows of ``_frame_blocks``)."""
     qb, tb, qe, te = unpack_state(poses)
     p = problem
     f = qb.shape[0]
@@ -212,7 +249,8 @@ def frame_system(poses, problem: CTBAProblem, beta: float,
     if continuity:
         parts.append(_continuity_residuals(
             d, qb, tb, qe, te,
-            *neighbours(qb, tb, qe, te, p.edge_alpha), beta, p.edge_alpha,
+            *neighbours(qb, tb, qe, te, p.edge_alpha, halo), beta,
+            p.edge_alpha,
             m))
     parts.append(_prior_residuals(d, qb, tb, qe, te, p.prior_quat_begin,
                                   p.prior_tr_begin, p.prior_quat_end,
@@ -233,12 +271,13 @@ def gn_delta(jtj, jtr, damping: float):
 
 
 def _frame_gn_update(poses, problem: CTBAProblem, beta: float,
-                     damping: float):
+                     damping: float, halo=None):
     """One damped block-GN update of every keyframe, its neighbours held at
-    ``poses`` (plain version of K8's ``gn`` mode). Returns (new poses
+    ``poses`` and, for a rank's slice, ``halo`` (plain version of K8's
+    ``gn`` mode). Returns (new poses
     [F, 14], cost [F] (continuity rows halved: each edge appears in both
     of its frames), J^T J [F, 12, 12], J^T r [F, 12])."""
-    r0, jac = frame_system(poses, problem, beta)
+    r0, jac = frame_system(poses, problem, beta, halo=halo)
     jt = jac.transpose(-1, -2)
     jtj = jt @ jac
     jtr = (jt @ r0[..., None])[..., 0]
@@ -260,14 +299,18 @@ def _frame_blocks(poses, problem: CTBAProblem):
     return jt @ jac, (jt @ r0[..., None])[..., 0], (r0 * r0).sum(-1)
 
 
-def edge_blocks(poses, edge_alpha, w_edge, beta: float):
+def edge_blocks(poses, edge_alpha, w_edge, beta: float, qb_n=None,
+                tb_n=None):
     """Each edge's rows ce [F, 4] and their Jacobians with respect to the
-    frame (a [F, 4, 12]) and its successor (b [F, 4, 12])."""
+    frame (a [F, 4, 12]) and its successor (b [F, 4, 12]), whose begin pose
+    is ``qb_n`` / ``tb_n`` [F, ...] (default: the next frame of the
+    window, wrapping)."""
     qb, tb, qe, te = unpack_state(poses)
+    if qb_n is None:
+        qb_n, tb_n = torch.roll(qb, -1, 0), torch.roll(tb, -1, 0)
     d = seed_deltas(qb.shape[0], 24, poses)
     ce = _edge_residuals(d[:, 0:12], d[:, 12:24], qb, tb, qe, te,
-                         edge_alpha, torch.roll(qb, -1, 0),
-                         torch.roll(tb, -1, 0), w_edge, beta, dual.math)
+                         edge_alpha, qb_n, tb_n, w_edge, beta, dual.math)
     jac = ce.jacobian()
     return ce.v, jac[..., 0:12], jac[..., 12:24]
 
@@ -285,11 +328,39 @@ def jacobi_launches(f: int, k: int, iters: int, device) -> int:
     return iters
 
 
+def shard_problem(state: CTBAState, problem: CTBAProblem, group=None,
+                  device=None):
+    """This rank's contiguous slice of the window's frames (reference
+    :386-392, the keyframe axis sharded over the mesh): frames
+    [r F / n, (r + 1) F / n) of every field, on ``device`` (default:
+    where they are). F must divide by the ranks."""
+    n, r = comm.size(group), comm.rank(group)
+    f = state.quat_begin.shape[0]
+    if f % n:
+        raise ValueError(f"shard_problem: {f} frames over {n} ranks")
+    lo, hi = r * f // n, (r + 1) * f // n
+
+    def cut(x):
+        x = x[lo:hi].contiguous()
+        return x if device is None else x.to(device)
+
+    return (CTBAState(*(cut(x) for x in state)),
+            CTBAProblem(*(cut(x) for x in problem)))
+
+
 def make_ct_ba_step(num_inner_iters: int = 2, beta: float = 1.0,
                     damping: float = 1e-3, solver: str = "jacobi",
-                    num_cg_iters: int = 16):
-    """The CT-BA step on one device: step(state, problem) -> (state, total
-    cost of the last inner iteration, a 0-dim tensor). Nothing is read back.
+                    num_cg_iters: int = 16, group=None):
+    """The CT-BA step: step(state, problem) -> (state, total cost of the
+    last inner iteration, a 0-dim tensor). Nothing is read back.
+
+    With a ``group`` of n > 1 ranks, ``state`` and ``problem`` are this
+    rank's slice of the window (:func:`shard_problem`) and the cost is the
+    window's: a block-Jacobi step is one single-iteration K8 launch an
+    inner iteration with the slice's halo exchanged before each
+    (:func:`halo_rows`; the reference's ppermute), the PCG step's shifts
+    are ring exchanges and its dot products and cost all_reduce sums.
+    Without a group, or with one of one rank, it is the one-device step.
 
     ``solver``:
       * ``"jacobi"``: damped block-Jacobi GN; the ``num_inner_iters``
@@ -302,6 +373,18 @@ def make_ct_ba_step(num_inner_iters: int = 2, beta: float = 1.0,
         block-diagonal preconditioned CG, on K8's point + prior blocks."""
     if solver not in ("jacobi", "pcg"):
         raise ValueError(f"unknown CT-BA solver {solver!r}")
+    sharded = comm.size(group) > 1
+
+    def step_jacobi_mesh(state: CTBAState, problem: CTBAProblem):
+        poses = pack_state(state)
+        total = torch.zeros((1,), dtype=poses.dtype, device=poses.device)
+        for _ in range(num_inner_iters):
+            halo = halo_rows(poses, problem.edge_alpha, group)
+            out = k8.ct_ba_block(poses, problem, beta, damping, "gn", 1,
+                                 halo=halo)
+            poses = out.poses
+            total = out.total.reshape(1)
+        return unpack_state(poses), comm.sum_(total.clone(), group)[0]
 
     def step_jacobi(state: CTBAState, problem: CTBAProblem):
         poses = pack_state(state)
@@ -321,23 +404,35 @@ def make_ct_ba_step(num_inner_iters: int = 2, beta: float = 1.0,
         f = poses.shape[0]
         dev, dt = poses.device, poses.dtype
         idx = torch.arange(f, device=dev)
-        w_edge = torch.where(idx == f - 1, torch.zeros(f, dtype=dt,
-                                                       device=dev),
+        # no edge after the window's last frame (on the last rank)
+        last = comm.rank(group) == comm.size(group) - 1
+        w_edge = torch.where((idx == f - 1) & last,
+                             torch.zeros(f, dtype=dt, device=dev),
                              torch.ones(f, dtype=dt, device=dev))
 
         def shift_fwd(x):
-            """x_f -> the value frame f + 1 sees from frame f."""
-            return torch.roll(x, 1, 0)
+            """x_f -> the value frame f + 1 sees from frame f (across a
+            slice's start, the previous rank's last row; on one device a
+            roll, whose wrap meets the last edge's zero weight)."""
+            prev_last, _ = comm.halo(x[0], x[-1], group)
+            return torch.cat([prev_last[None], x[:-1]], 0)
 
         def shift_bwd(x):
             """x_f -> x_{f+1}, aligned at frame f."""
-            return torch.roll(x, -1, 0)
+            _, next_first = comm.halo(x[0], x[-1], group)
+            return torch.cat([x[1:], next_first[None]], 0)
+
+        def pdot(p, q):
+            return comm.sum_((p * q).sum().reshape(1), group)[0]
 
         cost = torch.zeros((), dtype=dt, device=dev)
         for _ in range(num_inner_iters):
             blk = k8.ct_ba_block(poses, problem, beta, damping, "blocks")
-            ce, a, b = edge_blocks(poses, problem.edge_alpha, w_edge, beta)
-            cost = (blk.cost + (ce * ce).sum(-1)).sum()
+            nxt = shift_bwd(poses)
+            ce, a, b = edge_blocks(poses, problem.edge_alpha, w_edge, beta,
+                                   nxt[:, 0:4], nxt[:, 4:7])
+            cost = comm.sum_((blk.cost + (ce * ce).sum(-1)).sum().reshape(1),
+                             group)[0]
             # block-tridiagonal assembly: H_ff = hp + a^T a + the incoming
             # edge's b^T b, U_f = a_f^T b_f, g_f = gp + a^T ce + the
             # incoming edge's b^T ce
@@ -361,20 +456,22 @@ def make_ct_ba_step(num_inner_iters: int = 2, beta: float = 1.0,
             r = -g
             z = torch.einsum("fij,fj->fi", hinv, r)
             p = z
-            rs = (r * z).sum()
+            rs = pdot(r, z)
             for _ in range(num_cg_iters):
                 hp_v = matvec(p)
-                alpha = rs / torch.clamp_min((p * hp_v).sum(), 1e-20)
+                alpha = rs / torch.clamp_min(pdot(p, hp_v), 1e-20)
                 x = x + alpha * p
                 r = r - alpha * hp_v
                 z = torch.einsum("fij,fj->fi", hinv, r)
-                rs_new = (r * z).sum()
+                rs_new = pdot(r, z)
                 p = z + (rs_new / torch.clamp_min(rs, 1e-20)) * p
                 rs = rs_new
             poses = torch.cat(apply_delta(x, *unpack_state(poses)), dim=1)
         return unpack_state(poses), cost
 
-    return step_jacobi if solver == "jacobi" else step_pcg
+    if solver == "pcg":
+        return step_pcg
+    return step_jacobi_mesh if sharded else step_jacobi
 
 
 def build_synthetic_problem(rng, num_frames: int, num_points: int,

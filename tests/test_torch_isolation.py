@@ -74,6 +74,19 @@ def test_no_source_imports_jax_or_the_reference():
     assert len(files) > 20
 
 
+def test_rank_helpers_import_with_jax_blocked(tmp_path):
+    """The multi-rank tests' rank bodies (tests/torch_dist_cases.py) and the
+    spawn helper (parallel/comm.py) import no JAX, and a spawned rank's
+    process loads neither JAX nor the reference."""
+    from ct_icp_torch.parallel import comm
+    helper = ROOT / "tests" / "torch_dist_cases.py"
+    assert not set(_imported_roots(helper)) & set(_BLOCKED)
+    loaded = comm.spawn("torch_dist_cases:loaded_modules", 2, tmp_path)
+    for mods in loaded:
+        assert "torch" in mods and "ct_icp_torch" in mods
+        assert not set(mods) & set(_BLOCKED), mods
+
+
 def test_entry_points_default_to_the_card():
     assert ct_icp_torch.DEFAULT_DEVICE == "cuda"
     if torch.cuda.is_available():
@@ -86,6 +99,17 @@ def test_entry_points_default_to_the_card():
         Odometry(default_driving_profile())
     assert Odometry(default_driving_profile(),
                     device="cpu").device.type == "cpu"
+    # the scale-out entry points too
+    from ct_icp_torch.parallel import sharded_map as sm
+    from ct_icp_torch.parallel.distributed_odometry import \
+        DistributedOdometry
+    map_options = default_driving_profile().map_options
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        sm.make_sharded_map(map_options)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        DistributedOdometry(default_driving_profile())
+    shard = sm.make_sharded_map(map_options, device="cpu")
+    assert all(level.keys.device.type == "cpu" for level in shard.levels)
 
 
 def test_the_card_path_needs_no_yaml():

@@ -30,6 +30,7 @@ from ct_icp_torch.kernels import grid_sample as k4
 from ct_icp_torch.kernels import level_normals as k10
 from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.kernels import map_insert as k3
+from ct_icp_torch.kernels import owner_pack as k11
 from ct_icp_torch.kernels import plane_moments as k2
 from ct_icp_torch.kernels import rebuild as k7
 from ct_icp_torch.kernels import row_gather as k6
@@ -934,3 +935,87 @@ def test_level_normals_is_one_device_operation(cuda):
         pytest.skip("the profiler saw no device activity")
     names = [e.name for e in events]
     assert len(names) == 1 and "level_normals" in names[0], names
+
+
+@pytest.mark.parametrize("n, cap", [(1, 70000), (2, 64), (2, 20000),
+                                    (4, 5000), (3, 777), (64, 64)])
+@pytest.mark.parametrize("m", [0, 1000, 33333])
+def test_owner_pack_matches_plain(cuda, m, n, cap):
+    """K11 bit for bit: chunks off the block tile, a capacity that drops
+    points (64) and one that drops none, 1 to 64 owners, an empty chunk
+    (only the zero fill and dropped = 0), invalid points scattered."""
+    rng = np.random.default_rng(m + n)
+    world = torch.from_numpy(np.concatenate([
+        _scene(rng, m // 2), _scene(rng, m - m // 2)])
+        .reshape(-1, 3)[:m] - 3.0).to(cuda)
+    valid = torch.from_numpy(rng.uniform(size=m) < 0.9).to(cuda)
+    before = k11.launches
+    out = checks.check_owner_pack(world, valid, 0.8, n, cap)
+    # two calls, each the count and the write launch (the write alone for
+    # an empty chunk)
+    assert k11.launches == before + 2 * (2 if m else 1)
+    if int(valid.sum()) > 2 * n * cap:      # an owner overflows its cap
+        assert out["dropped"] > 0
+
+
+@pytest.mark.parametrize("max_dirty", [1 << 15, 50])
+@pytest.mark.parametrize("max_rounds", [4, 12])
+def test_insert_rank0_and_refit_match_plain(cuda, max_rounds, max_dirty):
+    """K3's rank-0 slots and the with_normals insert's refit of them (K10
+    on the dirty list, cut by max_dirty or not) against the plain
+    versions, on a warm level and its second frame."""
+    rng = np.random.default_rng(5)
+    level = _warm_level(rng, cuda, cap_log2=14)
+    pts = torch.from_numpy(_scene(rng, 8000)).to(cuda)
+    valid = torch.from_numpy(rng.uniform(size=pts.shape[0]) < 0.95).to(cuda)
+    begin = torch.tensor([1.0, -2.0, 1.5], device=cuda)
+    out = checks.check_insert_with_normals(level, pts, valid, 0.8, 0.1,
+                                           max_rounds, begin, max_dirty)
+    assert out["dirty"] == min(out["dirty"], max_dirty) > 0
+    assert out["refit"] > 0
+
+
+@pytest.mark.parametrize("edge_alpha", [1.0, 1.3])
+@pytest.mark.parametrize("ends", [(1.0, 1.0), (0.0, 1.0), (1.0, 0.0)])
+@pytest.mark.parametrize("f, k", [(8, 4096), (2, 300), (1, 17)])
+def test_ct_ba_block_halo_matches_plain(cuda, f, k, ends, edge_alpha):
+    """K8's single-iteration launch with a halo (a rank's slice of a
+    sharded window: the middle rank, the first, the last), against the
+    plain version with the same halo; its J^T r also against the float64
+    plain version."""
+    state, p = _ct_ba_window(cuda, f + 2, k, edge_alpha,
+                             pad=min(37, k // 3))
+    whole = ct_ba.pack_state(state)
+    sl = ct_ba.CTBAProblem(*(x[1:f + 1].contiguous() for x in p))
+    poses = whole[1:f + 1].contiguous()
+    halo = torch.zeros((2, 16), device=cuda)
+    halo[0, :14], halo[0, 14], halo[0, 15] = whole[0], edge_alpha, ends[0]
+    halo[1, :14], halo[1, 15] = whole[f + 1], ends[1]
+    checks.check_ct_ba_halo(poses, sl, halo, 2.0, 1e-3)
+
+
+def test_ct_ba_halo_equals_window_launch(cuda):
+    """Two slices with their halos give, bit for bit, the poses, costs,
+    J^T J and J^T r of one launch over the whole window, where the window
+    and its slices take the same cluster size (kernels/ct_ba_block.py::
+    cluster_size; a frame's sums are split over its cluster's CTAs)."""
+    f, k = 4, 4096
+    assert k8.cluster_size(f, k, cuda, False) == \
+        k8.cluster_size(f // 2, k, cuda, False)
+    state, p = _ct_ba_window(cuda, f, k, 1.3)
+    whole = ct_ba.pack_state(state)
+    one = k8.ct_ba_block(whole, p, 2.0, 1e-3, "gn")
+    for lo, hi in ((0, f // 2), (f // 2, f)):
+        sl = ct_ba.CTBAProblem(*(x[lo:hi].contiguous() for x in p))
+        halo = torch.zeros((2, 16), device=cuda)
+        if lo > 0:
+            halo[0, :14], halo[0, 14], halo[0, 15] = \
+                whole[lo - 1], p.edge_alpha[lo - 1], 1.0
+        if hi < f:
+            halo[1, :14], halo[1, 15] = whole[hi], 1.0
+        part = k8.ct_ba_block(whole[lo:hi].contiguous(), sl, 2.0, 1e-3,
+                              "gn", 1, halo)
+        torch.cuda.synchronize()
+        for name in ("poses", "cost", "jtj", "jtr"):
+            assert torch.equal(getattr(part, name),
+                               getattr(one, name)[lo:hi]), name
