@@ -9,7 +9,7 @@ It needs one CUDA device and nvcc, and exits non-zero without a result line
 when either is missing. Phases; any failure raises and exits non-zero:
 
   1. the card: nvidia-smi's name and power limit, torch's device name;
-  2. build the CUDA kernels K1-K11 from ct_icp_torch/csrc with nvcc (one
+  2. build the CUDA kernels K1-K12 from ct_icp_torch/csrc with nvcc (one
      process per source, all started together); print the build time and
      ptxas's register / shared-memory / spill lines (and keep each entry's
      registers and spills for the kernels line);
@@ -204,19 +204,42 @@ when either is missing. Phases; any failure raises and exits non-zero:
      list (K10's tolerance); K8's halo launch on rank 1's slice of (b)'s
      window, its J^T r within 10 times the float32 plain version's gap to
      the float64 one; each timed;
-  in 4-8, 10, 12, 14, 15, 18, 19 and 20 every kernel count and K5's device
-  count of LM steps are set to 0 just before the path and read just after
-  it (in 20, in each rank's process); each
-  path must launch its kernels (4-8, 10 and 12: K5 and the others), and
-  the paths of 4-8, 10 and 12 make fewer host syncs a frame than LM steps
-  (one per ICP iteration and readback where no batch rolled back); the
-  driving path one K5 launch per ICP iteration;
-  22. one JSON line of the kernels (K1-K5 with an "indoor" record, K3
+  22. the exact k-NN search: Odometry(default_driving_profile() with
+     ball_neighborhood=False).stream_frames(batch=16) over the driving
+     phase's 80 frames: frames/s and host syncs a frame beside the driving
+     phase's, APE within 1.5 times the JAX package's on the same frames on
+     the CPU (SEARCH_REF_APE_M, tests/torch_search_reference.py), 0
+     failures; K1, K12, K3 and K5 launched, one K12 a K1, K2 and K4 not;
+     then its first 10 frames with num_closest_neighbors=2 (held the same
+     way): the residual rows a frame beside the keypoints, and K5 given
+     two rows for each keypoint K12 searched;
+  23. the distance strategy at the reference's defaults
+     (DistanceBasedStrategyOptions(): 0.1-2.0 m, nv = 3, 343 voxels kept
+     to 48): the same figures; K1 with the normal filter, K2 with a
+     radius a keypoint, K10 on the inserts' dirty lists (one host sync a
+     level a frame more), K12 not;
+  24. the device sub-sample (host_subsample=False): the same figures; K4
+     twice a frame (the raw scan at its rung, then the keypoints);
+  25. K12, K1 with the filter, K2 with a radius a query and K4 at the
+     scan's rung against their plain versions on the inputs of their first
+     calls in 22-24 (K12 and K1 identical, K2 within kernels/checks.py's
+     tolerance, K4 identical), timed as in phase 3; K12's device
+     operations a call (one);
+  in 4-8, 10, 12, 14, 15, 18-20 and 22-24 every kernel count and K5's
+  device count of LM steps are set to 0 just before the path and read
+  just after it (in 20, in each rank's process); each
+  path must launch its kernels (4-8, 10, 12 and 22-24: K5 and the
+  others), and the paths of 4-8, 10, 12 and 22-24 make fewer host syncs a
+  frame than LM steps (one per ICP iteration and readback where no batch
+  rolled back, and in 23 one a level for each insert); the driving path
+  one K5 launch per ICP iteration;
+  26. one JSON line of the kernels (K1-K5 with an "indoor" record, K3
      with "indoor level 1" and "indoor level 2" as well, K1 and K2 with a
      "backend" record, K8 with its "blocks" mode beside its "gn" one, K9
      and K10 on level 0 with "level 1" and "level 2" records, K3's
-     rank-0 slots and K8's halo launch, K11 with a "2 ranks" record), the
-     card's line, and the result line.
+     rank-0 slots and K8's halo launch, K11 with a "2 ranks" record, K1
+     with the normal filter, K2 with a radius a query, K4 at the scan's
+     rung, K12), the card's line, and the result line.
 """
 
 import dataclasses
@@ -232,7 +255,8 @@ import numpy as np
 import torch
 
 from ct_icp_torch import convert
-from ct_icp_torch.config.options import (default_driving_profile,
+from ct_icp_torch.config.options import (DistanceBasedStrategyOptions,
+                                         default_driving_profile,
                                          default_robust_outdoor_low_inertia,
                                          robust_driving_profile)
 from ct_icp_torch.core import se3_np as s3n
@@ -248,6 +272,7 @@ from ct_icp_torch.kernels import checks
 from ct_icp_torch.kernels import ct_ba_block as k8
 from ct_icp_torch.kernels import evict_voxels as k9
 from ct_icp_torch.kernels import grid_sample as k4
+from ct_icp_torch.kernels import knn_search as k12
 from ct_icp_torch.kernels import level_normals as k10
 from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.kernels import map_insert as k3
@@ -368,6 +393,16 @@ CT_BA_MESH_F = 16
 CT_BA_MESH_CONFIGS = [dict(num_inner_iters=2, solver="jacobi"),
                       dict(num_inner_iters=1, solver="pcg", num_cg_iters=8)]
 CT_BA_MESH_TOL = {"jacobi": (1e-5, 1e-4, 1e-5), "pcg": (1e-4, 1e-3, 1e-4)}
+# the search runs: the JAX package's Odometry on the driving phase's frames
+# (seed 3, batch 16) on the CPU reaches these mean APEs (m) with 0
+# failures (PYTHONPATH=. python tests/torch_search_reference.py); each port
+# run is held within SEARCH_APE_FACTOR times its run's, with 0 failures
+SEARCH_REF_APE_M = {"knn": 0.051491458347106965,
+                    "knn_kc2": 0.026497539515010098,
+                    "distance": 0.05295844087452732,
+                    "devsub": 0.10121936668283638}
+SEARCH_APE_FACTOR = 1.5
+KC2_FRAMES = 10
 
 KERNELS = {
     "candidate_gather": dict(
@@ -403,6 +438,9 @@ KERNELS = {
     "owner_pack": dict(
         module=k11, source="ct_icp_torch/csrc/owner_pack.cu",
         replaces="ct_icp_tpu/parallel/sharded_map.py:152"),
+    "knn_search": dict(
+        module=k12, source="ct_icp_torch/csrc/knn_search.cu",
+        replaces="ct_icp_tpu/mapping/voxel_map.py:917"),
 }
 # a kernel record's further times and work counts, copied to the kernels
 # line where present
@@ -520,19 +558,24 @@ def _warm_level(dev, res, prep):
     return level
 
 
-def _kernel_k1(dev, level, res, q, nv, thr, max_c, tag, query_valid=None):
+def _kernel_k1(dev, level, res, q, nv, thr, max_c, tag, query_valid=None,
+               sensor=None):
     """K1 against its plain version and timed, at one shape (every query
-    valid unless ``query_valid`` says otherwise). Returns its record and
-    its (slots, cnt_ok)."""
+    valid unless ``query_valid`` says otherwise; with the normal filter
+    seen from ``sensor`` f32[3] when given). Returns its record and its
+    (slots, cnt_ok)."""
     m = q.shape[0]
     qv = (torch.ones(m, dtype=torch.bool, device=dev) if query_valid is None
           else query_valid)
     err = checks.check_candidate_gather(level, q, qv, res.resolution, nv, thr,
-                                        max_c)
+                                        max_c, sensor)
     args = (level.keys, level.count, q, qv, res.resolution, nv, thr, max_c)
-    ms, how = time_stateless(lambda: k1.candidate_gather(*args))
-    plain_ms, _ = time_stateless(lambda: k1.candidate_gather_plain(*args))
-    slots, cnt = k1.candidate_gather(*args)
+    filt = ({} if sensor is None else dict(
+        normals=level.normals, nflags=level.nflags, sensor_location=sensor))
+    ms, how = time_stateless(lambda: k1.candidate_gather(*args, **filt))
+    plain_ms, _ = time_stateless(
+        lambda: k1.candidate_gather_plain(*args, **filt))
+    slots, cnt = k1.candidate_gather(*args, **filt)
     cand = (vx.voxel_coords(q, res.resolution)[:, None, :]
             + k1.neighbor_offsets(nv, dev)[None])
     found, _ = k1.find_slots_with_count(level.keys, level.count, cand)
@@ -540,9 +583,11 @@ def _kernel_k1(dev, level, res, q, nv, thr, max_c, tag, query_valid=None):
     n_vox = torch.unique(vx.voxel_hash_u32(cand.reshape(-1, 3))).numel()
     n_found = torch.unique(found[found >= 0]).numel()
     # the queries (and their validity), every distinct probed voxel's key
-    # window once, every distinct found slot's count once, 8 B written per
+    # window once, every distinct found slot's count once (with the
+    # filter, its normal and flag too, and the sensor), 8 B written per
     # output pair
-    n_bytes = m * 13 + n_vox * 32 + n_found * 4 + m * o_out * 8
+    n_bytes = (m * 13 + n_vox * 32 + n_found * (4 if sensor is None else 20)
+               + m * o_out * 8)
     log(f"K1 candidate_gather {tag} M={m} O={cand.shape[1]}->{o_out}: "
         f"identical to plain; {ms:.4f} ms ({how}), plain {plain_ms:.4f} ms; "
         f"{n_vox} distinct key windows probed, {n_found} distinct slots "
@@ -577,7 +622,8 @@ def _kernel_k2(level, q, slots, cnt, radius, k_nearest, tag):
     # queries and outputs; a fresh call: d2 twice (shell histogram + sums, 8
     # flops each) per live candidate of each query, 15 flops of sums per
     # in-radius one
-    n_bytes = k2_bytes(pts, slots, cnt)
+    n_bytes = k2_bytes(pts, slots, cnt) + (m * 4 if torch.is_tensor(radius)
+                                          else 0)
     per_query_bytes = live * 12 + cnt.numel() * 4 + m * 12 + m * 88
     err = max(err_f["max_abs_err"], err_c["max_abs_err"])
     log(f"K2 plane_moments {tag} M={m}: within tolerance (max abs err "
@@ -1053,21 +1099,25 @@ def _require_launches(path, launches, names):
         raise RuntimeError(f"the {path} path never launched {missing}")
 
 
-def _require_syncs(path, out, committed_only):
+def _require_syncs(path, out, committed_only, inserts_per_frame=0.0):
     """No host read per LM step: fewer host syncs a frame than LM steps
     (K5's device count of the steps it ran); where every frame's work was
     committed (no rollback), exactly one sync per ICP iteration and one per
-    result readback. (A rolled-back batch's ICP iterations are read but not
-    counted in the frames' summaries.)"""
+    result readback, and ``inserts_per_frame`` more (a with_normals insert
+    reads its dirty list's length: one a level a frame). (A rolled-back
+    batch's ICP iterations are read but not counted in the frames'
+    summaries.)"""
     syncs = out["host_syncs_per_frame"]
     steps = out["lm_steps"] / out["frames"]
     if not syncs < steps:
         raise RuntimeError(f"{path} path: {syncs} host syncs a frame for "
                            f"{steps} LM steps")
     if committed_only and not (syncs <= out["icp_iters_per_frame"]
-                               + out["result_reads_per_frame"] + 1e-9):
+                               + out["result_reads_per_frame"]
+                               + inserts_per_frame + 1e-9):
         raise RuntimeError(f"{path} path: a host sync beyond one per ICP "
-                           "iteration and one per result readback")
+                           "iteration, one per result readback and "
+                           f"{inserts_per_frame} a frame for the inserts")
 
 
 def _path_stats(odo, frames, preps, summaries, batch_s, wall):
@@ -2150,7 +2200,7 @@ def phase_replay():
         odo.map_state = holder
     bon["first_replay_device_ms"] = dev_ms
     bon["first_replay_timing"] = how
-    bon["first_replay_frames"] = len(capture["arrays"]) - n_lv
+    bon["first_replay_frames"] = len(capture["counts"]) - n_lv
     bon["capture_host_s"] = capture["capture_host_s"]
     log(f"  room: APE on {bon['mean_ape_m']:.5f} m, off "
         f"{boff['mean_ape_m']:.5f} m; {bon['refinements']} refinements, "
@@ -2826,6 +2876,260 @@ def _kernel_k8_halo(poses, problem, halo):
                 shape=f"F={f} K={k} live={live} halo")
 
 
+class _FirstCall:
+    """Between ``start()`` and ``stop()`` (inside a path's run), device
+    copies of the arguments of the first call of ``module.name`` (a kernel
+    wrapper) for which ``when(*args, **kw)`` holds, kept in ``args`` /
+    ``kw`` (about 100 MB where a level's points are among them)."""
+
+    def __init__(self, module, name, when=None):
+        self.module, self.name, self.when = module, name, when
+        self.inner = getattr(module, name)
+        self.args, self.kw = None, None
+
+    def start(self):
+        def copy(x):
+            return x.clone() if torch.is_tensor(x) else x
+
+        def spy(*args, **kw):
+            if self.args is None and (self.when is None
+                                      or self.when(*args, **kw)):
+                self.args = tuple(copy(a) for a in args)
+                self.kw = {k: copy(v) for k, v in kw.items()}
+            return self.inner(*args, **kw)
+
+        setattr(self.module, self.name, spy)
+
+    def stop(self):
+        setattr(self.module, self.name, self.inner)
+        if self.args is None:
+            raise RuntimeError(f"{self.name}: the path never made the call "
+                               "to be checked")
+
+
+def _search_options(name):
+    """default_driving_profile() with run ``name``'s option
+    (tests/torch_search_reference.py::run_options, in the port)."""
+    d = default_driving_profile()
+    icp = d.ct_icp_options
+    if name == "knn":
+        return dataclasses.replace(d, ct_icp_options=dataclasses.replace(
+            icp, ball_neighborhood=False))
+    if name == "knn_kc2":
+        return dataclasses.replace(d, ct_icp_options=dataclasses.replace(
+            icp, ball_neighborhood=False, num_closest_neighbors=2))
+    if name == "distance":
+        return dataclasses.replace(
+            d, distance_strategy=DistanceBasedStrategyOptions())
+    return dataclasses.replace(d, host_subsample=False)
+
+
+def _search_run(dev, name, frames, driving, spies=()):
+    """Run ``name`` over ``frames`` through Odometry(...).stream_frames
+    (batch 16), the counts set to 0 just before and read just after, with
+    ``spies`` (``_FirstCall``s) in place; held to 0 failures and an APE
+    within SEARCH_APE_FACTOR times the JAX package's on the CPU. Returns
+    the path's stats and the odometry."""
+    odo = Odometry(_search_options(name), device=dev)
+    preps = [odo.prepare_frame(f["xyz"], f["timestamps"], i, frame_id=i)
+             for i, f in enumerate(frames)]
+    for spy in spies:
+        spy.start()
+    _reset_counts()
+    summaries, batch_s, wall = _stream(odo, preps, BATCH)
+    launches, lm_steps = _read_counts(), _read_steps()
+    for spy in spies:
+        spy.stop()
+    out, _ = _path_stats(odo, frames, preps, summaries, batch_s, wall)
+    bound_m = SEARCH_APE_FACTOR * SEARCH_REF_APE_M[name]
+    out.update(batch=BATCH, launches=launches, lm_steps=lm_steps,
+               reference_cpu_ape_m=SEARCH_REF_APE_M[name],
+               ape_bound_m=bound_m,
+               residuals_per_frame=float(np.mean(
+                   [s.number_of_residuals for s in summaries])),
+               keypoints_per_frame=float(np.mean(
+                   [s.sample_size for s in summaries])),
+               driving_fps=driving["median_batch_fps"],
+               driving_host_syncs_per_frame=driving["host_syncs_per_frame"])
+    log(f"{name} path: " + json.dumps(out))
+    log(f"  {name}: {out['median_batch_fps']:.2f} frames/s (driving "
+        f"{driving['median_batch_fps']:.2f}), host syncs a frame "
+        f"{out['host_syncs_per_frame']:.4f} (driving "
+        f"{driving['host_syncs_per_frame']:.4f}), mean APE "
+        f"{out['mean_ape_m']:.5f} m (JAX package on the CPU "
+        f"{SEARCH_REF_APE_M[name]:.5f} m, bound {bound_m:.5f}), failures "
+        f"{out['failures']}; launches K1 {launches['candidate_gather']}, "
+        f"K2 {launches['plane_moments']}, K3 {launches['map_insert']}, K4 "
+        f"{launches['grid_sample']}, K5 {launches['lm_step']}, K10 "
+        f"{launches['level_normals']}, K12 {launches['knn_search']}")
+    if out["failures"]:
+        raise RuntimeError(f"{name} path: {out['failures']} failed frames")
+    if not out["mean_ape_m"] <= bound_m:
+        raise RuntimeError(f"{name} path: mean APE {out['mean_ape_m']} m > "
+                           f"{bound_m} m")
+    return out, odo
+
+
+def phase_knn(dev, frames, driving):
+    """The exact k-NN search (ball_neighborhood=False): the 80-frame run,
+    K12 and no K2; then its first 10 frames with num_closest_neighbors=2,
+    whose LM problems take two rows a keypoint. Returns the run's stats
+    and K12's first call."""
+    first = _FirstCall(k12, "knn_search")
+    out, _ = _search_run(dev, "knn", frames, driving, [first])
+    launches = out["launches"]
+    _require_launches("knn", launches, ["candidate_gather", "knn_search",
+                                        "map_insert", "lm_step"])
+    if launches["plane_moments"] or launches["grid_sample"]:
+        raise RuntimeError("knn path: K2 or K4 launched")
+    if launches["knn_search"] != launches["candidate_gather"]:
+        raise RuntimeError("knn path: not one K12 launch a K1 launch")
+    _require_syncs("knn", out, committed_only=True)
+
+    # kc = 2: the rows K5 takes against the queries K12 searched
+    rows, queries = [], []
+    lm_inner, knn_inner = k5.lm_loop, k12.knn_search
+
+    def lm_spy(r, *args, **kw):
+        rows.append(r.shape[0])
+        return lm_inner(r, *args, **kw)
+
+    def knn_spy(points, slots, cnt_ok, q, *args, **kw):
+        queries.append(q.shape[0])
+        return knn_inner(points, slots, cnt_ok, q, *args, **kw)
+
+    k5.lm_loop, k12.knn_search = lm_spy, knn_spy
+    try:
+        kc2, _ = _search_run(dev, "knn_kc2", frames[:KC2_FRAMES], driving)
+    finally:
+        k5.lm_loop, k12.knn_search = lm_inner, knn_inner
+    kc2.update(rows_per_lm_call=float(np.mean(rows)),
+               keypoints_per_search=float(np.mean(queries)))
+    log(f"  knn_kc2: residual rows a frame {kc2['residuals_per_frame']:.1f} "
+        f"(the residual cap: {default_driving_profile().ct_icp_options.max_num_residuals}), "
+        f"keypoints a frame {kc2['keypoints_per_frame']:.1f}; K5 took "
+        f"{kc2['rows_per_lm_call']:.1f} rows a call for "
+        f"{kc2['keypoints_per_search']:.1f} keypoints a search")
+    if not (sum(rows) == 2 * sum(queries) and sum(rows) > sum(queries) > 0):
+        raise RuntimeError(f"knn_kc2: K5 took {sum(rows)} rows for "
+                           f"{sum(queries)} searched keypoints")
+    _require_launches("knn_kc2", kc2["launches"], ["knn_search", "lm_step"])
+    out["kc2"] = kc2
+    return out, first
+
+
+def phase_distance(dev, frames, driving):
+    """The distance strategy at the reference's defaults: a radius a
+    keypoint (K2 with a radius array), the normal filter (K1), and inserts
+    that keep the voxel normals (K3's rank-0 slots, K10 on the dirty
+    list). Returns the run's stats and K1's and K2's first calls."""
+    k1_first = _FirstCall(k1, "candidate_gather")
+    k2_first = _FirstCall(k2, "plane_moments",
+                          lambda *a, **kw: torch.is_tensor(a[4]))
+    out, odo = _search_run(dev, "distance", frames, driving,
+                           [k1_first, k2_first])
+    launches = out["launches"]
+    _require_launches("distance", launches, [
+        "candidate_gather", "plane_moments", "map_insert", "lm_step",
+        "level_normals"])
+    if launches["knn_search"]:
+        raise RuntimeError("distance path: K12 launched")
+    if k1_first.kw.get("sensor_location") is None:
+        raise RuntimeError("distance path: K1 ran without the filter")
+    n_levels = len(odo.map_state)
+    _require_syncs("distance", out, committed_only=True,
+                   inserts_per_frame=n_levels)
+    flagged = int((odo.map_state[0].nflags == 2).sum())
+    out.update(k10_launches=launches["level_normals"],
+               voxels_with_normals=flagged)
+    log(f"  distance: K10 launched {launches['level_normals']} times on "
+        f"the dirty lists; {flagged} voxels keep a normal")
+    if flagged <= 0:
+        raise RuntimeError("distance path: no voxel kept its normal")
+    return out, k1_first, k2_first
+
+
+def phase_devsub(dev, frames, driving):
+    """The device sub-sample (host_subsample=False): the raw scans packed
+    at their rungs, K4 twice a frame (the scan, then the keypoints).
+    Returns the run's stats and K4's first call at the scan's rung."""
+    sub_cap = default_driving_profile().max_subsampled_points
+    first = _FirstCall(k4, "grid_sample",
+                       lambda points, valid, voxel, capacity, *a, **kw:
+                       capacity == sub_cap)
+    out, _ = _search_run(dev, "devsub", frames, driving, [first])
+    launches = out["launches"]
+    _require_launches("devsub", launches, ["candidate_gather",
+                                           "plane_moments", "map_insert",
+                                           "grid_sample", "lm_step"])
+    if launches["grid_sample"] != 2 * out["frames"]:
+        raise RuntimeError(f"devsub path: {launches['grid_sample']} K4 "
+                           f"launches for {out['frames']} frames")
+    _require_syncs("devsub", out, committed_only=True)
+    out["scan_rung"] = int(first.args[0].shape[0])
+    return out, first
+
+
+def phase_kernels_search(dev, knn_first, k1_first, k2_first, k4_first):
+    """K12, K1 with the normal filter, K2 with a radius a query and K4 at
+    the scan's rung against their plain versions on the inputs of their
+    first calls in phases 22-24, then timed. Returns {name: record}."""
+    records = {}
+    points, slots, cnt, q, radius, k = knn_first.args
+    err = checks.check_knn_search(points, slots, cnt, q, radius, k)
+    job = ("ops", k12.knn_search, (points, slots, cnt, q, radius, k), None)
+    ops = _require_ops("K12 knn_search", _traced("K12", [job])[0], 1)
+    ms, how = time_stateless(
+        lambda: k12.knn_search(points, slots, cnt, q, radius, k))
+    plain_ms, _ = time_stateless(
+        lambda: k12.knn_search_plain(points, slots, cnt, q, radius, k))
+    m = q.shape[0]
+    points_read, rows_read, live = live_work(points, slots, cnt)
+    # each distinct live candidate point once, the (slot, cnt_ok) pairs,
+    # the queries (and radii), 17 B a neighbour out; d2 is 8 operations a
+    # live candidate of each query
+    n_bytes = (points_read * 12 + slots.numel() * 8 + m * 12
+               + (m * 4 if torch.is_tensor(radius) else 0) + m * k * 17)
+    records["knn_search"] = dict(
+        max_abs_err=err["max_abs_err"], ms=ms, plain_ms=plain_ms,
+        library_ms=None, bytes=n_bytes, ops=live * 8.0, timing=how,
+        device_ops_per_call=ops, live=live, points_read=points_read,
+        rows_read=rows_read,
+        shape=f"M={m} O={slots.shape[1]} P={points.shape[1] // 3} k={k} "
+              f"live={live} found={err['found']}")
+    log(f"K12 knn_search knn frame 1 M={m} O={slots.shape[1]} k={k}: "
+        f"identical to plain ({err['found']} neighbours); {ms:.4f} ms "
+        f"({how}), plain {plain_ms:.4f} ms; {live} live candidates "
+        f"({live / m:.1f} a query), {points_read} distinct live points, "
+        f"{n_bytes} bytes")
+
+    keys, count, qk, qv, res_v, nv, thr, max_c = k1_first.args
+    kw = k1_first.kw
+    level = vm.MapLevel(keys=keys, count=count, points=None,
+                        normals=kw["normals"], nflags=kw["nflags"],
+                        num_points=None)
+    res = dataclasses.replace(
+        default_driving_profile().map_options.resolutions[0],
+        resolution=res_v)
+    records["candidate_gather"], _ = _kernel_k1(
+        dev, level, res, qk, nv, thr, max_c, "normal filter (distance)",
+        query_valid=qv, sensor=kw["sensor_location"])
+
+    pts, slots2, cnt2, q2, radius2, k_nearest, _cached = k2_first.args
+    records["plane_moments"] = _kernel_k2(
+        vm.MapLevel(keys=None, count=None, points=pts, normals=None,
+                    nflags=None, num_points=None),
+        q2, slots2, cnt2, radius2, k_nearest, "radius a query (distance)")
+
+    scan, valid, voxel, capacity = k4_first.args[:4]
+    records["grid_sample"] = _kernel_k4(dev, scan, valid, voxel, capacity,
+                                        *k4_first.args[4:],
+                                        tag="device sub-sample")
+    del knn_first.args, k1_first.args, k2_first.args, k4_first.args
+    torch.cuda.empty_cache()
+    return records
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this script "
@@ -2892,6 +3196,11 @@ def main() -> int:
                                                    first_maps)
     del first_maps
     scale_records = phase_kernels_scale_out(dev, frames, mesh_window)
+    knn, knn_first = phase_knn(dev, frames, driving)
+    distance, k1_first, k2_first = phase_distance(dev, frames, driving)
+    devsub, k4_first = phase_devsub(dev, frames, driving)
+    search_records = phase_kernels_search(dev, knn_first, k1_first,
+                                          k2_first, k4_first)
 
     paths = {"driving": driving, "robust": robust, "escalation": escalation,
              "long_drive": long_drive, "robust_rebase": robust_rebase,
@@ -2906,10 +3215,19 @@ def main() -> int:
              "escalation_backend": escalation_backend,
              "scale_out_broadcast": scale_runs["broadcast"],
              "scale_out_partitioned": scale_runs["partitioned"],
-             "scale_out_2_ranks": ranks_run}
+             "scale_out_2_ranks": ranks_run, "knn": knn,
+             "knn_kc2": knn["kc2"], "distance": distance, "devsub": devsub}
     primary = {**robust_records, **rebase_records,
                "ct_ba_block": backend_records["ct_ba_block"],
-               **replay_records, "owner_pack": scale_records["owner_pack"]}
+               **replay_records, "owner_pack": scale_records["owner_pack"],
+               "knn_search": search_records["knn_search"]}
+    search_others = {
+        "candidate_gather": {
+            "normal filter (distance)": search_records["candidate_gather"]},
+        "plane_moments": {
+            "radius a query (distance)": search_records["plane_moments"]},
+        "grid_sample": {
+            "scan rung (device sub-sample)": search_records["grid_sample"]}}
     kernels = []
     for name, spec in KERNELS.items():
         # K1-K5: the robust shapes (every kernel runs there), the driving
@@ -2926,6 +3244,7 @@ def main() -> int:
         if name == "lm_step":
             others["jolt"] = jolt_k5
         others.update(indoor_records.get(name, {}))
+        others.update(search_others.get(name, {}))
         if name in ("candidate_gather", "plane_moments"):
             others["backend"] = backend_records[name]
         if name == "map_insert":

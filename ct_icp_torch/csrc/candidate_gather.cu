@@ -26,6 +26,14 @@
 //     the others by index. Each place is a warp ballot's prefix count.
 // One launch either way.
 //
+// With the normal filter (the distance strategy's, voxel_map.py:699-703; a
+// non-NULL sensor location), a hit is usable only where its voxel's normal
+// is not set (nflags < 2) or faces the sensor:
+//   (sensor - query) . normals[slot] >= 0,
+// summed x, y, z left to right in round-to-nearest intrinsics; it reads
+// normals and nflags for hits only, before the compaction. Without it the
+// outputs are what they were bit for bit.
+//
 // Bound: bytes. The queries, each distinct probed key window once, the
 // count of each distinct found slot once, 8 B written per output pair;
 // there is no arithmetic to speak of (three divisions and two hashes per
@@ -52,11 +60,28 @@ __device__ __forceinline__ bool probe(const uint32_t* __restrict__ keys,
   return true;
 }
 
+// The normal filter of a hit at ``slot`` of query (qx, qy, qz); true (no
+// filter) where ``sensor`` is NULL.
+__device__ __forceinline__ bool faces_sensor(
+    const float* __restrict__ normals, const int32_t* __restrict__ nflags,
+    const float* __restrict__ sensor, int slot, float qx, float qy,
+    float qz) {
+  if (sensor == nullptr || __ldg(nflags + slot) < 2) return true;
+  const float* nrm = normals + 3 * static_cast<size_t>(slot);
+  const float dot = __fadd_rn(
+      __fadd_rn(__fmul_rn(__fsub_rn(sensor[0], qx), __ldg(nrm + 0)),
+                __fmul_rn(__fsub_rn(sensor[1], qy), __ldg(nrm + 1))),
+      __fmul_rn(__fsub_rn(sensor[2], qz), __ldg(nrm + 2)));
+  return dot >= 0.0f;
+}
+
 __global__ void candidate_lookup_kernel(
     const uint32_t* __restrict__ keys, const int32_t* __restrict__ count,
     const float* __restrict__ queries, const uint8_t* __restrict__ query_valid,
-    int m, uint32_t cap_mask, int nv, float resolution, int threshold,
-    int32_t* __restrict__ out_slot, int32_t* __restrict__ out_cnt) {
+    const float* __restrict__ normals, const int32_t* __restrict__ nflags,
+    const float* __restrict__ sensor, int m, uint32_t cap_mask, int nv,
+    float resolution, int threshold, int32_t* __restrict__ out_slot,
+    int32_t* __restrict__ out_cnt) {
   const int side = 2 * nv + 1;
   const int n_off = side * side * side;
   const long long pair =
@@ -72,7 +97,10 @@ __global__ void candidate_lookup_kernel(
                  (o / (side * side) - nv);
   int slot, cnt;
   const bool hit = probe(keys, count, cap_mask, cx, cy, cz, slot, cnt);
-  const bool ok = hit && cnt >= threshold && query_valid[qi];
+  const bool ok = hit && cnt >= threshold && query_valid[qi] &&
+                  faces_sensor(normals, nflags, sensor, slot,
+                               queries[3 * qi + 0], queries[3 * qi + 1],
+                               queries[3 * qi + 2]);
   out_slot[pair] = slot;
   out_cnt[pair] = ok ? cnt : 0;
 }
@@ -80,8 +108,10 @@ __global__ void candidate_lookup_kernel(
 __global__ void candidate_select_kernel(
     const uint32_t* __restrict__ keys, const int32_t* __restrict__ count,
     const float* __restrict__ queries, const uint8_t* __restrict__ query_valid,
-    const int32_t* __restrict__ order, int m, uint32_t cap_mask, int nv,
-    float resolution, int threshold, int max_c,
+    const float* __restrict__ normals, const int32_t* __restrict__ nflags,
+    const float* __restrict__ sensor, const int32_t* __restrict__ order,
+    int m, uint32_t cap_mask, int nv, float resolution, int threshold,
+    int max_c,
     int32_t* __restrict__ out_slot, int32_t* __restrict__ out_cnt) {
   extern __shared__ int32_t smem[];
   const int side = 2 * nv + 1;
@@ -93,9 +123,12 @@ __global__ void candidate_select_kernel(
   int32_t* sh_slot = smem + wib * 3 * n_off;
   int32_t* sh_cnt = sh_slot + n_off;  // the usable count, -1 where unusable
   int32_t* sh_order = sh_cnt + n_off;
-  const int bx = cticp::voxel_coord(queries[3 * qi + 0], resolution) - nv;
-  const int by = cticp::voxel_coord(queries[3 * qi + 1], resolution) - nv;
-  const int bz = cticp::voxel_coord(queries[3 * qi + 2], resolution) - nv;
+  const float qx = queries[3 * qi + 0];
+  const float qy = queries[3 * qi + 1];
+  const float qz = queries[3 * qi + 2];
+  const int bx = cticp::voxel_coord(qx, resolution) - nv;
+  const int by = cticp::voxel_coord(qy, resolution) - nv;
+  const int bz = cticp::voxel_coord(qz, resolution) - nv;
   const bool valid = query_valid[qi] != 0;
   const unsigned below = (1u << lane) - 1u;
   for (int t = lane; t < n_off; t += 32) sh_order[t] = order[t];
@@ -110,7 +143,8 @@ __global__ void candidate_select_kernel(
       const bool hit = probe(keys, count, cap_mask, bx + o % side,
                              by + (o / side) % side, bz + o / (side * side),
                              slot, cnt);
-      ok = hit && cnt >= threshold && valid;
+      ok = hit && cnt >= threshold && valid &&
+           faces_sensor(normals, nflags, sensor, slot, qx, qy, qz);
       sh_slot[o] = slot;
       sh_cnt[o] = ok ? cnt : -1;
     }
@@ -151,10 +185,13 @@ __global__ void candidate_select_kernel(
 
 }  // namespace
 
-// order: int32[O], the neighbour offsets sorted by (|offset|^2, index).
+// order: int32[O], the neighbour offsets sorted by (|offset|^2, index);
+// normals f32[C, 3], nflags int32[C] and sensor f32[3]: the normal filter,
+// off where sensor is NULL (normals and nflags are then not read).
 extern "C" int k1_candidate_gather_compact(
     const void* keys, const void* count, const void* queries,
-    const void* query_valid, const void* order, int m, int cap, int nv,
+    const void* query_valid, const void* normals, const void* nflags,
+    const void* sensor, const void* order, int m, int cap, int nv,
     float resolution, int threshold, int max_c, void* slots, void* cnt_ok,
     void* stream) {
   const int side = 2 * nv + 1;
@@ -167,6 +204,9 @@ extern "C" int k1_candidate_gather_compact(
         static_cast<const uint32_t*>(keys), static_cast<const int32_t*>(count),
         static_cast<const float*>(queries),
         static_cast<const uint8_t*>(query_valid),
+        static_cast<const float*>(normals),
+        static_cast<const int32_t*>(nflags),
+        static_cast<const float*>(sensor),
         static_cast<const int32_t*>(order), m,
         static_cast<uint32_t>(cap - 1), nv, resolution, threshold, max_c,
         static_cast<int32_t*>(slots), static_cast<int32_t*>(cnt_ok));
@@ -176,7 +216,9 @@ extern "C" int k1_candidate_gather_compact(
 
 extern "C" int k1_candidate_gather(const void* keys, const void* count,
                                    const void* queries,
-                                   const void* query_valid, int m, int cap,
+                                   const void* query_valid,
+                                   const void* normals, const void* nflags,
+                                   const void* sensor, int m, int cap,
                                    int nv, float resolution, int threshold,
                                    void* slots, void* cnt_ok, void* stream) {
   const int side = 2 * nv + 1;
@@ -188,7 +230,10 @@ extern "C" int k1_candidate_gather(const void* keys, const void* count,
                               static_cast<cudaStream_t>(stream)>>>(
         static_cast<const uint32_t*>(keys), static_cast<const int32_t*>(count),
         static_cast<const float*>(queries),
-        static_cast<const uint8_t*>(query_valid), m,
+        static_cast<const uint8_t*>(query_valid),
+        static_cast<const float*>(normals),
+        static_cast<const int32_t*>(nflags),
+        static_cast<const float*>(sensor), m,
         static_cast<uint32_t>(cap - 1), nv, resolution, threshold,
         static_cast<int32_t*>(slots), static_cast<int32_t*>(cnt_ok));
   }

@@ -30,6 +30,12 @@
 //      reference's argmin over all-inf), covariance, closed-form 3x3
 //      eigensolve, normal and a2D, kThreads / G of them at once.
 //
+// The radius is one scalar (rr, squared on the host) or, with a non-NULL
+// ``radius``, one a query (the distance strategy's, voxel_map.py:722-749's
+// radius_arr), squared here in round to nearest: the in-radius test and
+// the 32 nested shell edges are then the query's own. A scalar radius runs
+// the same code as before, with the same outputs.
+//
 // Bound: bytes. Each distinct live map point read once (12 B), the
 // (slot, cnt_ok) pairs, the queries and the outputs; a few operations per
 // byte. Float sums are taken in another order than the plain version's, so
@@ -156,8 +162,9 @@ enum Result { kN, kSx, kSy, kSz, kSxx, kSxy, kSxz, kSyy, kSyz, kSzz,
 __global__ void __launch_bounds__(kThreads) plane_moments_kernel(
     const float* __restrict__ points, const int32_t* __restrict__ slots,
     const int32_t* __restrict__ cnt_ok, const float* __restrict__ queries,
-    int m, int n_off, int p, float rr, int k_nearest,
-    const float* __restrict__ cached_r_eff2, int32_t* __restrict__ out_count,
+    int m, int n_off, int p, float rr_all, const float* __restrict__ radius,
+    int k_nearest, const float* __restrict__ cached_r_eff2,
+    int32_t* __restrict__ out_count,
     float* __restrict__ out_sum_rel, float* __restrict__ out_sum_outer,
     float* __restrict__ out_closest, float* __restrict__ out_closest_dist,
     float* __restrict__ out_r_eff2, float* __restrict__ out_normal,
@@ -172,6 +179,9 @@ __global__ void __launch_bounds__(kThreads) plane_moments_kernel(
   float* edge = reinterpret_cast<float*>(hist + kBins);    // [kBins]
   int* res = reinterpret_cast<int*>(edge + kBins);         // [kResults]
   const int qi = blockIdx.x * kGroupsPerBlock + gib;
+  const float rr = radius != nullptr && qi < m
+                       ? __fmul_rn(radius[qi], radius[qi])
+                       : rr_all;
   const float r2 = fmaxf(rr, 1e-20f);  // _knn_radius2's r2
 
   if (qi < m) {  // the whole group, which then meets the block's barrier
@@ -362,12 +372,14 @@ __global__ void __launch_bounds__(kThreads) plane_moments_kernel(
 }  // namespace
 
 // points f32[C, 3P], slots / cnt_ok int32[M, O'] (K1's output on the same
-// level), queries f32[M, 3]. k_nearest < 0: no shell cap (r_eff2 =
-// radius^2). cached_r_eff2 == NULL: compute the shell radius fresh.
+// level), queries f32[M, 3]; radius f32[M] (each query's radius) or NULL
+// (then rr, the squared scalar radius). k_nearest < 0: no shell cap (r_eff2
+// = radius^2). cached_r_eff2 == NULL: compute the shell radius fresh.
 extern "C" int k2_plane_moments(const void* points, const void* slots,
                                 const void* cnt_ok, const void* queries,
                                 int m, int n_off, int p, float rr,
-                                int k_nearest, const void* cached_r_eff2,
+                                const void* radius, int k_nearest,
+                                const void* cached_r_eff2,
                                 void* count, void* sum_rel, void* sum_outer,
                                 void* closest, void* closest_dist,
                                 void* r_eff2, void* normal, void* a2d,
@@ -386,7 +398,8 @@ extern "C" int k2_plane_moments(const void* points, const void* slots,
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(points), static_cast<const int32_t*>(slots),
         static_cast<const int32_t*>(cnt_ok),
-        static_cast<const float*>(queries), m, n_off, p, rr, k_nearest,
+        static_cast<const float*>(queries), m, n_off, p, rr,
+        static_cast<const float*>(radius), k_nearest,
         static_cast<const float*>(cached_r_eff2),
         static_cast<int32_t*>(count), static_cast<float*>(sum_rel),
         static_cast<float*>(sum_outer), static_cast<float*>(closest),

@@ -45,13 +45,16 @@ class CTICPRegistration:
                  num_keypoints: int,
                  search_radius: Optional[float] = None,
                  distance_strategy=None):
-        if distance_strategy is not None:
-            raise NotImplementedError(
-                "the distance-based neighborhood strategy is not ported")
         self.options = options
         self.map_options = map_options
-        radius = (search_radius if search_radius is not None
-                  else map_options.default_radius)
+        self.distance_strategy = distance_strategy
+        if distance_strategy is not None:
+            # per-point radii up to radius_max: the level and nv that
+            # SearchParamsFromRadiusSearch picks for radius_max
+            radius = distance_strategy.radius_max
+        else:
+            radius = (search_radius if search_radius is not None
+                      else map_options.default_radius)
         level_idx, nv = map_options.search_params(radius)
         self.level_index = level_idx
         self.search_radius = radius
@@ -69,6 +72,12 @@ class CTICPRegistration:
             solver=options.solver,
             parametrization=options.parametrization,
             num_closest_neighbors=options.num_closest_neighbors,
+            # the strategy passes the sensor location: the normal filter
+            use_normal_filter=(
+                distance_strategy is not None
+                and map_options.select_valid_normals_direction),
+            use_distance_strategy=distance_strategy is not None,
+            # kc > 1 anchors at the i-th nearest: the sorted list
             ball_neighborhood=(options.ball_neighborhood
                                and options.num_closest_neighbors <= 1),
             knn_moments=options.knn_moments,
@@ -86,6 +95,7 @@ class CTICPRegistration:
         out = self._dyn_cache.get(opts)
         if out is None:
             out = slv.pack_dynamics(opts, self.search_radius,
-                                    self.voxel_resolution)
+                                    self.voxel_resolution,
+                                    self.distance_strategy)
             self._dyn_cache[opts] = out
         return out

@@ -1,17 +1,25 @@
 """The continuous-time ICP solver (torch, eager).
 
-Counterpart of ``ct_icp_tpu/icp/solver.py`` on the ball-neighborhood CERES
-path the driving profile runs:
+Counterpart of ``ct_icp_tpu/icp/solver.py`` on the CERES point-to-plane
+path, with either neighbourhood and either search radius:
 
     outer loop (<= num_iters_icp, early exit on pose deltas):
       1. transform keypoints by the slerp/lerp-interpolated poses
-      2. candidate voxels: a fresh gather (kernel K1) on regather
-         iterations — the first ``regather_iters``, or when the pose moved
-         more than half a voxel (translation or rotation) since the last
-         gather — else the cached slots
-      3. moments + descriptor (kernel K2) of the map points the slots
-         name, the k-NN shell radius cached with the slots and recomputed
-         only on regather iterations
+      2. ball neighbourhood (the default): candidate voxels by a fresh
+         gather (kernel K1) on regather iterations — the first
+         ``regather_iters``, or when the pose moved more than half a voxel
+         (translation or rotation) since the last gather — else the cached
+         slots; then the moments + descriptor (kernel K2) of the map points
+         the slots name, the k-NN shell radius cached with the slots and
+         recomputed only on regather iterations.
+         Exact k-NN (``ball_neighborhood=False``, the reference C++'s
+         search): K1 over all voxels and the k nearest in-radius points
+         (kernel K12) each iteration, no cache, the descriptor of the
+         masked neighbour list; with num_closest_neighbors = kc > 1, kc
+         residual rows a keypoint anchored at its kc nearest.
+         The radius is the search radius, or with the distance strategy
+         one a keypoint growing with its range; that strategy also turns
+         on K1's normal filter, seen from the initial end translation
       4. geometric weights, the uniform-stride residual cap
       5. LM inner loop: up to min(ls_max_num_iters, 64) steps in one call
          of kernel K5: Jacobian by forward mode through the slerp (as
@@ -55,6 +63,7 @@ from ct_icp_torch.core import se3 as s3
 from ct_icp_torch.icp import residuals as res
 from ct_icp_torch.kernels import lm_step as lm
 from ct_icp_torch.mapping import voxel_map as vm
+from ct_icp_torch.ops.neighborhood import compute_description
 
 MAX_OUTER_ITERS = 64
 MAX_INNER_ITERS = 64
@@ -159,45 +168,89 @@ class RegistrationResult(NamedTuple):
     host_syncs: int                # device->host reads the loops made
 
 
+def search_radius(statics, dyn, raw):
+    """The search radius: ``dyn.search_radius``, or with the distance
+    strategy one a keypoint, growing with its range (reference
+    :231-239, neighborhood_strategy.h:124-129, the clamp by radius_max
+    kept): a * r_max + (1 - a) * r_min, a = (min(|raw|, r_max) / r_max)^e."""
+    if not statics.use_distance_strategy:
+        return dyn.search_radius
+    d_sensor = torch.sqrt(raw[:, 0] * raw[:, 0] + raw[:, 1] * raw[:, 1]
+                          + raw[:, 2] * raw[:, 2])
+    r_max, r_min = float(dyn.radius_max), float(dyn.radius_min)
+    a = torch.pow(torch.clamp_max(d_sensor, r_max)
+                  / float(np.maximum(dyn.radius_max, np.float32(1e-9))),
+                  float(dyn.radius_exponent))
+    return (a * r_max + (1.0 - a) * r_min).contiguous()
+
+
 def _build_problem(statics, dyn, level, raw, alphas, valid, qb, tb, qe, te,
-                   cache, do_gather: bool):
+                   radius, sensor_location, cache, do_gather: bool):
     """Association + descriptors at the current pose estimate.
 
-    ``cache`` = (slots, cnt_ok, r_eff2) of the last gather, reused when
-    ``do_gather`` is False. Returns (anchors, normals, geom_w, ok, cache)."""
+    Ball neighbourhood: ``cache`` = (slots, cnt_ok, r_eff2) of the last
+    gather, reused when ``do_gather`` is False. Exact k-NN (reference
+    :271-292): a fresh search each call, no cache; with
+    num_closest_neighbors = kc > 1 the anchors are the kc nearest
+    neighbours [K, kc, 3] and ``ok`` is [K, kc]. Returns (anchors, normals,
+    geom_w, ok, cache)."""
     world = res.interp_world_points(qb, tb, qe, te, raw, alphas)
-    k_nearest = dyn.max_number_neighbors if statics.knn_moments else None
-    if do_gather:
-        slots, cnt_ok = vm.gather_candidate_planes(
-            level, world, valid, dyn.voxel_resolution,
-            statics.voxel_neighborhood, dyn.threshold_voxel_occupancy,
-            statics.max_candidate_voxels)
-        cached_r = None
+    filt = dict(sensor_location=sensor_location,
+                use_normal_filter=statics.use_normal_filter)
+    if statics.ball_neighborhood:
+        k_nearest = dyn.max_number_neighbors if statics.knn_moments else None
+        if do_gather:
+            slots, cnt_ok = vm.gather_candidate_planes(
+                level, world, valid, dyn.voxel_resolution,
+                statics.voxel_neighborhood, dyn.threshold_voxel_occupancy,
+                statics.max_candidate_voxels, **filt)
+            cached_r = None
+        else:
+            slots, cnt_ok, cached_r = cache
+        mom = vm.moments_from_planes(level, slots, cnt_ok, world, radius,
+                                     k_nearest=k_nearest,
+                                     cached_r_eff2=cached_r)
+        count, anchors, normals, a2d = (mom.count, mom.closest, mom.normal,
+                                        mom.a2d)
+        closest_dist = torch.where(torch.isfinite(mom.closest_dist),
+                                   mom.closest_dist,
+                                   torch.zeros_like(mom.closest_dist))
+        cache = (slots, cnt_ok, mom.r_eff2)
     else:
-        slots, cnt_ok, cached_r = cache
-    mom = vm.moments_from_planes(level, slots, cnt_ok, world,
-                                 dyn.search_radius, k_nearest=k_nearest,
-                                 cached_r_eff2=cached_r)
-    ok = valid & (mom.count >= dyn.min_number_neighbors)
-    closest_dist = torch.where(torch.isfinite(mom.closest_dist),
-                               mom.closest_dist,
-                               torch.zeros_like(mom.closest_dist))
+        nb = vm.radius_search(level, world, valid, radius,
+                              dyn.voxel_resolution,
+                              statics.voxel_neighborhood,
+                              statics.max_neighbors,
+                              threshold_voxel_occupancy=(
+                                  dyn.threshold_voxel_occupancy), **filt)
+        count = nb.mask.sum(-1)
+        desc = compute_description(nb.points, nb.mask, world)
+        anchors, normals, a2d = nb.points[:, 0], desc.normal, desc.a2D
+        closest_dist = torch.where(nb.mask[:, 0], nb.dist[:, 0],
+                                   torch.zeros_like(nb.dist[:, 0]))
+    ok = valid & (count >= dyn.min_number_neighbors)
     geom_w = res.ceres_path_weights(
-        mom.a2d, closest_dist, dyn.power_planarity, dyn.weight_alpha,
+        a2d, closest_dist, dyn.power_planarity, dyn.weight_alpha,
         dyn.weight_neighborhood, dyn.max_dist_to_plane,
         np.float32(max(dyn.min_number_neighbors, 1)))
+    kc = statics.num_closest_neighbors
+    if not statics.ball_neighborhood and kc > 1:
+        # kc residuals a keypoint, anchored at its kc nearest neighbours,
+        # sharing its normal and weight (reference ct_icp.cpp:593-604)
+        anchors = nb.points[:, :kc]
+        ok = ok[:, None] & nb.mask[:, :kc]
 
-    # cap the residuals by a uniform stride over the valid points (the
+    # cap the residuals by a uniform stride over the valid rows (the
     # reference caps a shuffled order; keypoints arrive voxel-sorted)
-    ok_i = ok.to(torch.int64)
+    ok_i = ok.reshape(-1).to(torch.int64)
     n_ok = torch.clamp_min(ok_i.sum(), 1)
     cap = dyn.max_num_residuals if dyn.max_num_residuals > 0 else 1 << 30
     rank = torch.cumsum(ok_i, 0) - 1
     cap_c = torch.clamp_max(n_ok, cap)
     sel = (torch.div(rank * cap_c, n_ok, rounding_mode="floor")
            != torch.div((rank - 1) * cap_c, n_ok, rounding_mode="floor"))
-    ok = ok & (sel | (n_ok <= cap))
-    return mom.closest, mom.normal, geom_w, ok, (slots, cnt_ok, mom.r_eff2)
+    ok = ok & (sel | (n_ok <= cap)).reshape(ok.shape)
+    return anchors, normals, geom_w, ok, cache
 
 
 def _lm_inner_loop(statics, dyn, raw, alphas, anchors, normals, geom_w, ok,
@@ -210,6 +263,15 @@ def _lm_inner_loop(statics, dyn, raw, alphas, anchors, normals, geom_w, ok,
     n_steps = min(dyn.ls_max_num_iters, MAX_INNER_ITERS)
     if n_steps < 1:
         raise ValueError("the LM inner loop needs ls_max_num_iters >= 1")
+    if anchors.dim() == 3:
+        # one row a (keypoint, i-th neighbour): the keypoint's arrays
+        # repeated kc times, row i of keypoint j at j * kc + i
+        kc = anchors.shape[1]
+        raw, alphas = (raw.repeat_interleave(kc, 0),
+                       alphas.repeat_interleave(kc, 0))
+        normals = normals.repeat_interleave(kc, 0)
+        geom_w = geom_w.repeat_interleave(kc, 0)
+        anchors, ok = anchors.reshape(-1, 3), ok.reshape(-1)
     n_res = ok.sum(dtype=torch.int32)
     rows = lm.pack_rows(raw, alphas, anchors, normals, geom_w, ok)
     state = lm.init_state(qb, tb, qe, te)
@@ -225,20 +287,32 @@ def build_register_fn(statics: SolverStatics):
       (level, raw [K,3], alphas [K], valid [K], qb, tb, qe, te, prior [14],
        dyn) -> RegistrationResult
     with ``dyn`` a SolverDynamics or its packed vector."""
-    if (statics.solver != Solver.CERES or not statics.ball_neighborhood
+    if (statics.solver != Solver.CERES
             or statics.distance != IcpDistance.POINT_TO_PLANE
-            or statics.num_closest_neighbors > 1
-            or statics.use_distance_strategy or statics.use_normal_filter
             or statics.analytic_jacobian):
         raise NotImplementedError(
-            "ct_icp_torch ports the ball-neighborhood CERES point-to-plane "
-            f"path only; got {statics}")
+            "ct_icp_torch ports the CERES point-to-plane path with the "
+            f"autodiff Jacobian only; got {statics}")
+    if statics.num_closest_neighbors > 1:
+        # never a silent degrade to one residual a keypoint
+        if statics.ball_neighborhood:
+            raise ValueError(
+                "num_closest_neighbors > 1 needs the sorted neighbor list: "
+                "set ball_neighborhood=False (CTICPRegistration flips this "
+                "automatically when building statics from options)")
+        if statics.max_neighbors < statics.num_closest_neighbors:
+            raise ValueError(
+                f"num_closest_neighbors={statics.num_closest_neighbors} "
+                f"exceeds max_number_neighbors={statics.max_neighbors}")
 
     def register(level, raw, alphas, valid, qb, tb, qe, te, prior, dyn):
         if not isinstance(dyn, SolverDynamics):
             dyn = unpack_dynamics(dyn)
         qb = s3.quat_normalize(qb)
         qe = s3.quat_normalize(qe)
+        # the reference passes &end_t of the initial estimate (ct_icp.cpp:592)
+        sensor_location = te
+        radius = search_radius(statics, dyn, raw)
         half_voxel = np.float32(0.5) * dyn.voxel_resolution
         # farthest keypoint distance: turns a rotation since the last
         # gather into its worst-case point displacement
@@ -258,7 +332,7 @@ def build_register_fn(statics: SolverStatics):
                 anchor_tr, anchor_qe, anchor_qb = te, qe, qb
             anchors, normals, geom_w, ok, cache = _build_problem(
                 statics, dyn, level, raw, alphas, valid, qb, tb, qe, te,
-                cache, do_gather)
+                radius, sensor_location, cache, do_gather)
             nqb, ntb, nqe, nte, cost, n_res, lm_syncs = _lm_inner_loop(
                 statics, dyn, raw, alphas, anchors, normals, geom_w, ok,
                 qb, tb, qe, te, prior)

@@ -8,8 +8,12 @@ through the slots, so no [M, O', 3P] copy of the rows is made. Kernel:
 ``csrc/candidate_gather.cu``, one launch: a thread per (query, neighbour
 voxel) probing its 8 keys by 16-byte loads; with the compaction, a warp
 per query that probes its voxels into shared memory and places the kept
-ones by ballot prefix counts. Bound on the card: bytes (the queries, the
-probed key windows, the found counts, 8 B written per output pair).
+ones by ballot prefix counts. With the normal filter (the distance
+strategy's, reference :699-703), a hit whose voxel normal is set (nflags 2)
+and faces away from the sensor is not usable; it reads the normals and
+flags of hits only. Bound on the card: bytes (the queries, the probed key
+windows, the found counts, the filter's normals and flags of the found
+slots, 8 B written per output pair).
 
 A CPU tensor takes :func:`candidate_gather_plain`; a CUDA tensor launches the
 kernel or raises.
@@ -67,10 +71,22 @@ def selection_order(nv: int, device=None):
                          + torch.arange(off_d2.shape[0], device=device))
 
 
+def normal_filter(normals, nflags, slots, queries, sensor_location):
+    """bool [M, O]: the voxel at ``slots`` may be used by its query (its
+    normal not set, nflags < 2, or (sensor - query) . normal >= 0, summed
+    x, y, z left to right). ``slots`` are valid indices (0 where absent)."""
+    rel = sensor_location[None, :] - queries                     # [M, 3]
+    nrm = normals[slots]                                         # [M, O, 3]
+    dot = (rel[:, None, 0] * nrm[..., 0] + rel[:, None, 1] * nrm[..., 1]
+           + rel[:, None, 2] * nrm[..., 2])
+    return (nflags[slots] < 2) | (dot >= 0.0)
+
+
 def candidate_gather_plain(keys, count, queries, query_valid,
                            resolution: float, nv: int,
                            threshold_voxel_occupancy: int,
-                           max_candidates: int = 0):
+                           max_candidates: int = 0, normals=None,
+                           nflags=None, sensor_location=None):
     """Plain PyTorch version: (slots [M, O'] int32, cnt_ok [M, O'] int32)."""
     offsets = neighbor_offsets(nv, queries.device)
     qc = vx.voxel_coords(queries, resolution)
@@ -79,6 +95,9 @@ def candidate_gather_plain(keys, count, queries, query_valid,
     valid_slot = slots >= 0
     slot_c = torch.where(valid_slot, slots, torch.zeros_like(slots))
     ok = (cnt >= threshold_voxel_occupancy) & valid_slot & query_valid[:, None]
+    if sensor_location is not None:
+        ok = ok & normal_filter(normals, nflags, slot_c, queries,
+                                sensor_location)
     o = offsets.shape[0]
     if 0 < max_candidates < o:
         # the reference's top_k of (usable ? 1 - |offset|^2 / 100 : -1),
@@ -100,7 +119,8 @@ _orders = {}
 
 def candidate_gather(keys, count, queries, query_valid, resolution: float,
                      nv: int, threshold_voxel_occupancy: int,
-                     max_candidates: int = 0):
+                     max_candidates: int = 0, normals=None, nflags=None,
+                     sensor_location=None):
     """Candidate voxels of the (2nv+1)^3 around each query, as map slots.
 
     keys int32[C] (uint32 bit patterns, C a power of two), count int32[C],
@@ -109,12 +129,16 @@ def candidate_gather(keys, count, queries, query_valid, resolution: float,
     point count, zero where it is absent, below the occupancy threshold or
     the query is invalid. O' = O = (2nv+1)^3, or ``max_candidates`` when 0 <
     max_candidates < O: then the usable voxels come first, nearer offsets
-    first, then the others by index (the reference's compaction)."""
+    first, then the others by index (the reference's compaction). With
+    ``sensor_location`` f32[3] (and the level's ``normals`` f32[C, 3] and
+    ``nflags`` int32[C]), the normal filter decides usability too, before
+    the compaction."""
     if queries.device.type == "cpu":
         return candidate_gather_plain(keys, count, queries, query_valid,
                                       resolution, nv,
                                       threshold_voxel_occupancy,
-                                      max_candidates)
+                                      max_candidates, normals, nflags,
+                                      sensor_location)
     global launches
     dev = queries.device
     if dev.type != "cuda":
@@ -129,6 +153,14 @@ def candidate_gather(keys, count, queries, query_valid, resolution: float,
             (queries, torch.float32, (m, 3), "queries"),
             (query_valid, torch.bool, (m,), "query_valid")):
         build.check_tensor(t, dtype, shape, "candidate_gather", name, dev)
+    filt = sensor_location is not None
+    if filt:
+        for t, dtype, shape, name in (
+                (normals, torch.float32, (c, 3), "normals"),
+                (nflags, torch.int32, (c,), "nflags"),
+                (sensor_location, torch.float32, (3,), "sensor_location")):
+            build.check_tensor(t, dtype, shape, "candidate_gather", name,
+                               dev)
     o = (2 * nv + 1) ** 3
     if o > 1024:
         raise ValueError("candidate_gather: nv <= 4")
@@ -137,7 +169,9 @@ def candidate_gather(keys, count, queries, query_valid, resolution: float,
     slots = torch.empty((m, o_out), dtype=torch.int32, device=dev)
     cnt_ok = torch.empty((m, o_out), dtype=torch.int32, device=dev)
     args = (build.ptr(keys), build.ptr(count), build.ptr(queries),
-            build.ptr(query_valid))
+            build.ptr(query_valid)) + (
+        (build.ptr(normals), build.ptr(nflags), build.ptr(sensor_location))
+        if filt else (None, None, None))
     tail = (float(resolution), int(threshold_voxel_occupancy))
     if compact:
         order = _orders.get((nv, dev))
@@ -159,7 +193,7 @@ def candidate_gather(keys, count, queries, query_valid, resolution: float,
     return slots, cnt_ok
 
 
-_ARGTYPES = (build.PTR,) * 4 + (build.INT,) * 3 + (build.FLOAT, build.INT) \
+_ARGTYPES = (build.PTR,) * 7 + (build.INT,) * 3 + (build.FLOAT, build.INT) \
     + (build.PTR,) * 3
-_ARGTYPES_COMPACT = (build.PTR,) * 5 + (build.INT,) * 3 \
+_ARGTYPES_COMPACT = (build.PTR,) * 8 + (build.INT,) * 3 \
     + (build.FLOAT, build.INT, build.INT) + (build.PTR,) * 3

@@ -3,8 +3,13 @@
 
 Each check runs a kernel wrapper and its plain PyTorch version on the same
 CUDA inputs and raises AssertionError on a disagreement. Tolerances:
-  * integer and hash outputs (K1's slots and counts, K2's counts, shell
-    radii and closest points, keys, ranks) and point rows: identical;
+  * integer and hash outputs (K1's slots and counts, with the normal filter
+    too, K2's counts, shell radii and closest points, with a radius a
+    query too, keys, ranks) and point rows: identical;
+  * K12 (the exact k-NN search, a scalar or a per-query radius): the
+    neighbours, the mask and the distances identical (d2 and its order
+    come from the same round-to-nearest operations, sqrt is correctly
+    rounded on both);
   * K2 float sums: summed in another order (warp tree vs torch reduction),
     so within 1e-4 of each query's second-moment scale; the normal within
     1e-3 (|cos| of the angle, sign free) where the neighborhood is planar
@@ -67,6 +72,7 @@ from ct_icp_torch.kernels import candidate_gather as k1
 from ct_icp_torch.kernels import ct_ba_block as k8
 from ct_icp_torch.kernels import evict_voxels as k9
 from ct_icp_torch.kernels import grid_sample as k4
+from ct_icp_torch.kernels import knn_search as k12
 from ct_icp_torch.kernels import level_normals as k10
 from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.kernels import map_insert as k3
@@ -85,11 +91,16 @@ def _same(a, b, what):
 
 
 def check_candidate_gather(level, queries, query_valid, resolution, nv,
-                           threshold, max_candidates=0):
+                           threshold, max_candidates=0, sensor_location=None):
+    """K1 against its plain version; with ``sensor_location`` (f32[3]),
+    with the normal filter on the level's normals and flags."""
     args = (level.keys, level.count, queries, query_valid, resolution, nv,
             threshold, max_candidates)
-    slots, cnt = k1.candidate_gather(*args)
-    pslots, pcnt = k1.candidate_gather_plain(*args)
+    filt = ({} if sensor_location is None else dict(
+        normals=level.normals, nflags=level.nflags,
+        sensor_location=sensor_location))
+    slots, cnt = k1.candidate_gather(*args, **filt)
+    pslots, pcnt = k1.candidate_gather_plain(*args, **filt)
     torch.cuda.synchronize()
     _same(cnt, pcnt, "candidate_gather cnt_ok")
     _same(slots, pslots, "candidate_gather slots")
@@ -129,6 +140,17 @@ def check_plane_moments(points, slots, cnt_ok, queries, radius, k_nearest,
     return {"max_abs_err": max(
         (got.sum_rel - want.sum_rel).abs().max().item(),
         (got.sum_outer - want.sum_outer).abs().max().item())}
+
+
+def check_knn_search(points, slots, cnt_ok, queries, radius, k):
+    """K12 against its plain version (``radius`` a float or f32[M])."""
+    got = k12.knn_search(points, slots, cnt_ok, queries, radius, k)
+    want = k12.knn_search_plain(points, slots, cnt_ok, queries, radius, k)
+    torch.cuda.synchronize()
+    _same(got.mask, want.mask, "knn_search mask")
+    _same(got.points, want.points, "knn_search points")
+    _same(got.dist, want.dist, "knn_search dist")
+    return {"max_abs_err": 0.0, "found": int(want.mask.sum())}
 
 
 def check_map_insert(level, pts, valid, resolution, min_dist, max_rounds):

@@ -8,8 +8,9 @@ reads the live map points through K1's slots. Kernel:
 ``csrc/plane_moments.cu`` — a group of ``K2_GROUP`` lanes (a warp) per
 keypoint walks its live points only, the shell histogram in shared memory,
 the eigensolves of a block's keypoints on the lanes of its first warp.
-Bound on the card: bytes (each distinct live map point once, the slot
-pairs, queries and outputs).
+The radius is a scalar or one a query (the distance strategy's per-point
+radius, the reference's ``radius_arr``). Bound on the card: bytes (each
+distinct live map point once, the slot pairs, queries, radii and outputs).
 
 A CPU tensor takes :func:`plane_moments_plain`; a CUDA tensor launches the
 kernel or raises.
@@ -40,25 +41,37 @@ class Moments(NamedTuple):
     a2d: torch.Tensor            # f32 [M]
 
 
-def _radius_sq(radius) -> float:
+def radius_sq(radius):
+    """The squared radius: a host float32 for a scalar radius, else the
+    f32[M] tensor of each query's radius squared in float32."""
+    if torch.is_tensor(radius):
+        return radius * radius
     r = np.float32(radius)
     return float(r * r)
 
 
-def knn_radius2(d2, ok, query, m: int, radius: float, k_nearest: int,
+def knn_radius2(d2, ok, query, m: int, radius, k_nearest: int,
                 bins: int = KNN_BINS):
     """Per-query squared radius ~ the distance to the k-th nearest
     candidate: the smallest of ``bins`` nested radii whose in-radius count
     reaches k (full radius when none does or k <= 0). ``d2``, ``ok`` and
-    ``query`` (the candidate's query index) are flat over the candidates."""
-    r2 = max(_radius_sq(radius), 1e-20)
+    ``query`` (the candidate's query index) are flat over the candidates;
+    ``radius`` is a float or f32[M]."""
+    rr = radius_sq(radius)
+    if torch.is_tensor(rr):
+        r2 = torch.clamp_min(rr, 1e-20)
+    else:
+        r2 = torch.full((m,), max(rr, 1e-20), dtype=d2.dtype,
+                        device=d2.device)
     frac = (torch.arange(1, bins + 1, dtype=d2.dtype, device=d2.device)
             / bins) ** 2
-    edges2 = torch.full((m, 1), r2, dtype=d2.dtype, device=d2.device) \
-        * frac[None, :]                                         # [M, B]
+    edges2 = r2[:, None] * frac[None, :]                        # [M, B]
     # each candidate's shell: the first edge >= d2 (bins = outside); the
     # in-radius count of edge b is the histogram's prefix sum up to b
-    shell = torch.searchsorted(edges2[0].contiguous(), d2)
+    if torch.is_tensor(rr):
+        shell = torch.searchsorted(edges2[query], d2[:, None])[:, 0]
+    else:
+        shell = torch.searchsorted(edges2[0].contiguous(), d2)
     shell = torch.where(ok, shell, torch.full_like(shell, bins))
     hist = torch.zeros((m * (bins + 1),), dtype=torch.int64, device=d2.device)
     hist.index_add_(0, query * (bins + 1) + shell, torch.ones_like(shell))
@@ -67,10 +80,10 @@ def knn_radius2(d2, ok, query, m: int, radius: float, k_nearest: int,
     bin_idx = torch.argmax(reach.to(torch.int32), dim=-1)
     found = reach.any(-1) & (k_nearest > 0)
     r_eff2 = torch.gather(edges2, 1, bin_idx[:, None])[:, 0]
-    return torch.where(found, r_eff2, torch.full_like(r_eff2, r2))
+    return torch.where(found, r_eff2, r2)
 
 
-def plane_moments_plain(points, slots, cnt_ok, queries, radius: float,
+def plane_moments_plain(points, slots, cnt_ok, queries, radius,
                         k_nearest: Optional[int],
                         cached_r_eff2=None) -> Moments:
     """Plain PyTorch version of :func:`plane_moments`, over the live
@@ -90,16 +103,27 @@ def plane_moments_plain(points, slots, cnt_ok, queries, radius: float,
     dy = y - queries[qi, 1]
     dz = z - queries[qi, 2]
     d2 = dx * dx + dy * dy + dz * dz
-    rr = _radius_sq(radius)
-    ok = d2 <= rr
-    r_eff2 = torch.full((m,), rr, dtype=dt, device=dev)
+    rr = radius_sq(radius)
+    if torch.is_tensor(rr):
+        ok = d2 <= rr[qi]
+        r_eff2 = rr.clone()
+    else:
+        ok = d2 <= rr
+        r_eff2 = torch.full((m,), rr, dtype=dt, device=dev)
     if k_nearest is not None:
         r_eff2 = (cached_r_eff2 if cached_r_eff2 is not None
                   else knn_radius2(d2, ok, qi, m, radius, k_nearest))
         ok = ok & (d2 <= r_eff2[qi])
 
     def per_query(v):
-        return torch.zeros(m, dtype=v.dtype, device=dev).index_add_(0, qi, v)
+        # each device's in-order sum, the same from run to run: on the
+        # card index_add_ adds by atomics in an order that changes, and
+        # index_put_ accumulating sorts first; on the CPU index_add_ is in
+        # order, and index_put_ accumulating adds from several threads
+        out = torch.zeros(m, dtype=v.dtype, device=dev)
+        if dev.type == "cpu":
+            return out.index_add_(0, qi, v)
+        return out.index_put_((qi,), v, accumulate=True)
 
     w = ok.to(dt)
     rx, ry, rz = dx * w, dy * w, dz * w
@@ -136,14 +160,15 @@ def plane_moments_plain(points, slots, cnt_ok, queries, radius: float,
                    desc.normal, desc.a2D)
 
 
-def plane_moments(points, slots, cnt_ok, queries, radius: float,
+def plane_moments(points, slots, cnt_ok, queries, radius,
                   k_nearest: Optional[int], cached_r_eff2=None) -> Moments:
     """Moments of the in-radius candidates of each query, and the
     descriptor (normal, a2D) they give.
 
     points f32[C, 3P] the level's planar rows, slots int32[M, O'] and
     cnt_ok int32[M, O'] from :func:`candidate_gather` on that level (point j
-    of candidate o is live for j < cnt_ok), queries f32[M, 3].
+    of candidate o is live for j < cnt_ok), queries f32[M, 3], ``radius`` a
+    float or f32[M] (a radius a query).
     ``k_nearest`` (None = no cap) caps the sums to ~the k nearest candidates
     by the 32-shell histogram radius, recomputed unless ``cached_r_eff2``
     f32[M] is given."""
@@ -157,7 +182,7 @@ def plane_moments(points, slots, cnt_ok, queries, radius: float,
     return out
 
 
-def launch(points, slots, cnt_ok, queries, radius: float,
+def launch(points, slots, cnt_ok, queries, radius,
            k_nearest: Optional[int], cached_r_eff2=None,
            defines=()) -> Moments:
     """One launch of ``csrc/plane_moments.cu`` on CUDA tensors, counted by
@@ -177,6 +202,9 @@ def launch(points, slots, cnt_ok, queries, radius: float,
             (queries, torch.float32, (m, 3), "queries")]
     if cached_r_eff2 is not None:
         args.append((cached_r_eff2, torch.float32, (m,), "cached_r_eff2"))
+    per_query = torch.is_tensor(radius)
+    if per_query:
+        args.append((radius, torch.float32, (m,), "radius"))
     for t, dtype, shape, name in args:
         build.check_tensor(t, dtype, shape, "plane_moments", name, dev)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -192,7 +220,9 @@ def launch(points, slots, cnt_ok, queries, radius: float,
     fn = build.launcher("plane_moments", "k2_plane_moments", _ARGTYPES,
                         defines)
     status = fn(build.ptr(points), build.ptr(slots), build.ptr(cnt_ok),
-                build.ptr(queries), m, o, row_len // 3, _radius_sq(radius),
+                build.ptr(queries), m, o, row_len // 3,
+                0.0 if per_query else radius_sq(radius),
+                build.ptr(radius) if per_query else None,
                 -1 if k_nearest is None else int(k_nearest),
                 None if cached_r_eff2 is None else build.ptr(cached_r_eff2),
                 *(build.ptr(t) for t in out), build.stream_of(queries))
@@ -200,5 +230,5 @@ def launch(points, slots, cnt_ok, queries, radius: float,
     return out
 
 
-_ARGTYPES = (build.PTR,) * 4 + (build.INT,) * 3 + (build.FLOAT, build.INT) \
-    + (build.PTR,) * 10
+_ARGTYPES = (build.PTR,) * 4 + (build.INT,) * 3 \
+    + (build.FLOAT, build.PTR, build.INT) + (build.PTR,) * 10

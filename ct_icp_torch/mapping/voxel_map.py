@@ -30,6 +30,7 @@ import torch
 
 from ct_icp_torch.kernels import candidate_gather as k1
 from ct_icp_torch.kernels import evict_voxels as k9
+from ct_icp_torch.kernels import knn_search as k12
 from ct_icp_torch.kernels import level_normals as k10
 from ct_icp_torch.kernels import map_insert as k3
 from ct_icp_torch.kernels import plane_moments as k2
@@ -86,14 +87,27 @@ def find_slots_with_count(level: MapLevel, query_coords):
     return k1.find_slots_with_count(level.keys, level.count, query_coords)
 
 
+def _filter_args(level: MapLevel, sensor_location, use_normal_filter):
+    """K1's normal-filter arguments (normals, nflags, sensor) of a search:
+    the filter is on when asked for and given a sensor location."""
+    if use_normal_filter and sensor_location is not None:
+        return dict(normals=level.normals, nflags=level.nflags,
+                    sensor_location=sensor_location)
+    return {}
+
+
 def gather_candidate_planes(level: MapLevel, queries, query_valid,
                             resolution: float, nv: int,
                             threshold_voxel_occupancy: int = 1,
-                            max_candidates: int = 0):
+                            max_candidates: int = 0, sensor_location=None,
+                            use_normal_filter: bool = False):
     """Search front-end (kernel K1): the slots [M, O] of the (2nv+1)^3
     voxels around each query (0 where absent) + their usable counts [M, O];
     with 0 < max_candidates < O, only the first max_candidates of them,
-    usable and nearer voxels first.
+    usable and nearer voxels first. With ``use_normal_filter`` and a
+    ``sensor_location`` (f32[3] on the level's device), a voxel whose normal
+    is set and faces away from the sensor is not usable (reference
+    :699-703).
 
     Departs from the reference, which returns the candidate rows
     ``level.points[slots]`` [M, O, 3P]: the TPU's DMA wants dense rows, so
@@ -102,35 +116,89 @@ def gather_candidate_planes(level: MapLevel, queries, query_valid,
     rescorings that reuse it (icp/solver.py)."""
     return k1.candidate_gather(level.keys, level.count, queries, query_valid,
                                resolution, nv, threshold_voxel_occupancy,
-                               max_candidates)
+                               max_candidates, **_filter_args(
+                                   level, sensor_location, use_normal_filter))
 
 
-def moments_from_planes(level: MapLevel, slots, cnt_ok, queries,
-                        radius: float, k_nearest=None,
-                        cached_r_eff2=None) -> k2.Moments:
+def moments_from_planes(level: MapLevel, slots, cnt_ok, queries, radius,
+                        k_nearest=None, cached_r_eff2=None) -> k2.Moments:
     """Scoring half (kernel K2): in-radius moments of the candidates that
     ``gather_candidate_planes`` found vs the current query positions, the
     closest candidate and the descriptor (normal, a2D) — see
     kernels/plane_moments.py. The reference scores its cached rows; this
-    reads candidate o's points from ``level.points[slots[:, o]]``."""
+    reads candidate o's points from ``level.points[slots[:, o]]``.
+    ``radius`` is a float or f32[M] (a radius a query)."""
     return k2.plane_moments(level.points, slots, cnt_ok, queries, radius,
                             k_nearest, cached_r_eff2)
 
 
-def ball_search_moments(level: MapLevel, queries, query_valid,
-                        radius: float, resolution: float, nv: int,
+def ball_search_moments(level: MapLevel, queries, query_valid, radius,
+                        resolution: float, nv: int, sensor_location=None,
+                        use_normal_filter: bool = False,
                         threshold_voxel_occupancy: int = 1) -> k2.Moments:
     """Moments of every in-radius map point around each query (reference
-    ``voxel_map.py:845-887`` with no normal filter and no k-NN cap): K1
-    over all (2nv+1)^3 voxels, no compaction, then K2 with
-    ``k_nearest=None``. Returns K2's ``Moments``: the reference's (count,
-    sum_rel, sum_outer, closest, closest_dist) and, beyond them, the
-    descriptor (normal, a2D) its callers compute from the moments."""
-    slots, cnt_ok = k1.candidate_gather(level.keys, level.count, queries,
-                                        query_valid, resolution, nv,
-                                        threshold_voxel_occupancy, 0)
+    ``voxel_map.py:845-887`` with no k-NN cap): K1 over all (2nv+1)^3
+    voxels, no compaction (with the normal filter when asked), then K2 with
+    ``k_nearest=None``. ``radius`` is a float or f32[M].
+    Returns K2's ``Moments``: the reference's (count, sum_rel, sum_outer,
+    closest, closest_dist) and, beyond them, the descriptor (normal, a2D)
+    its callers compute from the moments."""
+    slots, cnt_ok = gather_candidate_planes(
+        level, queries, query_valid, resolution, nv,
+        threshold_voxel_occupancy, 0, sensor_location, use_normal_filter)
     return k2.plane_moments(level.points, slots, cnt_ok, queries, radius,
                             None)
+
+
+def radius_search(level: MapLevel, queries, query_valid, radius,
+                  resolution: float, nv: int, k: int, sensor_location=None,
+                  use_normal_filter: bool = False,
+                  threshold_voxel_occupancy: int = 1) -> k12.Neighbors:
+    """Bounded k-nearest search (reference ``voxel_map.py:917-937``, the
+    C++'s RadiusSearchInPlace, map.h:449-514): the k nearest in-radius map
+    points of each query, sorted by distance. K1 over all (2nv+1)^3 voxels
+    (the normal filter when asked), then K12. Returns ``Neighbors``
+    (points f32[M, k, 3], mask bool[M, k], dist f32[M, k]); a masked-out
+    entry holds zeros and inf, where the reference holds whatever its
+    top_k picked. ``radius`` is a float or f32[M]."""
+    slots, cnt_ok = gather_candidate_planes(
+        level, queries, query_valid, resolution, nv,
+        threshold_voxel_occupancy, 0, sensor_location, use_normal_filter)
+    return k12.knn_search(level.points, slots, cnt_ok, queries, radius, k)
+
+
+def ball_search(level: MapLevel, queries, query_valid, radius,
+                resolution: float, nv: int, sensor_location=None,
+                use_normal_filter: bool = False,
+                threshold_voxel_occupancy: int = 1):
+    """All candidates within ``radius`` in the reference's compat shape
+    (``voxel_map.py:893-914``): (cand f32[M, O * P, 3], mask bool[M, O * P],
+    closest f32[M, 3], closest_dist f32[M] (inf where none), count
+    int32[M]). K1 over all voxels, then a materialising gather through its
+    slots in plain torch: no hot path calls it, as the reference's own
+    docstring says."""
+    slots, cnt_ok = gather_candidate_planes(
+        level, queries, query_valid, resolution, nv,
+        threshold_voxel_occupancy, 0, sensor_location, use_normal_filter)
+    m, o = cnt_ok.shape
+    p = level.max_points
+    rows = level.points[slots.long()].view(m, o, 3, p)
+    cand = rows.permute(0, 1, 3, 2).reshape(m, o * p, 3)
+    rel = cand - queries[:, None, :]
+    d2 = (rel[..., 0] * rel[..., 0] + rel[..., 1] * rel[..., 1]
+          + rel[..., 2] * rel[..., 2])
+    rr = k2.radius_sq(radius)
+    live = (torch.arange(p, dtype=torch.int32, device=queries.device)
+            [None, None, :] < cnt_ok[..., None]).reshape(m, o * p)
+    mask = live & (d2 <= (rr[:, None] if torch.is_tensor(rr) else rr))
+    d2m = torch.where(mask, d2, torch.full_like(d2, float("inf")))
+    amin = torch.argmin(d2m, dim=1)
+    closest = torch.gather(cand, 1, amin[:, None, None].expand(m, 1, 3))[:, 0]
+    cd2 = torch.gather(d2m, 1, amin[:, None])[:, 0]
+    count = mask.sum(-1, dtype=torch.int32)
+    closest_dist = torch.where(count > 0, torch.sqrt(cd2),
+                               torch.full_like(cd2, float("inf")))
+    return cand, mask, closest, closest_dist, count
 
 
 def insert_points(level: MapLevel, pts, valid, resolution: float,

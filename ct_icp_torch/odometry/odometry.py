@@ -1,9 +1,11 @@
 """The odometry driver — host side around the device pipeline.
 
-Counterpart of ``ct_icp_tpu/odometry/odometry.py::Odometry`` on the
-host-deduped GRID path:
+Counterpart of ``ct_icp_tpu/odometry/odometry.py::Odometry`` on the GRID
+keypoint path:
   * ``prepare_frame`` (shuffle, exact host voxel dedup on the wire-quantized
-    coords, keypoint-prefix partition, u16 wire packing);
+    coords, keypoint-prefix partition, u16 wire packing; with
+    ``host_subsample=False`` only the packing of the raw scan, which the
+    frame step then sub-samples on the device, kernel K4);
   * ``register_frame`` / ``register_frame_prepared``: one frame at a time,
     the pose initialization on the host (reference InitializeMotion), one
     frame step per attempt; with ``robust_registration`` the escalation
@@ -42,8 +44,17 @@ with the keypoints the kept attempt's frame step used. A speculative
 frame that is rolled back fires nothing; its replay through the per-frame
 path fires once.
 
-Not ported (they raise NotImplementedError): ``profile_registration`` and
-the CONSTANT_VELOCITY motion compensation.
+The solver's search follows the options: the ball neighbourhood, the
+exact k-NN (``ball_neighborhood=False``, kernel K12) and the distance
+strategy (``options.distance_strategy``: a radius a keypoint and the normal
+filter). Where the solver reads the per-voxel normals, every insert keeps
+them (the frame step's, the deferred update's and the replay's), and
+``get_map_points`` exports them as they are.
+
+Not ported (they raise NotImplementedError): ``profile_registration``, the
+CONSTANT_VELOCITY motion compensation, and the keypoint samplers other than
+GRID (ADAPTIVE, NONE) and the random keypoint cap (``max_num_keypoints``),
+which run only on the reference's staged per-frame path.
 """
 
 from __future__ import annotations
@@ -248,11 +259,11 @@ class Odometry:
 
     def __init__(self, options: OdometryOptions, device=None, seed: int = 0):
         options = _apply_motion_compensation(options)
-        if (not options.host_subsample
-                or options.sampling != SamplingOption.GRID
+        if (options.sampling != SamplingOption.GRID
                 or options.max_num_keypoints > 0):
             raise NotImplementedError(
-                "ct_icp_torch runs the host-deduped GRID keypoint path only")
+                "ct_icp_torch runs the GRID keypoint path without a random "
+                "keypoint cap only")
         if options.motion_compensation == MotionCompensation.CONSTANT_VELOCITY:
             raise NotImplementedError(
                 "CONSTANT_VELOCITY motion compensation is not ported")
@@ -269,10 +280,17 @@ class Odometry:
         self._stream_rebase = pl.make_stream_rebase_fn(self.map_options)
         self.registration = CTICPRegistration(
             options.ct_icp_options, self.map_options,
-            num_keypoints=options.max_keypoints)
+            num_keypoints=options.max_keypoints,
+            distance_strategy=options.distance_strategy)
         statics = self.registration.statics
         sub = options.max_subsampled_points
-        self._frame_step = pl.make_frame_step(self.map_options, statics, sub)
+        # the per-voxel normals, kept by every insert where the solver
+        # reads them (reference odometry.py:186-188)
+        self.with_normals = statics.use_normal_filter
+        core_args = dict(host_prededuped=options.host_subsample,
+                         max_dirty=options.max_dirty_voxels)
+        self._frame_step = pl.make_frame_step(self.map_options, statics, sub,
+                                              **core_args)
         stream_args = dict(
             sub_capacity=sub,
             const_velocity=(options.initialization
@@ -281,7 +299,7 @@ class Odometry:
                         == MotionCompensation.CONTINUOUS),
             always_insert=options.always_insert,
             do_no_insert=options.do_no_insert,
-            robust_gated=options.robust_registration)
+            robust_gated=options.robust_registration, **core_args)
         self._multi_step = pl.make_multi_step(pl.make_stream_body(
             self.map_options, statics, **stream_args))
         self._odo_state = torch.as_tensor(pl.init_odo_state(),
@@ -369,9 +387,10 @@ class Odometry:
         inserts wash a refinement out of the map. Returns the points
         re-inserted: summed on the device and read once a replay (with the
         points evicted, kept in ``replay_stats``). One pinned upload carries
-        every level's coordinates and every frame's points. The reference
-        also passes the begin pose to its insert, for the per-voxel normals
-        of ``with_normals``, which the port's insert does not keep."""
+        every level's coordinates and every frame's points. Where the
+        solver reads the normals (``with_normals``), each re-insert keeps
+        them, oriented toward the refined frame's begin translation, as the
+        reference's does (one host sync an insert, counted)."""
         t0 = time.perf_counter()
         prep = self._replay_inputs(refined_frames)
         if prep is None:
@@ -391,7 +410,8 @@ class Odometry:
         device half needs (one a level: the old points' voxel coordinates,
         int32 [M, 3]; one a refined frame: its host-deduped world points,
         f32 [N, 3]; each padded to a power of two) with their true row
-        counts. None when the ring holds none of ``refined_frames``."""
+        counts; then the refined frames' begin translations, f32 [F, 3].
+        None when the ring holds none of ``refined_frames``."""
         ring = self.frame_ring
         if not ring.enabled:
             return None
@@ -420,26 +440,36 @@ class Odometry:
             w = np.asarray(w[keep], np.float32)
             host.append(_pad_pow2(w))
             counts.append(w.shape[0])
+        host.append(np.asarray(
+            [ring.get_frame(fid, world=False)["begin_pose"].tr - self.origin
+             for fid in fids], np.float32))
         return len(fids), host, counts
 
     def _replay_apply(self, arrays, counts):
         """The device half of a replay, on the arrays of
         :meth:`_replay_inputs` on the device: one K9 launch evicts every
         level's coordinates (their row counts passed as they are), then one
-        K3 insert a refined frame and level (12 election rounds). Returns
-        (points inserted, points evicted), int32[1] each on the device;
-        reads nothing back."""
+        K3 insert a refined frame and level (12 election rounds; with the
+        normals refit toward the frame's begin translation where the solver
+        reads them). Returns (points inserted, points evicted), int32[1]
+        each on the device; reads nothing back but the dirty lists'
+        lengths of a ``with_normals`` insert."""
         n_lv = len(self.map_state)
         evicted = vm.evict_levels(self.map_state, arrays[:n_lv],
                                   counts[:n_lv])[n_lv:]
+        frames = arrays[n_lv:len(counts)]
+        begin_trs = arrays[len(counts)]
         valid = [torch.arange(a.shape[0], device=self.device) < n
-                 for a, n in zip(arrays[n_lv:], counts[n_lv:])]
+                 for a, n in zip(frames, counts[n_lv:])]
         inserted = torch.zeros(1, dtype=torch.int32, device=self.device)
         for level, rp in zip(self.map_state, self.map_options.resolutions):
-            for w, wv in zip(arrays[n_lv:], valid):
-                inserted = inserted + vm.insert_points(
+            for f, (w, wv) in enumerate(zip(frames, valid)):
+                n_ins, syncs = pl.insert_world(
                     level, w, wv, rp.resolution,
-                    rp.min_distance_between_points, max_rounds=12)
+                    rp.min_distance_between_points, 12, self.with_normals,
+                    begin_trs[f], self.options.max_dirty_voxels)
+                inserted = inserted + n_ins
+                self.host_syncs += syncs
         return inserted, evicted
 
     def get_map_points(self, level: int = 0) -> np.ndarray:
@@ -589,8 +619,22 @@ class Odometry:
     # ------------------------------------------------------ frame preparation —
     def _dedup_and_pack(self, xyz, timestamps, info: FrameInfo) -> dict:
         """Shuffle, voxel dedup, keypoint-prefix partition and wire packing
-        of a scan already cut to max_scan_points."""
+        of a scan already cut to max_scan_points; without
+        ``host_subsample``, the packing of the raw scan alone (reference
+        odometry.py:319, :346-349): the frame step sub-samples it on the
+        device, in scan order (no shuffle: a time-sorted scan's voxels keep
+        their earliest points, as the reference's device path does)."""
         o = self.options
+        if not o.host_subsample:
+            n = xyz.shape[0]
+            alphas = self._frame_alphas(timestamps, info)
+            return {
+                "n": n,
+                "scan_host": pl.pack_scan_u16(
+                    xyz, alphas, n, pl.scan_rung(o.max_scan_points, n)),
+                "xyz": xyz, "timestamps": timestamps, "alphas": alphas,
+                "kp_n": 0, "kp_voxel": 0.0,
+            }
         # SHUFFLE before the voxel dedup (reference InitializeFrame,
         # odometry.cpp:349-361): first-per-voxel then draws a random
         # representative per voxel and the keypoint alphas stay uniform
@@ -861,7 +905,9 @@ class Odometry:
         if self.callbacks.get(self.FINISHED_REGISTRATION):
             # the keypoints the frame step solved with: the prefix after
             # the residual-cap decimation (the reference hands over its
-            # device arrays; they are the same points)
+            # device arrays; they are the same points), or the device
+            # election's where it ran
+            summary.keypoints = _out.keypoints
             kp_prefix = self._kp_prefix_scalar(kp_n, kp_voxel, fs1)
             if kp_prefix > 0:
                 cnt = min(int(kp_prefix), o.max_keypoints)
@@ -897,7 +943,7 @@ class Odometry:
             xyz, timestamps, info, summary, self._prior(k), prep=prep)
         self.trajectory[k] = summary.frame
         self._compute_summary_metrics(summary, k)
-        self._update_map_host(summary, out.world, k,
+        self._update_map_host(summary, out.world, out.world_valid, k,
                               device_inserted=inserted,
                               device_inserted_count=count)
         self._maybe_rebase()
@@ -1036,8 +1082,9 @@ class Odometry:
                 return False
         return success
 
-    def _update_map_host(self, summary: RegistrationSummary, world, k: int,
-                         device_inserted: bool, device_inserted_count: int):
+    def _update_map_host(self, summary: RegistrationSummary, world,
+                         world_valid, k: int, device_inserted: bool,
+                         device_inserted_count: int):
         """The robust insertion decision and the deferred map update
         (reference UpdateMap, odometry.cpp:855-953). The attempt's frame
         step already ran the robust-gated insert + prune on the device; when
@@ -1084,15 +1131,18 @@ class Odometry:
             location = torch.as_tensor(
                 self.trajectory[-1].end_pose.tr - self.origin,
                 dtype=torch.float32, device=self.device)
-            inserted = pl.update_map(
-                self.map_state, self.map_options, world,
-                torch.ones(world.shape[0], dtype=torch.bool,
-                           device=self.device), location,
-                float(np.float32(o.max_distance)), add_points,
-                prune=(k % PRUNE_PERIOD == 0) or self._prune_owed)
+            begin_tr = torch.as_tensor(
+                summary.frame.begin_pose.tr - self.origin,
+                dtype=torch.float32, device=self.device)
+            inserted, syncs = pl.update_map(
+                self.map_state, self.map_options, world, world_valid,
+                location, float(np.float32(o.max_distance)), add_points,
+                prune=(k % PRUNE_PERIOD == 0) or self._prune_owed,
+                with_normals=self.with_normals, begin_tr=begin_tr,
+                max_dirty=o.max_dirty_voxels)
             self._prune_owed = False
             self.result_reads += 1
-            self.host_syncs += 1
+            self.host_syncs += 1 + syncs
             summary.logged_values["map_inserted_points"] = int(inserted[0])
         if add_points:
             self.insertion_tracker.insert_frame(k)

@@ -1,8 +1,9 @@
 """The per-frame device pipeline around the solver (torch, eager).
 
-Counterpart of ``ct_icp_tpu/odometry/pipeline.py`` on the host-deduped
-path: the u16 scan wire format, the frame core (keypoint prefix or the
-device keypoint grid election, pre-gather residual-cap decimation,
+Counterpart of ``ct_icp_tpu/odometry/pipeline.py``: the u16 scan wire
+format, the frame core (the device sub-sample of a raw scan the host did
+not dedup, the keypoint prefix or the device keypoint grid election,
+pre-gather residual-cap decimation,
 registration, world transform, assessment, insertion decision — heuristic,
 forced or robust-gated — prune + insert), the per-frame step of the
 ``register_frame`` path, the deferred map update, the streaming body whose
@@ -13,8 +14,12 @@ the floating-origin rebase of the map (and of the streaming state).
 The reference pads every stage to a capacity ladder so XLA compiles a few
 shapes; ladders are exact and only exist for speed, so here every stage is
 sliced to its live count instead (the keypoint election, whose count stays
-on the device, keeps its capacity and a validity mask). The map is updated
-in place, so a checkpoint is a device copy of it (``snapshot``).
+on the device, keeps its capacity and a validity mask, and so does the
+device sub-sample). The map is updated in place, so a checkpoint is a
+device copy of it (``snapshot``). Where the solver reads the per-voxel
+normals (the distance strategy's normal filter), every insert keeps them,
+oriented toward the frame's begin translation (``with_normals``): each
+level's dirty list is read back to size it, one host sync a level.
 """
 
 from typing import NamedTuple
@@ -109,17 +114,37 @@ def device_decimation(kp_valid, kp_cnt, max_num_residuals: int):
 class FrameResult(NamedTuple):
     packed: torch.Tensor      # f32[24], the reference layout
     add: torch.Tensor         # bool: the frame's points went into the map
-    world: torch.Tensor       # f32[sub_cnt, 3] corrected sub-frame points
-    host_syncs: int           # device->host reads the solver made
+    world: torch.Tensor       # f32[S, 3] corrected sub-frame points
+    world_valid: torch.Tensor  # bool[S]: the live rows of ``world``
+    host_syncs: int           # device->host reads the solver and inserts made
     # the solver's keypoints (raw f32[K, 3], alphas f32[K], valid bool[K]):
     # the prefix (K its length) or the device election (K the capacity)
     keypoints: tuple
 
 
-def make_frame_core(map_options, statics, sub_capacity: int):
-    """One odometry frame: keypoint prefix (or the device grid election) ->
-    decimation -> CT registration -> world transform -> assessment ->
-    insertion decision -> prune + insert (in place on ``map_state``).
+def insert_world(level, world, valid, resolution: float, min_dist: float,
+                 max_rounds: int, with_normals: bool, begin_tr,
+                 max_dirty: int):
+    """One level's insert of a frame's world points (K3); ``with_normals``:
+    the dirty voxels' normals refit toward ``begin_tr`` (K10), reading the
+    dirty list's length back (one sync). Returns (inserted int32[1], host
+    syncs)."""
+    if not with_normals:
+        return vm.insert_points(level, world, valid, resolution, min_dist,
+                                max_rounds), 0
+    return vm.insert_points(level, world, valid, resolution, min_dist,
+                            max_rounds, begin_tr=begin_tr,
+                            max_dirty=max_dirty), 1
+
+
+def make_frame_core(map_options, statics, sub_capacity: int,
+                    host_prededuped: bool = True,
+                    max_dirty: int = 1 << 15):
+    """One odometry frame: the device sub-sample of the raw scan (when the
+    host did not dedup it) -> keypoint prefix (or the device grid election)
+    -> decimation -> CT registration -> world transform -> assessment ->
+    insertion decision -> prune + insert (in place on ``map_state``; with
+    the voxel normals where the solver reads them).
 
     frame_scalars ``fs`` (f32[17]) follow the reference layout
     (pipeline.py:195-225): 0 voxel_size, 1 sample_voxel_size,
@@ -139,13 +164,27 @@ def make_frame_core(map_options, statics, sub_capacity: int):
                       for r in map_options.resolutions)
     kp_capacity = statics.num_keypoints
     register = slv.build_register_fn(statics)
+    with_normals = statics.use_normal_filter
 
     def core(map_state, raw, alphas, n_points: int, qb0, tb0, qe0, te0,
              prior, dyn_packed, fs, do_register: bool, force_insert,
              skipped):
         dev = raw.device
-        sub_cnt = min(n_points, sub_capacity)
-        sub_raw, sub_alphas = raw[:sub_cnt], alphas[:sub_cnt]
+        if host_prededuped:
+            sub_cnt = min(n_points, sub_capacity)
+            sub_raw, sub_alphas = raw[:sub_cnt], alphas[:sub_cnt]
+            sub_valid = torch.ones(sub_cnt, dtype=torch.bool, device=dev)
+            sub_count = float(sub_cnt)
+        else:
+            # the device sub-sample (reference pipeline.py:264-270): K4
+            # over the uploaded scan's rung at fs[0]; its count stays on
+            # the device, so the sub-frame keeps the capacity and a mask
+            scan_valid = torch.arange(raw.shape[0], device=dev) < n_points
+            idx, sub_valid, sub_cnt_t = smp.voxel_subsample_indices(
+                raw, scan_valid, float(fs[0]), sub_capacity)
+            idx = idx.to(torch.int64)
+            sub_raw, sub_alphas = raw[idx], alphas[idx]
+            sub_count = sub_cnt_t.to(torch.float32).reshape(1)
         mnr = int(dyn_packed[_MNR_INDEX])
         if fs[16] > 0:
             # KEYPOINT PREFIX: prepare_frame put the fs[1]-grid winners
@@ -164,8 +203,7 @@ def make_frame_core(map_options, statics, sub_capacity: int):
             # the sample voxel below the prefix's): its count stays on the
             # device, so the keypoints keep the capacity and a mask
             idx, kp_valid, kp_cnt_t = smp.voxel_subsample_indices(
-                sub_raw, torch.ones(sub_cnt, dtype=torch.bool, device=dev),
-                float(fs[1]), kp_capacity)
+                sub_raw, sub_valid, float(fs[1]), kp_capacity)
             idx = idx.to(torch.int64)
             kp_raw, kp_alphas = sub_raw[idx], sub_alphas[idx]
             if mnr > 0:
@@ -209,23 +247,31 @@ def make_frame_core(map_options, statics, sub_capacity: int):
                                     heuristic_add))) & assess_ok
 
         inserted = torch.zeros(1, dtype=torch.int32, device=dev)
-        valid = add.reshape(1).expand(sub_cnt).contiguous()
+        valid = sub_valid & add
+        syncs = result.host_syncs
         for i, level in enumerate(map_state):
             if fs[10] > 0:      # cadence prune, gated by the assessment
                 vm.prune_level(level, te, fs[2], gate=assess_ok)
-            inserted = inserted + vm.insert_points(
-                level, world, valid, resolutions[i], min_dists[i],
-                max_rounds=int(fs[15]))
+            n_ins, s = insert_world(level, world, valid, resolutions[i],
+                                    min_dists[i], int(fs[15]), with_normals,
+                                    tb, max_dirty)
+            inserted = inserted + n_ins
+            syncs += s
 
         f32 = dict(dtype=torch.float32, device=dev)
-        host = torch.tensor([result.num_iters, float(result.converged),
-                             float(result.valid_problem), sub_cnt], **f32)
+        host = [result.num_iters, float(result.converged),
+                float(result.valid_problem)]
+        # the sub-frame's count: a host value, or the device sub-sample's
+        # (kept on the card); one upload of the host values either way
+        counts = ([torch.tensor(host + [sub_count], **f32)]
+                  if isinstance(sub_count, float)
+                  else [torch.tensor(host, **f32), sub_count])
         packed = torch.cat([
             qb, tb, qe, te, result.num_residuals.to(**f32).reshape(1),
-            host, kp_count.reshape(1), inserted.to(torch.float32),
+            *counts, kp_count.reshape(1), inserted.to(torch.float32),
             add.to(**f32).reshape(1), assess_ok.to(**f32).reshape(1),
             rot_within.to(**f32).reshape(1)])
-        return FrameResult(packed, add, world, result.host_syncs,
+        return FrameResult(packed, add, world, sub_valid, syncs,
                            (kp_raw, kp_alphas, kp_valid))
 
     return core
@@ -246,14 +292,16 @@ def init_odo_state():
     return s
 
 
-def make_frame_step(map_options, statics, sub_capacity: int):
+def make_frame_step(map_options, statics, sub_capacity: int,
+                    host_prededuped: bool = True, max_dirty: int = 1 << 15):
     """One frame of the per-frame (``register_frame``) path, the pose
     initialization and the prior given by the host (reference
     make_frame_step_fn, pipeline.py:434-458):
       (map_state, scan_packed, n, pose_init [14], prior [14], dyn, fs)
         -> FrameResult
     with do_register, force_insert and skipped in fs[3], fs[4], fs[6]."""
-    core = make_frame_core(map_options, statics, sub_capacity)
+    core = make_frame_core(map_options, statics, sub_capacity,
+                           host_prededuped, max_dirty)
 
     def frame_step(map_state, scan_packed, n_points: int, pose_init, prior,
                    dyn_packed, fs):
@@ -269,19 +317,26 @@ def make_frame_step(map_options, statics, sub_capacity: int):
 
 
 def update_map(map_state, map_options, world, valid, location,
-               max_distance: float, do_insert: bool, prune: bool):
+               max_distance: float, do_insert: bool, prune: bool,
+               with_normals: bool = False, begin_tr=None,
+               max_dirty: int = 1 << 15):
     """The deferred map update (reference _update_map_impl,
     pipeline.py:71-84): an optional prune around ``location``, then the
     insert of ``world`` where ``valid`` and ``do_insert``, in place on every
-    level. Returns the points inserted, int32[1]."""
+    level (``with_normals``: the dirty voxels' normals refit toward
+    ``begin_tr``). Returns (the points inserted int32[1], host syncs)."""
     inserted = torch.zeros(1, dtype=torch.int32, device=world.device)
     valid = valid & do_insert
+    syncs = 0
     for level, r in zip(map_state, map_options.resolutions):
         if prune:
             vm.prune_level(level, location, max_distance)
-        inserted = inserted + vm.insert_points(
-            level, world, valid, r.resolution, r.min_distance_between_points)
-    return inserted
+        n_ins, s = insert_world(level, world, valid, r.resolution,
+                                r.min_distance_between_points, 4,
+                                with_normals, begin_tr, max_dirty)
+        inserted = inserted + n_ins
+        syncs += s
+    return inserted, syncs
 
 
 def upload(arrays, device):
@@ -328,7 +383,9 @@ def restore(map_state, ckpt):
 def make_stream_body(map_options, statics, sub_capacity: int,
                      const_velocity: bool, continuous: bool,
                      always_insert: bool, do_no_insert: bool,
-                     robust_gated: bool = False):
+                     robust_gated: bool = False,
+                     host_prededuped: bool = True,
+                     max_dirty: int = 1 << 15):
     """Per-frame streaming body:
       (map_state, odo_state, scan_packed, n, k, prior_betas, dyn, fs)
         -> (odo_state, packed [24], host_syncs)
@@ -337,7 +394,8 @@ def make_stream_body(map_options, statics, sub_capacity: int,
     ``robust_gated``: insertion mode 2 (insert only when the on-device
     robust assessment passes) after the first inserted frame — the
     speculative robust streamer's mode."""
-    core = make_frame_core(map_options, statics, sub_capacity)
+    core = make_frame_core(map_options, statics, sub_capacity,
+                           host_prededuped, max_dirty)
 
     def stream_body(map_state, odo_state, scan_packed, n_points: int, k: int,
                     prior_betas, dyn_packed, fs):

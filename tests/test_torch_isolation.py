@@ -6,6 +6,7 @@ The import check runs in a subprocess with both packages blocked in
 (tests/conftest.py)."""
 
 import ast
+import dataclasses
 import json
 import pathlib
 import subprocess
@@ -15,7 +16,8 @@ import pytest
 import torch
 
 import ct_icp_torch
-from ct_icp_torch.config.options import default_driving_profile
+from ct_icp_torch.config.options import (DistanceBasedStrategyOptions,
+                                         default_driving_profile)
 from ct_icp_torch.odometry.odometry import Odometry
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -87,6 +89,20 @@ def test_rank_helpers_import_with_jax_blocked(tmp_path):
         assert not set(mods) & set(_BLOCKED), mods
 
 
+def _search_profiles():
+    """The driving profile with each search option this slice ports."""
+    d = default_driving_profile()
+    return [
+        dataclasses.replace(d, ct_icp_options=dataclasses.replace(
+            d.ct_icp_options, ball_neighborhood=False)),
+        dataclasses.replace(d, ct_icp_options=dataclasses.replace(
+            d.ct_icp_options, ball_neighborhood=False,
+            num_closest_neighbors=2)),
+        dataclasses.replace(
+            d, distance_strategy=DistanceBasedStrategyOptions()),
+        dataclasses.replace(d, host_subsample=False)]
+
+
 def test_entry_points_default_to_the_card():
     assert ct_icp_torch.DEFAULT_DEVICE == "cuda"
     if torch.cuda.is_available():
@@ -99,6 +115,20 @@ def test_entry_points_default_to_the_card():
         Odometry(default_driving_profile())
     assert Odometry(default_driving_profile(),
                     device="cpu").device.type == "cpu"
+    # the searches and the device sub-sample of this slice too: the
+    # options resolve to the card by default, and a kernel wrapper given a
+    # tensor that is neither on the CPU nor on the card raises
+    for opts in _search_profiles():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Odometry(opts)
+        assert Odometry(opts, device="cpu").device.type == "cpu"
+    from ct_icp_torch.kernels import knn_search as k12
+    meta = dict(device="meta")
+    with pytest.raises(ValueError, match="no kernel"):
+        k12.knn_search(torch.zeros((8, 6), **meta),
+                       torch.zeros((2, 1), dtype=torch.int32, **meta),
+                       torch.zeros((2, 1), dtype=torch.int32, **meta),
+                       torch.zeros((2, 3), **meta), 1.0, 1)
     # the scale-out entry points too
     from ct_icp_torch.parallel import sharded_map as sm
     from ct_icp_torch.parallel.distributed_odometry import \

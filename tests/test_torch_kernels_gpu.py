@@ -1,10 +1,11 @@
-"""CUDA kernels K1-K10 against their plain PyTorch versions, on the card
+"""CUDA kernels K1-K12 against their plain PyTorch versions, on the card
 (K5 as one launch per LM call, K3 as one launch per insert, K1 one launch a
 call returning slots, K2 reading the live points through them, the rebase
 as one K7 and one K6 launch, K4 one launch a call on a claim table kept
 from call to call, K8 one launch per CT-BA step (its inner iterations in
 one launch), K9 one launch an eviction of every level on per-device
-accumulators it leaves zero, K10 one launch a level's normal refit).
+accumulators it leaves zero, K10 one launch a level's normal refit, K12 one launch a k-NN search; K1 with
+the normal filter, K2 with a radius a query).
 
 Needs an NVIDIA GPU and nvcc (the kernels build from ct_icp_torch/csrc at
 first use); skips elsewhere. Run on a machine with the card (this file needs
@@ -27,6 +28,7 @@ from ct_icp_torch.kernels import candidate_gather as k1
 from ct_icp_torch.kernels import ct_ba_block as k8
 from ct_icp_torch.kernels import evict_voxels as k9
 from ct_icp_torch.kernels import grid_sample as k4
+from ct_icp_torch.kernels import knn_search as k12
 from ct_icp_torch.kernels import level_normals as k10
 from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.kernels import map_insert as k3
@@ -58,9 +60,16 @@ def _scene(rng, n):
     return np.concatenate([g, w]).astype(np.float32)
 
 
-def _warm_level(rng, dev, cap_log2=14, p=30, res=0.8):
+def _warm_level(rng, dev, cap_log2=14, p=30, res=0.8, noise=0.0):
+    """A level holding the scene's points, each coordinate moved by normal
+    noise of ``noise`` m when given (the walls are exact planes without
+    it)."""
     level = vm.make_level(cap_log2, p, dev)
-    pts = torch.from_numpy(_scene(rng, 20000)).to(dev)
+    scene = _scene(rng, 20000)
+    if noise:
+        scene = scene + rng.normal(scale=noise, size=scene.shape).astype(
+            np.float32)
+    pts = torch.from_numpy(scene).to(dev)
     ok = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
     vm.insert_points(level, pts, ok, res, 0.1, max_rounds=12)
     return level
@@ -1019,3 +1028,143 @@ def test_ct_ba_halo_equals_window_launch(cuda):
         for name in ("poses", "cost", "jtj", "jtr"):
             assert torch.equal(getattr(part, name),
                                getattr(one, name)[lo:hi]), name
+
+
+def _flagged_level(rng, dev, cap_log2=14, p=30, res=0.8):
+    """A warm level whose occupied voxels carry flags 0, 1 or 2 and random
+    unit normals: the normal filter keeps and drops voxels of flag 2."""
+    level = _warm_level(rng, dev, cap_log2, p, res)
+    c = level.capacity
+    level.nflags.copy_(torch.from_numpy(rng.integers(0, 3, c).astype(
+        np.int32)).to(dev))
+    nrm = rng.normal(size=(c, 3))
+    level.normals.copy_(torch.from_numpy(
+        (nrm / np.linalg.norm(nrm, axis=1, keepdims=True)).astype(
+            np.float32)).to(dev))
+    return level
+
+
+@pytest.mark.parametrize("nv, max_candidates, res", [(1, 0, 0.8),
+                                                     (2, 48, 0.5),
+                                                     (3, 48, 0.8)])
+def test_candidate_gather_normal_filter_matches_plain(cuda, nv,
+                                                      max_candidates, res):
+    """K1 with the distance strategy's normal filter, bit for bit, over all
+    voxels and with the compaction (the distance strategy at its defaults:
+    nv = 3, 343 voxels kept to 48)."""
+    rng = np.random.default_rng(31)
+    level = _flagged_level(rng, cuda, res=res)
+    q = torch.from_numpy(_scene(rng, 600)).to(cuda)
+    valid = torch.from_numpy(rng.uniform(size=q.shape[0]) < 0.9).to(cuda)
+    sensor = torch.tensor([0.5, -1.0, 1.8], device=cuda)
+    launches = k1.launches
+    checks.check_candidate_gather(level, q, valid, res, nv, 1,
+                                  max_candidates, sensor)
+    assert k1.launches == launches + 1
+    _, filtered = k1.candidate_gather(level.keys, level.count, q, valid, res,
+                                      nv, 1, max_candidates, level.normals,
+                                      level.nflags, sensor)
+    _, unfiltered = k1.candidate_gather(level.keys, level.count, q, valid,
+                                        res, nv, 1, max_candidates)
+    assert int(filtered.sum()) < int(unfiltered.sum())
+
+
+@pytest.mark.parametrize("k_nearest", [40, None])
+def test_plane_moments_radius_per_query_matches_plain(cuda, k_nearest):
+    """K2 with a radius a query (the distance strategy's, 0.1-2.0 m), fresh
+    and with a cached shell radius. The scene's surfaces carry 1 cm of
+    noise, as a scan's do: on the exact planes of the other tests' walls,
+    a 2 m neighbourhood's smallest eigenvalue is float32 rounding, and
+    a2D (which takes its square root) is determined only to ~1e-3: from
+    bit-identical moments the kernel's eigensolve and the plain one's part
+    by up to ~1e-3 there, by ~1e-5 on noisy planes
+    (``python -m ct_icp_torch.tools.exp_a2d``; PERF.md §7)."""
+    rng = np.random.default_rng(32)
+    level = _warm_level(rng, cuda, noise=0.01)
+    q = torch.from_numpy(_scene(rng, 700)).to(cuda)
+    valid = torch.ones(q.shape[0], dtype=torch.bool, device=cuda)
+    radius = torch.from_numpy(rng.uniform(0.1, 2.0, q.shape[0]).astype(
+        np.float32)).to(cuda)
+    slots, cnt = vm.gather_candidate_planes(level, q, valid, 0.8, 3,
+                                            max_candidates=48)
+    checks.check_plane_moments(level.points, slots, cnt, q, radius,
+                               k_nearest)
+    fresh = k2.plane_moments_plain(level.points, slots, cnt, q, radius,
+                                   k_nearest)
+    checks.check_plane_moments(level.points, slots, cnt, q + 0.01, radius,
+                               k_nearest, fresh.r_eff2)
+
+
+@pytest.mark.parametrize("k", [1, 5, 40, 128])
+@pytest.mark.parametrize("nv, radius_kind", [(1, "scalar"), (1, "per query"),
+                                             (3, "scalar"),
+                                             (3, "per query")])
+def test_knn_search_matches_plain(cuda, nv, radius_kind, k):
+    """K12 against its plain version bit for bit, at O = 27 (the
+    corridor's search) and O = 343 (the distance strategy's nv = 3), with a
+    scalar radius and a radius a query, and one launch a call."""
+    rng = np.random.default_rng(33)
+    level = _warm_level(rng, cuda)
+    q = torch.from_numpy(_scene(rng, 900)).to(cuda)
+    valid = torch.from_numpy(rng.uniform(size=q.shape[0]) < 0.95).to(cuda)
+    slots, cnt = vm.gather_candidate_planes(level, q, valid, 0.8, nv)
+    radius = (1.0 if radius_kind == "scalar" else torch.from_numpy(
+        rng.uniform(0.2, 0.8 * nv + 0.4, q.shape[0]).astype(np.float32)
+    ).to(cuda))
+    launches = k12.launches
+    out = checks.check_knn_search(level.points, slots, cnt, q, radius, k)
+    assert k12.launches == launches + 1
+    assert out["found"] > 0
+
+
+def test_knn_search_ties_and_duplicates(cuda):
+    """Duplicate points in a voxel and across voxels tie exactly: both
+    versions keep the lower candidate index first."""
+    rng = np.random.default_rng(34)
+    level = _warm_level(rng, cuda)
+    p = level.max_points
+    full = torch.nonzero(level.count >= 8)[:, 0][:400]
+    for c in range(3):
+        first = level.points[full, c * p].clone()
+        level.points[full, c * p + 1:c * p + 5] = first[:, None]
+    half = full.shape[0] // 2
+    level.points[full[half:2 * half]] = level.points[full[:half]]
+    q = torch.from_numpy(_scene(rng, 600)).to(cuda)
+    valid = torch.ones(q.shape[0], dtype=torch.bool, device=cuda)
+    slots, cnt = vm.gather_candidate_planes(level, q, valid, 0.8, 2)
+    checks.check_knn_search(level.points, slots, cnt, q, 1.2, 40)
+
+
+def test_knn_search_raises_where_it_cannot_run(cuda):
+    rng = np.random.default_rng(35)
+    level = _warm_level(rng, cuda)
+    q = torch.from_numpy(_scene(rng, 10)).to(cuda)
+    valid = torch.ones(q.shape[0], dtype=torch.bool, device=cuda)
+    slots, cnt = vm.gather_candidate_planes(level, q, valid, 0.8, 1)
+    with pytest.raises(ValueError):
+        k12.knn_search(level.points, slots, cnt, q, 1.0, k12.MAX_K + 1)
+    with pytest.raises(ValueError):
+        k12.knn_search(level.points, slots, cnt, q.double(), 1.0, 5)
+
+
+def test_knn_search_is_one_device_operation(cuda):
+    """A call is one device operation: the kernel, no memset or copy (the
+    first of up to ten traces that saw the device, as
+    test_level_normals_is_one_device_operation counts)."""
+    from ct_icp_torch.tools.timing import first_device_trace
+    rng = np.random.default_rng(36)
+    level = _warm_level(rng, cuda)
+    q = torch.from_numpy(_scene(rng, 1000)).to(cuda)
+    valid = torch.ones(q.shape[0], dtype=torch.bool, device=cuda)
+    slots, cnt = vm.gather_candidate_planes(level, q, valid, 0.8, 1)
+
+    def call():
+        k12.knn_search(level.points, slots, cnt, q, 1.0, 40)
+
+    call()
+    torch.cuda.synchronize()
+    events, _ = first_device_trace(call, 10)
+    if events is None:
+        pytest.skip("the profiler saw no device activity")
+    names = [e.name for e in events]
+    assert len(names) == 1 and "knn_search" in names[0], names

@@ -11,9 +11,10 @@ ct_icp_tpu's, on the same numpy inputs.
   voxels past it, against the reference's eviction of each level.
 * ``replay_refined_frames`` given the same map, the same frame ring and the
   same refined poses (a subset of the retained frames moved by a few cm and
-  tenths of a degree), at the origin and off it: every level's keys,
-  counts, points, flags and num_points, and the returned count, bit for
-  bit.
+  tenths of a degree), at the origin and off it, and with the distance
+  strategy, whose re-inserts keep the voxel normals: every level's keys,
+  counts, points, normals, flags and num_points, and the returned count,
+  bit for bit (the refit normals within 2e-4).
 * The room of the reference's replay test (tests/test_ct_ba.py:182-224) at
   the test's sizes, 9 frames with the degraded front end and the backend on
   (window 6, period 3, replay), per frame (streamed in batches of 3:
@@ -35,7 +36,8 @@ from ct_icp_torch.core import pose as tpose
 from ct_icp_torch.datasets import room
 from ct_icp_torch.mapping import voxel_map as tvm
 from ct_icp_torch.odometry.odometry import Odometry as TOdometry
-from ct_icp_tpu.config.options import BackendOptions
+from ct_icp_tpu.config.options import (BackendOptions,
+                                       DistanceBasedStrategyOptions)
 from ct_icp_tpu.core import pose as jpose
 from ct_icp_tpu.mapping import voxel_map as jvm
 from ct_icp_tpu.odometry import odometry as jodometry
@@ -138,11 +140,15 @@ def _port_of(jodo):
     return todo
 
 
-def _assert_levels_equal(jlevels, tlevels):
+def _assert_levels_equal(jlevels, tlevels, normal_tol=0.0):
+    """Every field bit for bit; the normals within ``normal_tol`` where the
+    replay refit them (an eigensolve of float32 moments summed in another
+    order: 2e-4, as tests/test_torch_sharded_map.py holds the refit)."""
     for jl, tl in zip(jlevels, convert.map_state_to_numpy(tlevels)):
-        for f in ("keys", "count", "points", "normals", "nflags",
-                  "num_points"):
+        for f in ("keys", "count", "points", "nflags", "num_points"):
             assert np.array_equal(np.asarray(getattr(jl, f)), tl[f]), f
+        np.testing.assert_allclose(tl["normals"], np.asarray(jl.normals),
+                                   rtol=0, atol=normal_tol)
 
 
 @pytest.mark.parametrize("level", [0, 1, 2])
@@ -210,10 +216,19 @@ def test_evict_levels_matches_reference(room_map):
     _assert_levels_equal(jlevels, tlevels)
 
 
-@pytest.mark.parametrize("case", ["origin", "offset"])
+@pytest.mark.parametrize("case", ["origin", "offset", "normals"])
 def test_replay_refined_frames_matches_reference(room_map, case):
     frames, odos = room_map
-    jodo = odos[case]
+    jodo = odos[case if case != "normals" else "origin"]
+    if case == "normals":
+        # the distance strategy's solver reads the voxel normals, so the
+        # replay's re-inserts keep them (reference odometry.py:556), each
+        # oriented toward its refined frame's begin translation
+        base = jodo
+        jodo = JOdometry(dataclasses.replace(
+            base.options, distance_strategy=DistanceBasedStrategyOptions()))
+        jodo.map_state, jodo.frame_ring = base.map_state, base.frame_ring
+        jodo.origin = base.origin.copy()
     snap = jodo.map_state
     todo = _port_of(jodo)
     moves = {1: ([0.004, -0.002, 0.006], [0.03, -0.02, 0.01]),
@@ -224,7 +239,8 @@ def test_replay_refined_frames_matches_reference(room_map, case):
         nj = jodo.replay_refined_frames(refined_j)
         nt = todo.replay_refined_frames(refined_t)
         assert nt == nj > 0
-        _assert_levels_equal(jodo.map_state.levels, todo.map_state)
+        _assert_levels_equal(jodo.map_state.levels, todo.map_state,
+                             2e-4 if case == "normals" else 0.0)
         assert todo.frame_ring.frame_ids() == jodo.frame_ring.frame_ids()
         for f in moves:
             np.testing.assert_array_equal(
@@ -233,7 +249,12 @@ def test_replay_refined_frames_matches_reference(room_map, case):
         stats = todo.replay_stats[-1]
         assert stats["frames"] == 2 and stats["inserted"] == nt
         assert stats["evicted"] > 0
-        assert todo.host_syncs == 1        # one read a replay
+        # one read a replay; with normals one more an insert (3 levels x 2
+        # frames), each sizing its dirty list
+        assert todo.host_syncs == (7 if case == "normals" else 1)
+        if case == "normals":
+            assert sum(int((lv.nflags == 2).sum())
+                       for lv in todo.map_state) > 100
     finally:
         # the module's map is shared: put the reference's back
         jodo.map_state = snap
