@@ -9,7 +9,7 @@ It needs one CUDA device and nvcc, and exits non-zero without a result line
 when either is missing. Phases; any failure raises and exits non-zero:
 
   1. the card: nvidia-smi's name and power limit, torch's device name;
-  2. build the CUDA kernels K1-K12 from ct_icp_torch/csrc with nvcc (one
+  2. build the CUDA kernels K1-K13 from ct_icp_torch/csrc with nvcc (one
      process per source, all started together); print the build time and
      ptxas's register / shared-memory / spill lines (and keep each entry's
      registers and spills for the kernels line);
@@ -97,7 +97,9 @@ when either is missing. Phases; any failure raises and exits non-zero:
      k-NN cap against their plain versions at that refine's shapes (8
      keyframes x 4,096 keypoints, the padded rows invalid), timed as in
      phase 3 (K8: a CUDA graph of 20 calls, and with its host side), K8
-     launched twice to show it repeats bit for bit, its launch of four
+     launched twice to show it repeats bit for bit, the last of its
+     several iterations' J^T r against the plain version in float64 from
+     its own iterate before it, its launch of four
      iterations against four launches of one (identical), and the clock
      cycles of each of its phases (the -DK8_MARKS variant, built in
      phase 2); then the window beyond the card's residency: the largest
@@ -225,21 +227,39 @@ when either is missing. Phases; any failure raises and exits non-zero:
      calls in 22-24 (K12 and K1 identical, K2 within kernels/checks.py's
      tolerance, K4 identical), timed as in phase 3; K12's device
      operations a call (one);
-  in 4-8, 10, 12, 14, 15, 18-20 and 22-24 every kernel count and K5's
-  device count of LM steps are set to 0 just before the path and read
+  26. the staged per-frame path: Odometry(default_driving_profile()
+     with sampling=ADAPTIVE).register_frame frame by frame over the driving
+     phase's 80 frames (the host side of each frame inside the timed span):
+     frames/s, host syncs, ICP iterations and keypoints a frame, APE
+     within 1.5 times the JAX package's on the same frames on the CPU
+     (STAGED_REF_APE_M, tests/torch_staged_reference.py), 0 failures; K4
+     once a frame on the raw scan, K13 once a frame after frame 0;
+  27. the same on the robust regimen (80 frames; K13 once an attempt), and
+     the random keypoint cap (max_num_keypoints=1000, GRID keypoints; 80
+     frames; K4 twice a frame after frame 0, no K13);
+  28. NONE keypoints and ADAPTIVE with 2 points a voxel and the 3,000-point
+     cap, the first 10 frames each (both part from the corridor after
+     about 10 frames, in the reference too);
+  29. K13 against its plain version on the inputs of its first calls in 26
+     and 28 (identical), one device operation a call, timed as K4 is in
+     phase 3; and CTICPRegistration.register of one frame (26's last
+     keypoints from its initial pose) with its host side;
+  in 4-8, 10, 12, 14, 15, 18-20, 22-24 and 26-28 every kernel count and
+  K5's device count of LM steps are set to 0 just before the path and read
   just after it (in 20, in each rank's process); each
   path must launch its kernels (4-8, 10, 12 and 22-24: K5 and the
   others), and the paths of 4-8, 10, 12 and 22-24 make fewer host syncs a
   frame than LM steps (one per ICP iteration and readback where no batch
   rolled back, and in 23 one a level for each insert); the driving path
   one K5 launch per ICP iteration;
-  26. one JSON line of the kernels (K1-K5 with an "indoor" record, K3
+  30. one JSON line of the kernels (K1-K5 with an "indoor" record, K3
      with "indoor level 1" and "indoor level 2" as well, K1 and K2 with a
      "backend" record, K8 with its "blocks" mode beside its "gn" one, K9
      and K10 on level 0 with "level 1" and "level 2" records, K3's
      rank-0 slots and K8's halo launch, K11 with a "2 ranks" record, K1
      with the normal filter, K2 with a radius a query, K4 at the scan's
-     rung, K12), the card's line, and the result line.
+     rung, K12, K13 with its "k=2, max_keep" record), the card's line, and
+     the result line.
 """
 
 import dataclasses
@@ -255,7 +275,9 @@ import numpy as np
 import torch
 
 from ct_icp_torch import convert
-from ct_icp_torch.config.options import (DistanceBasedStrategyOptions,
+from ct_icp_torch.config.options import (AdaptiveGridSamplingOptions,
+                                         DistanceBasedStrategyOptions,
+                                         SamplingOption,
                                          default_driving_profile,
                                          default_robust_outdoor_low_inertia,
                                          robust_driving_profile)
@@ -271,6 +293,7 @@ from ct_icp_torch.kernels import candidate_gather as k1
 from ct_icp_torch.kernels import checks
 from ct_icp_torch.kernels import ct_ba_block as k8
 from ct_icp_torch.kernels import evict_voxels as k9
+from ct_icp_torch.kernels import exact_sample as k13
 from ct_icp_torch.kernels import grid_sample as k4
 from ct_icp_torch.kernels import knn_search as k12
 from ct_icp_torch.kernels import level_normals as k10
@@ -403,6 +426,22 @@ SEARCH_REF_APE_M = {"knn": 0.051491458347106965,
                     "devsub": 0.10121936668283638}
 SEARCH_APE_FACTOR = 1.5
 KC2_FRAMES = 10
+# the staged per-frame path (a keypoint sampler other than GRID, the random
+# keypoint cap): the JAX package's Odometry.register_frame on the driving
+# phase's frames (seed 3) on the CPU reaches these mean APEs (m) with 0
+# failures over each run's frames (PYTHONPATH=. python
+# tests/torch_staged_reference.py); each port run, frame by frame on the
+# card, is held within STAGED_APE_FACTOR times its run's, with 0 failures.
+# NONE and ADAPTIVE with 2 points a voxel and the 3,000-point cap part from
+# the corridor after about 10 frames, in the reference too: they run 10
+STAGED_REF_APE_M = {"adaptive": 0.26866538844569254,
+                    "adaptive_robust": 0.2738228102357611,
+                    "cap": 0.12323726957673478,
+                    "none": 0.17350385032078236,
+                    "adaptive_k2_cap": 0.27366060736022424}
+STAGED_FRAMES = {"adaptive": 80, "adaptive_robust": 80, "cap": 80,
+                 "none": 10, "adaptive_k2_cap": 10}
+STAGED_APE_FACTOR = 1.5
 
 KERNELS = {
     "candidate_gather": dict(
@@ -441,6 +480,9 @@ KERNELS = {
     "knn_search": dict(
         module=k12, source="ct_icp_torch/csrc/knn_search.cu",
         replaces="ct_icp_tpu/mapping/voxel_map.py:917"),
+    "exact_sample": dict(
+        module=k13, source="ct_icp_torch/csrc/exact_sample.cu",
+        replaces="ct_icp_tpu/ops/sampling.py:89"),
 }
 # a kernel record's further times and work counts, copied to the kernels
 # line where present
@@ -1545,7 +1587,8 @@ def _kernel_k8(problem, poses, mode, tag, iters=1):
                 library_ms=None, bytes=n_bytes, ops=ops, timing=how,
                 host_ms=host_ms, rows_live=live, d_tr_m=err.get("d_tr_m"),
                 d_rot_deg=err.get("d_rot_deg"), relative=err["relative"],
-                iters=iters, cluster=cluster,
+                jtr_float64=err.get("jtr_float64"), iters=iters,
+                cluster=cluster,
                 shape=f"F={f} K={k} live={live} mode={mode} iters={iters}")
 
 
@@ -3130,6 +3173,236 @@ def phase_kernels_search(dev, knn_first, k1_first, k2_first, k4_first):
     return records
 
 
+# ---------------------------------------------------------- the staged path —
+def _staged_options(name):
+    """default_driving_profile() with staged run ``name``'s options
+    (tests/torch_staged_reference.py::run_options, in the port)."""
+    d = default_driving_profile()
+    adaptive = SamplingOption.ADAPTIVE
+    if name == "adaptive":
+        return dataclasses.replace(d, sampling=adaptive)
+    if name == "adaptive_robust":
+        return dataclasses.replace(d, sampling=adaptive,
+                                   robust_registration=True)
+    if name == "cap":
+        return dataclasses.replace(d, max_num_keypoints=1000)
+    if name == "none":
+        return dataclasses.replace(d, sampling=SamplingOption.NONE)
+    return dataclasses.replace(
+        d, sampling=adaptive,
+        adaptive_options=AdaptiveGridSamplingOptions(
+            num_points_per_voxel=2, max_num_points=3000))
+
+
+def _staged_run(dev, name, frames, driving, spies=()):
+    """Run ``name`` over its first STAGED_FRAMES[name] frames through
+    Odometry(...).register_frame, frame by frame (the host side of every
+    frame inside the timed span), the counts set to 0 just before and read
+    just after, with ``spies`` (``_FirstCall``s) in place; held to 0
+    failures and an APE within STAGED_APE_FACTOR times the JAX package's
+    on the CPU. Returns the run's stats, the odometry and its last
+    frame's summary."""
+    n = STAGED_FRAMES[name]
+    odo = Odometry(_staged_options(name), device=dev)
+    for spy in spies:
+        spy.start()
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    summaries = [odo.register_frame(f["xyz"], f["timestamps"], frame_id=i)
+                 for i, f in enumerate(frames[:n])]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, lm_steps = _read_counts(), _read_steps()
+    for spy in spies:
+        spy.stop()
+    errs = cor.seq_ape(odo, frames[:n])
+    bound_m = STAGED_APE_FACTOR * STAGED_REF_APE_M[name]
+    out = dict(
+        frames=n, failures=sum(not s.success for s in summaries),
+        attempts=sum(s.number_of_attempts for s in summaries),
+        mean_attempts=float(np.mean([s.number_of_attempts
+                                     for s in summaries])),
+        mean_ape_m=float(np.mean(errs)), max_ape_m=float(np.max(errs)),
+        final_drift_m=float(errs[-1]), map_points=odo.map_size(),
+        frames_per_s=n / wall, wall_s=wall,
+        icp_iters_per_frame=sum(s.icp_summary.num_iters
+                                for s in summaries) / n,
+        host_syncs_per_frame=odo.host_syncs / n,
+        result_reads_per_frame=odo.result_reads / n,
+        keypoints_per_frame=float(np.mean([s.sample_size
+                                           for s in summaries[1:]])),
+        launches=launches, lm_steps=lm_steps,
+        reference_cpu_ape_m=STAGED_REF_APE_M[name], ape_bound_m=bound_m,
+        driving_fps=driving["median_batch_fps"],
+        driving_host_syncs_per_frame=driving["host_syncs_per_frame"])
+    log(f"staged {name} path: " + json.dumps(out))
+    log(f"  staged {name}: {out['frames_per_s']:.2f} frames/s frame by "
+        f"frame (driving, streamed at batch {BATCH}: "
+        f"{driving['median_batch_fps']:.2f}), host syncs a frame "
+        f"{out['host_syncs_per_frame']:.3f} beside "
+        f"{out['icp_iters_per_frame']:.3f} ICP iterations, keypoints a "
+        f"frame {out['keypoints_per_frame']:.1f}, attempts a frame "
+        f"{out['mean_attempts']:.3f}, mean APE {out['mean_ape_m']:.5f} m "
+        f"(JAX package on the CPU {STAGED_REF_APE_M[name]:.4f} m, bound "
+        f"{bound_m:.5f}), failures {out['failures']}; launches K4 "
+        f"{launches['grid_sample']}, K13 {launches['exact_sample']}, K5 "
+        f"{launches['lm_step']}")
+    if out["failures"]:
+        raise RuntimeError(f"staged {name} path: {out['failures']} failed "
+                           "frames")
+    if not out["mean_ape_m"] <= bound_m:
+        raise RuntimeError(f"staged {name} path: mean APE "
+                           f"{out['mean_ape_m']} m > {bound_m} m")
+    _require_launches(f"staged {name}", launches,
+                      ["candidate_gather", "plane_moments", "map_insert",
+                       "grid_sample", "lm_step"])
+    return out, odo, summaries[-1]
+
+
+def _require_count(path, launches, name, want):
+    if launches[name] != want:
+        raise RuntimeError(f"staged {path} path: {launches[name]} {name} "
+                           f"launches, not {want}")
+
+
+def phase_staged_adaptive(dev, frames, driving):
+    """ADAPTIVE keypoints, 80 frames: K4 once a frame on the raw scan, K13
+    once a frame after frame 0. Returns the run's stats, K13's first call,
+    the odometry and its last frame's summary."""
+    first = _FirstCall(k13, "exact_sample")
+    out, odo, last = _staged_run(dev, "adaptive", frames, driving, [first])
+    n = out["frames"]
+    _require_count("adaptive", out["launches"], "grid_sample", n)
+    _require_count("adaptive", out["launches"], "exact_sample", n - 1)
+    return out, first, (odo, last)
+
+
+def phase_staged_robust_and_cap(dev, frames, driving):
+    """ADAPTIVE on the robust regimen (K13 once an attempt), then the
+    random cap on GRID keypoints (K4 twice a frame after frame 0, no K13);
+    80 frames each."""
+    robust, _, _ = _staged_run(dev, "adaptive_robust", frames, driving)
+    _require_count("adaptive_robust", robust["launches"], "grid_sample",
+                   robust["frames"])
+    _require_count("adaptive_robust", robust["launches"], "exact_sample",
+                   robust["attempts"])
+    cap, _, _ = _staged_run(dev, "cap", frames, driving)
+    _require_count("cap", cap["launches"], "grid_sample",
+                   2 * cap["frames"] - 1)
+    _require_count("cap", cap["launches"], "exact_sample", 0)
+    return robust, cap
+
+
+def phase_staged_short(dev, frames, driving):
+    """NONE (no sampler kernel) and ADAPTIVE with 2 points a voxel and
+    the 3,000-point cap (K13 with k = 2 and max_keep), 10 frames each.
+    Returns their stats and K13's first call of the second."""
+    none, _, _ = _staged_run(dev, "none", frames, driving)
+    _require_count("none", none["launches"], "exact_sample", 0)
+    first = _FirstCall(k13, "exact_sample")
+    k2cap, _, _ = _staged_run(dev, "adaptive_k2_cap", frames, driving,
+                              [first])
+    _require_count("adaptive_k2_cap", k2cap["launches"], "exact_sample",
+                   k2cap["frames"] - 1)
+    return none, k2cap, first
+
+
+def _kernel_k13(points, valid, capacity, kw, tag):
+    """K13 against its plain version (three calls in a row on its table,
+    bit for bit), then timed: on the device with the L2 flushed before
+    each call (``ms``), back to back in a CUDA graph (``warm_ms``) and with
+    its host side (``host_ms``); the plain version back to back; the
+    device operations of one call (one)."""
+    for _ in range(3):
+        out = checks.check_exact_sample(points, valid, capacity, **kw)
+    call = (points, valid, capacity)
+    ms, how = time_cold(lambda: k13.exact_sample(*call, **kw))
+    warm_ms, _ = time_stateless(lambda: k13.exact_sample(*call, **kw))
+    host_ms, _ = time_host(lambda: k13.exact_sample(*call, **kw))
+    plain_ms, _ = time_stateless(
+        lambda: k13.exact_sample_plain(*call, **kw))
+    positional = call + (kw.get("voxel_size"), kw.get("bands"),
+                         kw.get("k", 1), kw.get("max_keep", 0))
+    ops = _require_ops(f"K13 exact_sample {tag}", _traced("K13", [(
+        "ops", k13.exact_sample, positional, None)])[0], 1)
+    n = points.shape[0]
+    n_valid = int(valid.sum())
+    # inputs read once (points, validity), outputs written once (indices,
+    # validity, count); the table and the scratch are this design's
+    n_bytes = n * 13 + capacity * 5 + 4
+    log(f"K13 exact_sample {tag} N={n} ({n_valid} valid) cap={capacity} "
+        f"{kw.get('k', 1)} a voxel: identical to plain ({out['count']} "
+        f"kept); {ms:.4f} ms ({how}; {warm_ms:.4f} ms back to back), "
+        f"{host_ms:.4f} ms with its host side, plain {plain_ms:.4f} ms")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bytes=n_bytes, ops=0.0, timing=how, warm_ms=warm_ms,
+                host_ms=host_ms, device_ops_per_call=ops,
+                shape=f"N={n} valid={n_valid} capacity={capacity} "
+                      f"k={kw.get('k', 1)} max_keep={kw.get('max_keep', 0)} "
+                      f"kept={out['count']}")
+
+
+def _with_kw(first):
+    """A ``_FirstCall`` of exact_sample as (points, valid, capacity,
+    keyword arguments)."""
+    points, valid, capacity = first.args[:3]
+    names = ("voxel_size", "bands", "k", "max_keep")
+    kw = dict(zip(names, first.args[3:]))
+    kw.update(first.kw)
+    return points, valid, capacity, {k: v for k, v in kw.items()
+                                     if v is not None}
+
+
+def _register_ms(dev, odo, last, reps=10):
+    """The whole CTICPRegistration.register of one frame with its host side
+    (alphas, upload, the solver with its host syncs, the readback): the
+    ADAPTIVE run's last keypoints (``last``, its last frame's summary),
+    from that frame's initial pose, against its map; mean of ``reps``
+    calls after one more."""
+    frame = odo.trajectory[-1]
+    raw, alphas, valid = last.keypoints
+    keep = valid.cpu().numpy()
+    kp = raw.cpu().numpy()[keep].astype(np.float64)
+    a = alphas.cpu().numpy()[keep].astype(np.float64)
+    t_b, t_e = frame.begin_pose.timestamp, frame.end_pose.timestamp
+    ts = t_b + a * (t_e - t_b)
+    init = last.initial_frame
+    times = []
+    for i in range(reps + 1):
+        f = init.copy()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        summary = odo.registration.register(odo.map_state, kp, ts, f,
+                                            origin=odo.origin, device=dev)
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.time() - t0) * 1e3)
+    log(f"CTICPRegistration.register of one frame ({kp.shape[0]} "
+        f"keypoints, {summary.num_iters} ICP iterations, "
+        f"{summary.num_residuals_used} residuals, success "
+        f"{summary.success}): {np.mean(times):.3f} ms with its host side "
+        f"(min {np.min(times):.3f})")
+    return dict(ms=float(np.mean(times)), min_ms=float(np.min(times)),
+                keypoints=int(kp.shape[0]), icp_iters=summary.num_iters,
+                success=summary.success)
+
+
+def phase_kernels_staged(dev, adaptive_first, k2cap_first, adaptive_run):
+    """K13 against its plain version on the inputs of its first calls in
+    phases 26 (ADAPTIVE) and 28 (2 a voxel, the cap), timed; and the whole
+    registration of one frame with its host side."""
+    points, valid, capacity, kw = _with_kw(adaptive_first)
+    rec = _kernel_k13(points, valid, capacity, kw, "adaptive frame 1")
+    points, valid, capacity, kw = _with_kw(k2cap_first)
+    rec["others"] = {"k=2, max_keep (adaptive_k2_cap)": _kernel_k13(
+        points, valid, capacity, kw, "k=2 cap frame 1")}
+    del adaptive_first.args, k2cap_first.args
+    register = _register_ms(dev, *adaptive_run)
+    torch.cuda.empty_cache()
+    return rec, register
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this script "
@@ -3201,6 +3474,15 @@ def main() -> int:
     devsub, k4_first = phase_devsub(dev, frames, driving)
     search_records = phase_kernels_search(dev, knn_first, k1_first,
                                           k2_first, k4_first)
+    staged_adaptive, adaptive_first, adaptive_run = phase_staged_adaptive(
+        dev, frames, driving)
+    staged_robust, staged_cap = phase_staged_robust_and_cap(dev, frames,
+                                                            driving)
+    staged_none, staged_k2cap, k2cap_first = phase_staged_short(
+        dev, frames, driving)
+    staged_record, register_timing = phase_kernels_staged(
+        dev, adaptive_first, k2cap_first, adaptive_run)
+    del adaptive_run
 
     paths = {"driving": driving, "robust": robust, "escalation": escalation,
              "long_drive": long_drive, "robust_rebase": robust_rebase,
@@ -3216,11 +3498,16 @@ def main() -> int:
              "scale_out_broadcast": scale_runs["broadcast"],
              "scale_out_partitioned": scale_runs["partitioned"],
              "scale_out_2_ranks": ranks_run, "knn": knn,
-             "knn_kc2": knn["kc2"], "distance": distance, "devsub": devsub}
+             "knn_kc2": knn["kc2"], "distance": distance, "devsub": devsub,
+             "staged_adaptive": staged_adaptive,
+             "staged_adaptive_robust": staged_robust,
+             "staged_cap": staged_cap, "staged_none": staged_none,
+             "staged_adaptive_k2_cap": staged_k2cap}
     primary = {**robust_records, **rebase_records,
                "ct_ba_block": backend_records["ct_ba_block"],
                **replay_records, "owner_pack": scale_records["owner_pack"],
-               "knn_search": search_records["knn_search"]}
+               "knn_search": search_records["knn_search"],
+               "exact_sample": staged_record}
     search_others = {
         "candidate_gather": {
             "normal filter (distance)": search_records["candidate_gather"]},
@@ -3304,6 +3591,8 @@ def main() -> int:
         "room replay device ms (first replay)":
             replay_runs["room_on"]["first_replay_device_ms"],
         "K1/K2 identical after the header moves": header_move,
+        "CTICPRegistration.register of one frame (staged adaptive)":
+            register_timing,
         "lm_step calls (robust, driving, jolt)": [
             {k: r[k] for k in ("ms", "plain_ms", "loop_steps", "steps_run",
                                "step_ms", "plain_step_ms",

@@ -369,12 +369,21 @@ __device__ __forceinline__ void row_barrier() {
 }
 
 // The cluster barrier in its two halves, so that rank 0's pose warp can
-// arrive, build the next iteration's pose rows, and only then wait.
+// arrive, build the next iteration's pose rows, and only then wait. Whole
+// warps call them, some right after a branch that only part of the warp
+// took (the pose warp's lanes 24-31 build no pose rows; warp 2's lanes
+// 91-95 sum nothing across the cluster): each half first reconverges the
+// warp, then arrives or waits once for all its lanes (.aligned, as
+// CUTLASS's cluster barriers do), so that no barrier is ever reached by
+// part of a warp. Without .aligned, nvcc guards each barrier with a branch
+// to a separate path for a warp that reaches it diverged.
 __device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+  __syncwarp();
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
 }
 __device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+  __syncwarp();
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
 }
 __device__ __forceinline__ void cluster_barrier() {
   cluster_arrive();

@@ -12,13 +12,12 @@
 //      threads arrive in, so distinct voxels that collide in the table merge
 //      exactly as the reference's scatter-min merges them;
 //   2. one grid barrier; a point is kept when its slot holds its own word
-//      (the slot is derived again from the point, not stored); each warp's
-//      kept bits and a block scan of their counts go to shared memory, the
-//      block's total to a per-block count;
-//   3. a second grid barrier; each block sums the counts of the blocks
-//      before it and of all of them, places its kept indices at their rank
-//      (ranks at or past `capacity` are dropped), and the threads zero idx
-//      and out_valid past min(kept, capacity), the count.
+//      (the slot is derived again from the point, not stored); the kept
+//      points are compacted in scan order (csrc/compact.cuh: each warp's
+//      kept bits and a block scan of their counts in shared memory, a
+//      second grid barrier, each block's offset; ranks at or past
+//      `capacity` are dropped, idx and out_valid past min(kept, capacity),
+//      the count, zeroed).
 //
 // One cooperative launch of resident blocks, each owning a run of
 // 256-point tiles. The claim table persists per device and table size with
@@ -50,6 +49,7 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "compact.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -63,9 +63,7 @@ constexpr Word kHiMax = ~Word(0) >> kIdxBits;
 constexpr int kMaxPoints = 1 << kIdxBits;
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
 constexpr int kMaxTiles = 64;              // tiles of kThreads points a block
-constexpr int kEntries = kMaxTiles * kWarps;
 constexpr int kMaxBlocks = 8192;           // entries of the block counts
 
 __device__ __forceinline__ Word claim_word(int stamp, int i) {
@@ -82,46 +80,6 @@ __device__ __forceinline__ uint32_t point_slot(const float* __restrict__ pts,
   return cticp::voxel_hash_u32(cx, cy, cz) & mask;
 }
 
-// In place: v[0..m) becomes its exclusive prefix sums; returns the total.
-// Every thread of the block calls it; tmp holds kWarps + 1 ints.
-__device__ int block_exclusive_scan(int* v, int m, int* tmp) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int per = (m + kThreads - 1) / kThreads;
-  const int b0 = threadIdx.x * per;
-  int own = 0;
-  for (int k = 0; k < per; ++k)
-    if (b0 + k < m) own += v[b0 + k];
-  int incl = own;
-  for (int d = 1; d < 32; d <<= 1) {
-    const int up = __shfl_up_sync(0xffffffffu, incl, d);
-    if (lane >= d) incl += up;
-  }
-  if (lane == 31) tmp[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const int x = lane < kWarps ? tmp[lane] : 0;
-    int xi = x;
-    for (int d = 1; d < 32; d <<= 1) {
-      const int up = __shfl_up_sync(0xffffffffu, xi, d);
-      if (lane >= d) xi += up;
-    }
-    if (lane < kWarps) tmp[lane] = xi - x;
-    if (lane == 31) tmp[kWarps] = xi;
-  }
-  __syncthreads();
-  int run = tmp[warp] + incl - own;
-  for (int k = 0; k < per; ++k) {
-    if (b0 + k < m) {
-      const int c = v[b0 + k];
-      v[b0 + k] = run;
-      run += c;
-    }
-  }
-  const int total = tmp[kWarps];
-  __syncthreads();
-  return total;
-}
-
 // Mutable arrays shared across blocks (table, ctrl, block_cnt) carry no
 // __restrict__/const and are read after a barrier through the L2 (__ldcg).
 __global__ void __launch_bounds__(kThreads)
@@ -132,11 +90,7 @@ __global__ void __launch_bounds__(kThreads)
                        int32_t* __restrict__ idx,
                        uint8_t* __restrict__ out_valid,
                        int32_t* __restrict__ count) {
-  __shared__ unsigned bits[kEntries];
-  __shared__ int prefix[kEntries];
-  __shared__ int tmp[2 * kWarps + 1];
   cg::grid_group grid = cg::this_grid();
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int tile0 = blockIdx.x * tiles_per_block;
   const long long tid =
       static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
@@ -163,64 +117,15 @@ __global__ void __launch_bounds__(kThreads)
   grid.sync();
   if (tid == 0) ctrl[0] = stamp;
 
-  // ---- 2. kept bits by warp and tile, their counts scanned in the block
-  for (int t = 0; t < tiles_per_block; ++t) {
-    const int i = (tile0 + t) * kThreads + threadIdx.x;
-    bool kept = false;
-    if (i < n && valid[i])
-      kept = __ldcg(table + point_slot(pts, i, voxel, mask)) ==
-             claim_word(stamp, i);
-    const unsigned b = __ballot_sync(0xffffffffu, kept);
-    if (lane == 0) {
-      bits[t * kWarps + warp] = b;
-      prefix[t * kWarps + warp] = __popc(b);
-    }
-  }
-  __syncthreads();
-  const int block_total =
-      block_exclusive_scan(prefix, tiles_per_block * kWarps, tmp);
-
-  // ---- 3. the block's offset and the total, then the scatter and the fill
-  if (threadIdx.x == 0) block_cnt[blockIdx.x] = block_total;
-  grid.sync();
-  int before = 0, total = 0;
-  for (int b = threadIdx.x; b < static_cast<int>(gridDim.x); b += kThreads) {
-    const int c = __ldcg(block_cnt + b);
-    total += c;
-    if (b < static_cast<int>(blockIdx.x)) before += c;
-  }
-  for (int d = 16; d > 0; d >>= 1) {
-    before += __shfl_down_sync(0xffffffffu, before, d);
-    total += __shfl_down_sync(0xffffffffu, total, d);
-  }
-  if (lane == 0) {
-    tmp[warp] = before;
-    tmp[kWarps + warp] = total;
-  }
-  __syncthreads();
-  before = 0;
-  total = 0;
-  for (int w = 0; w < kWarps; ++w) {
-    before += tmp[w];
-    total += tmp[kWarps + w];
-  }
-  for (int t = 0; t < tiles_per_block; ++t) {
-    const unsigned b = bits[t * kWarps + warp];
-    if ((b >> lane) & 1u) {
-      const int pos = before + prefix[t * kWarps + warp] +
-                      __popc(b & ((1u << lane) - 1u));
-      if (pos < capacity) {
-        idx[pos] = (tile0 + t) * kThreads + threadIdx.x;
-        out_valid[pos] = 1;
-      }
-    }
-  }
-  const int cnt = total < capacity ? total : capacity;
-  for (long long j = tid + cnt; j < capacity; j += stride) {
-    idx[j] = 0;
-    out_valid[j] = 0;
-  }
-  if (tid == 0) *count = cnt;
+  // ---- 2. the kept points (a slot holding the point's own word),
+  // compacted in scan order: csrc/compact.cuh
+  auto kept = [&](int i) {
+    return valid[i] && __ldcg(table + point_slot(pts, i, voxel, mask)) ==
+                           claim_word(stamp, i);
+  };
+  cticp::compact_in_scan_order<kThreads, kMaxTiles>(
+      grid, kept, n, tiles_per_block, capacity, capacity, block_cnt, idx,
+      out_valid, count);
 }
 
 int g_max_blocks = 0;   // blocks resident together: the cooperative limit

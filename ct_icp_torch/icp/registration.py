@@ -1,19 +1,48 @@
-"""Host-facing registration configuration — counterpart of the statics and
-dynamics part of ``ct_icp_tpu/icp/registration.py::CTICPRegistration`` and
-its ``make_prior``."""
+"""Host-facing registration API — counterpart of
+``ct_icp_tpu/icp/registration.py``: ``CTICPRegistration`` (the solver
+statics and packed dynamics for a map configuration, ``register_device`` on
+keypoints already on the device and ``register``, numpy in and out, the
+counterpart of the reference's ``CT_ICP_Registration::Register``,
+ct_icp.h:174-223), its ``ICPSummary`` and ``make_prior``.
+
+Timestamps become alpha-parameters in [0, 1] on the host in float64
+(reference GetAlphaTimestamp, types.h:192-219), so device code never holds
+raw timestamps in float32.
+"""
 
 from __future__ import annotations
 
+import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
+import torch
 
+from ct_icp_torch import resolve_device
 from ct_icp_torch.config.options import (CTICPOptions, LeastSquares,
                                          MultiResolutionVoxelMapOptions,
-                                         Solver)
+                                         PoseParametrization, Solver)
 from ct_icp_torch.core import se3_np as s3n
 from ct_icp_torch.core.pose import TrajectoryFrame
 from ct_icp_torch.icp import solver as slv
+
+
+@dataclasses.dataclass
+class ICPSummary:
+    """Mirror of the reference ICPSummary (ct_icp.h:155-169); durations in
+    ms. ``host_syncs``: the device->host reads the registration made."""
+
+    success: bool = False
+    num_residuals_used: int = 0
+    num_iters: int = 0
+    error_log: str = ""
+    duration_total: float = 0.0
+    duration_init: float = 0.0
+    avg_duration_iter: float = 0.0
+    avg_duration_neighborhood: float = 0.0
+    avg_duration_solve: float = 0.0
+    host_syncs: int = 0
 
 
 def make_prior(previous_frame: Optional[TrajectoryFrame], motion_options,
@@ -99,3 +128,89 @@ class CTICPRegistration:
                                     self.distance_strategy)
             self._dyn_cache[opts] = out
         return out
+
+    def register_device(self, map_state, raw, alphas, valid,
+                        frame: TrajectoryFrame, prior=None,
+                        origin: Optional[np.ndarray] = None,
+                        options: Optional[CTICPOptions] = None) -> ICPSummary:
+        """Registration of keypoints on the device (updates ``frame`` in
+        place; reference registration.py:221-268): ``raw`` f32[K, 3],
+        ``alphas`` f32[K] (already in [0, 1]) and ``valid`` bool[K] on the
+        map's device. ``origin`` is the world location of the map frame
+        (float64): the poses are shifted into it for the float32 solve and
+        back, then normalised. ``prior`` is a packed [14] prior
+        (:func:`make_prior`; None: no motion prior). One readback of the
+        result besides the solver's (one an ICP iteration)."""
+        t0 = time.time()
+        origin = np.zeros(3) if origin is None else np.asarray(origin)
+        opts = options or self.options
+        dev = raw.device
+        if prior is None:
+            prior = make_prior(None, None, origin)
+        init = np.concatenate([
+            s3n.quat_normalize(frame.begin_pose.quat),
+            frame.begin_pose.tr - origin,
+            s3n.quat_normalize(frame.end_pose.quat),
+            frame.end_pose.tr - origin]).astype(np.float32)
+        host = torch.as_tensor(np.concatenate(
+            [init, np.asarray(prior, np.float32)]), device=dev)
+        result = self.register_fn(
+            map_state[self.level_index], raw, alphas, valid, host[0:4],
+            host[4:7], host[7:11], host[11:14], host[14:28],
+            self.dynamics(opts))
+        r = torch.cat([result.quat_begin, result.tr_begin, result.quat_end,
+                       result.tr_end,
+                       result.num_residuals.to(torch.float32).reshape(1)]
+                      ).cpu().numpy().astype(np.float64)
+        frame.begin_pose.quat = r[0:4]
+        frame.begin_pose.tr = r[4:7] + origin
+        frame.end_pose.quat = r[7:11]
+        frame.end_pose.tr = r[11:14] + origin
+        frame.begin_pose.normalize_()
+        frame.end_pose.normalize_()
+
+        summary = ICPSummary()
+        summary.num_residuals_used = int(r[14])
+        summary.num_iters = int(result.num_iters)
+        summary.success = bool(result.valid_problem)
+        summary.host_syncs = result.host_syncs + 1
+        if not summary.success:
+            summary.error_log = (
+                "[CT_ICP] Error : not enough keypoints selected in ct-icp ! "
+                f"number_of_residuals : {summary.num_residuals_used}")
+        summary.duration_total = (time.time() - t0) * 1000.0
+        return summary
+
+    def register(self, map_state, raw_kpts: np.ndarray,
+                 timestamps: np.ndarray, frame: TrajectoryFrame, prior=None,
+                 origin: Optional[np.ndarray] = None,
+                 options: Optional[CTICPOptions] = None,
+                 device=None) -> ICPSummary:
+        """Numpy-in / numpy-out registration (updates ``frame`` in place;
+        reference registration.py:407-438): the keypoints padded to the
+        static ``num_keypoints``, the alpha-timestamps computed on the host
+        in float64 (all ones with the SIMPLE parametrization), then
+        :meth:`register_device` on ``device`` (the card unless the caller
+        names another; the map must be there)."""
+        opts = options or self.options
+        k = self.statics.num_keypoints
+        n = raw_kpts.shape[0]
+        if n > k:
+            raise ValueError(f"{n} keypoints > static capacity {k}")
+        raw = np.zeros((k, 3), np.float32)
+        raw[:n] = raw_kpts
+        valid = np.zeros((k,), bool)
+        valid[:n] = True
+        alphas64 = s3n.alpha_timestamp(
+            np.asarray(timestamps, np.float64),
+            frame.begin_pose.timestamp, frame.end_pose.timestamp)
+        if opts.parametrization == PoseParametrization.SIMPLE:
+            alphas64 = np.ones_like(alphas64)
+        alphas = np.ones((k,), np.float32)
+        alphas[:n] = alphas64
+        dev = resolve_device(device)
+        return self.register_device(
+            map_state, torch.from_numpy(raw).to(dev),
+            torch.from_numpy(alphas).to(dev),
+            torch.from_numpy(valid).to(dev), frame, prior=prior,
+            origin=origin, options=opts)

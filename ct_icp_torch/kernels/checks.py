@@ -14,7 +14,8 @@ CUDA inputs and raises AssertionError on a disagreement. Tolerances:
     so within 1e-4 of each query's second-moment scale; the normal within
     1e-3 (|cos| of the angle, sign free) where the neighborhood is planar
     (a2D > 0.5 and >= 10 points); a2D within 1e-3 where >= 5 points;
-  * K4 (grid election): indices, count and validity identical;
+  * K4 (grid election) and K13 (the exact samplers): indices, count and
+    validity identical;
   * K6 (row gather, one table or several in one launch) and K7 (the
     rebase's table, writers and num_points), and the whole
     ``rebuild_level`` they make up: identical (keys, counts, points,
@@ -36,7 +37,9 @@ CUDA inputs and raises AssertionError on a disagreement. Tolerances:
     on the card and an LU in torch, carries the sums' rounding); for n
     inner iterations in one launch, the last one held so (but for J^T r,
     the gradient of a nearly converged window, which float32 rounding
-    alone moves by more: reported, and held through the poses) from the
+    alone moves by more: held instead against the plain version in float64
+    from the same iterate, the kernel's gap to it within 10 times the
+    float32 plain version's, or 1e-6 of its largest entry) from the
     kernel's own iterate n - 1, and the final poses to the plain version's
     n iterations within the same 1e-5 m and 1e-4 deg; a second launch
     bit-identical to the first (the partials are summed in a fixed order),
@@ -71,6 +74,7 @@ from ct_icp_torch.core import se3_np as s3n
 from ct_icp_torch.kernels import candidate_gather as k1
 from ct_icp_torch.kernels import ct_ba_block as k8
 from ct_icp_torch.kernels import evict_voxels as k9
+from ct_icp_torch.kernels import exact_sample as k13
 from ct_icp_torch.kernels import grid_sample as k4
 from ct_icp_torch.kernels import knn_search as k12
 from ct_icp_torch.kernels import level_normals as k10
@@ -86,8 +90,16 @@ from ct_icp_torch.parallel import ct_ba as ba
 
 def _same(a, b, what):
     if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(a, b):
-        bad = (a != b).sum().item() if a.shape == b.shape else "shape"
-        raise AssertionError(f"{what}: kernel != plain ({bad} differ)")
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"{what}: kernel != plain ({a.dtype} "
+                                 f"{tuple(a.shape)} against {b.dtype} "
+                                 f"{tuple(b.shape)})")
+        differ = (a != b).reshape(-1)
+        at = differ.nonzero().reshape(-1)[:8].tolist()
+        gap = (a.double() - b.double()).abs().max().item()
+        raise AssertionError(f"{what}: kernel != plain ({int(differ.sum())} "
+                             f"differ, flat indices {at}, largest gap "
+                             f"{gap:.3g})")
 
 
 def check_candidate_gather(level, queries, query_valid, resolution, nv,
@@ -177,6 +189,17 @@ def check_grid_sample(points, valid, voxel_size, capacity, table_log2=22):
     torch.cuda.synchronize()
     for a, b, name in zip(got, want, ("idx", "out_valid", "count")):
         _same(a, b, f"grid_sample {name}")
+    return {"max_abs_err": 0.0, "count": int(want[2])}
+
+
+def check_exact_sample(points, valid, capacity, **kw):
+    """K13 against its plain version (``kw``: voxel_size or bands, k,
+    max_keep): indices, mask and count identical."""
+    got = k13.exact_sample(points, valid, capacity, **kw)
+    want = k13.exact_sample_plain(points, valid, capacity, **kw)
+    torch.cuda.synchronize()
+    for a, b, name in zip(got, want, ("idx", "out_valid", "count")):
+        _same(a, b, f"exact_sample {name}")
     return {"max_abs_err": 0.0, "count": int(want[2])}
 
 
@@ -306,7 +329,8 @@ def check_ct_ba_block(poses, problem, beta, damping, mode,
     version's one iteration from the same poses, the kernel's own iterate
     before it (``iters - 1`` iterations in one launch), and the final poses
     also to the plain version's ``iters`` iterations; J^T r is held after
-    one iteration (see below why not after several). Returns
+    one iteration, and after several against the plain version in float64
+    (see below why not the float32 one). Returns
     the errors and, in mode "gn", the largest pose differences
     (``compare_poses=False`` leaves the updated poses to the two-launch
     check alone: for a system too ill-conditioned for two solves to
@@ -349,6 +373,20 @@ def check_ct_ba_block(poses, problem, beta, damping, mode,
                                     (a.jtr - b.jtr).abs().max(),
                                     (a.cost - b.cost).abs().max())),
            "relative": errs}
+    if iters > 1:
+        # the last iteration's J^T r against the same iteration in float64
+        # from the kernel's iterate n - 1: the kernel no further from it
+        # than the float32 plain version's rounding allows
+        p64 = ba.CTBAProblem(*(x.double() for x in problem))
+        jtr_64 = k8.ct_ba_block_plain(start.double(), p64, beta, damping,
+                                      mode, 1).jtr
+        gaps = {"kernel_vs_float64": _rel_err(a.jtr.double(), jtr_64),
+                "plain_vs_float64": _rel_err(b.jtr.double(), jtr_64)}
+        if not gaps["kernel_vs_float64"] <= max(
+                10 * gaps["plain_vs_float64"], 1e-6):
+            raise AssertionError(f"ct_ba_block {mode} x{iters}: J^T r off "
+                                 f"the float64 plain version: {gaps}")
+        out["jtr_float64"] = gaps
     if mode == "gn":
         _same(a.poses, again.poses, "ct_ba_block gn poses, two launches")
     if mode == "gn" and compare_poses:

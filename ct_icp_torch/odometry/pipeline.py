@@ -1,7 +1,9 @@
 """The per-frame device pipeline around the solver (torch, eager).
 
 Counterpart of ``ct_icp_tpu/odometry/pipeline.py``: the u16 scan wire
-format, the frame core (the device sub-sample of a raw scan the host did
+format, the staged path's stages (``preprocess``: the raw scan's
+sub-sample, K4; ``sample_keypoints``: the keypoint grid election, K4), the
+frame core (the device sub-sample of a raw scan the host did
 not dedup, the keypoint prefix or the device keypoint grid election,
 pre-gather residual-cap decimation,
 registration, world transform, assessment, insertion decision — heuristic,
@@ -78,6 +80,29 @@ def scan_rung(cap: int, n: int) -> int:
 def transform_points(raw, alphas, qb, tb, qe, te):
     """world = interp(alpha) * raw for every point."""
     return res.interp_world_points(qb, tb, qe, te, raw, alphas)
+
+
+def preprocess(raw, alphas, valid, voxel_size: float, capacity: int):
+    """Voxel-grid subsample the raw scan (K4, a 2^22 table) -> the
+    sub-frame (raw f32[capacity, 3], alphas f32[capacity], valid
+    bool[capacity], count 0-dim int32); rows past the count copy row 0 and
+    are masked. The caller may pass the scan's upload rung instead of the
+    whole raw buffer: the rows past the scan are invalid, so no voxel and
+    no index changes."""
+    idx, ok, cnt = smp.voxel_subsample_indices(raw, valid, voxel_size,
+                                               capacity)
+    idx = idx.to(torch.int64)
+    return raw[idx], alphas[idx], ok, cnt
+
+
+def sample_keypoints(sub_raw, sub_alphas, sub_valid, sample_voxel_size: float,
+                     capacity: int):
+    """Grid-sample keypoints from the sub-frame (K4 by raw-point voxels)
+    -> (raw, alphas, valid, count) at ``capacity`` rows."""
+    idx, ok, cnt = smp.voxel_subsample_indices(sub_raw, sub_valid,
+                                               sample_voxel_size, capacity)
+    idx = idx.to(torch.int64)
+    return sub_raw[idx], sub_alphas[idx], ok, cnt
 
 
 def decimation_indices(kp_cnt: int, max_num_residuals: int):

@@ -12,6 +12,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -129,6 +130,34 @@ def test_entry_points_default_to_the_card():
                        torch.zeros((2, 1), dtype=torch.int32, **meta),
                        torch.zeros((2, 1), dtype=torch.int32, **meta),
                        torch.zeros((2, 3), **meta), 1.0, 1)
+    # the staged per-frame path (ADAPTIVE, NONE, the random cap) and the
+    # registration entry point default to the card as well; K13's wrapper
+    # raises on a device that is neither
+    from ct_icp_torch.config.options import SamplingOption
+    from ct_icp_torch.core.pose import TrajectoryFrame
+    from ct_icp_torch.icp.registration import CTICPRegistration
+    from ct_icp_torch.kernels import exact_sample as k13
+    from ct_icp_torch.mapping import voxel_map as vm
+    d = default_driving_profile()
+    for opts in (dataclasses.replace(d, sampling=SamplingOption.ADAPTIVE),
+                 dataclasses.replace(d, sampling=SamplingOption.NONE),
+                 dataclasses.replace(d, max_num_keypoints=1000)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            Odometry(opts)
+        odo = Odometry(opts, device="cpu")
+        assert odo.device.type == "cpu" and not odo._fused_available
+    reg = CTICPRegistration(d.ct_icp_options, d.map_options,
+                            num_keypoints=16)
+    cpu_map = vm.make_map(d.map_options, "cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        reg.register(cpu_map, np.zeros((4, 3)), np.linspace(0, 1, 4),
+                     TrajectoryFrame())
+    assert not reg.register(cpu_map, np.zeros((4, 3)), np.linspace(0, 1, 4),
+                            TrajectoryFrame(), device="cpu").success
+    with pytest.raises(ValueError, match="no kernel"):
+        k13.exact_sample(torch.zeros((8, 3), **meta),
+                         torch.zeros(8, dtype=torch.bool, **meta), 4,
+                         voxel_size=0.5)
     # the scale-out entry points too
     from ct_icp_torch.parallel import sharded_map as sm
     from ct_icp_torch.parallel.distributed_odometry import \

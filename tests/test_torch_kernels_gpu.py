@@ -5,7 +5,9 @@ as one K7 and one K6 launch, K4 one launch a call on a claim table kept
 from call to call, K8 one launch per CT-BA step (its inner iterations in
 one launch), K9 one launch an eviction of every level on per-device
 accumulators it leaves zero, K10 one launch a level's normal refit, K12 one launch a k-NN search; K1 with
-the normal filter, K2 with a radius a query).
+the normal filter, K2 with a radius a query; K13 one launch an exact
+sample, bit for bit, on a table kept from call to call, and the staged
+path's register_frame through K13 and K4 and no plain version).
 
 Needs an NVIDIA GPU and nvcc (the kernels build from ct_icp_torch/csrc at
 first use); skips elsewhere. Run on a machine with the card (this file needs
@@ -27,6 +29,7 @@ from ct_icp_torch.kernels import build, checks
 from ct_icp_torch.kernels import candidate_gather as k1
 from ct_icp_torch.kernels import ct_ba_block as k8
 from ct_icp_torch.kernels import evict_voxels as k9
+from ct_icp_torch.kernels import exact_sample as k13
 from ct_icp_torch.kernels import grid_sample as k4
 from ct_icp_torch.kernels import knn_search as k12
 from ct_icp_torch.kernels import level_normals as k10
@@ -641,6 +644,29 @@ def test_ct_ba_block_iterations_in_one_launch(cuda, f, k, iters):
                                   iters)
 
 
+@pytest.mark.parametrize("nlerp", [False, True])
+def test_ct_ba_block_repeats_bit_for_bit(cuda, nlerp):
+    """500 launches of the backend's refine (F = 8, K = 4,096, 4 inner
+    iterations) on one window, each bit-identical to the first: a launch
+    depends on its inputs alone (no float atomics, the neighbours' iterates
+    read behind their flags, the flags left zero). With each frame's end
+    rotation set to its begin rotation the poses take the slerp's nlerp
+    branch, as on the backend's first full window, and the row pass is
+    shorter beside the pose rows built meanwhile."""
+    state, p = _ct_ba_window(cuda, 8, 4096, 1.0)
+    if nlerp:
+        state = state._replace(quat_end=state.quat_begin.clone())
+        p = p._replace(prior_quat_end=p.prior_quat_begin.clone())
+    poses = ct_ba.pack_state(state)
+    first = k8.ct_ba_block(poses, p, 2.0, 1e-3, "gn", 4)
+    differ = torch.zeros((), dtype=torch.int64, device=cuda)
+    for _ in range(500):
+        again = k8.ct_ba_block(poses, p, 2.0, 1e-3, "gn", 4)
+        for x, y in zip(again, first):
+            differ += (x != y).any()
+    assert int(differ) == 0
+
+
 def test_ct_ba_block_empty_frames(cuda):
     """K = 0 (no point rows): the pose-level rows alone, one CTA a frame.
     Their rotation block has rank 4 of 6 (four quaternion-dot rows), so the
@@ -1168,3 +1194,124 @@ def test_knn_search_is_one_device_operation(cuda):
         pytest.skip("the profiler saw no device activity")
     names = [e.name for e in events]
     assert len(names) == 1 and "knn_search" in names[0], names
+
+
+def _lidar(rng, n, valid_frac):
+    """A LiDAR-like cloud (directions on the sphere at ranges from 0.2 m to
+    60 m, a third of it repeated with a small jitter: crowded voxels) and
+    its validity."""
+    u = rng.standard_normal((n, 3))
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    r = np.exp(rng.uniform(np.log(0.2), np.log(60.0), n))
+    pts = (u * r[:, None]).astype(np.float32)
+    m = n // 3
+    pts[:m] = pts[rng.integers(0, n, m)] + rng.normal(
+        0, 0.01, (m, 3)).astype(np.float32)
+    return pts, rng.uniform(size=n) < valid_frac
+
+
+_BANDS = ((0.5, 0.1), (2.0, 0.2), (4.0, 0.4), (8.0, 0.8), (16.0, 1.6),
+          (200.0, -1.0))
+
+
+@pytest.mark.parametrize("n, capacity, kw", [
+    (65536, 4096, dict(bands=_BANDS)),                   # ADAPTIVE default
+    (65536, 4096, dict(bands=_BANDS, k=2, max_keep=3000)),
+    (131072, 65536, dict(voxel_size=0.5)),               # the exact sampler
+    (65536, 65536, dict(voxel_size=0.3, k=5)),
+    (1001, 256, dict(bands=_BANDS, k=3)),
+    (0, 16, dict(voxel_size=0.5)), (5000, 0, dict(voxel_size=0.5)),
+    (4096, 4096, dict(bands=((1.0, 0.5),)))])            # nothing in range
+def test_exact_sample_matches_plain(cuda, n, capacity, kw):
+    """Bit for bit, and one launch a call."""
+    rng = np.random.default_rng(n + capacity)
+    pts, valid = _lidar(rng, n, 0.3)
+    pts, valid = (torch.from_numpy(pts).to(cuda),
+                  torch.from_numpy(valid).to(cuda))
+    launches = k13.launches
+    out = checks.check_exact_sample(pts, valid, capacity, **kw)
+    assert k13.launches == launches + 1
+    if n > 1001 and capacity > 0 and "bands" in kw and len(kw["bands"]) > 1:
+        assert out["count"] > 0
+
+
+def test_exact_sample_across_stamp_wrap(cuda):
+    """Calls on either side of the stamp's wrap, bit for bit: the last
+    stamps leave words that beat every word after the wrap, so the call
+    after the limit clears the table and starts again from stamp 1."""
+    rng = np.random.default_rng(5)
+    limit = build.launcher("exact_sample", "k13_stamp_limit", ())()
+    pts, valid = _lidar(rng, 3000, 0.9)
+    pts, valid = (torch.from_numpy(pts).to(cuda),
+                  torch.from_numpy(valid).to(cuda))
+    dev = pts.device
+    state = k13._device_state(dev, k13.table_log2_for(3000),
+                              k13._constants()[2])
+    state[3][0] = limit - 2
+    for after in (limit - 1, limit, 1, 2):
+        out = checks.check_exact_sample(pts, valid, 1024, bands=_BANDS, k=2)
+        assert out["count"] > 0
+        assert int(state[3][0]) == after
+
+
+def test_exact_sample_is_one_device_operation(cuda):
+    """A call is one device operation: the kernel, no memset or copy."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(9)
+    pts, valid = _lidar(rng, 65536, 0.3)
+    pts, valid = (torch.from_numpy(pts).to(cuda),
+                  torch.from_numpy(valid).to(cuda))
+    k13.exact_sample(pts, valid, 4096, bands=_BANDS)      # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        k13.exact_sample(pts, valid, 4096, bands=_BANDS)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not names:
+        pytest.skip("the profiler saw no device activity")
+    assert len(names) == 1 and "exact_sample" in names[0], names
+
+
+def test_staged_register_frame_launches_k13_and_k4(cuda, monkeypatch):
+    """register_frame of an ADAPTIVE profile on the card: K4 once a frame
+    on the raw scan, K13 once a frame after frame 0, no plain version."""
+    from ct_icp_torch.config.options import (ResolutionParam,
+                                             SamplingOption,
+                                             default_driving_profile)
+    from ct_icp_torch.datasets import synthetic as syn
+    from ct_icp_torch.odometry.odometry import Odometry
+
+    def refuse(*args, **kw):
+        raise AssertionError("a plain version ran on the card path")
+
+    monkeypatch.setattr(k13, "exact_sample_plain", refuse)
+    monkeypatch.setattr(k4, "grid_sample_plain", refuse)
+    d = default_driving_profile()
+    opts = dataclasses.replace(
+        d, sampling=SamplingOption.ADAPTIVE,
+        map_options=dataclasses.replace(
+            d.map_options, resolutions=(ResolutionParam(0.8, 0.1, 30, 14),)),
+        max_scan_points=32768, max_subsampled_points=32768,
+        max_keypoints=1024, max_dirty_voxels=4096,
+        ct_icp_options=dataclasses.replace(d.ct_icp_options,
+                                           min_number_neighbors=10))
+    prims = syn.box_room(half_extent=7.9, height=4.0)
+    traj = syn.circular_trajectory(radius=6.0, height=1.5, num_poses=100,
+                                   total_time=0.8, angle_span=np.pi / 12)
+    acq = syn.SyntheticSensorAcquisition(
+        syn.Scene(prims), traj,
+        syn.SyntheticAcquisitionOptions(num_points_per_frame=6000,
+                                        frame_duration=0.1, max_range=30.0),
+        seed=3)
+    odo = Odometry(opts)
+    assert odo.device.type == "cuda" and not odo._fused_available
+    k4_before, k13_before = k4.launches, k13.launches
+    summaries = [odo.register_frame(f["xyz"], f["timestamps"], frame_id=i)
+                 for i, f in enumerate(acq.frame(i) for i in range(4))]
+    assert k4.launches - k4_before == 4
+    assert k13.launches - k13_before == 3
+    assert all(s.success for s in summaries)
+    assert all(s.sample_size > 0 for s in summaries[1:])
+

@@ -169,11 +169,13 @@ def test_registration_matches_reference(case):
                                   "robust", "point_to_point",
                                   "analytic_jacobian", "kc2_on_the_ball"])
 def test_what_stays_unported_raises(what):
-    """The keypoint samplers of the reference's staged path (ADAPTIVE,
-    NONE, the random cap) and the solvers, distances and Jacobian this
-    port does not carry still refuse with NotImplementedError; two
-    residuals a keypoint on the ball neighbourhood, which has no sorted
-    list, is refused as in the reference (ValueError)."""
+    """The solvers, distances and Jacobian this port does not carry still
+    refuse with NotImplementedError; two residuals a keypoint on the ball
+    neighbourhood, which has no sorted list, is refused as in the
+    reference (ValueError). The keypoint samplers of the reference's
+    staged path (ADAPTIVE, NONE, the random cap) are ported to the staged
+    per-frame path, and streaming them is refused, as the reference
+    asserts (ValueError; tests/test_torch_staged.py runs them)."""
     from ct_icp_torch.icp import solver as tslv
     from ct_icp_torch.odometry.odometry import Odometry
     d = topt.default_driving_profile()
@@ -181,8 +183,10 @@ def test_what_stays_unported_raises(what):
         opts = (dataclasses.replace(d, max_num_keypoints=500)
                 if what == "random_cap" else dataclasses.replace(
                     d, sampling=topt.SamplingOption(what.upper())))
-        with pytest.raises(NotImplementedError):
-            Odometry(opts, device="cpu")
+        odo = Odometry(opts, device="cpu")
+        assert not odo._fused_available
+        with pytest.raises(ValueError, match="fused frame step"):
+            next(odo.stream_frames(iter([]), batch=4))
         return
     kw = {"gn": dict(solver=topt.Solver.GN),
           "robust": dict(solver=topt.Solver.ROBUST),
