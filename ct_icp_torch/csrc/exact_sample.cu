@@ -14,47 +14,59 @@
 //      on the CPU), the band the edges below d less one, clipped, and s its
 //      size (1 where that size is <= 0); a point outside [edge0, edgeB-1)
 //      is dropped;
-//   1. claim rounds over a table of 2^table_log2 >= 4N slots, after
-//      csrc/claim.cuh: in round r each unresolved point probes slot
-//      (hash + r) (linear probing). A slot settled in an earlier round of
-//      this call holds its full 16-byte key: equal keys resolve, another
-//      key moves the point on. An unsettled slot takes the point's claim
-//      word by atomicMin (this call's stamp over the scan index), so the
-//      lowest index wins in any order of arrival; after a grid barrier the
-//      winner writes its key and the slot's stamp, and the losers compare
-//      all four words at the start of the next round. The points of one
-//      key probe the same slots in the same rounds, so the winner is the
-//      key's earliest point: rank 0. No two distinct keys ever merge. The
-//      rounds end when no point is unresolved; with T = 2^table_log2 > N
-//      slots every point finds its key or an empty slot within T rounds
-//      (the launch traps, and the stream reports the fault, were it ever
-//      otherwise: a point is never dropped in silence);
-//   2. k - 1 rank rounds: the unelected points of each slot atomicMin a
+//   1. one insert pass, with no grid barrier in it, over a table of
+//      2^table_log2 >= 4N slots: each point probes linearly from its
+//      key's hash. A slot's 64-bit claim word carries this call's stamp
+//      once a point owns it this call. A word of an earlier call marks the
+//      slot free: the first point to arrive takes it by atomicCAS to its
+//      own election word, writes its 16-byte key and publishes the call's
+//      stamp in the slot's stamp word with a release store. A point that
+//      finds the slot owned waits (acquire loads) until the stamp word
+//      reads this call's stamp, then compares all four words of the key:
+//      an equal key resolves it, another key moves it on. The points of one
+//      key probe the same slots, so all of them resolve to the slot its
+//      first arrival took, and no two distinct keys ever merge. A waiter
+//      may wait on a lane of its own warp: independent thread scheduling
+//      (sm_70 and later) lets the owner's lane run on meanwhile, and the
+//      owner publishes right after its claim, waiting on nothing;
+//   2. the election, in the same pass: the resolved points of a slot
+//      atomicMin their election words (this call's stamp over the scan
+//      index) into its claim word, one atomic for the lanes of a warp that
+//      share the slot (__match_any_sync; the lowest lane holds the lowest
+//      index). Which point claims a slot depends on the order of arrival;
+//      the word left after the pass is the key's lowest index whatever the
+//      order: its rank-0 point. After the one grid barrier a point is kept
+//      iff the claim word is its own;
+//   3. k - 1 rank rounds: the unelected points of each slot atomicMin a
 //      word of round j over their scan index into the slot's claim word;
 //      round j elects each key's j-th point (its rank: the valid, in-range
 //      points before it with its key);
-//   3. the kept points compacted in scan order (csrc/compact.cuh, as K4's
+//   4. the kept points compacted in scan order (csrc/compact.cuh, as K4's
 //      are), cut at min(max_keep, capacity) (max_keep <= 0: capacity
 //      alone); idx and out_valid past the count are zero.
+// At k = 1 that is two grid barriers a call (after the insert pass, and
+// the compaction's); each rank round adds two.
 //
 // One cooperative launch of resident blocks, each owning a run of
-// 256-point tiles. The table (64-bit claim words, keys, stamps) persists
-// per device and size with a small control block (the last stamp, two
-// round counters): a call takes the next stamp, and its words, of rank
-// round j, carry 0xffffffff - (stamp * kMaxK + j) in their high half, so
-// they beat every word of an earlier call or round, and a slot counts as
-// settled only where its stamp is this call's. No call clears the table
-// but the one after stamp k13_stamp_limit(). Scratch (per point: key,
-// hash, slot, kept; 25 B) comes from the caller.
+// 256-point tiles; a thread keeps its first tile's slot and every tile's
+// kept bit in registers (the slots of later tiles go to a 4-byte-a-point
+// scratch the caller gives). The table (64-bit claim words, keys, stamps)
+// persists per device and size with the last stamp: a call takes the next
+// stamp, and its words, of rank round j, carry 0xffffffff - (stamp * kMaxK
+// + j) in their high half, so they beat every word of an earlier call or
+// round, and a slot counts as owned only where its claim word carries this
+// call's round-0 half. No call clears the table but the one after stamp
+// k13_stamp_limit().
 //
 // Bound: bytes. The function reads the points and their validity once
 // (13 B a point) and writes idx, out_valid and the count (5 B a slot of the
 // capacity, 4 B), as K4's bound is counted; the table and the scratch are
-// this design's and are not counted. What sets the time is latency: two
-// grid barriers a claim round and a rank round, and the dependent
-// claim-then-read of random words. Arithmetic in round-to-nearest
-// intrinsics (and the file is built with -fmad=false), so the kernel's keys
-// are its plain version's bit for bit.
+// this design's and are not counted. What sets the time is latency, not
+// bytes: the grid barriers and the dependent claim-then-read of random
+// table words. The design keeps both to one pass and two barriers, where
+// claim rounds between barriers took two barriers a round. Arithmetic in
+// round-to-nearest intrinsics (and the file is built with -fmad=false), so
+// the kernel's keys are its plain version's bit for bit.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -75,7 +87,8 @@ constexpr int kMaxBands = 16;
 constexpr int kMaxK = 64;                  // rank rounds a stamp spans
 constexpr int kStampLimit =
     static_cast<int>((0xffffffffLL - (kMaxK - 1)) / kMaxK);
-constexpr int kDropped = -2, kUnresolved = -1;
+constexpr int kDropped = -1;
+constexpr unsigned kFull = 0xffffffffu;
 
 struct Bands {
   int n;                                   // 0: one voxel size, no bands
@@ -127,14 +140,23 @@ __device__ __forceinline__ bool same_key(int4 a, int4 b) {
   return a.x == b.x && a.y == b.y && a.z == b.z && a.w == b.w;
 }
 
-__device__ __forceinline__ int warp_sum(int v) {
-  for (int d = 16; d > 0; d >>= 1) v += __shfl_down_sync(0xffffffffu, v, d);
+// The stamp word's publication: the owner's key is written before it
+// (release), and a waiter's reads of the key come after it (acquire).
+__device__ __forceinline__ int load_acquire(const int32_t* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
   return v;
 }
 
+__device__ __forceinline__ void store_release(int32_t* p, int v) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;"
+               :: "l"(p), "r"(v) : "memory");
+}
+
 // Arrays shared across blocks (claim, tkey, tstamp, ctrl, block_cnt) carry
-// no __restrict__/const and are read after a barrier through the L2
-// (__ldcg); the per-point scratch is read and written by its own thread
+// no __restrict__/const and are read through the L2 (__ldcg, or the
+// acquire load); the slot scratch is read and written by its own thread
 // only.
 __global__ void __launch_bounds__(kThreads)
     exact_sample_kernel(const float* __restrict__ pts,
@@ -142,10 +164,7 @@ __global__ void __launch_bounds__(kThreads)
                         Bands bands, int k, int max_keep, int capacity,
                         uint32_t mask, int tiles_per_block, Word* claim,
                         int4* tkey, int32_t* tstamp, int32_t* ctrl,
-                        int32_t* block_cnt, int4* __restrict__ pkey,
-                        uint32_t* __restrict__ phash,
-                        int32_t* __restrict__ pslot,
-                        uint8_t* __restrict__ pkept,
+                        int32_t* block_cnt, int32_t* __restrict__ pslot,
                         int32_t* __restrict__ idx,
                         uint8_t* __restrict__ out_valid,
                         int32_t* __restrict__ count) {
@@ -163,101 +182,94 @@ __global__ void __launch_bounds__(kThreads)
       claim[j] = ~Word(0);
       tstamp[j] = 0;
     }
-    if (tid == 0) ctrl[1] = ctrl[2] = 0;
     stamp = 0;
     grid.sync();
   }
   ++stamp;
+  // the high half of this call's insert words: a claim word that carries
+  // it is owned this call, any other is an earlier call's (larger)
+  const uint32_t owned_hi = static_cast<uint32_t>(word_of(stamp, 0, 0) >> 32);
 
-  // ---- 0. keys
+  int slot0 = kDropped;             // tile 0's slot; later tiles' in pslot
+  unsigned long long kept = 0;      // bit t: the thread's point of tile t
+  auto slot_of = [&](int t, int i) {
+    return i >= n ? kDropped : (t == 0 ? slot0 : pslot[i]);
+  };
+
+  // ---- 0-2. keys, the insert pass and the election, no barrier
   for (int t = 0; t < tiles_per_block; ++t) {
     const int i = (tile0 + t) * kThreads + threadIdx.x;
-    if (i >= n) continue;
     int4 key;
-    const bool ok = valid[i] && point_key(pts, i, voxel, bands, &key);
+    const bool ok = i < n && valid[i] && point_key(pts, i, voxel, bands, &key);
+    int slot = kDropped;
+    bool owner = false;
     if (ok) {
-      pkey[i] = key;
-      phash[i] = key_hash(key);
-    }
-    pslot[i] = ok ? kUnresolved : kDropped;
-    pkept[i] = 0;
-  }
-
-  // ---- 1. claim rounds
-  for (int r = 0;; ++r) {
-    // the re-read of round r-1's slot, then round r's probe
-    int active = 0;
-    for (int t = 0; t < tiles_per_block; ++t) {
-      const int i = (tile0 + t) * kThreads + threadIdx.x;
-      if (i >= n || pslot[i] != kUnresolved) continue;
-      const int4 key = pkey[i];
-      const uint32_t h = phash[i];
-      if (r > 0) {
-        const uint32_t prev = (h + static_cast<uint32_t>(r - 1)) & mask;
-        if (__ldcg(tstamp + prev) == stamp &&
-            same_key(__ldcg(tkey + prev), key)) {
-          pslot[i] = static_cast<int>(prev);
-          continue;
+      const Word mine = word_of(stamp, 0, i);
+      uint32_t at = key_hash(key) & mask;
+      for (uint32_t probe = 0;; ++probe, at = (at + 1) & mask) {
+        if (probe > mask) __trap();       // T > n: never
+        const Word seen = __ldcg(claim + at);
+        if (static_cast<uint32_t>(seen >> 32) != owned_hi &&
+            atomicCAS(claim + at, seen, mine) == seen) {
+          tkey[at] = key;
+          store_release(tstamp + at, stamp);
+          slot = static_cast<int>(at);
+          owner = true;
+          break;
         }
-      }
-      const uint32_t at = (h + static_cast<uint32_t>(r)) & mask;
-      if (__ldcg(tstamp + at) == stamp) {
+        // owned this call (or taken since the read): its key, once ready
+        while (load_acquire(tstamp + at) != stamp) {
+        }
         if (same_key(__ldcg(tkey + at), key)) {
-          pslot[i] = static_cast<int>(at);
-          continue;
+          slot = static_cast<int>(at);
+          break;
         }
-      } else {
-        atomicMin(claim + at, word_of(stamp, 0, i));
-      }
-      ++active;
-    }
-    active = warp_sum(active);
-    if (lane == 0 && active > 0) atomicAdd(ctrl + 1 + (r & 1), active);
-    grid.sync();
-    if (r == 0 && tid == 0) ctrl[0] = stamp;
-    // the winners write their keys: each key's earliest point, rank 0
-    for (int t = 0; t < tiles_per_block; ++t) {
-      const int i = (tile0 + t) * kThreads + threadIdx.x;
-      if (i >= n || pslot[i] != kUnresolved) continue;
-      const uint32_t at = (phash[i] + static_cast<uint32_t>(r)) & mask;
-      if (__ldcg(claim + at) == word_of(stamp, 0, i)) {
-        tkey[at] = pkey[i];
-        tstamp[at] = stamp;
-        pslot[i] = static_cast<int>(at);
-        pkept[i] = 1;
       }
     }
-    // the points still unresolved after this round's probe; the other
-    // counter, last read in round r-1, is zeroed for round r+1
-    const int left = __ldcg(ctrl + 1 + (r & 1));
-    if (tid == 0) ctrl[1 + ((r + 1) & 1)] = 0;
-    grid.sync();
-    if (left == 0) break;                     // every block agrees
-    if (static_cast<uint32_t>(r) >= mask) __trap();   // T > n: never
+    // one atomicMin for the lanes that share a slot: the lowest lane's
+    // index is the lowest; the owner's word is in already
+    const unsigned same = __match_any_sync(kFull, slot);
+    if (slot >= 0 && lane == __ffs(same) - 1 && !owner)
+      atomicMin(claim + slot, word_of(stamp, 0, i));
+    if (t == 0)
+      slot0 = slot;
+    else if (i < n)
+      pslot[i] = slot;
+  }
+  grid.sync();
+  if (tid == 0) ctrl[0] = stamp;
+  // rank 0: the claim word holds the key's earliest point
+  for (int t = 0; t < tiles_per_block; ++t) {
+    const int i = (tile0 + t) * kThreads + threadIdx.x;
+    const int s = slot_of(t, i);
+    if (s >= 0 && __ldcg(claim + s) == word_of(stamp, 0, i))
+      kept |= 1ull << t;
   }
 
-  // ---- 2. rank rounds: round j elects each key's j-th point
+  // ---- 3. rank rounds: round j elects each key's j-th point
   for (int j = 1; j < k; ++j) {
+    grid.sync();                      // round j-1's reads before these
     for (int t = 0; t < tiles_per_block; ++t) {
       const int i = (tile0 + t) * kThreads + threadIdx.x;
-      if (i < n && pslot[i] >= 0 && !pkept[i])
-        atomicMin(claim + pslot[i], word_of(stamp, j, i));
+      const int s = slot_of(t, i);
+      if (s >= 0 && !((kept >> t) & 1ull))
+        atomicMin(claim + s, word_of(stamp, j, i));
     }
     grid.sync();
     for (int t = 0; t < tiles_per_block; ++t) {
       const int i = (tile0 + t) * kThreads + threadIdx.x;
-      if (i < n && pslot[i] >= 0 && !pkept[i] &&
-          __ldcg(claim + pslot[i]) == word_of(stamp, j, i))
-        pkept[i] = 1;
+      const int s = slot_of(t, i);
+      if (s >= 0 && !((kept >> t) & 1ull) &&
+          __ldcg(claim + s) == word_of(stamp, j, i))
+        kept |= 1ull << t;
     }
-    if (j + 1 < k) grid.sync();
   }
 
-  // ---- 3. the kept points compacted in scan order: csrc/compact.cuh
+  // ---- 4. the kept points compacted in scan order: csrc/compact.cuh
   const int cut = max_keep > 0 ? min(max_keep, capacity) : capacity;
   cticp::compact_in_scan_order<kThreads, kMaxTiles>(
-      grid, [&](int i) { return pkept[i] != 0; }, n, tiles_per_block, cut,
-      capacity, block_cnt, idx, out_valid, count);
+      grid, [&](int i) { return ((kept >> (i / kThreads - tile0)) & 1ull); },
+      n, tiles_per_block, cut, capacity, block_cnt, idx, out_valid, count);
 }
 
 int g_max_blocks = 0;   // blocks resident together: the cooperative limit
@@ -274,10 +286,10 @@ extern "C" int k13_block_ints() { return kMaxBlocks; }
 // points: f32 [n, 3]; valid: u8 [n]; voxel: the voxel size where n_bands
 // is 0, else edges / sizes: n_bands host floats each; claim: uint64
 // [2^table_log2] (all ones at first), tkey: int4 [2^table_log2], tstamp:
-// int32 [2^table_log2] (0 at first) and ctrl: int32 [3] (0 at first), kept
-// by the caller from call to call; block_cnt: int32 [k13_block_ints()];
-// scratch: 25 n bytes (16-byte aligned); idx: int32 [capacity], out_valid:
-// u8 [capacity], count: int32 [1].
+// int32 [2^table_log2] (0 at first) and ctrl: int32 [1] (the last stamp,
+// 0 at first), kept by the caller from call to call; block_cnt: int32
+// [k13_block_ints()]; scratch: int32 [n]; idx: int32 [capacity],
+// out_valid: u8 [capacity], count: int32 [1].
 extern "C" int k13_exact_sample(const void* points, const void* valid, int n,
                                 float voxel, const float* edges,
                                 const float* sizes, int n_bands, int k,
@@ -322,17 +334,13 @@ extern "C" int k13_exact_sample(const void* points, const void* valid, int n,
   auto* ts = static_cast<int32_t*>(tstamp);
   auto* ct = static_cast<int32_t*>(ctrl);
   auto* bc = static_cast<int32_t*>(block_cnt);
-  auto* base = static_cast<uint8_t*>(scratch);
-  auto* pk = reinterpret_cast<int4*>(base);
-  auto* ph = reinterpret_cast<uint32_t*>(base + 16LL * n);
-  auto* ps = reinterpret_cast<int32_t*>(base + 20LL * n);
-  auto* pe = base + 24LL * n;
+  auto* ps = static_cast<int32_t*>(scratch);
   auto* out = static_cast<int32_t*>(idx);
   auto* ov = static_cast<uint8_t*>(out_valid);
   auto* cnt = static_cast<int32_t*>(count);
-  void* args[] = {&p,  &v,  &n,  &voxel, &b,  &k,   &max_keep, &capacity,
-                  &mask, &tiles, &cl, &tk, &ts, &ct, &bc, &pk, &ph, &ps,
-                  &pe, &out, &ov, &cnt};
+  void* args[] = {&p,  &v,  &n,  &voxel, &b,  &k,  &max_keep,
+                  &capacity, &mask, &tiles, &cl, &tk, &ts, &ct,
+                  &bc, &ps, &out, &ov, &cnt};
   const cudaError_t e = cudaLaunchCooperativeKernel(
       reinterpret_cast<void*>(exact_sample_kernel), dim3(blocks),
       dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));

@@ -9,38 +9,71 @@
 // map at points[slots[q, o]][j], [P + j] and [2P + j]; the reference
 // gathered an [M, O, 3P] copy of the rows first.
 //
-// A warp a query:
+// The order is one 64-bit key a candidate, (bits of d2) << 32 | o * P + j:
+// d2 >= 0, so its bits order as the float does, and the index breaks ties.
+// It is the key the plain version hands to torch.topk. The keys of a query
+// are distinct, so any exact selection gives the plain version's list, in
+// whatever order the candidates are met. kSplit warps a query (K12_SPLIT,
+// 2 on the main path):
 //   1. it loads the query's O (slot, cnt_ok) pairs into shared memory and
 //      exclusive-scans the counts into live offsets (as K2 does);
 //   2. lane l takes live candidates l, l + 32, l + 64, ... (a cursor steps
-//      over the offsets to (o, j)), so a batch of 32 candidates is 32
-//      consecutive flat indices;
-//   3. the warp keeps its k best (d2, index) pairs sorted in shared memory
-//      (at most kMaxK). A batch's in-radius candidates below the current
-//      k-th distance are inserted one at a time, in lane order: the place is
-//      a warp count of the kept d2 <= the candidate's (a later candidate
-//      never beats an equal earlier one, so ties keep the lower index), and
-//      the pairs after it move up one, kMaxK / 32 a lane. A query's whole
-//      candidate set is never held: at O = 343 (the distance strategy's
-//      nv = 3) a query may have 10,290 candidates;
-//   4. the list out: the points re-read through the slots, sqrt(d2), and
-//      the mask; past the list, zeros, +inf and false.
+//      over the offsets to (o, j)), so a batch is 32 consecutive live
+//      candidates (with kSplit warps, warp w takes every kSplit-th batch);
+//   3. each warp keeps its best keys in registers, one sorted array of
+//      L = 32 R keys (R = 1, 2 or 4 a lane: L >= k), element e in register
+//      e / 32 of lane e % 32, empty entries all ones. A candidate outside
+//      the radius, or not below the k-th kept key, becomes all ones; a
+//      batch with none left is skipped on one ballot. Otherwise the batch is
+//      sorted descending by a bitonic network over __shfl_xor_sync (15
+//      compare-exchanges, sort32_desc), and merged into the array as a
+//      bitonic merge does (merge_batch): the array's last 32 keys take the
+//      minimum against the batch, which leaves the L smallest of both as
+//      one bitonic sequence, and log2 L half-cleaners sort it (the strides
+//      of 32 and more within a lane, the others across lanes). This is the
+//      warp select of Johnson, Douze and Jegou, "Billion-scale similarity
+//      search with GPUs" (2017), section 5, with a batch of one key a lane:
+//      no candidate is inserted on its own. A query's whole candidate set
+//      is never held: at O = 343 (the distance strategy's nv = 3) a query
+//      may have 10,290 candidates;
+//   4. with kSplit > 1 the other warps of the query hand their arrays to
+//      its first warp through shared memory, which merges them the same way
+//      (min against the reversed array, then the half-cleaners);
+//   5. the list out: the first k keys, the points re-read through the
+//      slots, sqrt(d2), and the mask; past the list, zeros, +inf and false.
 // d2 is dx*dx + dy*dy + dz*dz left to right, in round-to-nearest intrinsics
 // (and the file is built with -fmad=false), so the in-radius test and the
 // order are the plain version's bit for bit.
 //
 // Bound: bytes. Each distinct live candidate point read once (12 B), the
 // (slot, cnt_ok) pairs (8 B), the queries and radii, the outputs (17 B a
-// neighbour); the compares and the list's shifts are a few operations per
-// byte.
+// neighbour). What holds the kernel above it is the selection's dependent
+// chain a query (the network's shuffles, a batch after another): a merged
+// batch costs the batch's 15 compare-exchanges and the merge's log2 L
+// (5 of them shuffles), where inserting one candidate at a time cost a warp
+// count, five shuffles and two warp barriers a candidate. Batches that beat
+// nothing cost their d2 and one ballot.
 #include "common.cuh"
+
+// Warps a query: 2 (tools/exp_select.py times 1, 2 and 4 on the main
+// path's shapes; two warps were the fastest at O = 27 and at O = 343).
+#ifndef K12_SPLIT
+#define K12_SPLIT 2
+#endif
 
 namespace {
 
+using Key = unsigned long long;
+
 constexpr int kWarpsPerBlock = 4;
+constexpr int kSplit = K12_SPLIT;                // warps a query
+static_assert(kSplit == 1 || kSplit == 2 || kSplit == 4,
+              "K12_SPLIT is 1, 2 or 4");
+constexpr int kQueriesPerBlock = kWarpsPerBlock / kSplit;
 constexpr int kMaxK = 128;
-constexpr int kPerLane = kMaxK / 32;
 constexpr unsigned kFull = 0xffffffffu;
+constexpr Key kNone = ~0ull;                     // an empty entry
+constexpr uint32_t kInfBits = 0x7f800000u;       // +inf's bits
 
 __device__ __forceinline__ float dist2(float qx, float qy, float qz, float x,
                                        float y, float z) {
@@ -51,116 +84,188 @@ __device__ __forceinline__ float dist2(float qx, float qy, float qz, float x,
                    __fmul_rn(dz, dz));
 }
 
+__device__ __forceinline__ Key kmin(Key a, Key b) { return a < b ? a : b; }
+__device__ __forceinline__ Key kmax(Key a, Key b) { return a < b ? b : a; }
+
+// The 32 keys of a warp, one a lane, sorted descending (lane 0 the
+// largest): a bitonic sort. Stage `size` merges pairs of blocks of size / 2
+// sorted in opposite directions into blocks of `size`, ascending where
+// lane & size is set (the last stage, size 32, descending everywhere); the
+// lower lane of a pair keeps the smaller key where its block ascends.
+__device__ __forceinline__ Key sort32_desc(Key b, int lane) {
+#pragma unroll
+  for (int stage = 1; stage <= 5; ++stage) {       // size = 2^stage
+    const bool up = (lane & (1 << stage)) != 0;
+#pragma unroll
+    for (int step = stage - 1; step >= 0; --step) {  // stride s = 2^step
+      const int s = 1 << step;
+      const Key o = __shfl_xor_sync(kFull, b, s);
+      b = (((lane & s) == 0) == up) ? kmin(b, o) : kmax(b, o);
+    }
+  }
+  return b;
+}
+
+// The L = 32 R keys of a, a bitonic sequence (element e in a[e / 32] of
+// lane e % 32), sorted ascending by half-cleaners of strides L / 2 .. 1:
+// within a lane for strides of 32 and more, across lanes below.
+template <int R>
+__device__ __forceinline__ void bitonic_to_ascending(Key (&a)[R], int lane) {
+  constexpr int kLogR = R == 4 ? 2 : R == 2 ? 1 : 0;
+#pragma unroll
+  for (int step = kLogR - 1; step >= 0; --step) {   // stride 32 * 2^step
+    const int rs = 1 << step;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if ((r & rs) == 0) {
+        const Key lo = kmin(a[r], a[r + rs]);
+        a[r + rs] = kmax(a[r], a[r + rs]);
+        a[r] = lo;
+      }
+    }
+  }
+#pragma unroll
+  for (int step = 4; step >= 0; --step) {            // stride 2^step
+    const int s = 1 << step;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const Key o = __shfl_xor_sync(kFull, a[r], s);
+      a[r] = (lane & s) == 0 ? kmin(a[r], o) : kmax(a[r], o);
+    }
+  }
+}
+
+// a (ascending) becomes the L smallest of a and a batch sorted descending
+// (b_desc, one key a lane), ascending: the batch padded with all ones to L
+// and reversed meets a element by element, so only the last register takes
+// the minimum; the result is bitonic.
+template <int R>
+__device__ __forceinline__ void merge_batch(Key (&a)[R], Key b_desc,
+                                            int lane) {
+  a[R - 1] = kmin(a[R - 1], b_desc);
+  bitonic_to_ascending<R>(a, lane);
+}
+
+// the k-th smallest kept key (element k - 1), in every lane.
+// k12_knn_search takes the least R of 1, 2 and 4 with 32 R >= k, so
+// element k - 1 lies in the last register, or at R = 4 in one of the last
+// two: registers named, where one picked by index would put the array in
+// local memory.
+template <int R>
+__device__ __forceinline__ Key kth_key(const Key (&a)[R], int k) {
+  Key v = a[R - 1];
+  if (R == 4 && k <= 96) v = a[R - 2];
+  return __shfl_sync(kFull, v, (k - 1) & 31);
+}
+
+template <int R>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock) knn_search_kernel(
     const float* __restrict__ points, const int32_t* __restrict__ slots,
     const int32_t* __restrict__ cnt_ok, const float* __restrict__ queries,
     int m, int n_off, int p, float rr, const float* __restrict__ radius,
-    int k, float* __restrict__ out_pts, uint8_t* __restrict__ out_mask,
-    float* __restrict__ out_dist) {
-  extern __shared__ int smem[];
-  const int wib = threadIdx.x >> 5;
+    int k, int group_bytes, float* __restrict__ out_pts,
+    uint8_t* __restrict__ out_mask, float* __restrict__ out_dist) {
+  constexpr int kL = 32 * R;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int qi = blockIdx.x * kWarpsPerBlock + wib;
-  if (qi >= m) return;  // the whole warp
-  const int stride = 2 * n_off + 1 + 2 * k;
-  int* off = smem + wib * stride;                        // [O + 1]
-  int* slot = off + n_off + 1;                           // [O]
-  float* ld = reinterpret_cast<float*>(slot + n_off);    // [k] kept d2
-  int* li = reinterpret_cast<int*>(ld + k);              // [k] kept index
-  const float inf = __int_as_float(0x7f800000);
+  const int w = warp % kSplit;                   // the warp's rank a query
+  const int qi = blockIdx.x * kQueriesPerBlock + warp / kSplit;
+  const bool live_query = qi < m;                // warp-uniform
+  if (kSplit == 1 && !live_query) return;        // no block barrier below
+  unsigned char* base = smem + (warp / kSplit) * group_bytes;
+  Key* handed = reinterpret_cast<Key*>(base);    // [(kSplit - 1) * kL]
+  int* off = reinterpret_cast<int*>(handed + (kSplit - 1) * kL);  // [O + 1]
+  int* slot = off + n_off + 1;                                    // [O]
 
-  // ---- 1. the pairs, and the live offsets
-  const int32_t* q_slots = slots + static_cast<size_t>(qi) * n_off;
-  const int32_t* q_cnt = cnt_ok + static_cast<size_t>(qi) * n_off;
-  for (int o = lane; o < n_off; o += 32) {
-    slot[o] = q_slots[o];
-    off[o] = q_cnt[o];
-  }
-  __syncwarp();
-  int total = 0;
-  for (int base = 0; base < n_off; base += 32) {
-    const int o = base + lane;
-    const int c = o < n_off ? off[o] : 0;
-    int incl = c;
-    for (int s = 1; s < 32; s <<= 1) {
-      const int up = __shfl_up_sync(kFull, incl, s);
-      if (lane >= s) incl += up;
+  // ---- 1. the pairs, and the live offsets (the query's first warp)
+  if (live_query && w == 0) {
+    const int32_t* q_slots = slots + static_cast<size_t>(qi) * n_off;
+    const int32_t* q_cnt = cnt_ok + static_cast<size_t>(qi) * n_off;
+    for (int o = lane; o < n_off; o += 32) {
+      slot[o] = q_slots[o];
+      off[o] = q_cnt[o];
     }
-    if (o < n_off) off[o] = total + incl - c;
-    total += __shfl_sync(kFull, incl, 31);
-  }
-  if (lane == 0) off[n_off] = total;
-  __syncwarp();
-
-  const float qx = queries[3 * qi + 0];
-  const float qy = queries[3 * qi + 1];
-  const float qz = queries[3 * qi + 2];
-  const float r2 =
-      radius != nullptr ? __fmul_rn(radius[qi], radius[qi]) : rr;
-
-  // ---- 2, 3. batches of 32 live candidates into the sorted list
-  int n = 0;   // pairs kept (warp-uniform)
-  int o = 0;   // the lane's cursor
-  for (int base = 0; base < total; base += 32) {
-    const int i = base + lane;
-    float d2 = inf;
-    int flat = 0;
-    bool ok = false;
-    if (i < total) {
-      while (off[o + 1] <= i) ++o;
-      const int j = i - off[o];
-      const float* row = points + static_cast<size_t>(slot[o]) * (3 * p);
-      d2 = dist2(qx, qy, qz, row[j], row[p + j], row[2 * p + j]);
-      flat = o * p + j;
-      ok = d2 <= r2;
+    __syncwarp();
+    int total = 0;
+    for (int b = 0; b < n_off; b += 32) {
+      const int o = b + lane;
+      const int c = o < n_off ? off[o] : 0;
+      int incl = c;
+      for (int s = 1; s < 32; s <<= 1) {
+        const int up = __shfl_up_sync(kFull, incl, s);
+        if (lane >= s) incl += up;
+      }
+      if (o < n_off) off[o] = total + incl - c;
+      total += __shfl_sync(kFull, incl, 31);
     }
-    const float thr = n < k ? inf : ld[k - 1];
-    unsigned bits = __ballot_sync(kFull, ok && (n < k || d2 < thr));
-    while (bits) {
-      const int src = __ffs(bits) - 1;
-      bits &= bits - 1u;
-      const float cd = __shfl_sync(kFull, d2, src);
-      const int ci = __shfl_sync(kFull, flat, src);
-      if (n == k && !(cd < ld[k - 1])) continue;  // beaten in this batch
-      int before = 0;
-      for (int t = lane; t < n; t += 32) before += ld[t] <= cd ? 1 : 0;
-      for (int s = 16; s > 0; s >>= 1)
-        before += __shfl_xor_sync(kFull, before, s);
-      const int last = n < k ? n : k - 1;  // pairs [before, last) move up
-      float vd[kPerLane];
-      int vi[kPerLane];
+    if (lane == 0) off[n_off] = total;
+  }
+  if (kSplit == 1)
+    __syncwarp();
+  else
+    __syncthreads();
+
+  Key a[R];
 #pragma unroll
-      for (int u = 0; u < kPerLane; ++u) {
-        const int t = before + lane + 32 * u;
-        if (t < last) {
-          vd[u] = ld[t];
-          vi[u] = li[t];
-        }
+  for (int r = 0; r < R; ++r) a[r] = kNone;
+  if (live_query) {
+    const float qx = queries[3 * qi + 0];
+    const float qy = queries[3 * qi + 1];
+    const float qz = queries[3 * qi + 2];
+    const float r2 =
+        radius != nullptr ? __fmul_rn(radius[qi], radius[qi]) : rr;
+    const int total = off[n_off];
+
+    // ---- 2, 3. batches of 32 live candidates merged into the array
+    Key kth = kNone;     // the k-th kept key (warp-uniform)
+    int o = 0;           // the lane's cursor
+    for (int b = 32 * w; b < total; b += 32 * kSplit) {
+      const int i = b + lane;
+      Key key = kNone;
+      if (i < total) {
+        while (off[o + 1] <= i) ++o;
+        const int j = i - off[o];
+        const float* row = points + static_cast<size_t>(slot[o]) * (3 * p);
+        const float d2 = dist2(qx, qy, qz, row[j], row[p + j], row[2 * p + j]);
+        if (d2 <= r2)
+          key = (static_cast<Key>(__float_as_uint(d2)) << 32) |
+                static_cast<uint32_t>(o * p + j);
       }
-      __syncwarp();
-#pragma unroll
-      for (int u = 0; u < kPerLane; ++u) {
-        const int t = before + lane + 32 * u;
-        if (t < last) {
-          ld[t + 1] = vd[u];
-          li[t + 1] = vi[u];
-        }
-      }
-      if (lane == 0) {
-        ld[before] = cd;
-        li[before] = ci;
-      }
-      __syncwarp();
-      n = n < k ? n + 1 : k;
+      if (key >= kth) key = kNone;
+      if (__ballot_sync(kFull, key != kNone) == 0) continue;
+      merge_batch<R>(a, sort32_desc(key, lane), lane);
+      kth = kth_key<R>(a, k);
     }
   }
 
-  // ---- 4. the list out
-  for (int t = lane; t < k; t += 32) {
+  // ---- 4. the query's other warps hand their arrays to its first
+  if (kSplit > 1) {
+    if (live_query && w > 0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) handed[(w - 1) * kL + r * 32 + lane] = a[r];
+    }
+    __syncthreads();
+    if (!live_query || w > 0) return;
+    for (int h = 0; h < kSplit - 1; ++h) {
+      // element e meets element L - 1 - e of the other ascending array
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        a[r] = kmin(a[r], handed[h * kL + kL - 1 - (r * 32 + lane)]);
+      bitonic_to_ascending<R>(a, lane);
+    }
+  }
+
+  // ---- 5. the list out
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int t = r * 32 + lane;
+    if (t >= k) continue;
     const size_t at = static_cast<size_t>(qi) * k + t;
     float* dst = out_pts + 3 * at;
-    if (t < n) {
-      const int f = li[t];
+    const uint32_t bits = static_cast<uint32_t>(a[r] >> 32);
+    if (bits < kInfBits) {
+      const int f = static_cast<int>(static_cast<uint32_t>(a[r]));
       const int oo = f / p;
       const int j = f - oo * p;
       const float* row = points + static_cast<size_t>(slot[oo]) * (3 * p);
@@ -168,16 +273,46 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock) knn_search_kernel(
       dst[1] = row[p + j];
       dst[2] = row[2 * p + j];
       out_mask[at] = 1;
-      out_dist[at] = __fsqrt_rn(ld[t]);
+      out_dist[at] = __fsqrt_rn(__uint_as_float(bits));
     } else {
       dst[0] = dst[1] = dst[2] = 0.0f;
       out_mask[at] = 0;
-      out_dist[at] = inf;
+      out_dist[at] = __uint_as_float(kInfBits);
     }
   }
 }
 
+template <int R>
+int launch(const void* points, const void* slots, const void* cnt_ok,
+           const void* queries, int m, int n_off, int p, float rr,
+           const void* radius, int k, void* out_pts, void* out_mask,
+           void* out_dist, cudaStream_t stream) {
+  // a query's shared memory: the arrays its other warps hand over, then
+  // the O + 1 offsets and O slots, rounded up to 8 bytes
+  const int group_bytes =
+      ((kSplit - 1) * 32 * R * 8 + (2 * n_off + 1) * 4 + 7) / 8 * 8;
+  const int smem = group_bytes * kQueriesPerBlock;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        knn_search_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = (m + kQueriesPerBlock - 1) / kQueriesPerBlock;
+  knn_search_kernel<R><<<blocks, 32 * kWarpsPerBlock, smem, stream>>>(
+      static_cast<const float*>(points), static_cast<const int32_t*>(slots),
+      static_cast<const int32_t*>(cnt_ok),
+      static_cast<const float*>(queries), m, n_off, p, rr,
+      static_cast<const float*>(radius), k, group_bytes,
+      static_cast<float*>(out_pts), static_cast<uint8_t*>(out_mask),
+      static_cast<float*>(out_dist));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// warps a query this library was built with (K12_SPLIT)
+extern "C" int k12_split() { return kSplit; }
 
 // points f32[C, 3P], slots / cnt_ok int32[M, O] (K1's output over all O
 // voxels of the same level), queries f32[M, 3]; radius f32[M] (each query's
@@ -189,23 +324,15 @@ extern "C" int k12_knn_search(const void* points, const void* slots,
                               int k, void* out_pts, void* out_mask,
                               void* out_dist, void* stream) {
   if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
-  if (m > 0) {
-    const int blocks = (m + kWarpsPerBlock - 1) / kWarpsPerBlock;
-    const int smem = static_cast<int>(sizeof(int)) * kWarpsPerBlock *
-                     (2 * n_off + 1 + 2 * k);
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          knn_search_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    knn_search_kernel<<<blocks, 32 * kWarpsPerBlock, smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(points), static_cast<const int32_t*>(slots),
-        static_cast<const int32_t*>(cnt_ok),
-        static_cast<const float*>(queries), m, n_off, p, rr,
-        static_cast<const float*>(radius), k, static_cast<float*>(out_pts),
-        static_cast<uint8_t*>(out_mask), static_cast<float*>(out_dist));
-  }
-  return static_cast<int>(cudaGetLastError());
+  if (m <= 0) return static_cast<int>(cudaGetLastError());
+  auto* s = static_cast<cudaStream_t>(stream);
+  // the least R of 1, 2 and 4 with 32 R >= k (kth_key relies on it)
+  if (k <= 32)
+    return launch<1>(points, slots, cnt_ok, queries, m, n_off, p, rr, radius,
+                     k, out_pts, out_mask, out_dist, s);
+  if (k <= 64)
+    return launch<2>(points, slots, cnt_ok, queries, m, n_off, p, rr, radius,
+                     k, out_pts, out_mask, out_dist, s);
+  return launch<4>(points, slots, cnt_ok, queries, m, n_off, p, rr, radius, k,
+                   out_pts, out_mask, out_dist, s);
 }

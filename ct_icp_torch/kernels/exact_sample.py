@@ -13,13 +13,19 @@ scan order to ``capacity`` (``ops/voxel.py::compact_mask``'s contract).
 With bands a point's range is d = sqrt(fma(z, z, fma(y, y, x*x))): the
 JAX package's ``jnp.linalg.norm``, which XLA contracts into these two FMAs
 on the CPU (see :func:`range_f32`). Kernel: ``csrc/exact_sample.cu``, one
-cooperative launch: exact-key claim rounds over a table of 2^ceil(log2 4N)
-slots (full 16-byte keys compared: no two voxels merge), ``k - 1`` rank
-rounds, a block-scan compaction. The table persists per device and size
-(28 B a slot: 7.3 MB at N = 65,536), so no call clears it. Bound on the
-card: bytes, the points and flags read once and the outputs written once
-(13 B a point, 5 B a slot of the capacity), as K4's; the table and the
-per-point scratch are the design's and are not counted.
+cooperative launch: one insert pass with no grid barrier in it over a table
+of 2^ceil(log2 4N) slots (the first point to reach a free slot claims it by
+atomicCAS and publishes its 16-byte key; the others wait for the key and
+compare all four words: no two voxels merge), the election of each key's
+earliest point in the same pass (an atomicMin of stamped scan indices, one
+a warp's lanes that share a slot), ``k - 1`` rank rounds, a block-scan
+compaction: two grid barriers a call at k = 1. The table persists per
+device and size (28 B a slot: 7.3 MB at N = 65,536), so no call clears it.
+Bound on the card: bytes, the points and flags read once and the outputs
+written once (13 B a point, 5 B a slot of the capacity), as K4's; the table
+and the per-point scratch are the design's and are not counted. What holds
+it above the bound is latency (the grid barriers, the dependent claim and
+read of random table words), which the one pass keeps to two barriers.
 
 A CPU tensor takes :func:`exact_sample_plain`; a CUDA tensor launches the
 kernel or raises.
@@ -35,7 +41,7 @@ from ct_icp_torch.ops import voxel as vx
 # launches of the CUDA kernel by exact_sample (reset freely by callers)
 launches = 0
 # (device, table_log2) -> (claim words int64, keys int32 [T, 4], stamps
-# int32, control block int32[3], block counts int32)
+# int32, the last stamp int32[1], block counts int32)
 _tables = {}
 # [the most bands, the largest k, entries of the block counts]
 _consts = []
@@ -162,7 +168,7 @@ def exact_sample(points, valid, capacity: int, voxel_size=None, bands=None,
     log2 = table_log2_for(n)
     claim, tkey, tstamp, ctrl, block_cnt = _device_state(dev, log2,
                                                          block_ints)
-    scratch = torch.empty((25 * n + 16,), dtype=torch.uint8, device=dev)
+    scratch = torch.empty((max(n, 1),), dtype=torch.int32, device=dev)
     # idx int32[capacity], the count int32, out_valid bool[capacity]
     buf = torch.empty((capacity * 5 + 4,), dtype=torch.uint8, device=dev)
     idx = buf[:4 * capacity].view(torch.int32)
@@ -197,10 +203,10 @@ def _constants():
 
 def _device_state(dev, table_log2: int, block_ints: int):
     """The table (claim words all ones, stamps 0 at first; keys read only
-    where a slot's stamp is the call's), its control block (the last stamp
-    and two round counters, 0 at first) and the block counts that the
-    kernel keeps from call to call for tables of 2^table_log2 slots on
-    ``dev``: every call takes a new stamp, so no call clears the table."""
+    where a slot's stamp is the call's), the last stamp (0 at first) and
+    the block counts that the kernel keeps from call to call for tables of
+    2^table_log2 slots on ``dev``: every call takes a new stamp, so no call
+    clears the table."""
     key = (dev, table_log2)
     state = _tables.get(key)
     if state is None:
@@ -209,7 +215,7 @@ def _device_state(dev, table_log2: int, block_ints: int):
             torch.full((t,), -1, dtype=torch.int64, device=dev),
             torch.empty((t, 4), dtype=torch.int32, device=dev),
             torch.zeros((t,), dtype=torch.int32, device=dev),
-            torch.zeros((3,), dtype=torch.int32, device=dev),
+            torch.zeros((1,), dtype=torch.int32, device=dev),
             torch.empty((block_ints,), dtype=torch.int32, device=dev))
     return state
 

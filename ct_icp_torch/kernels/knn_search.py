@@ -9,10 +9,15 @@ on -d2; the reference C++'s bounded priority queue, map.h:449-514). The
 candidates are K1's: point p of candidate voxel o is live for p <
 cnt_ok[q, o] and is read from ``points[slots[q, o]]``, so no [M, O, 3P]
 copy of the rows is made. Kernel: ``csrc/knn_search.cu``, one launch: a
-warp a query keeps its k best (d2, index) pairs sorted in shared memory
-and merges 32 live candidates at a time. Bound on the card: bytes (the
-distinct live candidate points read once, the (slot, count) pairs, the
-queries and radii, the outputs), counted as K2's is.
+warp a query selects on the 64-bit key (bits of d2) << 32 | o * P + p
+(the key :func:`knn_search_plain` hands to ``torch.topk``: a total order,
+so any exact selection gives its list), keeping its best keys sorted in
+registers (32, 64 or 128 a warp) and merging 32 live candidates at a
+time by a bitonic sort and merge over warp shuffles; a batch that beats
+nothing is skipped. Bound on the card: bytes (the distinct live candidate
+points read once, the (slot, count) pairs, the queries and radii, the
+outputs), counted as K2's is; what holds it above the bound is the
+selection's dependent chain a query.
 
 A CPU tensor takes :func:`knn_search_plain`; a CUDA tensor launches the
 kernel or raises.
@@ -25,7 +30,7 @@ import torch
 from ct_icp_torch.kernels import build
 from ct_icp_torch.kernels.plane_moments import radius_sq
 
-# the most neighbours a query keeps (the kernel's shared-memory list)
+# the most neighbours a query keeps (the kernel's register array)
 MAX_K = 128
 
 # launches of the CUDA kernel by knn_search (reset freely by callers)
@@ -91,6 +96,17 @@ def knn_search(points, slots, cnt_ok, queries, radius, k: int) -> Neighbors:
     if queries.device.type == "cpu":
         return knn_search_plain(points, slots, cnt_ok, queries, radius, k)
     global launches
+    out = launch(points, slots, cnt_ok, queries, radius, k)
+    launches += 1
+    return out
+
+
+def launch(points, slots, cnt_ok, queries, radius, k: int,
+           defines=()) -> Neighbors:
+    """One launch of ``csrc/knn_search.cu`` on CUDA tensors, counted by no
+    launch counter; ``defines`` pick a measurement variant of the kernel
+    (``K12_SPLIT=2`` or ``4``: warps a query; ``tools/exp_select.py``),
+    none the main path's."""
     dev = queries.device
     if dev.type != "cuda":
         raise ValueError(f"knn_search: no kernel for {dev}")
@@ -114,14 +130,13 @@ def knn_search(points, slots, cnt_ok, queries, radius, k: int) -> Neighbors:
         points=torch.empty((m, k, 3), dtype=torch.float32, device=dev),
         mask=torch.empty((m, k), dtype=torch.bool, device=dev),
         dist=torch.empty((m, k), dtype=torch.float32, device=dev))
-    fn = build.launcher("knn_search", "k12_knn_search", _ARGTYPES)
+    fn = build.launcher("knn_search", "k12_knn_search", _ARGTYPES, defines)
     status = fn(build.ptr(points), build.ptr(slots), build.ptr(cnt_ok),
                 build.ptr(queries), m, o, row_len // 3,
                 0.0 if per_query else radius_sq(radius),
                 build.ptr(radius) if per_query else None, int(k),
                 *(build.ptr(t) for t in out), build.stream_of(queries))
     build.check_status(status, "knn_search")
-    launches += 1
     return out
 
 

@@ -192,3 +192,146 @@ def test_random_cap_matches_reference_given_its_scores(seed):
         keep)
     _same(got, want)
 
+
+
+# ---- a model of K13's insert pass (csrc/exact_sample.cu), one point a
+# thread, the threads' steps between shared-memory operations interleaved
+# in a random order: whichever point reaches a free slot first claims it
+# and writes its key, and the election still keeps each key's earliest
+# point. Held to the plain version under 20 orders of arrival.
+_MAX_K = 64          # kMaxK: rank rounds a stamp spans
+_U32 = 0xFFFFFFFF
+
+
+def _word(stamp, rnd, i):
+    """word_of: 0xffffffff - (stamp * kMaxK + round) over the index."""
+    return ((_U32 - (stamp * _MAX_K + rnd)) << 32) | i
+
+
+def _key_hash(key):
+    """key_hash: the band's multiple, the reference's voxel hash, then a
+    32-bit finaliser, all modulo 2^32."""
+    band, cx, cy, cz = (int(v) & _U32 for v in key)
+    h = (band * 2654435761) & _U32
+    h ^= (cx * 73856093 + cy * 19349669 + cz * 83492791) & _U32
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & _U32
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & _U32
+    return h ^ (h >> 16)
+
+
+class _Table:
+    """The persistent table: claim words (all ones at first), keys and
+    stamp words (0 at first)."""
+
+    def __init__(self, log2):
+        t = 1 << log2
+        self.mask = t - 1
+        self.claim = [(1 << 64) - 1] * t
+        self.tkey = [None] * t
+        self.tstamp = [0] * t
+
+
+def _insert(tab, stamp, i, key):
+    """One point's probe (the insert pass's loop), a generator that yields
+    after each shared-memory step and returns (slot, owner)."""
+    mine = _word(stamp, 0, i)
+    at = _key_hash(key) & tab.mask
+    for _ in range(tab.mask + 1):
+        seen = tab.claim[at]
+        yield
+        if seen >> 32 != mine >> 32:
+            if tab.claim[at] == seen:                    # the atomicCAS won
+                tab.claim[at] = mine
+                yield
+                tab.tkey[at] = key
+                yield
+                tab.tstamp[at] = stamp                   # the release store
+                return at, True
+            yield
+        while tab.tstamp[at] != stamp:                   # the acquire loads
+            yield
+        if tab.tkey[at] == key:
+            return at, False
+        at = (at + 1) & tab.mask
+    raise AssertionError("a probe passed every slot")
+
+
+def _election(tab, slot, word):
+    yield
+    tab.claim[slot] = min(tab.claim[slot], word)         # the atomicMin
+
+
+def _model_call(tab, stamp, keys, ok, k, rng):
+    """One call's insert pass, election and rank rounds on ``tab``, the
+    points' steps in an order drawn from ``rng``; returns kept bool[N]."""
+    n = len(ok)
+    slot = [-1] * n
+    owner = [False] * n
+    tasks = {i: _insert(tab, stamp, i, tuple(keys[i])) for i in range(n)
+             if ok[i]}
+    left = {w: sum(ok[w * 32:(w + 1) * 32]) for w in range((n + 31) // 32)}
+    while tasks:
+        i = list(tasks)[rng.integers(len(tasks))]
+        try:
+            next(tasks[i])
+        except StopIteration as done:
+            del tasks[i]
+            if not isinstance(i, int):
+                continue
+            slot[i], owner[i] = done.value
+            w = i // 32
+            left[w] -= 1
+            if left[w]:
+                continue
+            # the warp's lanes meet at __match_any_sync: one atomicMin a
+            # slot, by its lowest lane, unless that lane owns the slot
+            for s in {slot[j] for j in range(w * 32, min(n, w * 32 + 32))
+                      if slot[j] >= 0}:
+                lead = min(j for j in range(w * 32, min(n, w * 32 + 32))
+                           if slot[j] == s)
+                if not owner[lead]:
+                    tasks[("min", lead)] = _election(tab, s,
+                                                     _word(stamp, 0, lead))
+    kept = [slot[i] >= 0 and tab.claim[slot[i]] == _word(stamp, 0, i)
+            for i in range(n)]
+    for j in range(1, k):
+        for i in rng.permutation(n):
+            if slot[i] >= 0 and not kept[i]:
+                tab.claim[slot[i]] = min(tab.claim[slot[i]],
+                                         _word(stamp, j, int(i)))
+        kept = [kept[i] or (slot[i] >= 0 and tab.claim[slot[i]]
+                            == _word(stamp, j, i)) for i in range(n)]
+    return np.array(kept)
+
+
+@pytest.mark.parametrize("table", ["kernel", "tight"])
+@pytest.mark.parametrize("order", range(20))
+def test_insert_model_matches_plain_in_any_order(order, table):
+    """Three calls in a row on one table (a later call meets the earlier
+    calls' words; k = 1, 3 and 2, with and without bands and a cap), the
+    points' steps in a random order: the kept points, hence the outputs,
+    are the plain version's. ``tight``: a table of the least power of two
+    above N, where probes run long and keys meet in slots."""
+    rng = np.random.default_rng(100 + order)
+    n = 300
+    log2 = (k13.table_log2_for(n) if table == "kernel"
+            else n.bit_length())
+    tab = _Table(log2)
+    bands = AdaptiveGridSamplingOptions().distance_voxel_size
+    calls = [dict(voxel_size=0.5, k=1), dict(bands=bands, k=3),
+             dict(voxel_size=0.3, k=2, max_keep=60)]
+    for stamp, kw in enumerate(calls, start=1):
+        pts, valid = _scan(n, seed=order * 3 + stamp, invalid=0.2)
+        tp, tv = _torch(pts, valid)
+        keys, ok = k13.sample_keys(tp, tv, kw.get("voxel_size"),
+                                   kw.get("bands"))
+        kept = _model_call(tab, stamp, keys.numpy(), ok.numpy(), kw["k"],
+                           rng)
+        if kw.get("max_keep", 0) > 0:
+            kept &= np.cumsum(kept) <= kw["max_keep"]
+        want = k13.exact_sample_plain(tp, tv, 256, **kw)
+        got = tvx.compact_mask(torch.from_numpy(kept), 256)
+        _same((got[0], got[2], got[1]), [w.numpy() for w in want])
+        assert int(want[2]) > 0

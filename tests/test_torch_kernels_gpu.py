@@ -1,13 +1,15 @@
-"""CUDA kernels K1-K12 against their plain PyTorch versions, on the card
+"""CUDA kernels K1-K13 against their plain PyTorch versions, on the card
 (K5 as one launch per LM call, K3 as one launch per insert, K1 one launch a
 call returning slots, K2 reading the live points through them, the rebase
 as one K7 and one K6 launch, K4 one launch a call on a claim table kept
 from call to call, K8 one launch per CT-BA step (its inner iterations in
 one launch), K9 one launch an eviction of every level on per-device
-accumulators it leaves zero, K10 one launch a level's normal refit, K12 one launch a k-NN search; K1 with
-the normal filter, K2 with a radius a query; K13 one launch an exact
-sample, bit for bit, on a table kept from call to call, and the staged
-path's register_frame through K13 and K4 and no plain version).
+accumulators it leaves zero, K10 one launch a level's normal refit, K12
+one launch a k-NN search; K1 with the normal filter, K2 with a radius a
+query; K13 one launch an exact sample, bit for bit, on a table kept from
+call to call, and the staged path's register_frame through K13 and K4 and
+no plain version). The tests that count a call's device operations read
+torch.profiler in a fresh process (the ``traced_ops`` fixture).
 
 Needs an NVIDIA GPU and nvcc (the kernels build from ct_icp_torch/csrc at
 first use); skips elsewhere. Run on a machine with the card (this file needs
@@ -51,6 +53,25 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def traced_ops():
+    """The device operations' names of one ``fn(*args)`` call, traced by
+    torch.profiler in a process whose first trace is recent
+    (``tools/timing.py::fresh_process_traces``, on this process's tensors):
+    on some of the card's machines a process's traces lose their kernels
+    from about 10 s after its first one (PERF.md §6). The first of up to
+    ten traces that saw the device counts; None where none did."""
+    from ct_icp_torch.tools import timing
+
+    def ops(fn, *args):
+        ((names, _traces),) = timing.fresh_process_traces(
+            [("ops", fn, args, None)])
+        return names
+
+    yield ops
+    timing.end_fresh_process()
 
 
 def _scene(rng, n):
@@ -357,20 +378,15 @@ def test_grid_sample_across_stamp_wrap(cuda):
             assert set(torch.unique(s).tolist()) <= {0, 1}
 
 
-def test_grid_sample_is_one_device_operation(cuda):
-    """A call is one device operation: the kernel, no memset or copy."""
-    from torch.profiler import ProfilerActivity, profile
+def test_grid_sample_is_one_device_operation(cuda, traced_ops):
+    """A call is one device operation: the kernel, no memset or copy
+    (traced in a fresh process)."""
     rng = np.random.default_rng(8)
     pts = torch.from_numpy(_scene(rng, 8000)).to(cuda)
     valid = torch.ones(pts.shape[0], dtype=torch.bool, device=cuda)
     k4.grid_sample(pts, valid, 1.0, 4096)           # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        k4.grid_sample(pts, valid, 1.0, 4096)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = traced_ops(k4.grid_sample, pts, valid, 1.0, 4096)
     if not names:
         pytest.skip("the profiler saw no device activity")
     assert len(names) == 1 and "grid_sample" in names[0], names
@@ -564,23 +580,20 @@ def test_row_gather_fields_matches_plain(cuda, n, p, offset):
     assert k6.launches == launches + 1
 
 
-def test_rebuild_level_is_one_k7_and_one_k6_operation(cuda):
+def test_rebuild_level_is_one_k7_and_one_k6_operation(cuda, traced_ops):
     """A rebuild_level on the card is two device operations, the K7 and
-    the K6 kernels, and no memset or copy; one launch of each."""
-    from torch.profiler import ProfilerActivity, profile
+    the K6 kernels, and no memset or copy (traced in a fresh process); one
+    launch of each."""
     rng = np.random.default_rng(3)
     level = _warm_level(rng, cuda, cap_log2=14)
     shift = torch.tensor([2.3, -0.7, 0.1], device=cuda)
     vm.rebuild_level(level, shift, 0.8)              # warm-up
     torch.cuda.synchronize()
     before = (k7.launches, k6.launches)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        vm.rebuild_level(level, shift, 0.8)
-        torch.cuda.synchronize()
+    vm.rebuild_level(level, shift, 0.8)
+    torch.cuda.synchronize()
     assert (k7.launches, k6.launches) == (before[0] + 1, before[1] + 1)
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    names = traced_ops(vm.rebuild_level, level, shift, 0.8)
     if not names:
         pytest.skip("the profiler saw no device activity")
     assert len(names) == 2, names
@@ -950,25 +963,22 @@ def test_level_normals_lists(cuda, case):
         assert k10.lanes(slots.shape[0]) == 8
 
 
-def test_level_normals_is_one_device_operation(cuda):
+def test_level_normals_is_one_device_operation(cuda, traced_ops):
     """A call is one device operation: the kernel, no memset or copy. The
     first of up to ten traces (with idle margins) that saw the device is
-    counted (``tools/timing.py::first_device_trace``): on some of the
-    card's machines a process's traces hold no device activity from about
-    10 s after its first trace on (PERF.md §6), and such a trace counts
+    counted, in a fresh process (``traced_ops``): on some of the card's
+    machines a process's traces hold no device activity from about 10 s
+    after its first trace on (PERF.md §6), and such a trace counts
     nothing."""
-    from ct_icp_torch.tools.timing import first_device_trace
     rng = np.random.default_rng(23)
     level = _warm_level(rng, cuda, cap_log2=15, p=40, res=0.5)
     location = torch.tensor([1.0, -2.0, 1.5], device=cuda)
     slots = vm.occupied_slots(level)
     vm.refit_normals(level, location, slots)          # warm-up
     torch.cuda.synchronize()
-    events, _ = first_device_trace(
-        lambda: vm.refit_normals(level, location, slots), 10)
-    if events is None:
+    names = traced_ops(vm.refit_normals, level, location, slots)
+    if not names:
         pytest.skip("the profiler saw no device activity")
-    names = [e.name for e in events]
     assert len(names) == 1 and "level_normals" in names[0], names
 
 
@@ -1161,6 +1171,51 @@ def test_knn_search_ties_and_duplicates(cuda):
     checks.check_knn_search(level.points, slots, cnt, q, 1.2, 40)
 
 
+def _knn_case(dev, case, m=512, n_off=27, p=30, seed=37):
+    """Hand-made K1 outputs over a table of rows: ``one distance`` (every
+    point on one spot, so that the index alone orders the neighbours),
+    ``few live`` (1 to 3 live points a query, fewer than k), ``none live``
+    (every other query with no live candidate), ``O = 343`` (343 full
+    voxels of 30 points: 10,290 live candidates a query, all in the
+    radius)."""
+    rng = np.random.default_rng(seed)
+    c = 4 * n_off
+    points = rng.uniform(-1.0, 1.0, (c, 3 * p)).astype(np.float32)
+    slots = rng.integers(0, c, (m, n_off)).astype(np.int32)
+    cnt = rng.integers(0, p + 1, (m, n_off)).astype(np.int32)
+    if case == "one distance":
+        points[:] = 0.25
+    if case == "few live":
+        cnt[:] = 0
+        cnt[np.arange(m), rng.integers(0, n_off, m)] = rng.integers(1, 4, m)
+    if case == "none live":
+        cnt[::2] = 0
+    if case == "O = 343":
+        cnt[:] = p
+    queries = rng.uniform(-0.5, 0.5, (m, 3)).astype(np.float32)
+    return tuple(torch.from_numpy(x).to(dev)
+                 for x in (points, slots, cnt, queries))
+
+
+@pytest.mark.parametrize("k", [1, 5, 40, 128])
+@pytest.mark.parametrize("case, n_off, radius", [
+    ("one distance", 27, 2.0), ("few live", 27, 2.0), ("none live", 27, 0.7),
+    ("O = 343", 343, 4.0)])
+def test_knn_search_adversarial_matches_plain(cuda, case, n_off, radius, k):
+    """Bit for bit on candidates all at one distance, with fewer live
+    candidates than k, with queries that have none, and at 10,290 live
+    candidates a query (O = 343, P = 30, all in the radius)."""
+    points, slots, cnt, q = _knn_case(cuda, case, n_off=n_off)
+    launches = k12.launches
+    out = checks.check_knn_search(points, slots, cnt, q, radius, k)
+    assert k12.launches == launches + 1
+    if case == "O = 343":
+        assert int(cnt[0].sum()) == 10290
+        assert out["found"] == q.shape[0] * k
+    if case == "few live":
+        assert 0 < out["found"] <= 3 * q.shape[0]
+
+
 def test_knn_search_raises_where_it_cannot_run(cuda):
     rng = np.random.default_rng(35)
     level = _warm_level(rng, cuda)
@@ -1173,26 +1228,20 @@ def test_knn_search_raises_where_it_cannot_run(cuda):
         k12.knn_search(level.points, slots, cnt, q.double(), 1.0, 5)
 
 
-def test_knn_search_is_one_device_operation(cuda):
+def test_knn_search_is_one_device_operation(cuda, traced_ops):
     """A call is one device operation: the kernel, no memset or copy (the
-    first of up to ten traces that saw the device, as
+    first of up to ten traces that saw the device, in a fresh process, as
     test_level_normals_is_one_device_operation counts)."""
-    from ct_icp_torch.tools.timing import first_device_trace
     rng = np.random.default_rng(36)
     level = _warm_level(rng, cuda)
     q = torch.from_numpy(_scene(rng, 1000)).to(cuda)
     valid = torch.ones(q.shape[0], dtype=torch.bool, device=cuda)
     slots, cnt = vm.gather_candidate_planes(level, q, valid, 0.8, 1)
-
-    def call():
-        k12.knn_search(level.points, slots, cnt, q, 1.0, 40)
-
-    call()
+    k12.knn_search(level.points, slots, cnt, q, 1.0, 40)
     torch.cuda.synchronize()
-    events, _ = first_device_trace(call, 10)
-    if events is None:
+    names = traced_ops(k12.knn_search, level.points, slots, cnt, q, 1.0, 40)
+    if not names:
         pytest.skip("the profiler saw no device activity")
-    names = [e.name for e in events]
     assert len(names) == 1 and "knn_search" in names[0], names
 
 
@@ -1254,21 +1303,67 @@ def test_exact_sample_across_stamp_wrap(cuda):
         assert int(state[3][0]) == after
 
 
-def test_exact_sample_is_one_device_operation(cuda):
-    """A call is one device operation: the kernel, no memset or copy."""
-    from torch.profiler import ProfilerActivity, profile
+def _voxel_case(rng, case):
+    """Points and validity: ``one voxel`` (65,536 points in one 0.5 m
+    voxel), ``own voxel`` (50,000 points, each the centre of its own voxel,
+    in a shuffled order), ``full table`` (65,536 distinct voxels, all
+    valid: N / T = 1/4 at T = 2^ceil(log2 4N), the fullest a call's table
+    gets)."""
+    if case == "one voxel":
+        pts = rng.uniform(0.01, 0.49, (65536, 3))
+    else:
+        n = 50000 if case == "own voxel" else 65536
+        coords = np.unique(rng.integers(0, 400, (2 * n, 3)), axis=0)
+        coords = coords[rng.permutation(coords.shape[0])[:n]]
+        pts = (coords + 0.5) * 0.5
+    return (torch.from_numpy(pts.astype(np.float32)),
+            torch.ones(pts.shape[0], dtype=torch.bool))
+
+
+@pytest.mark.parametrize("k", [1, 2, 64])
+@pytest.mark.parametrize("case", ["one voxel", "own voxel", "full table"])
+def test_exact_sample_adversarial_matches_plain(cuda, case, k):
+    """Bit for bit where every point shares one voxel (one slot, every
+    claimant of the insert pass waiting on one owner), where every point
+    has its own, and at the fullest table."""
+    rng = np.random.default_rng(41)
+    pts, valid = (t.to(cuda) for t in _voxel_case(rng, case))
+    n = pts.shape[0]
+    out = checks.check_exact_sample(pts, valid, n, voxel_size=0.5, k=k)
+    assert out["count"] == (min(k, n) if case == "one voxel" else n)
+
+
+def test_exact_sample_repeats_bit_for_bit(cuda):
+    """1,000 calls on one input give identical outputs, equal to the plain
+    version's: arrival order decides which point claims a slot, and
+    nothing else."""
+    rng = np.random.default_rng(42)
+    pts, valid = _lidar(rng, 65536, 0.3)
+    pts, valid = (torch.from_numpy(pts).to(cuda),
+                  torch.from_numpy(valid).to(cuda))
+    checks.check_exact_sample(pts, valid, 4096, bands=_BANDS)
+    first = [t.clone() for t in k13.exact_sample(pts, valid, 4096,
+                                                 bands=_BANDS)]
+    differ = torch.zeros((), dtype=torch.int64, device=cuda)
+    for _ in range(1000):
+        out = k13.exact_sample(pts, valid, 4096, bands=_BANDS)
+        for a, b in zip(out, first):
+            differ += (a != b).sum()
+    assert int(differ) == 0
+    assert int(first[2]) > 0
+
+
+def test_exact_sample_is_one_device_operation(cuda, traced_ops):
+    """A call is one device operation: the kernel, no memset or copy
+    (traced in a fresh process)."""
     rng = np.random.default_rng(9)
     pts, valid = _lidar(rng, 65536, 0.3)
     pts, valid = (torch.from_numpy(pts).to(cuda),
                   torch.from_numpy(valid).to(cuda))
     k13.exact_sample(pts, valid, 4096, bands=_BANDS)      # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        k13.exact_sample(pts, valid, 4096, bands=_BANDS)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA]
+    # exact_sample(points, valid, capacity, voxel_size, bands)
+    names = traced_ops(k13.exact_sample, pts, valid, 4096, None, _BANDS)
     if not names:
         pytest.skip("the profiler saw no device activity")
     assert len(names) == 1 and "exact_sample" in names[0], names

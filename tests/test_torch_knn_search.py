@@ -251,3 +251,209 @@ def test_ball_search_matches_reference(filt):
     live = count > 0
     assert _ulps_apart(got[3].numpy()[live], cdist[live]).max() <= 2
     assert (count > 10).mean() > 0.5
+
+
+# ---- a numpy model of K12's warp select (csrc/knn_search.cu), step for
+# step: the same compare-exchange pairs and directions as the kernel, a
+# lane a column. A wrong network shows here, against the plain version.
+_NONE = np.uint64(0xFFFFFFFFFFFFFFFF)
+_LANE = np.arange(32)
+
+
+def _sort32_desc(b):
+    """sort32_desc (csrc/knn_search.cu:95-107): stage ``size`` ascends
+    where lane & size is set; at stride s the lower lane of a pair keeps
+    the smaller key where its block ascends."""
+    size = 2
+    while size <= 32:
+        up = (_LANE & size) != 0
+        s = size >> 1
+        while s:
+            o = b[_LANE ^ s]
+            lower_min = ((_LANE & s) == 0) == up
+            b = np.where(lower_min, np.minimum(b, o), np.maximum(b, o))
+            s >>= 1
+        size <<= 1
+    return b
+
+
+def _bitonic_to_ascending(a):
+    """bitonic_to_ascending (:112-136) on a [R, 32] (element r * 32 + l in
+    a[r, l]): strides 32 R / 2 .. 32 within a lane, then 16 .. 1 across
+    lanes, the lower element keeping the smaller key."""
+    a = a.copy()
+    r_count = a.shape[0]
+    rs = r_count >> 1
+    while rs:
+        for r in range(r_count):
+            if not r & rs:
+                lo = np.minimum(a[r], a[r + rs])
+                a[r + rs] = np.maximum(a[r], a[r + rs])
+                a[r] = lo
+        rs >>= 1
+    s = 16
+    while s:
+        o = a[:, _LANE ^ s]
+        a = np.where((_LANE & s) == 0, np.minimum(a, o), np.maximum(a, o))
+        s >>= 1
+    return a
+
+
+def _merge_batch(a, b_desc):
+    """merge_batch (:142-147): the last register against the batch sorted
+    descending, then the half-cleaners."""
+    a = a.copy()
+    a[-1] = np.minimum(a[-1], b_desc)
+    return _bitonic_to_ascending(a)
+
+
+def _registers(k):
+    return 1 if k <= 32 else 2 if k <= 64 else 4
+
+
+def _warp_select_model(points, slots, cnt_ok, queries, radius, k, split):
+    """K12's selection on numpy inputs (points f32[C, 3P], slots / cnt_ok
+    int32[M, O], queries f32[M, 3], radius a float or f32[M]): per query,
+    ``split`` warps each take every split-th batch of 32 live candidates
+    (:223), drop the keys outside the radius or not below the k-th kept
+    one (:225-235), skip a batch with none left (:236), merge the rest
+    (:237-238, the k-th key as kth_key reads it, :154-159); the other
+    warps' arrays then meet the first warp's reversed (:242-257). Returns
+    the first k keys of each query, uint64 [M, k]."""
+    m, n_off = cnt_ok.shape
+    p = points.shape[1] // 3
+    r_count = _registers(k)
+    length = 32 * r_count
+    r2 = (np.float32(radius) * np.float32(radius) if np.isscalar(radius)
+          else radius * radius)
+    r2 = np.broadcast_to(np.asarray(r2, np.float32), (m,))
+    out = np.empty((m, k), np.uint64)
+    for q in range(m):
+        offs = np.concatenate([[0], np.cumsum(cnt_ok[q])])
+        total = int(offs[-1])
+        arrays = []
+        for w in range(split):
+            a = np.full((r_count, 32), _NONE)
+            kth = _NONE
+            for base in range(32 * w, total, 32 * split):
+                i = base + _LANE
+                keys = np.full(32, _NONE)
+                live = i < total
+                o = np.searchsorted(offs, i[live], side="right") - 1
+                j = i[live] - offs[o]
+                rows = points[slots[q, o]]
+                dx = rows[np.arange(len(o)), j] - queries[q, 0]
+                dy = rows[np.arange(len(o)), p + j] - queries[q, 1]
+                dz = rows[np.arange(len(o)), 2 * p + j] - queries[q, 2]
+                d2 = (dx * dx + dy * dy) + dz * dz
+                key = ((d2.view(np.uint32).astype(np.uint64) << np.uint64(32))
+                       | (o * p + j).astype(np.uint64))
+                keys[live] = np.where(d2 <= r2[q], key, _NONE)
+                keys[keys >= kth] = _NONE
+                if (keys == _NONE).all():
+                    continue
+                a = _merge_batch(a, _sort32_desc(keys))
+                e = k - 1
+                # kth_key's register: the last, or at R = 4 and k <= 96
+                # the one before it
+                assert e >> 5 == r_count - 1 - (r_count == 4 and k <= 96)
+                kth = a[e >> 5, e & 31]
+            arrays.append(a)
+        a = arrays[0]
+        for h in arrays[1:]:
+            a = _bitonic_to_ascending(
+                np.minimum(a, h.reshape(-1)[::-1].reshape(r_count, 32)))
+        assert a.shape == (r_count, 32) and length >= k
+        out[q] = a.reshape(-1)[:k]
+    return out
+
+
+def _model_neighbors(points, slots, keys):
+    """The kernel's epilogue (:259-283) on the model's keys; the root is
+    torch's, as the plain version takes it here (the kernel's
+    __fsqrt_rn is held to torch's on the card)."""
+    p = points.shape[1] // 3
+    bits = (keys >> np.uint64(32)).astype(np.uint32)
+    found = bits < np.uint32(0x7F800000)
+    flat = (keys & np.uint64(0xFFFFFFFF)).astype(np.int64)
+    o, j = np.where(found, flat // p, 0), np.where(found, flat % p, 0)
+    rows = points[np.take_along_axis(slots, o, 1)]
+    pts = np.stack([np.take_along_axis(rows[..., c * p:(c + 1) * p],
+                                       j[..., None], 2)[..., 0]
+                    for c in range(3)], -1)
+    pts = np.where(found[..., None], pts, np.float32(0))
+    root = torch.sqrt(torch.from_numpy(bits.view(np.float32))).numpy()
+    dist = np.where(found, root, np.float32(np.inf)).astype(np.float32)
+    return pts, found, dist
+
+
+def _select_case(case, seed=21, m=40, n_off=27, p=12):
+    """Candidates on which the selection is held to the plain version:
+    random points; ties (every point of a voxel on one point, and voxels
+    that repeat another's row); every candidate at one distance."""
+    rng = np.random.default_rng(seed)
+    c = 3 * n_off
+    points = rng.uniform(-1.0, 1.0, (c, 3 * p)).astype(np.float32)
+    if case == "ties":
+        for s in range(0, c, 3):
+            for d in range(3):
+                points[s, d * p + 1:d * p + p // 2] = points[s, d * p]
+        points[1::4] = points[0::4][:len(points[1::4])]
+    if case == "one distance":
+        points[:] = 0.0
+        points[:, :p] = 0.5
+    slots = rng.integers(0, c, (m, n_off)).astype(np.int32)
+    if case == "duplicates":
+        slots[:, 1::2] = slots[:, 0::2][:, :n_off // 2]
+    cnt = rng.integers(0, p + 1, (m, n_off)).astype(np.int32)
+    cnt[0] = 0                       # a query with no live candidate
+    cnt[1] = 0
+    cnt[1, 5] = 3                    # fewer live candidates than k
+    queries = rng.uniform(-0.5, 0.5, (m, 3)).astype(np.float32)
+    return points, slots, cnt, queries
+
+
+@pytest.mark.parametrize("split", [1, 2, 4])
+@pytest.mark.parametrize("case", ["random", "ties", "duplicates",
+                                  "one distance"])
+@pytest.mark.parametrize("k", [1, 5, 40, 128])
+def test_warp_select_model_matches_plain(k, case, split):
+    """K12's compare-exchange schedule (batch sort, merge, the split's
+    hand-over) gives the plain version's neighbours bit for bit, on random,
+    tied and duplicate candidates and on candidates all at one distance;
+    with a scalar radius and a radius a query."""
+    points, slots, cnt, queries = _select_case(case)
+    rng = np.random.default_rng(k + split)
+    for radius in (np.float32(0.9), rng.uniform(
+            0.2, 1.5, queries.shape[0]).astype(np.float32)):
+        keys = _warp_select_model(points, slots, cnt, queries, radius, k,
+                                  split)
+        got = _model_neighbors(points, slots, keys)
+        r = radius if np.isscalar(radius) else torch.from_numpy(radius)
+        want = k12.knn_search_plain(
+            torch.from_numpy(points), torch.from_numpy(slots),
+            torch.from_numpy(cnt), torch.from_numpy(queries),
+            float(r) if np.isscalar(radius) else r, k)
+        np.testing.assert_array_equal(got[1], want.mask.numpy())
+        np.testing.assert_array_equal(got[0], want.points.numpy())
+        np.testing.assert_array_equal(got[2], want.dist.numpy())
+        assert not got[1][0].any() and got[1][1].sum() <= 3
+
+
+def test_warp_select_networks_sort():
+    """The two networks alone: sort32_desc sorts any 32 keys descending;
+    merge_batch leaves the smallest 32 R of an ascending array and a batch,
+    ascending, at R = 1, 2, 4."""
+    rng = np.random.default_rng(3)
+    for _ in range(50):
+        b = rng.integers(0, 1 << 40, 32).astype(np.uint64)
+        b[rng.uniform(size=32) < 0.2] = _NONE
+        np.testing.assert_array_equal(_sort32_desc(b), np.sort(b)[::-1])
+        for r_count in (1, 2, 4):
+            a = np.sort(rng.integers(0, 1 << 40, 32 * r_count).astype(
+                np.uint64))
+            a[rng.uniform(size=a.size) < 0.1] = _NONE
+            a = np.sort(a).reshape(r_count, 32)
+            got = _merge_batch(a, np.sort(b)[::-1]).reshape(-1)
+            np.testing.assert_array_equal(
+                got, np.sort(np.concatenate([a.reshape(-1), b]))[:a.size])
