@@ -202,10 +202,11 @@ when either is missing. Phases; any failure raises and exits non-zero:
      (tolerances at CT_BA_MESH_TOL; bit for bit where the slices and the
      window take one cluster size);
   21. (c): K11 at the shapes of (a)'s partitioned insert (frame 1's; and at
-     two ranks'), bit for bit; K3's rank-0 slots and the refit of the dirty
-     list (K10's tolerance); K8's halo launch on rank 1's slice of (b)'s
-     window, its J^T r within 10 times the float32 plain version's gap to
-     the float64 one; each timed;
+     two ranks'), bit for bit, one device operation a call, beside
+     torch.sort of the chunk's owners (its library yardstick); K3's rank-0
+     slots and the refit of the dirty list (K10's tolerance); K8's halo
+     launch on rank 1's slice of (b)'s window, its J^T r within 10 times
+     the float32 plain version's gap to the float64 one; each timed;
   22. the exact k-NN search: Odometry(default_driving_profile() with
      ball_neighborhood=False).stream_frames(batch=16) over the driving
      phase's 80 frames: frames/s and host syncs a frame beside the driving
@@ -2807,7 +2808,7 @@ def phase_kernels_scale_out(dev, frames, window):
     records = {}
     world, valid, res, n, cap = seen["k11"][1]
     records["owner_pack"] = _kernel_k11(world, valid, res, n, cap,
-                                        "world size 1")
+                                        "world size 1", count_ops=True)
     m2 = (world.shape[0] + 1) // 2
     records["owner_pack"]["others"] = {"2 ranks": _kernel_k11(
         world[:m2].contiguous(), valid[:m2].contiguous(), res, 2,
@@ -2826,25 +2827,37 @@ def phase_kernels_scale_out(dev, frames, window):
     return records
 
 
-def _kernel_k11(world, valid, res, n, cap, tag):
-    """K11 against its plain version (bit for bit), then timed: a CUDA graph
-    of 20 calls, and with its host side; the plain version between
-    events."""
+def _kernel_k11(world, valid, res, n, cap, tag, count_ops=False):
+    """K11 against its plain version (bit for bit, two calls), then timed:
+    a CUDA graph of 20 calls, and with its host side; the plain version
+    between events; the yardstick ``torch.sort(owner, stable=True)`` on
+    the chunk's prebuilt owners (the grouping alone, no scatter; never
+    called by the port), a CUDA graph of 20; with ``count_ops``, the
+    device operations of one call (one)."""
     out = checks.check_owner_pack(world, valid, res, n, cap)
     args = (world, valid, res, n, cap)
     ms, how = time_stateless(lambda: k11.owner_pack(*args))
     host_ms, _ = time_host(lambda: k11.owner_pack(*args))
     plain_ms, _ = time_host(lambda: k11.owner_pack_plain(*args), reps=10)
     m = world.shape[0]
+    owner = torch.where(valid, k11.owners(world, res, n),
+                        torch.full((m,), n, device=world.device)
+                        ).to(torch.int32)
+    library_ms, _ = time_stateless(lambda: torch.sort(owner, stable=True))
+    ops = None
+    if count_ops:
+        ops = _require_ops(f"K11 owner_pack {tag}", _traced("K11", [(
+            "ops", k11.owner_pack, args, None)])[0], 1)
     # the chunk read once (points, flags), the send buffers and the
     # dropped count written once
     n_bytes = m * 13 + n * cap * 13 + 4
     log(f"K11 owner_pack {tag} m={m} n={n} cap={cap}: identical to plain "
         f"({out['sent']} sent, {out['dropped']} dropped); {ms:.4f} ms "
         f"({how}), {host_ms:.4f} ms with its host side, plain "
-        f"{plain_ms:.4f} ms")
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=None,
-                bytes=n_bytes, ops=m * 12.0, timing=how, host_ms=host_ms,
+        f"{plain_ms:.4f} ms, torch.sort of the owners {library_ms:.4f} ms")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bytes=n_bytes, ops=m * 12.0,
+                timing=how, host_ms=host_ms, device_ops_per_call=ops,
                 shape=f"m={m} n={n} cap={cap} sent={out['sent']}")
 
 

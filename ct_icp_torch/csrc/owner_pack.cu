@@ -5,41 +5,64 @@
 // owner_hash(voxel_coords) % n, its rank among the valid points of the same
 // owner in scan order (the reference's one-hot cumsum), and the scatter of
 // the points whose rank is below the per-pair capacity into the send
-// buffers send[owner, rank] (zeros elsewhere). The reference is no Pallas
-// kernel; this is the one stage of the sharded insert that is not a
-// collective or K3.
+// buffers send[owner, rank] (zeros elsewhere), with the count of the points
+// dropped. The reference is no Pallas kernel; this is the one stage of the
+// sharded insert that is not a collective or K3.
 //
-// Two launches, a block of 256 threads over tiles of 1,024 points (four
-// sub-tiles of 256, a thread a point in each):
-//   1. count: each block counts its tile's valid points of each owner
-//      (shared-memory counters; a count is order-free) into
-//      counts[block, owner];
-//   2. write: each block sums the counts of the blocks before it (its base
-//      for each owner) and of all blocks (each owner's total), then walks
-//      its four sub-tiles in order: a point's rank inside its warp is the
-//      lanes below it with the same owner (__match_any_sync), inside the
-//      block the same owner's points of the warps before it plus the
-//      sub-tiles before it; the point goes to send[owner, base + rank] if
-//      that is below cap. Every block also zero-fills its share of the
-//      entries past each owner's min(total, cap), and block 0 writes the
-//      dropped count, sum over owners of max(total - cap, 0): no float or
-//      order-dependent atomics, so a call repeats bit for bit and equals
-//      the plain version exactly.
+// One cooperative launch of resident blocks of 256 threads, block b owning
+// the run of `tiles` 256-point tiles from b * tiles (the scan-order
+// compaction of csrc/compact.cuh, generalised from one kept bit to n
+// owners):
+//   1. each thread derives its point's owner (-1 where invalid or past the
+//      chunk) and keeps it in shared memory; the lanes of a warp with the
+//      same owner find each other (__match_any_sync) and the lowest of them
+//      writes their count to the block's cell [owner][tile][warp]; one
+//      block scan (block_exclusive_scan) of the n * tiles * 8 cells gives
+//      every cell its rank among the block's points of its owner, and each
+//      owner's block total, which goes to block_cnt[owner][block] (scratch
+//      kept by the caller);
+//   2. one grid barrier; each warp sums block_cnt over the blocks before
+//      this one and over all blocks for its owners (lanes over the blocks,
+//      a shuffle reduction): the block's first rank and the total of each
+//      owner; block 0 writes dropped = sum over owners of max(total - cap, 0);
+//   3. each point goes to send[owner, rank] with rank = the block's first
+//      rank + its cell's rank + the lanes below it with the same owner,
+//      where rank < cap (three 4-byte stores: neighbouring lanes of one
+//      owner write neighbouring rows); every block zero-fills its share of
+//      each owner's rows [min(total, cap), cap) with 16-byte stores over
+//      the flat [n, cap, 3] floats and [n, cap] flags, scalar at the
+//      ragged ends.
+// Counts are integers summed in a fixed order or order-free: no float or
+// order-dependent atomic, so a call repeats bit for bit and equals the
+// plain version exactly.
+//
+// A call's size is capped by the one launch: at most kMaxTiles tiles a
+// block and n * tiles * kWarps <= kMaxCells cells, over the blocks
+// resident together (k11_resident_blocks; tools/exp_owner.py prints it):
+// m <= resident * min(16, 512 / n) * 256 points. kernels/owner_pack.py::
+// layout raises a ValueError past it.
 //
 // Bound: bytes (the chunk's points and flags read once, the send buffers
-// written once). The two launches read the chunk twice (the owner is
-// recomputed rather than stored) and the prefix reads every block's counts.
+// and the count written once). At the partitioned insert's shapes the
+// time is latency: the launch, the barrier and the dependent prefix.
+#include <cooperative_groups.h>
+
+#include <algorithm>
 #include <cstdint>
 
 #include "common.cuh"
+#include "compact.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSub = 4;                    // sub-tiles a block
-constexpr int kTile = kThreads * kSub;     // points a block
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxOwners = 64;
+constexpr int kMaxTiles = 16;              // tiles of kThreads points a block
+constexpr int kMaxCells = 4096;            // n * tiles * kWarps of a block
+constexpr int kMaxBlocks = 8192;
 
 __device__ __forceinline__ uint32_t owner_hash(int cx, int cy, int cz) {
   return (static_cast<uint32_t>(cx) * 2654435761u ^
@@ -58,97 +81,148 @@ __device__ __forceinline__ int owner_of(const float* __restrict__ world,
   return static_cast<int>(owner_hash(cx, cy, cz) % static_cast<uint32_t>(n));
 }
 
-__global__ void __launch_bounds__(kThreads)
-    owner_count_kernel(const float* __restrict__ world,
-                       const uint8_t* __restrict__ valid, int m, float res,
-                       int n, int* __restrict__ counts) {
-  __shared__ int cnt[kMaxOwners];
-  for (int o = threadIdx.x; o < n; o += kThreads) cnt[o] = 0;
-  __syncthreads();
-  const int base = blockIdx.x * kTile;
-  for (int s = 0; s < kSub; ++s) {
-    const int o = owner_of(world, valid, m, base + s * kThreads + threadIdx.x,
-                           res, n);
-    if (o >= 0) atomicAdd(cnt + o, 1);
-  }
-  __syncthreads();
-  for (int o = threadIdx.x; o < n; o += kThreads)
-    counts[blockIdx.x * n + o] = cnt[o];
+// Zero [a, e) of p's elements of type T by this grid thread's share
+// (thread `tid` of `stride`): 16-byte stores where the address is aligned,
+// single stores at the ragged ends.
+template <typename T>
+__device__ __forceinline__ void zero_range(T* p, long long a, long long e,
+                                           long long tid, long long stride) {
+  constexpr long long kPer = 16 / sizeof(T);
+  if (a >= e) return;
+  const auto addr = reinterpret_cast<uintptr_t>(p + a);
+  long long a16 = a + static_cast<long long>(((16 - addr % 16) % 16) /
+                                             sizeof(T));
+  if (a16 > e) a16 = e;
+  const long long e16 = a16 + (e - a16) / kPer * kPer;
+  for (long long j = a + tid; j < a16; j += stride) p[j] = T(0);
+  uint4* body = reinterpret_cast<uint4*>(p + a16);
+  for (long long j = tid; j < (e16 - a16) / kPer; j += stride)
+    body[j] = make_uint4(0u, 0u, 0u, 0u);
+  for (long long j = e16 + tid; j < e; j += stride) p[j] = T(0);
 }
 
+// Every owner's rows [lim[o], cap) of send and send_valid, zero.
+__device__ __forceinline__ void zero_fill(const int* lim, int n, int cap,
+                                          float* send, uint8_t* send_valid,
+                                          long long tid, long long stride) {
+  for (int o = 0; o < n; ++o) {
+    const long long r0 = static_cast<long long>(o) * cap + lim[o];
+    const long long r1 = static_cast<long long>(o + 1) * cap;
+    zero_range(send, 3 * r0, 3 * r1, tid, stride);
+    zero_range(send_valid, r0, r1, tid, stride);
+  }
+}
+
+__device__ __forceinline__ void write_row(const float* __restrict__ world,
+                                          int i, int o, int r, int cap,
+                                          float* send, uint8_t* send_valid) {
+  const long long e = static_cast<long long>(o) * cap + r;
+  send[3 * e + 0] = world[3 * i + 0];
+  send[3 * e + 1] = world[3 * i + 1];
+  send[3 * e + 2] = world[3 * i + 2];
+  send_valid[e] = 1;
+}
+
+// Mutable arrays shared across blocks (block_cnt) carry no __restrict__
+// and are read after the barrier through the L2 (__ldcg).
 __global__ void __launch_bounds__(kThreads)
-    owner_write_kernel(const float* __restrict__ world,
-                       const uint8_t* __restrict__ valid, int m, float res,
-                       int n, int cap, int nb,
-                       const int* __restrict__ counts,
-                       float* __restrict__ send,
-                       uint8_t* __restrict__ send_valid,
-                       int* __restrict__ dropped) {
-  __shared__ int base_o[kMaxOwners];       // this block's first rank
-  __shared__ int total_o[kMaxOwners];
-  __shared__ int warp_cnt[kWarps][kMaxOwners];
-  // nb: the count launch's blocks (0 for an empty chunk, where this
-  // launch has one block that only zero-fills)
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int o = tid; o < n; o += kThreads) {
-    int before = 0, all = 0;
-    for (int q = 0; q < nb; ++q) {
-      const int c = counts[q * n + o];
-      if (q < b) before += c;
-      all += c;
-    }
-    base_o[o] = before;
-    total_o[o] = all;
+    owner_pack_kernel(const float* __restrict__ world,
+                      const uint8_t* __restrict__ valid, int m, float res,
+                      int n, int cap, int tiles, int32_t* block_cnt,
+                      float* send, uint8_t* send_valid,
+                      int32_t* __restrict__ dropped) {
+  cg::grid_group grid = cg::this_grid();
+  __shared__ int8_t own[kMaxTiles * kThreads];
+  __shared__ int cells[kMaxCells];
+  __shared__ int tmp[kWarps + 1];
+  __shared__ int first[kMaxOwners];        // the block's first rank
+  __shared__ int lim[kMaxOwners];          // min(total, cap)
+  __shared__ int over[kMaxOwners];         // max(total - cap, 0)
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int tw = tiles * kWarps;
+  const int b = blockIdx.x, nb = gridDim.x;
+  const int tile0 = b * tiles;
+
+  // ---- 1. owners, each (owner, tile, warp) cell's count, the block scan
+  for (int c = threadIdx.x; c < n * tw; c += kThreads) cells[c] = 0;
+  __syncthreads();
+  for (int t = 0; t < tiles; ++t) {
+    const int i = (tile0 + t) * kThreads + threadIdx.x;
+    const int o = owner_of(world, valid, m, i, res, n);
+    own[t * kThreads + threadIdx.x] = static_cast<int8_t>(o);
+    const unsigned same = __match_any_sync(0xffffffffu, o);
+    if (o >= 0 && (same & below) == 0)
+      cells[o * tw + t * kWarps + warp] = __popc(same);
   }
   __syncthreads();
-  if (b == 0 && tid == 0) {
+  const int block_total = cticp::block_exclusive_scan<kThreads>(
+      cells, n * tw, tmp);
+  // owner o's first cell's rank among all the block's points
+  auto start = [&](int o) {
+    return o < n && tw > 0 ? cells[o * tw] : block_total;
+  };
+  for (int o = threadIdx.x; o < n; o += kThreads)
+    block_cnt[o * nb + b] = start(o + 1) - start(o);
+  grid.sync();
+
+  // ---- 2. each owner's first rank in this block and its total
+  for (int o = warp; o < n; o += kWarps) {
+    int before = 0, total = 0;
+    for (int q = lane; q < nb; q += 32) {
+      const int c = __ldcg(block_cnt + o * nb + q);
+      total += c;
+      if (q < b) before += c;
+    }
+    for (int d = 16; d > 0; d >>= 1) {
+      before += __shfl_xor_sync(0xffffffffu, before, d);
+      total += __shfl_xor_sync(0xffffffffu, total, d);
+    }
+    if (lane == 0) {
+      first[o] = before - start(o);
+      lim[o] = min(total, cap);
+      over[o] = max(total - cap, 0);
+    }
+  }
+  __syncthreads();
+  if (b == 0 && threadIdx.x == 0) {
     int d = 0;
-    for (int o = 0; o < n; ++o) d += max(total_o[o] - cap, 0);
+    for (int o = 0; o < n; ++o) d += over[o];
     dropped[0] = d;
   }
-  // the entries past each owner's points, zero: a grid-stride loop over
-  // the n * cap entries, each written by exactly one thread of the grid
-  const int stride = gridDim.x * kThreads;
-  for (int e = b * kThreads + tid; e < n * cap; e += stride) {
-    const int o = e / cap, q = e - o * cap;
-    if (q >= min(total_o[o], cap)) {
-      send[3 * e + 0] = 0.0f;
-      send[3 * e + 1] = 0.0f;
-      send[3 * e + 2] = 0.0f;
-      send_valid[e] = 0;
-    }
-  }
-  const unsigned below = (1u << lane) - 1u;
-  for (int s = 0; s < kSub; ++s) {
-    const int i = b * kTile + s * kThreads + tid;
-    const int o = owner_of(world, valid, m, i, res, n);
-    for (int v = tid; v < kWarps * n; v += kThreads)
-      warp_cnt[v / n][v % n] = 0;
-    __syncthreads();
+
+  // ---- 3. the rows, then the zero fill past each owner's
+  for (int t = 0; t < tiles; ++t) {
+    const int o = own[t * kThreads + threadIdx.x];
     const unsigned same = __match_any_sync(0xffffffffu, o);
-    if (o >= 0 && (same & below) == 0) warp_cnt[warp][o] = __popc(same);
-    __syncthreads();
     if (o >= 0) {
-      int r = base_o[o] + __popc(same & below);
-      for (int w = 0; w < warp; ++w) r += warp_cnt[w][o];
-      if (r < cap) {
-        const int e = o * cap + r;
-        send[3 * e + 0] = world[3 * i + 0];
-        send[3 * e + 1] = world[3 * i + 1];
-        send[3 * e + 2] = world[3 * i + 2];
-        send_valid[e] = 1;
-      }
+      const int r = first[o] + cells[o * tw + t * kWarps + warp] +
+                    __popc(same & below);
+      if (r < cap)
+        write_row(world, (tile0 + t) * kThreads + threadIdx.x, o, r, cap,
+                  send, send_valid);
     }
-    __syncthreads();
-    // the sub-tile's points of each owner move the next sub-tile's base
-    for (int v = tid; v < n; v += kThreads) {
-      int t = 0;
-      for (int w = 0; w < kWarps; ++w) t += warp_cnt[w][v];
-      base_o[v] += t;
-    }
-    __syncthreads();
   }
+  zero_fill(lim, n, cap, send, send_valid,
+            static_cast<long long>(b) * kThreads + threadIdx.x,
+            static_cast<long long>(nb) * kThreads);
+}
+
+int g_max_blocks = 0;   // blocks resident together: the cooperative limit
+
+int resident_blocks() {
+  if (g_max_blocks == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, owner_pack_kernel, kThreads, 0);
+    if (e != cudaSuccess) return -static_cast<int>(e);
+    g_max_blocks = std::min(per_sm * sms, kMaxBlocks);
+  }
+  return g_max_blocks;
 }
 
 }  // namespace
@@ -156,34 +230,37 @@ __global__ void __launch_bounds__(kThreads)
 // The most owners (ranks) a call takes.
 extern "C" int k11_max_owners() { return kMaxOwners; }
 
-// The blocks of a call over m points: the rows of the counts scratch.
-extern "C" int k11_blocks(int m) {
-  return m > 0 ? (m + kTile - 1) / kTile : 0;
-}
+// The blocks of the kernel resident together on the current device (the
+// most a cooperative launch takes), or minus the CUDA error.
+extern "C" int k11_resident_blocks() { return resident_blocks(); }
 
-// world f32 [m, 3], valid u8 [m]; counts int32 [k11_blocks(m), n] scratch;
-// send f32 [n, cap, 3], send_valid u8 [n, cap] and dropped int32 [1]
-// written whole. Two launches on `stream`; returns cudaGetLastError().
+// world f32 [m, 3], valid u8 [m]; `blocks` blocks of `tiles` 256-point
+// tiles each, covering the chunk (kernels/owner_pack.py::layout picks
+// them); block_cnt int32 [n * blocks], kept by the caller; send
+// f32 [n, cap, 3], send_valid u8 [n, cap] and dropped int32 [1] written
+// whole. One cooperative launch on `stream`; returns its error.
 extern "C" int k11_owner_pack(const void* world, const void* valid, int m,
-                              float res, int n, int cap, void* counts,
-                              void* send, void* send_valid, void* dropped,
+                              float res, int n, int cap, int tiles,
+                              int blocks, void* block_cnt, void* send,
+                              void* send_valid, void* dropped,
                               void* stream) {
-  if (m < 0 || n < 1 || n > kMaxOwners || cap < 1)
+  const int most = resident_blocks();
+  if (most < 0) return -most;
+  if (m < 0 || n < 1 || n > kMaxOwners || cap < 1 || tiles < 0 ||
+      tiles > kMaxTiles || n * tiles * kWarps > kMaxCells || blocks < 1 ||
+      blocks > most ||
+      static_cast<long long>(blocks) * tiles * kThreads < m)
     return static_cast<int>(cudaErrorInvalidValue);
   const auto* w = static_cast<const float*>(world);
   const auto* v = static_cast<const uint8_t*>(valid);
-  auto* c = static_cast<int*>(counts);
-  auto st = static_cast<cudaStream_t>(stream);
-  const int nb = k11_blocks(m);
-  // no point: the write launch still zero-fills and writes dropped = 0
-  const int grid = nb > 0 ? nb : 1;
-  if (nb > 0) {
-    owner_count_kernel<<<nb, kThreads, 0, st>>>(w, v, m, res, n, c);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  owner_write_kernel<<<grid, kThreads, 0, st>>>(
-      w, v, m, res, n, cap, nb, c, static_cast<float*>(send),
-      static_cast<uint8_t*>(send_valid), static_cast<int*>(dropped));
+  auto* s = static_cast<int32_t*>(block_cnt);
+  auto* out = static_cast<float*>(send);
+  auto* ov = static_cast<uint8_t*>(send_valid);
+  auto* d = static_cast<int32_t*>(dropped);
+  void* args[] = {&w, &v, &m, &res, &n, &cap, &tiles, &s, &out, &ov, &d};
+  const cudaError_t e = cudaLaunchCooperativeKernel(
+      reinterpret_cast<void*>(owner_pack_kernel), dim3(blocks),
+      dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }

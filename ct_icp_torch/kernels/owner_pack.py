@@ -7,11 +7,20 @@ valid points of the same owner in scan order, and the point written to
 ``send[owner, rank]`` where ``rank < cap`` (the others dropped and
 counted). The send buffers then go through one ``all_to_all`` per level.
 
-Kernel: ``csrc/owner_pack.cu``, two launches (per-block owner counts; a
-prefix over the blocks, the in-block ranks by warp match, the writes and
-the zero fill), no order-dependent atomics: the kernel equals
-:func:`owner_pack_plain` bit for bit. Bound on the card: bytes (the chunk
-read once, the send buffers written once).
+Kernel: ``csrc/owner_pack.cu``, one cooperative launch a call: each
+block's owners and their per-(owner, tile, warp) counts scanned in shared
+memory, one grid barrier, each owner's prefix over the blocks, the writes
+(ranks by warp match) and a 16-byte zero fill past each owner's rows. No
+order-dependent atomic: the kernel equals :func:`owner_pack_plain` bit for
+bit. The blocks' per-owner counts go to a scratch kept per device from
+call to call (:func:`_scratch`). Bound on the card: bytes (the chunk read
+once, the send buffers written once).
+
+The one launch caps a call's size: :func:`layout` gives each of the
+blocks resident together on the card a run of at most ``MAX_TILES``
+256-point tiles and ``MAX_CELLS`` (owner, tile, warp) cells, so a call
+takes at most ``resident * min(16, 512 // n) * 256`` points (``resident``
+from ``k11_resident_blocks``), and raises a ValueError past that.
 
 A CPU tensor takes :func:`owner_pack_plain`; a CUDA tensor launches the
 kernel or raises.
@@ -24,9 +33,20 @@ import torch
 from ct_icp_torch.kernels import build
 from ct_icp_torch.ops import voxel as vx
 
-# launches of the CUDA kernels by owner_pack, two a call (one, the write,
-# for an empty chunk); reset freely by callers
+# launches of the CUDA kernel by owner_pack, one a call (reset freely by
+# callers)
 launches = 0
+# device -> the kernel's int32 scratch, grown to the largest call's need
+_scratches = {}
+# [the most owners a call takes, the blocks resident together, the
+# launcher], read from the library once
+_lib = []
+
+# the kernel's tile, warps a tile and limits a block (csrc/owner_pack.cu)
+THREADS = 256
+WARPS = THREADS // 32
+MAX_TILES = 16
+MAX_CELLS = 4096
 
 # the reference's owner-hash primes (sharded_map.py:36-38): a second hash,
 # decoupled from the slot probe hash so shard load stays uniform
@@ -75,12 +95,31 @@ def owner_pack_plain(world, valid, resolution: float, n: int,
     return Packed(send, send_valid, dropped)
 
 
+def layout(m: int, n: int, resident: int):
+    """(tiles a block, blocks) of a call over ``m`` points for ``n`` owners
+    on ``resident`` blocks resident together: the fewest tiles a block
+    that the blocks cover, as few blocks as those tiles need. Raises a
+    ValueError where the call would pass ``MAX_TILES`` tiles or
+    ``MAX_CELLS`` cells a block."""
+    n_tiles = -(-m // THREADS)
+    if n_tiles == 0:
+        return 0, 1
+    tiles = -(-n_tiles // resident)
+    if tiles > MAX_TILES or n * tiles * WARPS > MAX_CELLS:
+        most = resident * min(MAX_TILES, MAX_CELLS // (n * WARPS)) * THREADS
+        raise ValueError(
+            f"owner_pack: m = {m} points for n = {n} owners needs {tiles} "
+            f"tiles a block on {resident} resident blocks; one launch takes "
+            f"at most {min(MAX_TILES, MAX_CELLS // (n * WARPS))} "
+            f"({most} points)")
+    return tiles, -(-n_tiles // tiles)
+
+
 def owner_pack(world, valid, resolution: float, n: int, cap: int) -> Packed:
     """Pack ``world`` f32[m, 3] (where ``valid`` bool[m]) for ``n`` owners
     at ``cap`` points a pair: returns :class:`Packed`; nothing is read
-    back. Two launches of ``csrc/owner_pack.cu`` on the card (the count
-    and the write), each counted in ``launches``; an empty chunk launches
-    the write alone."""
+    back. One launch of ``csrc/owner_pack.cu`` on the card, counted in
+    ``launches``; a ValueError past :func:`layout`'s limit."""
     if world.device.type == "cpu":
         return owner_pack_plain(world, valid, resolution, n, cap)
     global launches
@@ -91,23 +130,51 @@ def owner_pack(world, valid, resolution: float, n: int, cap: int) -> Packed:
     build.check_tensor(world, torch.float32, (m, 3), "owner_pack", "world",
                        dev)
     build.check_tensor(valid, torch.bool, (m,), "owner_pack", "valid", dev)
-    most = build.launcher("owner_pack", "k11_max_owners", ())()
+    most, resident, fn = _library()
     if not 1 <= n <= most or cap < 1:
         raise ValueError(f"owner_pack: n = {n} (1..{most}), cap = {cap}")
-    blocks = build.launcher("owner_pack", "k11_blocks", (build.INT,))(m)
-    counts = torch.empty((max(blocks, 1) * n,), dtype=torch.int32,
-                         device=dev)
+    tiles, blocks = layout(m, n, resident)
     send = torch.empty((n, cap, 3), dtype=torch.float32, device=dev)
     send_valid = torch.empty((n, cap), dtype=torch.uint8, device=dev)
     dropped = torch.empty((1,), dtype=torch.int32, device=dev)
-    fn = build.launcher("owner_pack", "k11_owner_pack", _ARGTYPES)
     status = fn(build.ptr(world), build.ptr(valid), m, float(resolution), n,
-                cap, build.ptr(counts), build.ptr(send), build.ptr(send_valid),
-                build.ptr(dropped), build.stream_of(world))
+                cap, tiles, blocks, build.ptr(_scratch(dev, n * blocks)),
+                build.ptr(send), build.ptr(send_valid), build.ptr(dropped),
+                build.stream_of(world))
     build.check_status(status, "owner_pack")
-    launches += 2 if blocks else 1
+    launches += 1
     return Packed(send, send_valid, dropped)
 
 
+def resident_blocks() -> int:
+    """The kernel's blocks resident together on the current CUDA device:
+    the most one cooperative launch takes."""
+    return _library()[1]
+
+
+def _library():
+    """[the most owners, the resident blocks, the launcher], once."""
+    if not _lib:
+        resident = build.launcher("owner_pack", "k11_resident_blocks", ())()
+        if resident < 0:
+            build.check_status(-resident, "owner_pack")
+        _lib.extend((build.launcher("owner_pack", "k11_max_owners", ())(),
+                     resident,
+                     build.launcher("owner_pack", "k11_owner_pack",
+                                    _ARGTYPES)))
+    return _lib
+
+
+def _scratch(dev, need: int):
+    """The int32 scratch of ``dev`` (the blocks' per-owner counts, ``need``
+    entries), kept from call to call and grown to the call's need: no call
+    clears it (every launch writes the entries it reads)."""
+    s = _scratches.get(dev)
+    if s is None or s.shape[0] < need:
+        s = _scratches[dev] = torch.empty((need,), dtype=torch.int32,
+                                          device=dev)
+    return s
+
+
 _ARGTYPES = (build.PTR, build.PTR, build.INT, build.FLOAT, build.INT,
-             build.INT) + (build.PTR,) * 5
+             build.INT, build.INT, build.INT) + (build.PTR,) * 5

@@ -5,11 +5,12 @@ as one K7 and one K6 launch, K4 one launch a call on a claim table kept
 from call to call, K8 one launch per CT-BA step (its inner iterations in
 one launch), K9 one launch an eviction of every level on per-device
 accumulators it leaves zero, K10 one launch a level's normal refit, K12
-one launch a k-NN search; K1 with the normal filter, K2 with a radius a
-query; K13 one launch an exact sample, bit for bit, on a table kept from
-call to call, and the staged path's register_frame through K13 and K4 and
-no plain version). The tests that count a call's device operations read
-torch.profiler in a fresh process (the ``traced_ops`` fixture).
+one launch a k-NN search, K11 one launch an owner pack; K1 with the
+normal filter, K2 with a radius a query; K13 one launch an exact sample,
+bit for bit, on a table kept from call to call, and the staged path's
+register_frame through K13 and K4 and no plain version). The tests that
+count a call's device operations read torch.profiler in a fresh process
+(the ``traced_ops`` fixture).
 
 Needs an NVIDIA GPU and nvcc (the kernels build from ct_icp_torch/csrc at
 first use); skips elsewhere. Run on a machine with the card (this file needs
@@ -988,7 +989,8 @@ def test_level_normals_is_one_device_operation(cuda, traced_ops):
 def test_owner_pack_matches_plain(cuda, m, n, cap):
     """K11 bit for bit: chunks off the block tile, a capacity that drops
     points (64) and one that drops none, 1 to 64 owners, an empty chunk
-    (only the zero fill and dropped = 0), invalid points scattered."""
+    (only the zero fill and dropped = 0), invalid points scattered; one
+    launch a call."""
     rng = np.random.default_rng(m + n)
     world = torch.from_numpy(np.concatenate([
         _scene(rng, m // 2), _scene(rng, m - m // 2)])
@@ -996,11 +998,44 @@ def test_owner_pack_matches_plain(cuda, m, n, cap):
     valid = torch.from_numpy(rng.uniform(size=m) < 0.9).to(cuda)
     before = k11.launches
     out = checks.check_owner_pack(world, valid, 0.8, n, cap)
-    # two calls, each the count and the write launch (the write alone for
-    # an empty chunk)
-    assert k11.launches == before + 2 * (2 if m else 1)
+    # two calls, one launch each
+    assert k11.launches == before + 2
     if int(valid.sum()) > 2 * n * cap:      # an owner overflows its cap
         assert out["dropped"] > 0
+
+
+@pytest.mark.parametrize("n", [1, 64])
+def test_owner_pack_limit(cuda, n):
+    """A chunk of the most points one launch takes (the card's resident
+    blocks, each with its most tiles) packs bit for bit; one point more
+    raises a ValueError that names the limit, and nothing is launched."""
+    most = k11.resident_blocks() * min(
+        k11.MAX_TILES, k11.MAX_CELLS // (n * k11.WARPS)) * k11.THREADS
+    rng = np.random.default_rng(n)
+    world = torch.from_numpy(rng.uniform(-50, 50, (most + 1, 3))
+                             .astype(np.float32)).to(cuda)
+    valid = torch.from_numpy(rng.uniform(size=most + 1) < 0.9).to(cuda)
+    before = k11.launches
+    checks.check_owner_pack(world[:most], valid[:most], 0.8, n, 20000)
+    assert k11.launches == before + 2
+    with pytest.raises(ValueError, match=f"at most .*{most} points"):
+        k11.owner_pack(world, valid, 0.8, n, 20000)
+    assert k11.launches == before + 2
+
+
+def test_owner_pack_is_one_device_operation(cuda, traced_ops):
+    """A call is one device operation: the kernel, no memset or copy
+    (traced in a fresh process), at the partitioned insert's world-size-1
+    shape (m = 65,536, n = 1, cap = 131,072)."""
+    rng = np.random.default_rng(11)
+    world = torch.from_numpy(_scene(rng, 32768) - 3.0).to(cuda)
+    valid = torch.from_numpy(rng.uniform(size=65536) < 0.9).to(cuda)
+    k11.owner_pack(world, valid, 0.8, 1, 131072)    # warm-up
+    torch.cuda.synchronize()
+    names = traced_ops(k11.owner_pack, world, valid, 0.8, 1, 131072)
+    if not names:
+        pytest.skip("the profiler saw no device activity")
+    assert len(names) == 1 and "owner_pack" in names[0], names
 
 
 @pytest.mark.parametrize("max_dirty", [1 << 15, 50])
