@@ -10,7 +10,8 @@ when either is missing. Phases; any failure raises and exits non-zero:
 
   1. the card: nvidia-smi's name and power limit, torch's device name;
   2. build the CUDA kernels K1-K13 from ct_icp_torch/csrc with nvcc (one
-     process per source, all started together); print the build time and
+     process per library, all started together: one a source, K5's one a
+     residual family, kernels/build.py::PARTS); print the build time and
      ptxas's register / shared-memory / spill lines (and keep each entry's
      registers and spills for the kernels line);
   3. each kernel against its plain PyTorch version on the card
@@ -61,8 +62,9 @@ when either is missing. Phases; any failure raises and exits non-zero:
      yaw jolt over frames 18-24, a speed surge over 40-48,
      robust_num_attempts=3, batch 8), asserting the gate's own conditions
      and that K4 ran;
-  7. the long drive: the 500 frames of configs/synthetic_long_drive.yaml
-     (seed 7, 100,000 points a frame, read by the port's own YAML reader),
+  7. the long drive: the first 320 of the 500 frames of
+     configs/synthetic_long_drive.yaml (seed 7, 100,000 points a frame,
+     read by the port's own YAML reader; cut from 496 for phases 30-31),
      rendered beforehand on a thread pool, prepared in a PrefetchIterator
      (3 workers, depth 32) and streamed through
      Odometry(default_driving_profile()).stream_frames(batch=16) with the
@@ -124,8 +126,9 @@ when either is missing. Phases; any failure raises and exits non-zero:
      the L2 flushed, the points alone beside them; K6 on one table at the
      Pallas dma_gather_kernel's shapes (2^18 x 128 float32, N = 16,384 and
      110,592 random and sorted slots) beside index_select;
-  12. the indoor walk: the 240 frames of configs/synthetic_indoor_walk.yaml
-     (seed 7, 60,000 points a frame, rendered beforehand) through
+  12. the indoor walk: the first 180 of the 240 frames of
+     configs/synthetic_indoor_walk.yaml (seed 7, 60,000 points a frame,
+     rendered beforehand; cut from 240 for phases 30-31) through
      Odometry(default_robust_outdoor_low_inertia()).stream_frames(batch=4),
      the port's three-level map (0.2 m x 50 points at 2^20 slots, 0.5 m x
      40 at 2^19, 1.5 m x 40 at 2^17; searched on level 1, inserted into
@@ -175,7 +178,9 @@ when either is missing. Phases; any failure raises and exits non-zero:
   17. K1 and K2 built from this tree give, on tools/exp_header_trees.py's
      inputs, the outputs the parent tree's build gave before their device
      code moved into csrc/probe.cuh and csrc/eigh3.cuh (SHA-256 digests);
-  18. the robust corridor (80 frames, batch 8) and the escalation scene (48
+  18. the robust corridor (its first 40 frames, cut from 80 for phases
+     30-31,
+     batch 8) and the escalation scene (48
      frames, 3 attempts, batch 8) through robust_driving_profile() with the
      CT-BA backend on: 0 failures, APE <= 0.10 m, >= 1 refinement, one
      callback for each committed frame in order; K4 launched in the
@@ -209,7 +214,9 @@ when either is missing. Phases; any failure raises and exits non-zero:
      the float32 plain version's gap to the float64 one; each timed;
   22. the exact k-NN search: Odometry(default_driving_profile() with
      ball_neighborhood=False).stream_frames(batch=16) over the driving
-     phase's 80 frames: frames/s and host syncs a frame beside the driving
+     phase's first 40 frames (cut from 80 for phases 30-31; 23 and 24
+     too): frames/s and
+     host syncs a frame beside the driving
      phase's, APE within 1.5 times the JAX package's on the same frames on
      the CPU (SEARCH_REF_APE_M, tests/torch_search_reference.py), 0
      failures; K1, K12, K3 and K5 launched, one K12 a K1, K2 and K4 not;
@@ -236,8 +243,9 @@ when either is missing. Phases; any failure raises and exits non-zero:
      (STAGED_REF_APE_M, tests/torch_staged_reference.py), 0 failures; K4
      once a frame on the raw scan, K13 once a frame after frame 0;
   27. the same on the robust regimen (80 frames; K13 once an attempt), and
-     the random keypoint cap (max_num_keypoints=1000, GRID keypoints; 80
-     frames; K4 twice a frame after frame 0, no K13);
+     the random keypoint cap (max_num_keypoints=1000, GRID keypoints; 40
+     frames, cut from 80 for phases 30-31; K4 twice a frame after frame 0, no
+     K13);
   28. NONE keypoints and ADAPTIVE with 2 points a voxel and the 3,000-point
      cap, the first 10 frames each (both part from the corridor after
      about 10 frames, in the reference too);
@@ -245,7 +253,31 @@ when either is missing. Phases; any failure raises and exits non-zero:
      and 28 (identical), one device operation a call, timed as K4 is in
      phase 3; and CTICPRegistration.register of one frame (26's last
      keypoints from its initial pose) with its host side;
-  in 4-8, 10, 12, 14, 15, 18-20, 22-24 and 26-28 every kernel count and
+  30. CTICPRegistration.register with a [41] prior on the card and on
+     the CPU (the plain versions, the map copied there) on the cube room
+     of tests/test_solver.py (``_register41``), within REGISTER41_BOUND
+     (1e-4 m, 1e-3 deg); then the solver runs, frame by frame through
+     register_frame on the driving phase's frames at the driving profile's
+     widths: the GN solver (max_dist_to_plane_ct_icp 0.5), the ROBUST
+     solver (the reference defaults), point-to-distribution, the Huber
+     loss, the analytic Jacobian and CONSTANT_VELOCITY (20 frames each; K4
+     once a frame there: the device elects after the distortion), and
+     profile_registration (10 frames: its trajectory bit for bit a
+     non-profiled run's, each frame's replay within 1e-3 m of its
+     committed poses, positive phase durations); each held to 0 failures
+     and 1.5 x the JAX package's CPU APE on the same frames
+     (SOLVER_REF_APE_M, tests/torch_solver_reference.py), with frames/s,
+     host syncs and ICP iterations a frame, K5's launches and LM steps;
+  31. K5 against its plain version on the solver runs' first LM calls:
+     every residual family (GN's point-to-plane, the ROBUST rows, the
+     distribution, point-to-point and point-to-line built from the ROBUST
+     call's rows), the five losses on the Huber run's call, the [41] prior
+     on it, the analytic branch, the SIMPLE parametrization of the
+     constant-velocity run; K2's full descriptor (line, linearity,
+     planarity, barycenter, covariance; the ROBUST classes away from their
+     thresholds) on the ROBUST run's first full call; each timed as a CUDA
+     graph of 20 (K5: of one launch) with its bound;
+  in 4-8, 10, 12, 14, 15, 18-20, 22-24, 26-28 and 30 every kernel count and
   K5's device count of LM steps are set to 0 just before the path and read
   just after it (in 20, in each rank's process); each
   path must launch its kernels (4-8, 10, 12 and 22-24: K5 and the
@@ -253,14 +285,16 @@ when either is missing. Phases; any failure raises and exits non-zero:
   frame than LM steps (one per ICP iteration and readback where no batch
   rolled back, and in 23 one a level for each insert); the driving path
   one K5 launch per ICP iteration;
-  30. one JSON line of the kernels (K1-K5 with an "indoor" record, K3
+  32. one JSON line of the kernels (K1-K5 with an "indoor" record, K3
      with "indoor level 1" and "indoor level 2" as well, K1 and K2 with a
      "backend" record, K8 with its "blocks" mode beside its "gn" one, K9
      and K10 on level 0 with "level 1" and "level 2" records, K3's
      rank-0 slots and K8's halo launch, K11 with a "2 ranks" record, K1
      with the normal filter, K2 with a radius a query, K4 at the scan's
-     rung, K12, K13 with its "k=2, max_keep" record), the card's line, and
-     the result line.
+     rung, K12, K13 with its "k=2, max_keep" record, K5 with a record for
+     each family, loss, the [41] prior and the analytic branch of phase 31,
+     K2 with its "full descriptor" record), the card's line, and the
+     result line. The log gives each phase's seconds ("-- name: s").
 """
 
 import dataclasses
@@ -323,6 +357,13 @@ from ct_icp_torch.tools.timing import (HBM_BYTES_PER_S, bound,
 
 NUM_FRAMES = 80
 SEED = cor.APE_SEEDS[0]
+# depth cuts that pay for the solver phases 30-31 (PERF.md §7): the long
+# drive streams the backend gate's 320 frames (2 rebases at 100 m, frames
+# 120 and 240) instead of 496, the indoor walk 180 of its 240, the robust
+# corridor with the backend (phase 18) the first 40 of its 80
+LONG_SMOKE_FRAMES = 320
+INDOOR_SMOKE_FRAMES = 180
+BACKEND_ROBUST_FRAMES = 40
 BATCH = 16
 ROBUST_BATCH = 8
 ESC_FRAMES = 48
@@ -417,16 +458,21 @@ CT_BA_MESH_F = 16
 CT_BA_MESH_CONFIGS = [dict(num_inner_iters=2, solver="jacobi"),
                       dict(num_inner_iters=1, solver="pcg", num_cg_iters=8)]
 CT_BA_MESH_TOL = {"jacobi": (1e-5, 1e-4, 1e-5), "pcg": (1e-4, 1e-3, 1e-4)}
-# the search runs: the JAX package's Odometry on the driving phase's frames
-# (seed 3, batch 16) on the CPU reaches these mean APEs (m) with 0
+# the search runs: the JAX package's Odometry on the driving phase's first
+# SEARCH_FRAMES frames (seed 3, batch 16; knn_kc2 its first 10) on the CPU
+# reaches these mean APEs (m) with 0
 # failures (PYTHONPATH=. python tests/torch_search_reference.py); each port
 # run is held within SEARCH_APE_FACTOR times its run's, with 0 failures
-SEARCH_REF_APE_M = {"knn": 0.051491458347106965,
+SEARCH_REF_APE_M = {"knn": 0.02765945127375799,
                     "knn_kc2": 0.026497539515010098,
-                    "distance": 0.05295844087452732,
-                    "devsub": 0.10121936668283638}
+                    "distance": 0.03179070080081502,
+                    "devsub": 0.08027234532595093}
 SEARCH_APE_FACTOR = 1.5
 KC2_FRAMES = 10
+# the search runs' depth (knn, distance, devsub): the corridor's first 40
+# frames (cut from 80 for phases 30-31; SEARCH_REF_APE_M over the same
+# frames)
+SEARCH_FRAMES = 40
 # the staged per-frame path (a keypoint sampler other than GRID, the random
 # keypoint cap): the JAX package's Odometry.register_frame on the driving
 # phase's frames (seed 3) on the CPU reaches these mean APEs (m) with 0
@@ -434,15 +480,54 @@ KC2_FRAMES = 10
 # tests/torch_staged_reference.py); each port run, frame by frame on the
 # card, is held within STAGED_APE_FACTOR times its run's, with 0 failures.
 # NONE and ADAPTIVE with 2 points a voxel and the 3,000-point cap part from
-# the corridor after about 10 frames, in the reference too: they run 10
+# the corridor after about 10 frames, in the reference too: they run 10.
+# The random cap runs its first 40 frames (cut from 80; its reference APE
+# over them: --runs cap:40)
 STAGED_REF_APE_M = {"adaptive": 0.26866538844569254,
                     "adaptive_robust": 0.2738228102357611,
-                    "cap": 0.12323726957673478,
+                    "cap": 0.11024474771166312,
                     "none": 0.17350385032078236,
                     "adaptive_k2_cap": 0.27366060736022424}
-STAGED_FRAMES = {"adaptive": 80, "adaptive_robust": 80, "cap": 80,
+STAGED_FRAMES = {"adaptive": 80, "adaptive_robust": 80, "cap": 40,
                  "none": 10, "adaptive_k2_cap": 10}
 STAGED_APE_FACTOR = 1.5
+
+# the solver runs: the JAX package's Odometry.register_frame on the
+# driving phase's frames (seed 3) on the CPU reaches these mean APEs (m)
+# with 0 failures over each run's frames (PYTHONPATH=. python
+# tests/torch_solver_reference.py); each port run, frame by frame on the
+# card, is held within SOLVER_APE_FACTOR times its run's, with 0 failures.
+# Point-to-distribution drifts off the corridor in the reference itself
+# (1.36 m, no frame failing its assessment)
+SOLVER_REF_APE_M = {"gn": 0.02538375804551249,
+                    "robust_solver": 0.061169633237249235,
+                    "distribution": 1.3583192536680566,
+                    "huber": 0.022203585844475945,
+                    "analytic": 0.022563336102009286,
+                    "constant_velocity": 0.1423801631916226,
+                    "profiled": 0.0219695603691648}
+SOLVER_FRAMES = {"gn": 20, "robust_solver": 20, "distribution": 20,
+                 "huber": 20, "analytic": 20, "constant_velocity": 20,
+                 "profiled": 10}
+SOLVER_APE_FACTOR = 1.5
+# the reference's point-to-distribution run drifts from its first
+# registered frame on (APE 0.0518, 0.0767, 0.1242, 0.1914 m at frames 1-4,
+# 4.0830 m at frame 19; ``ape_by_frame_m`` of the command above), so the
+# whole run's 1.5x bound holds any run that drifts. The port's run is also
+# held over the frames before the reference's APE passes 0.2 m (frames
+# 0-4, their mean) within SOLVER_APE_FACTOR of the reference's, and its
+# drift at the last frame within a factor SOLVER_APE_FACTOR of the
+# reference's either way: a run that drifts otherwise fails.
+# {run: (frames, the reference's mean APE over them, its last frame's)}
+SOLVER_REF_EARLY = {"distribution": (5, 0.09160487922219326,
+                                     4.08297135398862)}
+# the [41]-prior registration, card against CPU (phase 30): (m, deg), the
+# port's CPU bound against the JAX package on the same problem
+# (tests/test_torch_solver_families.py)
+REGISTER41_BOUND = (1e-4, 1e-3)
+# the profiled run's replay of each frame's solver against its committed
+# poses (the reference's own guard, tests/test_round2.py:145-160)
+PROFILE_REPLAY_BOUND_M = 1e-3
 
 KERNELS = {
     "candidate_gather": dict(
@@ -572,17 +657,22 @@ def phase_build():
     log(f"build: {len(names)} kernels in {time.time() - t0:.2f} s "
         f"(nvcc {' '.join(build.NVCC_FLAGS)})")
     for name in names:
-        info = build.build_info.get(name)
-        if info is None:
+        # a source of build.PARTS: a library a part
+        libs = [" ".join((n,) + d) for n, d in build.libraries(name)]
+        infos = [build.build_info.get(lib) for lib in libs]
+        if None in infos:
             log(f"  {name}: library already built")
             continue
-        log(f"  {name}: {info['seconds']:.2f} s")
-        for line in info["ptxas"].splitlines():
-            if "Used" in line or "spill" in line or "Compiling entry" in line:
-                log("   ", line.strip())
-        KERNELS[name]["ptxas"] = ptxas_summary(info["ptxas"])
-        log(f"  {name} registers / spills: "
-            f"{json.dumps(KERNELS[name]['ptxas'])}")
+        ptxas = {}
+        for lib, info in zip(libs, infos):
+            log(f"  {lib}: {info['seconds']:.2f} s")
+            for line in info["ptxas"].splitlines():
+                if ("Used" in line or "spill" in line
+                        or "Compiling entry" in line):
+                    log("   ", line.strip())
+            ptxas.update(ptxas_summary(info["ptxas"]))
+        KERNELS[name]["ptxas"] = ptxas
+        log(f"  {name} registers / spills: {json.dumps(ptxas)}")
 
 
 def _level_copy(level):
@@ -786,11 +876,17 @@ def _path_lm_call(odo, preps, k):
     calls = []
     loop = k5.lm_loop
 
-    def record(rows, prior, n_res, state, n_steps, *args):
+    def record(rows, prior, n_res, state, n_steps, *args, **kw):
+        # the point-to-plane rows with the forward-mode Jacobian: the call
+        # the records below repeat with lm_loop's defaults
+        if kw.get("family", k5.Family.PLANE) != k5.Family.PLANE \
+                or kw.get("analytic"):
+            raise RuntimeError(f"lm_loop called with {kw}, not the "
+                               "point-to-plane rows")
         if not calls:
             calls.append((rows.clone(), prior.clone(), n_res.clone(),
                           state.clone(), args, n_steps))
-        loop(rows, prior, n_res, state, n_steps, *args)
+        loop(rows, prior, n_res, state, n_steps, *args, **kw)
 
     k5.lm_loop = record
     try:
@@ -876,10 +972,10 @@ def _traced(what, jobs):
     """``tools/timing.py::fresh_process_traces(jobs)``: the profiler's
     kernel durations ("ms": the median of five traced calls that saw the
     device) and device operations ("ops") of module functions on this
-    process's tensors, traced in a process whose first trace is recent;
-    fails where an "ms"
-    job's traces saw no device operation."""
-    out = fresh_process_traces(jobs)
+    process's tensors, traced in a process whose first trace is recent
+    (two kept started ahead: the kernel phases trace several times in a
+    row); fails where an "ms" job's traces saw no device operation."""
+    out = fresh_process_traces(jobs, ahead=2)
     for job, res in zip(jobs, out):
         if job[0] == "ms" and res[0] is None:
             raise RuntimeError(f"{what}: the profiler saw no device "
@@ -1355,8 +1451,9 @@ def _require_rebase_launches(path, launches, rebases, levels):
 
 
 def phase_long(dev):
-    """The 500-frame urban drive (seed 7) through the user's entry points,
-    with the rebase distance at 100 m. Returns (path record, the first
+    """The urban drive (seed 7), its first LONG_SMOKE_FRAMES frames,
+    through the user's entry points, with the rebase distance at 100 m.
+    Returns (path record, the first
     rebase's capture, the acquisition with its rendered frames kept)."""
     acq = CachedAcquisition(ld.load_acquisition(LONG_SEED))
     odo = Odometry(default_driving_profile(), device=dev)
@@ -1364,7 +1461,7 @@ def phase_long(dev):
     captured = {}
     _capture_first_rebase(odo, captured)
     _reset_counts()
-    out = stream_acquisition(odo, acq, ld.LONG_FRAMES, ld.LONG_BATCH)
+    out = stream_acquisition(odo, acq, LONG_SMOKE_FRAMES, ld.LONG_BATCH)
     launches, lm_steps = _read_counts(), _read_steps()
     out.update(launches=launches, lm_steps=lm_steps, seed=LONG_SEED,
                rebase_distance_m=LONG_REBASE_DISTANCE,
@@ -1851,7 +1948,8 @@ def phase_robust_rebase(dev, robust_run, robust_out):
 
 
 def phase_indoor(dev):
-    """The handheld indoor walk (seed 7, its 240 frames, batch 4) through
+    """The handheld indoor walk (seed 7, its first INDOOR_SMOKE_FRAMES of
+    240 frames, batch 4) through
     Odometry(default_robust_outdoor_low_inertia()).stream_frames: the
     port's three-level map, its speculative streamer escalating on every
     doorway turn (the device keypoint election, K4). Then, on the map the
@@ -1876,7 +1974,8 @@ def phase_indoor(dev):
     smp.voxel_subsample_indices = spy
     _reset_counts()
     try:
-        out = stream_acquisition(odo, acq, iw.INDOOR_FRAMES, iw.INDOOR_BATCH,
+        out = stream_acquisition(odo, acq, INDOOR_SMOKE_FRAMES,
+                                 iw.INDOOR_BATCH,
                                  driving=False)
     finally:
         smp.voxel_subsample_indices = elect
@@ -2533,7 +2632,8 @@ def _backend_robust_run(name, opts, frames, batch):
 
 
 def phase_backend_robust():
-    """The robust corridor (phase 5's frames, batch 8) and the escalation
+    """The robust corridor (the first BACKEND_ROBUST_FRAMES of phase 5's
+    frames, batch 8) and the escalation
     scene (phase 6's, 3 attempts, batch 8) with the CT-BA backend on. The
     corridor also streams with the backend off, timed the same way (frames
     prepared by prefetch workers inside the timed loop, as the gate
@@ -2541,7 +2641,7 @@ def phase_backend_robust():
     it), so that the backend's cost reads from a pair."""
     corridor = cor.render_corridor(cor.build_scene(),
                                    cor.robust_corridor_trajectory(NUM_FRAMES),
-                                   NUM_FRAMES, SEED)
+                                   BACKEND_ROBUST_FRAMES, SEED)
     robust = _backend_robust_run("robust corridor",
                                  gates.backend_robust_profile(), corridor,
                                  ROBUST_BATCH)
@@ -3027,12 +3127,14 @@ def _search_run(dev, name, frames, driving, spies=()):
 
 
 def phase_knn(dev, frames, driving):
-    """The exact k-NN search (ball_neighborhood=False): the 80-frame run,
+    """The exact k-NN search (ball_neighborhood=False): the first
+    SEARCH_FRAMES frames,
     K12 and no K2; then its first 10 frames with num_closest_neighbors=2,
     whose LM problems take two rows a keypoint. Returns the run's stats
     and K12's first call."""
     first = _FirstCall(k12, "knn_search")
-    out, _ = _search_run(dev, "knn", frames, driving, [first])
+    out, _ = _search_run(dev, "knn", frames[:SEARCH_FRAMES], driving,
+                         [first])
     launches = out["launches"]
     _require_launches("knn", launches, ["candidate_gather", "knn_search",
                                         "map_insert", "lm_step"])
@@ -3082,7 +3184,7 @@ def phase_distance(dev, frames, driving):
     k1_first = _FirstCall(k1, "candidate_gather")
     k2_first = _FirstCall(k2, "plane_moments",
                           lambda *a, **kw: torch.is_tensor(a[4]))
-    out, odo = _search_run(dev, "distance", frames, driving,
+    out, odo = _search_run(dev, "distance", frames[:SEARCH_FRAMES], driving,
                            [k1_first, k2_first])
     launches = out["launches"]
     _require_launches("distance", launches, [
@@ -3113,7 +3215,8 @@ def phase_devsub(dev, frames, driving):
     first = _FirstCall(k4, "grid_sample",
                        lambda points, valid, voxel, capacity, *a, **kw:
                        capacity == sub_cap)
-    out, _ = _search_run(dev, "devsub", frames, driving, [first])
+    out, _ = _search_run(dev, "devsub", frames[:SEARCH_FRAMES], driving,
+                         [first])
     launches = out["launches"]
     _require_launches("devsub", launches, ["candidate_gather",
                                            "plane_moments", "map_insert",
@@ -3294,7 +3397,7 @@ def phase_staged_adaptive(dev, frames, driving):
 def phase_staged_robust_and_cap(dev, frames, driving):
     """ADAPTIVE on the robust regimen (K13 once an attempt), then the
     random cap on GRID keypoints (K4 twice a frame after frame 0, no K13);
-    80 frames each."""
+    80 and 40 frames."""
     robust, _, _ = _staged_run(dev, "adaptive_robust", frames, driving)
     _require_count("adaptive_robust", robust["launches"], "grid_sample",
                    robust["frames"])
@@ -3416,6 +3519,500 @@ def phase_kernels_staged(dev, adaptive_first, k2cap_first, adaptive_run):
     return rec, register
 
 
+# ----------------------------------------------------- the solver runs —
+def _solver_options(name):
+    """default_driving_profile() with solver run ``name``'s option
+    (tests/torch_solver_reference.py::run_options, in the port)."""
+    from ct_icp_torch.config import options as topt
+    d = default_driving_profile()
+    icp = d.ct_icp_options
+    kw = {"gn": dict(solver=topt.Solver.GN, max_dist_to_plane_ct_icp=0.5),
+          "robust_solver": dict(solver=topt.Solver.ROBUST),
+          "distribution": dict(
+              distance=topt.IcpDistance.POINT_TO_DISTRIBUTION),
+          "huber": dict(loss_function=topt.LeastSquares.HUBER),
+          "analytic": dict(analytic_jacobian=True)}.get(name)
+    if kw is not None:
+        return dataclasses.replace(
+            d, ct_icp_options=dataclasses.replace(icp, **kw))
+    if name == "constant_velocity":
+        return dataclasses.replace(
+            d, motion_compensation=topt.MotionCompensation.CONSTANT_VELOCITY)
+    return dataclasses.replace(d, profile_registration=True)
+
+
+def _frame_by_frame(odo, frames):
+    """register_frame over ``frames`` (the host side of every frame inside
+    the timed span); the summaries and the wall time."""
+    torch.cuda.synchronize()
+    t0 = time.time()
+    summaries = [odo.register_frame(f["xyz"], f["timestamps"], frame_id=i)
+                 for i, f in enumerate(frames)]
+    torch.cuda.synchronize()
+    return summaries, time.time() - t0
+
+
+def _solver_run(dev, name, frames, driving, spies=()):
+    """Run ``name`` over its first SOLVER_FRAMES[name] frames through
+    Odometry(...).register_frame, frame by frame, the counts set to 0 just
+    before and read just after, with ``spies`` (``_FirstCall``s) in place;
+    held to 0 failures and an APE within SOLVER_APE_FACTOR times the JAX
+    package's on the CPU. Returns the run's stats, the odometry and the
+    summaries."""
+    n = SOLVER_FRAMES[name]
+    odo = Odometry(_solver_options(name), device=dev)
+    for spy in spies:
+        spy.start()
+    _reset_counts()
+    summaries, wall = _frame_by_frame(odo, frames[:n])
+    launches, lm_steps = _read_counts(), _read_steps()
+    for spy in spies:
+        spy.stop()
+    errs = cor.seq_ape(odo, frames[:n])
+    ref = SOLVER_REF_APE_M[name]
+    bound_m = SOLVER_APE_FACTOR * ref
+    out = dict(
+        frames=n, failures=sum(not s.success for s in summaries),
+        mean_ape_m=float(np.mean(errs)), max_ape_m=float(np.max(errs)),
+        final_drift_m=float(errs[-1]), map_points=odo.map_size(),
+        frames_per_s=n / wall, wall_s=wall,
+        icp_iters_per_frame=sum(s.icp_summary.num_iters
+                                for s in summaries) / n,
+        host_syncs_per_frame=odo.host_syncs / n,
+        keypoints_per_frame=float(np.mean([s.sample_size
+                                           for s in summaries[1:]])),
+        launches=launches, lm_steps=lm_steps,
+        reference_cpu_ape_m=ref, ape_bound_m=bound_m,
+        driving_fps=driving["median_batch_fps"])
+    early = SOLVER_REF_EARLY.get(name)
+    if early is not None:
+        n_early, ref_early, ref_last = early
+        out.update(early_frames=n_early,
+                   early_mean_ape_m=float(np.mean(errs[:n_early])),
+                   early_ape_bound_m=SOLVER_APE_FACTOR * ref_early,
+                   reference_final_drift_m=ref_last)
+    log(f"solver {name} path: " + json.dumps(out))
+    log(f"  solver {name}: {out['frames_per_s']:.2f} frames/s frame by "
+        f"frame (driving, streamed at batch {BATCH}: "
+        f"{driving['median_batch_fps']:.2f}), host syncs a frame "
+        f"{out['host_syncs_per_frame']:.3f} beside "
+        f"{out['icp_iters_per_frame']:.3f} ICP iterations, mean APE "
+        f"{out['mean_ape_m']:.5f} m (JAX package on the CPU {ref:.5f} m, "
+        f"bound {bound_m:.5f}), failures {out['failures']}; K5 launches "
+        f"{launches['lm_step']}, LM steps {lm_steps}")
+    if out["failures"]:
+        raise RuntimeError(f"solver {name} path: {out['failures']} failed "
+                           "frames")
+    if not out["mean_ape_m"] <= bound_m:
+        raise RuntimeError(f"solver {name} path: mean APE "
+                           f"{out['mean_ape_m']} m > {bound_m} m")
+    if early is not None:
+        log(f"  solver {name}: frames 0-{n_early - 1} mean APE "
+            f"{out['early_mean_ape_m']:.5f} m (reference {ref_early:.5f}, "
+            f"bound {out['early_ape_bound_m']:.5f}); last frame "
+            f"{out['final_drift_m']:.5f} m (reference {ref_last:.5f}, "
+            f"within a factor {SOLVER_APE_FACTOR} either way)")
+        if not out["early_mean_ape_m"] <= out["early_ape_bound_m"]:
+            raise RuntimeError(f"solver {name} path: frames 0-{n_early - 1} "
+                               f"mean APE {out['early_mean_ape_m']} m > "
+                               f"{out['early_ape_bound_m']} m")
+        if not (ref_last / SOLVER_APE_FACTOR <= out["final_drift_m"]
+                <= ref_last * SOLVER_APE_FACTOR):
+            raise RuntimeError(f"solver {name} path: last frame's APE "
+                               f"{out['final_drift_m']} m, the reference's "
+                               f"{ref_last} m")
+    _require_launches(f"solver {name}", launches,
+                      ["candidate_gather", "plane_moments", "map_insert",
+                       "lm_step"])
+    return out, odo, summaries
+
+
+def _lm_first(when=None):
+    """A ``_FirstCall`` of K5's first LM call on the path (frame 1's: frame
+    0 does not register)."""
+    return _FirstCall(k5, "lm_loop", when)
+
+
+def phase_solver(dev, frames, driving):
+    """The solver runs (the GN and ROBUST solvers, the distribution
+    distance, the Huber loss, the analytic Jacobian, CONSTANT_VELOCITY,
+    profile_registration), each frame by frame at the driving profile's
+    widths; K5's first call of each (and K2's first full-descriptor call of
+    the ROBUST run) kept for the kernel checks. Returns the runs' stats and
+    the first calls."""
+    runs, firsts = {}, {}
+    for name in ("gn", "robust_solver", "distribution", "huber", "analytic",
+                 "constant_velocity"):
+        spies = [_lm_first()]
+        if name == "robust_solver":
+            spies.append(_FirstCall(k2, "plane_moments",
+                                    lambda *a, **kw: kw.get("full")))
+        out, odo, _ = _solver_run(dev, name, frames, driving, spies)
+        if name == "constant_velocity":
+            # the device elects every frame's keypoints after the
+            # distortion: K4 once a frame
+            _require_count(name, out["launches"], "grid_sample",
+                           out["frames"])
+        runs[name] = out
+        firsts[name] = spies
+        del odo
+    runs["profiled"] = _profiled_run(dev, frames, driving)
+    torch.cuda.empty_cache()
+    return runs, firsts
+
+
+def _profiled_run(dev, frames, driving):
+    """profile_registration over 10 frames: the ICPSummary durations of
+    each registered frame, its trajectory bit for bit a non-profiled run's
+    over the same frames (the reference's own guard,
+    tests/test_round2.py:145-160) and each frame's replay within
+    PROFILE_REPLAY_BOUND_M of its committed poses."""
+    out, odo, summaries = _solver_run(dev, "profiled", frames, driving)
+    plain = Odometry(default_driving_profile(), device=dev)
+    _frame_by_frame(plain, frames[:out["frames"]])
+    same = all(
+        np.array_equal(getattr(a, w).tr, getattr(b, w).tr)
+        and np.array_equal(getattr(a, w).quat, getattr(b, w).quat)
+        for a, b in zip(odo.get_trajectory(), plain.get_trajectory())
+        for w in ("begin_pose", "end_pose"))
+    diffs = [s.logged_values["profile_replay_pose_diff_m"]
+             for s in summaries[1:]]
+    icp = [s.icp_summary for s in summaries[1:]]
+    out.update(
+        trajectory_equals_unprofiled=same,
+        replay_pose_diff_m=max(diffs),
+        mean_duration_init_ms=float(np.mean([i.duration_init for i in icp])),
+        mean_neighborhood_ms=float(np.mean([i.avg_duration_neighborhood
+                                            for i in icp])),
+        mean_solve_ms=float(np.mean([i.avg_duration_solve for i in icp])),
+        mean_total_ms=float(np.mean([i.duration_total for i in icp])))
+    log(f"  profiled: trajectory identical to the unprofiled run's "
+        f"{same}, largest replay pose gap {max(diffs):.3g} m, per ICP "
+        f"iteration: neighbourhood {out['mean_neighborhood_ms']:.3f} ms, "
+        f"solve {out['mean_solve_ms']:.3f} ms; init "
+        f"{out['mean_duration_init_ms']:.3f} ms, frame "
+        f"{out['mean_total_ms']:.3f} ms")
+    if not same:
+        raise RuntimeError("profiled path: its trajectory is not the "
+                           "unprofiled run's")
+    if not max(diffs) < PROFILE_REPLAY_BOUND_M:
+        raise RuntimeError(f"profiled path: replay pose gap {max(diffs)} m")
+    if not all(i.duration_init > 0 and i.avg_duration_neighborhood > 0
+               and i.avg_duration_solve > 0 for i in icp):
+        raise RuntimeError("profiled path: a phase duration is not positive")
+    del odo, plain
+    return out
+
+
+def _lm_family_row_ops(family, branch, analytic=False):
+    """K5's float operations a kept row in one LM step. Forward mode: a
+    point-to-plane row's (_lm_row_ops) for the one-row families, and for
+    the three-row families the two further rows' weights and
+    normal-equation sums beside it (the line's cross product and the
+    distribution's 3x3 product, ~20-30 operations a row, are left out: the
+    bound stays a lower one). Analytic: ``_analytic_row_ops``."""
+    if analytic:
+        return _analytic_row_ops(family, branch)
+    ops = _lm_row_ops(branch)
+    if k5.ROWS_PER_POINT[k5.Family(family)] == 3:
+        ops += 2 * (12 + 2 * 90 + 7)
+    return ops
+
+
+def _analytic_row_ops(family, branch):
+    """Float operations one LM step of K5's analytic rows needs per kept
+    row (csrc/lm_step.cu::row_analytic), counted for the function: the
+    world point at the pose and d = w - anchor, the residuals with their
+    world-point gradient, v = w - lerp(t); for each scalar row the cross
+    product v x g (9) and the 12 Jacobian products, the weight and cost
+    (7), J w and the 78 + 12 products and sums; then the trial residuals
+    (the world point, d, the residuals) and each scalar row's cost there."""
+    primal, _ = _row_residual_ops(branch)
+    world = primal - 9           # _row_residual_ops less its residual
+    fam = k5.Family(family)
+    # (the residuals with their gradient, the residuals alone), after d:
+    # a dot product and the weight (plane); three products (point); the
+    # unit line, the cross product, its norm, the weight, then c / |c|
+    # and u x c-hat (line); C d, d . C d and the weight, then 2 C d
+    # (distribution)
+    grad, resid = {k5.Family.PLANE: (9, 6), k5.Family.POINT: (6, 3),
+                   k5.Family.LINE: (42, 27),
+                   k5.Family.DISTRIBUTION: (27, 21)}[fam]
+    per_scalar = 9 + 12 + 7 + 12 + 2 * 90 + 4
+    return (world + 3 + grad + 13 + k5.ROWS_PER_POINT[fam] * per_scalar
+            + world + 3 + resid)
+
+
+def _plain_once(state0, fn):
+    """ms of one call of a plain version after one more (events)."""
+    fn(state0.clone())
+    s = state0.clone()
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    a.record()
+    fn(s)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b)
+
+
+def _kernel_k5_case(call, tag, **over):
+    """K5 against its plain version on one LM call of a solver run (with
+    the loss, family, prior or branch of ``over`` replacing the call's):
+    one step, then the whole call; timed as a CUDA graph of one launch (the
+    call), the plain call once."""
+    rows, prior, n_res, state0 = call.args[:4]
+    steps = call.args[4]
+    names = ("loss", "sigma", "tolerant_a", "freeze_begin", "family",
+             "use_distribution", "analytic")
+    kw = dict(zip(names, call.args[5:]))
+    kw.update(call.kw)
+    rows = over.pop("rows", rows)
+    prior = over.pop("prior", prior)
+    kw.update(over)
+    kw.setdefault("family", k5.Family.PLANE)
+    kw.setdefault("use_distribution", True)
+    kw.setdefault("analytic", False)
+    args = tuple(kw[n] for n in names)
+    branch, angle = _slerp_branch(state0)
+    err = checks.check_lm_step(rows, prior, n_res, state0, args[1], args[2],
+                               args[3], loop_steps=steps, loss=args[0],
+                               family=args[4], use_distribution=args[5],
+                               analytic=args[6])
+    steps_run = err["loop"]["steps_run"]
+    st = state0.clone()
+    ms, how = time_graph(lambda: st.copy_(state0),
+                         lambda: k5.lm_loop(rows, prior, n_res, st, steps,
+                                            *args))
+    plain_ms = _plain_once(state0, lambda s: k5.lm_loop_plain(
+        rows, prior, n_res, s, steps, *args))
+    k, n_ok = rows.shape[0], int(n_res)
+    fam = k5.Family(args[4])
+    n_bytes = rows.numel() * 4.0 + 2 * 4 * k5.STATE_SIZE \
+        + prior.numel() * 4 + 4
+    ops = steps_run * n_ok * float(_lm_family_row_ops(fam, branch,
+                                                      analytic=args[6]))
+    log(f"K5 lm_loop {tag} ({fam.name}, {args[0].name}, prior "
+        f"[{prior.numel()}], {'analytic' if args[6] else 'forward mode'}) "
+        f"K={k} kept={n_ok} ran {steps_run} of {steps} (plain "
+        f"{err['loop']['plain_steps_run']}) {branch}: within tolerance "
+        f"({json.dumps(err)}); {ms:.4f} ms on the device ({how}), plain "
+        f"{plain_ms:.4f} ms")
+    return dict(max_abs_err=err["max_abs_err"], ms=ms, plain_ms=plain_ms,
+                library_ms=None, bytes=n_bytes, ops=ops, timing=how,
+                steps_run=steps_run, loop_steps=steps,
+                ms_per_step=ms / steps_run,
+                shape=f"K={k} kept={n_ok} {fam.name} {args[0].name} "
+                      f"prior[{prior.numel()}] "
+                      f"{'analytic' if args[6] else 'autodiff'} {branch} "
+                      f"({steps_run} steps)")
+
+
+def _robust_as(rows, family):
+    """A ROBUST call's rows as point-to-point or point-to-line rows (raw,
+    alpha, anchor, the line or zeros, weight, ok), for the families no
+    solver run takes."""
+    line = (rows[:, 10:13] if family == k5.Family.LINE
+            else torch.zeros_like(rows[:, 10:13]))
+    return torch.cat([rows[:, 0:7], line, rows[:, 23:25]], 1).contiguous()
+
+
+def _prior41_of(state0, prior14):
+    """A [41] prior: the call's motion prior, then a prediction at the
+    call's start pose with PredictionConsistencyOptions' defaults (the
+    relative rows at 100 / 1 and 60 / 0.1)."""
+    from ct_icp_torch.odometry.motion_model import \
+        PredictionConsistencyModel
+    from ct_icp_torch.core.pose import Pose as TPose
+    from ct_icp_torch.core.pose import TrajectoryFrame as TFrame
+    s = state0.double().cpu().numpy()
+    model = PredictionConsistencyModel()
+    model.set_prediction(TFrame(TPose(s[0:4], s[4:7], timestamp=0.0),
+                                TPose(s[7:11], s[11:14], timestamp=1.0)))
+    p41 = model.device_prior(np.zeros(3))
+    p41[:14] = prior14.cpu().numpy()
+    return torch.from_numpy(p41).to(state0.device)
+
+
+def _kernel_k2_full(first, tag):
+    """K2's full instance against its plain version on the inputs of its
+    first call in the ROBUST run, timed as the other K2 records."""
+    pts, slots, cnt, q, radius = first.args[:5]
+    k_nearest = first.args[5] if len(first.args) > 5 else first.kw.get(
+        "k_nearest")
+    cached = (first.args[6] if len(first.args) > 6
+              else first.kw.get("cached_r_eff2"))
+    err = checks.check_plane_moments(pts, slots, cnt, q, radius, k_nearest,
+                                     cached, full=True)
+    ms, how = time_stateless(lambda: k2.plane_moments(
+        pts, slots, cnt, q, radius, k_nearest, cached, full=True))
+    normal_ms, _ = time_stateless(lambda: k2.plane_moments(
+        pts, slots, cnt, q, radius, k_nearest, cached))
+    plain_ms, _ = time_stateless(lambda: k2.plane_moments_plain(
+        pts, slots, cnt, q, radius, k_nearest, cached, full=True))
+    m = q.shape[0]
+    points_read, rows_read, live = live_work(pts, slots, cnt)
+    # the normal-only call's bytes and the full outputs' 17 floats a query
+    n_bytes = k2_bytes(pts, slots, cnt) + m * 17 * 4
+    log(f"K2 plane_moments {tag} full M={m}: within tolerance "
+        f"({json.dumps(err)}); {ms:.4f} ms ({how}; the normal-only instance "
+        f"{normal_ms:.4f} ms), plain {plain_ms:.4f} ms")
+    return dict(max_abs_err=max(err["max_abs_err"],
+                                err["descriptor_max_abs_err"]),
+                ms=ms, plain_ms=plain_ms, library_ms=None, bytes=n_bytes,
+                ops=live * 16.0, timing=how, live=live,
+                points_read=points_read, rows_read=rows_read,
+                near_threshold=err["near_threshold"],
+                classes=err["classes"], normal_only_ms=normal_ms,
+                shape=f"M={m} O={slots.shape[1]} P={pts.shape[1] // 3} "
+                      f"live={live} full "
+                      f"({'fresh' if cached is None else 'cached'})")
+
+
+def phase_kernels_solver(dev, firsts):
+    """K5 against its plain version on the solver runs' first LM calls:
+    every family (point-to-plane of the GN run, the ROBUST rows, the
+    distribution, point-to-point and point-to-line built from the ROBUST
+    call's rows), each of the five losses on the Huber run's call, the [41]
+    prior on it, the analytic branch of its run; K2's full descriptor on
+    the ROBUST run's first full call. Returns {"lm_step": {tag: record},
+    "plane_moments": {tag: record}}."""
+    from ct_icp_torch.config.options import LeastSquares
+    calls = {name: spies[0] for name, spies in firsts.items()}
+    lm = {}
+    lm["gn (PLANE, STANDARD)"] = _kernel_k5_case(calls["gn"], "gn")
+    robust = calls["robust_solver"]
+    lm["robust rows"] = _kernel_k5_case(robust, "robust_solver")
+    lm["distribution"] = _kernel_k5_case(calls["distribution"],
+                                         "distribution")
+    for fam in (k5.Family.POINT, k5.Family.LINE):
+        lm[fam.name.lower()] = _kernel_k5_case(
+            robust, f"robust_solver as {fam.name}",
+            rows=_robust_as(robust.args[0], fam), family=fam)
+    for loss in LeastSquares:
+        lm[f"loss {loss.name}"] = _kernel_k5_case(
+            calls["huber"], "huber", loss=loss)
+    huber = calls["huber"]
+    lm["prior [41]"] = _kernel_k5_case(
+        huber, "huber", prior=_prior41_of(huber.args[3], huber.args[1]))
+    lm["analytic"] = _kernel_k5_case(calls["analytic"], "analytic")
+    lm["constant_velocity (SIMPLE)"] = _kernel_k5_case(
+        calls["constant_velocity"], "constant_velocity")
+    moments = {"full descriptor (robust_solver)": _kernel_k2_full(
+        firsts["robust_solver"][1], "robust_solver")}
+    for spies in firsts.values():
+        for spy in spies:
+            spy.args = spy.kw = None
+    torch.cuda.empty_cache()
+    return {"lm_step": lm, "plane_moments": moments}
+
+
+def _cube_surface(rng, n, half=5.0):
+    """tests/test_solver.py::room_surface_points: ``n`` random points on
+    the six faces of the cube [-half, half]^3."""
+    face = rng.integers(0, 6, n)
+    uv = rng.uniform(-half, half, (n, 2))
+    pts = np.zeros((n, 3))
+    axis = face % 3
+    rest = np.array([[1, 2], [0, 2], [0, 1]])[axis]
+    rows = np.arange(n)
+    pts[rows, axis] = np.where(face < 3, 1.0, -1.0) * half
+    pts[rows, rest[:, 0]] = uv[:, 0]
+    pts[rows, rest[:, 1]] = uv[:, 1]
+    return pts
+
+
+def _cube_scan(rng, n, frame):
+    """tests/test_solver.py::render_scan: ``n`` cube points in the frame's
+    moving sensor frame, with timestamps in [t0, t1]."""
+    world = _cube_surface(rng, n)
+    b, e = frame.begin_pose, frame.end_pose
+    ts = rng.uniform(b.timestamp, e.timestamp, n)
+    alphas = s3n.alpha_timestamp(ts, b.timestamp, e.timestamp)
+    q, t = s3n.se3_interpolate(
+        np.broadcast_to(b.quat, (n, 4)), np.broadcast_to(b.tr, (n, 3)),
+        np.broadcast_to(e.quat, (n, 4)), np.broadcast_to(e.tr, (n, 3)),
+        alphas)
+    qi, ti = s3n.se3_inverse(q, t)
+    return s3n.quat_rotate(qi, world) + ti, ts
+
+
+def _register41(dev):
+    """CTICPRegistration.register with a [41] prior on the card and on the
+    CPU (the plain versions, the map copied there), on the problem of
+    tests/test_torch_solver_families.py's [41] case (held there to the JAX
+    package within 1e-4 m and 1e-3 deg): tests/test_solver.py's cube room
+    (60,000 surface points of seed 5 in one 0.5 m level of 2^16 slots, 40
+    points a voxel), a 700-point scan of seed 33 from its ground-truth
+    frame (2 deg about z and (0.3, 0.1, 0) m at the end), registered from
+    the identity with a prediction at the ground truth
+    (PredictionConsistencyOptions with the begin-pose constraints at 1):
+    the card's poses within REGISTER41_BOUND of the CPU's, both within 3 cm
+    of the ground truth. Six walls observe every direction of the pose,
+    where the corridor leaves its along-track direction barely observed."""
+    from ct_icp_torch.config.options import (CTICPOptions,
+                                             MultiResolutionVoxelMapOptions,
+                                             ResolutionParam)
+    from ct_icp_torch.core.pose import Pose as TPose
+    from ct_icp_torch.core.pose import TrajectoryFrame as TFrame
+    from ct_icp_torch.icp.registration import CTICPRegistration
+    from ct_icp_torch.odometry.motion_model import (
+        PredictionConsistencyModel, PredictionConsistencyOptions)
+    map_opts = MultiResolutionVoxelMapOptions(
+        resolutions=(ResolutionParam(0.5, 0.05, 40, 16),),
+        default_radius=0.8)
+    res = map_opts.resolutions[0]
+    level = vm.make_level(res.capacity_log2, res.max_num_points, dev)
+    pts = torch.as_tensor(_cube_surface(np.random.default_rng(5), 60000),
+                          dtype=torch.float32, device=dev)
+    vm.insert_points(level, pts, torch.ones(pts.shape[0], dtype=torch.bool,
+                                            device=dev),
+                     res.resolution, res.min_distance_between_points,
+                     max_rounds=64)
+    gt = TFrame(TPose(timestamp=0.0),
+                TPose(s3n.quat_from_rotvec(np.array([0, 0, np.deg2rad(2.0)])),
+                      np.array([0.3, 0.1, 0.0]), timestamp=1.0))
+    raw, ts = _cube_scan(np.random.default_rng(33), 700, gt)
+    model = PredictionConsistencyModel(PredictionConsistencyOptions(
+        alpha_begin_tr_constraint=1.0, alpha_begin_rot_constraint=1.0))
+    model.set_prediction(gt.copy())
+    p41 = model.device_prior(np.zeros(3))
+    reg = CTICPRegistration(
+        CTICPOptions(num_iters_icp=15, ls_max_num_iters=5,
+                     threshold_orientation_norm=1e-5,
+                     threshold_translation_norm=1e-6,
+                     min_number_neighbors=10), map_opts, num_keypoints=1024)
+    frames = {}
+    for where, maps in (("cuda", (level,)),
+                        ("cpu", (vm.MapLevel(*(t.cpu() for t in level)),))):
+        f = TFrame(TPose(timestamp=0.0), TPose(timestamp=1.0))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        summary = reg.register(maps, raw, ts, f, prior=p41, device=where)
+        frames[where] = (f, summary, (time.time() - t0) * 1e3)
+    (fc, sc, ms_c), (fp, sp, ms_p) = frames["cuda"], frames["cpu"]
+    d_tr = max(np.linalg.norm(fc.begin_pose.tr - fp.begin_pose.tr),
+               np.linalg.norm(fc.end_pose.tr - fp.end_pose.tr))
+    d_rot = max(fc.begin_pose.angular_distance(fp.begin_pose),
+                fc.end_pose.angular_distance(fp.end_pose))
+    gt_m = max(np.linalg.norm(f.end_pose.tr - gt.end_pose.tr)
+               for f in (fc, fp))
+    out = dict(keypoints=int(raw.shape[0]), map_points=int(level.num_points),
+               icp_iters=sc.num_iters, cpu_icp_iters=sp.num_iters,
+               success=sc.success, residuals=sc.num_residuals_used,
+               cpu_residuals=sp.num_residuals_used, d_tr_m=float(d_tr),
+               d_rot_deg=float(d_rot), ground_truth_m=float(gt_m),
+               bound=REGISTER41_BOUND, ms=ms_c, cpu_ms=ms_p)
+    log("CTICPRegistration.register with a [41] prior, card against CPU: "
+        + json.dumps(out))
+    if not (sc.success and sp.success and sc.num_residuals_used
+            == sp.num_residuals_used and d_tr <= REGISTER41_BOUND[0]
+            and d_rot <= REGISTER41_BOUND[1] and gt_m < 0.03):
+        raise RuntimeError(f"register with a [41] prior: card and CPU part "
+                           f"({d_tr} m, {d_rot} deg; ground truth {gt_m} m)")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this script "
@@ -3430,7 +4027,17 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
         f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
+    phase_s = {}
+    t_mark = [time.time()]
+
+    def mark(name):
+        now = time.time()
+        phase_s[name] = round(now - t_mark[0], 1)
+        t_mark[0] = now
+        log(f"-- {name}: {phase_s[name]:.1f} s (at {now - t_start:.1f} s)")
+
     phase_build()
+    mark("build")
 
     t0 = time.time()
     scene = cor.build_scene()
@@ -3446,47 +4053,62 @@ def main() -> int:
     driving_records = phase_kernels_driving(dev, odo.options, preps)
     stages = phase_stages(dev, odo, {0: preps[0], len(preps) - 1: preps[-1]})
     driving = phase_driving(odo, frames, preps)
+    mark("driving")
     for name, per_frame in (("B11 unpack_scan+transform_points", 1.0),
                             ("B9 compact_mask", 0.0),
                             ("B10 prune_level", driving["prunes_per_frame"])):
         stages[name]["calls_per_frame"] = per_frame
     robust, robust_records, robust_run = phase_robust(dev)
+    mark("robust")
     escalation, jolt_k5 = phase_escalation(dev)
+    mark("escalation")
     long_drive, long_capture, long_acq = phase_long(dev)
+    mark("long")
     backend_runs, refine_capture = phase_backend(dev, long_acq)
     del long_acq
+    mark("backend")
     backend_records = phase_kernels_backend(dev, refine_capture)
     del refine_capture
     ct_ba_beyond, beyond_record = phase_ct_ba_beyond(dev)
     backend_records["ct_ba_block"]["others"][
         "jacobi step x2 beyond residency"] = beyond_record
+    mark("kernels backend, ct-ba beyond")
     robust_rebase, robust_capture = phase_robust_rebase(dev, robust_run,
                                                         robust)
+    mark("robust rebase")
     del robust_run
     rebase_records = phase_kernels_rebase(
         dev, long_capture, robust_capture,
         default_driving_profile().map_options.resolutions[0].resolution,
         robust_driving_profile().map_options.resolutions[0].resolution)
+    mark("kernels rebase")
     indoor, election = phase_indoor(dev)
+    mark("indoor")
     indoor_records = phase_kernels_indoor(dev, election)
+    mark("kernels indoor")
     del election
     replay_runs, room_odo, replay_capture = phase_replay()
     export = phase_export(room_odo)
+    mark("replay, export")
     replay_records = phase_kernels_replay(dev, room_odo, replay_capture)
+    mark("kernels replay")
     del room_odo, replay_capture
     torch.cuda.empty_cache()
     header_move = phase_header_move()
     robust_backend, escalation_backend = phase_backend_robust()
+    mark("header move, backend robust")
     scale_runs, scale_ends, first_maps = phase_scale_out(frames)
     ranks_run, mesh_window = phase_scale_out_ranks(frames, scale_ends,
                                                    first_maps)
     del first_maps
     scale_records = phase_kernels_scale_out(dev, frames, mesh_window)
+    mark("scale-out")
     knn, knn_first = phase_knn(dev, frames, driving)
     distance, k1_first, k2_first = phase_distance(dev, frames, driving)
     devsub, k4_first = phase_devsub(dev, frames, driving)
     search_records = phase_kernels_search(dev, knn_first, k1_first,
                                           k2_first, k4_first)
+    mark("search")
     staged_adaptive, adaptive_first, adaptive_run = phase_staged_adaptive(
         dev, frames, driving)
     staged_robust, staged_cap = phase_staged_robust_and_cap(dev, frames,
@@ -3495,7 +4117,13 @@ def main() -> int:
         dev, frames, driving)
     staged_record, register_timing = phase_kernels_staged(
         dev, adaptive_first, k2cap_first, adaptive_run)
+    mark("staged")
     del adaptive_run
+    register41 = _register41(dev)
+    solver_runs, solver_firsts = phase_solver(dev, frames, driving)
+    solver_records = phase_kernels_solver(dev, solver_firsts)
+    del solver_firsts
+    mark("solver")
 
     paths = {"driving": driving, "robust": robust, "escalation": escalation,
              "long_drive": long_drive, "robust_rebase": robust_rebase,
@@ -3515,7 +4143,8 @@ def main() -> int:
              "staged_adaptive": staged_adaptive,
              "staged_adaptive_robust": staged_robust,
              "staged_cap": staged_cap, "staged_none": staged_none,
-             "staged_adaptive_k2_cap": staged_k2cap}
+             "staged_adaptive_k2_cap": staged_k2cap,
+             **{f"solver_{k}": v for k, v in solver_runs.items()}}
     primary = {**robust_records, **rebase_records,
                "ct_ba_block": backend_records["ct_ba_block"],
                **replay_records, "owner_pack": scale_records["owner_pack"],
@@ -3545,6 +4174,7 @@ def main() -> int:
             others["jolt"] = jolt_k5
         others.update(indoor_records.get(name, {}))
         others.update(search_others.get(name, {}))
+        others.update(solver_records.get(name, {}))
         if name in ("candidate_gather", "plane_moments"):
             others["backend"] = backend_records[name]
         if name == "map_insert":
@@ -3606,6 +4236,9 @@ def main() -> int:
         "K1/K2 identical after the header moves": header_move,
         "CTICPRegistration.register of one frame (staged adaptive)":
             register_timing,
+        "CTICPRegistration.register with a [41] prior, card vs CPU":
+            register41,
+        "phase seconds": phase_s,
         "lm_step calls (robust, driving, jolt)": [
             {k: r[k] for k in ("ms", "plain_ms", "loop_steps", "steps_run",
                                "step_ms", "plain_step_ms",

@@ -56,6 +56,11 @@ class Dual:
             idx = (idx,)
         return Dual(self.v[idx], self.t[(slice(None),) + idx])
 
+    def reshape(self, *shape):
+        return Dual(self.v.reshape(*shape),
+                    self.t.reshape((self.t.shape[0],) + self.v.reshape(
+                        *shape).shape))
+
     def expand(self, *shape):
         return Dual(self.v.expand(*shape), _align(self.t, shape))
 
@@ -205,4 +210,8 @@ _xp = SimpleNamespace(
 math = build(_xp)
 math.sum = _sum
 math.concatenate = _xp.concatenate
+math.stack = _xp.stack
+math.sqrt = _sqrt
+math.cross = _cross
+math.where = _where
 where = _where

@@ -82,3 +82,7 @@ alpha_timestamp = _m.alpha_timestamp
 # module or core/dual.py's ``math`` (the residuals take one or the other)
 sum = _xp.sum
 concatenate = _xp.concatenate
+stack = _xp.stack
+sqrt = _xp.sqrt
+cross = _xp.cross
+where = _xp.where

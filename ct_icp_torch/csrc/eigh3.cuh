@@ -62,8 +62,10 @@ static __device__ void eigvec(const float a[3][3], float lam, float* out) {
   normalize3(out);
 }
 
-// eigh3x3's smallest-eigenvalue vector and the eigenvalues (descending).
-static __device__ Eig eigh3x3_normal(const float a[3][3]) {
+// eigh3x3's smallest-eigenvalue vector and the eigenvalues (descending);
+// with a non-null `line`, also the largest eigenvalue's vector (eigvecs[0]).
+static __device__ Eig eigh3x3_normal(const float a[3][3],
+                                     float* line = nullptr) {
   Eig e;
   const float q = (a[0][0] + a[1][1] + a[2][2]) / 3.0f;
   float b[3][3];
@@ -91,10 +93,20 @@ static __device__ Eig eigh3x3_normal(const float a[3][3]) {
     e.normal[1] = 0.0f;
     e.normal[2] = 1.0f;
     e.vals[0] = e.vals[1] = e.vals[2] = q;
+    if (line != nullptr) {
+      line[0] = 1.0f;
+      line[1] = 0.0f;
+      line[2] = 0.0f;
+    }
     return e;
   }
   float v0[3], v2[3];
   eigvec(a, l0, v0);
+  if (line != nullptr) {
+    line[0] = v0[0];
+    line[1] = v0[1];
+    line[2] = v0[2];
+  }
   eigvec(a, l2, v2);
   const float d = v2[0] * v0[0] + v2[1] * v0[1] + v2[2] * v0[2];
   for (int i = 0; i < 3; ++i) v2[i] -= d * v0[i];

@@ -28,7 +28,11 @@
 //      barrier, lane e of the block's first warp runs query e's epilogue:
 //      closest (with no in-radius point: point 0 of candidate 0, as the
 //      reference's argmin over all-inf), covariance, closed-form 3x3
-//      eigensolve, normal and a2D, kThreads / G of them at once.
+//      eigensolve, normal and a2D, kThreads / G of them at once; the full
+//      instance (kFull, a non-NULL line) also the largest eigenvalue's
+//      vector, linearity, planarity, the barycenter and the covariance,
+//      which the ROBUST solver, point-to-line and point-to-distribution
+//      read (ops/neighborhood.py::_describe).
 //
 // The radius is one scalar (rr, squared on the host) or, with a non-NULL
 // ``radius``, one a query (the distance strategy's, voxel_map.py:722-749's
@@ -159,6 +163,7 @@ __device__ __forceinline__ float dist2(float dx, float dy, float dz) {
 enum Result { kN, kSx, kSy, kSz, kSxx, kSxy, kSxz, kSyy, kSyz, kSzz,
               kBestD2, kBestI, kReff2, kResults };
 
+template <bool kFull>
 __global__ void __launch_bounds__(kThreads) plane_moments_kernel(
     const float* __restrict__ points, const int32_t* __restrict__ slots,
     const int32_t* __restrict__ cnt_ok, const float* __restrict__ queries,
@@ -168,7 +173,9 @@ __global__ void __launch_bounds__(kThreads) plane_moments_kernel(
     float* __restrict__ out_sum_rel, float* __restrict__ out_sum_outer,
     float* __restrict__ out_closest, float* __restrict__ out_closest_dist,
     float* __restrict__ out_r_eff2, float* __restrict__ out_normal,
-    float* __restrict__ out_a2d) {
+    float* __restrict__ out_a2d, float* __restrict__ out_line,
+    float* __restrict__ out_linearity, float* __restrict__ out_planarity,
+    float* __restrict__ out_barycenter, float* __restrict__ out_covariance) {
   extern __shared__ int smem[];
   const int gl = threadIdx.x & (kGroup - 1);
   const int gib = threadIdx.x / kGroup;
@@ -360,13 +367,51 @@ __global__ void __launch_bounds__(kThreads) plane_moments_kernel(
   for (int a = 0; a < 3; ++a) mean[a] = sr[a] / cs;
   for (int a = 0; a < 3; ++a)
     for (int b = 0; b < 3; ++b) cov[a][b] = so[a][b] / cs - mean[a] * mean[b];
-  const Eig eig = eigh3x3_normal(cov);
+  float line[3];
+  const Eig eig = kFull ? eigh3x3_normal(cov, line) : eigh3x3_normal(cov);
   const float s0 = fmaxf(fabsf(eig.vals[0]), 1e-20f);
   const float s1 = fabsf(eig.vals[1]), s2 = fabsf(eig.vals[2]);
   out_normal[3 * qe + 0] = eig.normal[0];
   out_normal[3 * qe + 1] = eig.normal[1];
   out_normal[3 * qe + 2] = eig.normal[2];
   out_a2d[qe] = (sqrtf(s1) - sqrtf(s2)) / sqrtf(s0);
+  if (kFull) {
+    // the rest of the descriptor (ops/neighborhood.py::_describe)
+    out_linearity[qe] = (fabsf(eig.vals[0]) - s1) / s0;
+    out_planarity[qe] = (s1 - s2) / s0;
+    for (int a = 0; a < 3; ++a) {
+      out_line[3 * qe + a] = line[a];
+      out_barycenter[3 * qe + a] = mean[a] + queries[3 * qe + a];
+      for (int b = 0; b < 3; ++b)
+        out_covariance[9 * qe + 3 * a + b] = cov[a][b];
+    }
+  }
+}
+
+template <bool kFull>
+int launch(const void* points, const void* slots, const void* cnt_ok,
+           const void* queries, int m, int n_off, int p, float rr,
+           const void* radius, int k_nearest, const void* cached_r_eff2,
+           void* const* out, void* stream) {
+  const int blocks = (m + kGroupsPerBlock - 1) / kGroupsPerBlock;
+  const int smem = static_cast<int>(sizeof(int)) * kGroupsPerBlock *
+                   (2 * n_off + 1 + 2 * kBins + kResults);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        plane_moments_kernel<kFull>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  float* const* f = reinterpret_cast<float* const*>(out);
+  plane_moments_kernel<kFull><<<blocks, kThreads, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(points), static_cast<const int32_t*>(slots),
+      static_cast<const int32_t*>(cnt_ok), static_cast<const float*>(queries),
+      m, n_off, p, rr, static_cast<const float*>(radius), k_nearest,
+      static_cast<const float*>(cached_r_eff2),
+      static_cast<int32_t*>(out[0]), f[1], f[2], f[3], f[4], f[5], f[6],
+      f[7], f[8], f[9], f[10], f[11], f[12]);
+  return 0;
 }
 
 }  // namespace
@@ -374,7 +419,9 @@ __global__ void __launch_bounds__(kThreads) plane_moments_kernel(
 // points f32[C, 3P], slots / cnt_ok int32[M, O'] (K1's output on the same
 // level), queries f32[M, 3]; radius f32[M] (each query's radius) or NULL
 // (then rr, the squared scalar radius). k_nearest < 0: no shell cap (r_eff2
-// = radius^2). cached_r_eff2 == NULL: compute the shell radius fresh.
+// = radius^2). cached_r_eff2 == NULL: compute the shell radius fresh. With
+// a non-NULL line, the rest of the descriptor too (line, linearity,
+// planarity, barycenter, covariance: the full instance).
 extern "C" int k2_plane_moments(const void* points, const void* slots,
                                 const void* cnt_ok, const void* queries,
                                 int m, int n_off, int p, float rr,
@@ -383,28 +430,20 @@ extern "C" int k2_plane_moments(const void* points, const void* slots,
                                 void* count, void* sum_rel, void* sum_outer,
                                 void* closest, void* closest_dist,
                                 void* r_eff2, void* normal, void* a2d,
+                                void* line, void* linearity, void* planarity,
+                                void* barycenter, void* covariance,
                                 void* stream) {
   if (m > 0) {
-    const int blocks = (m + kGroupsPerBlock - 1) / kGroupsPerBlock;
-    const int smem = static_cast<int>(sizeof(int)) * kGroupsPerBlock *
-                     (2 * n_off + 1 + 2 * kBins + kResults);
-    if (smem > 48 * 1024) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          plane_moments_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    plane_moments_kernel<<<blocks, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(points), static_cast<const int32_t*>(slots),
-        static_cast<const int32_t*>(cnt_ok),
-        static_cast<const float*>(queries), m, n_off, p, rr,
-        static_cast<const float*>(radius), k_nearest,
-        static_cast<const float*>(cached_r_eff2),
-        static_cast<int32_t*>(count), static_cast<float*>(sum_rel),
-        static_cast<float*>(sum_outer), static_cast<float*>(closest),
-        static_cast<float*>(closest_dist), static_cast<float*>(r_eff2),
-        static_cast<float*>(normal), static_cast<float*>(a2d));
+    void* const out[13] = {count, sum_rel, sum_outer, closest, closest_dist,
+                           r_eff2, normal, a2d, line, linearity, planarity,
+                           barycenter, covariance};
+    const int err =
+        line != nullptr
+            ? launch<true>(points, slots, cnt_ok, queries, m, n_off, p, rr,
+                           radius, k_nearest, cached_r_eff2, out, stream)
+            : launch<false>(points, slots, cnt_ok, queries, m, n_off, p, rr,
+                            radius, k_nearest, cached_r_eff2, out, stream);
+    if (err != 0) return err;
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,9 @@
 """The continuous-time ICP solver (torch, eager).
 
-Counterpart of ``ct_icp_tpu/icp/solver.py`` on the CERES point-to-plane
-path, with either neighbourhood and either search radius:
+Counterpart of ``ct_icp_tpu/icp/solver.py``: the CERES, GN and ROBUST
+solvers, the four distances, every loss, the [14] motion prior or the [41]
+prior with its prediction block, the Jacobian by forward mode or analytic,
+with either neighbourhood and either search radius:
 
     outer loop (<= num_iters_icp, early exit on pose deltas):
       1. transform keypoints by the slerp/lerp-interpolated poses
@@ -20,13 +22,23 @@ path, with either neighbourhood and either search radius:
          The radius is the search radius, or with the distance strategy
          one a keypoint growing with its range; that strategy also turns
          on K1's normal filter, seen from the initial end translation
-      4. geometric weights, the uniform-stride residual cap
+      4. geometric weights (CERES: the planarity / neighbour-distance
+         blend; GN: a2D^2, gated by the distance to the plane; ROBUST: a
+         class a keypoint, planar / linear / other, its weight and anchor,
+         gated by the outlier distance), the covariance inverse for the
+         distribution distance, the uniform-stride residual cap
       5. LM inner loop: up to min(ls_max_num_iters, 64) steps in one call
-         of kernel K5: Jacobian by forward mode through the slerp (as
-         jax.jacfwd), IRLS weights, the Jacobi-preconditioned damped 12x12
-         solve with the degenerate-column freeze, accept/reject; the loop
-         ends at the function-tolerance exit, on the device
+         of kernel K5 for the problem's residual family: Jacobian by forward
+         mode through the slerp (as jax.jacfwd) or analytic (cross products
+         from the world-point gradient), IRLS weights of each scalar row,
+         the Jacobi-preconditioned damped 12x12 solve with the
+         degenerate-column freeze, accept/reject; the loop ends at the
+         function-tolerance exit, on the device
       6. convergence test on rot/trans deltas
+
+With a ``PhaseTimer`` the same loop synchronizes the device at its phase
+boundaries and keeps their wall times (the profiled registration, the
+reference's staged loop over ``_loop_pieces``: one body serves both).
 
 The cache holds map slots, not a copy of the candidate rows as the
 reference's does, so it stays valid only while the level is not written
@@ -51,7 +63,8 @@ the reference's float32 arithmetic does.
 """
 
 import dataclasses
-from typing import NamedTuple
+import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -64,6 +77,9 @@ from ct_icp_torch.icp import residuals as res
 from ct_icp_torch.kernels import lm_step as lm
 from ct_icp_torch.mapping import voxel_map as vm
 from ct_icp_torch.ops.neighborhood import compute_description
+
+# FunctorPointToDistribution's epsilon (reference cost_functions.h:180)
+DISTRIBUTION_EPS = 0.05
 
 MAX_OUTER_ITERS = 64
 MAX_INNER_ITERS = 64
@@ -84,6 +100,10 @@ class SolverStatics:
     parametrization: PoseParametrization = PoseParametrization.CONTINUOUS_TIME
     num_closest_neighbors: int = 1
     use_normal_filter: bool = False
+    # ROBUST solver statics (reference ct_icp.h:139-141)
+    use_barycenter: bool = False
+    use_lines: bool = True
+    use_distribution: bool = True
     use_distance_strategy: bool = False
     ball_neighborhood: bool = True
     knn_moments: bool = True
@@ -168,6 +188,58 @@ class RegistrationResult(NamedTuple):
     host_syncs: int                # device->host reads the loops made
 
 
+class Problem(NamedTuple):
+    """The association of one ICP iteration (reference _build_problem's
+    outputs): anchors [K, 3] (or [K, kc, 3]), normals [K, 3], lines [K, 3]
+    (None in ball mode where no distance reads them), the covariance
+    inverse [K, 3, 3] (None unless the distribution distance reads it),
+    geometric weights [K], ok [K] (or [K, kc]), the ROBUST class [K] (None
+    elsewhere) and the candidate cache."""
+    anchors: torch.Tensor
+    normals: torch.Tensor
+    lines: Optional[torch.Tensor]
+    cov_inv: Optional[torch.Tensor]
+    geom_w: torch.Tensor
+    ok: torch.Tensor
+    cls: Optional[torch.Tensor]
+    cache: Optional[tuple]
+
+
+class PhaseTimer:
+    """Wall times (ms) of a registration's phases, the reference ICPSummary
+    durations (ct_icp.h:155-169): ``init``, then per ICP iteration the
+    association (``neighborhood``) and the LM call with the convergence
+    test (``solve``). ``lap`` synchronizes the device first, so each phase
+    is its own work's wall time."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.ms = {"init": 0.0, "neighborhood": 0.0, "solve": 0.0}
+        self._t = None
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def start(self):
+        self._sync()
+        self._t = time.time()
+
+    def lap(self, phase: str):
+        self._sync()
+        now = time.time()
+        self.ms[phase] += (now - self._t) * 1e3
+        self._t = now
+
+
+def _needs_full_descriptor(statics) -> bool:
+    """The ROBUST solver and the line and distribution distances read the
+    line, linearity, planarity, barycenter or covariance."""
+    return (statics.solver == Solver.ROBUST
+            or statics.distance in (IcpDistance.POINT_TO_LINE,
+                                    IcpDistance.POINT_TO_DISTRIBUTION))
+
+
 def search_radius(statics, dyn, raw):
     """The search radius: ``dyn.search_radius``, or with the distance
     strategy one a keypoint, growing with its range (reference
@@ -185,18 +257,24 @@ def search_radius(statics, dyn, raw):
 
 
 def _build_problem(statics, dyn, level, raw, alphas, valid, qb, tb, qe, te,
-                   radius, sensor_location, cache, do_gather: bool):
-    """Association + descriptors at the current pose estimate.
+                   radius, sensor_location, cache, do_gather: bool,
+                   full: Optional[bool] = None) -> Problem:
+    """Association + descriptors at the current pose estimate (reference
+    _build_problem, solver.py:215-361).
 
     Ball neighbourhood: ``cache`` = (slots, cnt_ok, r_eff2) of the last
-    gather, reused when ``do_gather`` is False. Exact k-NN (reference
-    :271-292): a fresh search each call, no cache; with
-    num_closest_neighbors = kc > 1 the anchors are the kc nearest
-    neighbours [K, kc, 3] and ``ok`` is [K, kc]. Returns (anchors, normals,
-    geom_w, ok, cache)."""
+    gather, reused when ``do_gather`` is False; K2 writes the rest of the
+    descriptor where the solver reads it. Exact k-NN (reference :271-292):
+    a fresh search each call, no cache; with num_closest_neighbors = kc > 1
+    the anchors are the kc nearest neighbours [K, kc, 3] and ``ok`` is
+    [K, kc]. ``full`` (default: where the solver reads them) asks K2 for
+    the line and the rest of the descriptor; without it ``lines`` is None
+    in ball mode."""
     world = res.interp_world_points(qb, tb, qe, te, raw, alphas)
     filt = dict(sensor_location=sensor_location,
                 use_normal_filter=statics.use_normal_filter)
+    if full is None:
+        full = _needs_full_descriptor(statics)
     if statics.ball_neighborhood:
         k_nearest = dyn.max_number_neighbors if statics.knn_moments else None
         if do_gather:
@@ -207,15 +285,16 @@ def _build_problem(statics, dyn, level, raw, alphas, valid, qb, tb, qe, te,
             cached_r = None
         else:
             slots, cnt_ok, cached_r = cache
-        mom = vm.moments_from_planes(level, slots, cnt_ok, world, radius,
-                                     k_nearest=k_nearest,
-                                     cached_r_eff2=cached_r)
-        count, anchors, normals, a2d = (mom.count, mom.closest, mom.normal,
-                                        mom.a2d)
-        closest_dist = torch.where(torch.isfinite(mom.closest_dist),
-                                   mom.closest_dist,
-                                   torch.zeros_like(mom.closest_dist))
-        cache = (slots, cnt_ok, mom.r_eff2)
+        desc = vm.moments_from_planes(level, slots, cnt_ok, world, radius,
+                                      k_nearest=k_nearest,
+                                      cached_r_eff2=cached_r, full=full)
+        count, closest, normals, a2d = (desc.count, desc.closest,
+                                        desc.normal, desc.a2d)
+        closest_dist = torch.where(torch.isfinite(desc.closest_dist),
+                                   desc.closest_dist,
+                                   torch.zeros_like(desc.closest_dist))
+        cache = (slots, cnt_ok, desc.r_eff2)
+        lines = desc.line
     else:
         nb = vm.radius_search(level, world, valid, radius,
                               dyn.voxel_resolution,
@@ -225,7 +304,8 @@ def _build_problem(statics, dyn, level, raw, alphas, valid, qb, tb, qe, te,
                                   dyn.threshold_voxel_occupancy), **filt)
         count = nb.mask.sum(-1)
         desc = compute_description(nb.points, nb.mask, world)
-        anchors, normals, a2d = nb.points[:, 0], desc.normal, desc.a2D
+        closest, normals, a2d = nb.points[:, 0], desc.normal, desc.a2D
+        lines = desc.line
         closest_dist = torch.where(nb.mask[:, 0], nb.dist[:, 0],
                                    torch.zeros_like(nb.dist[:, 0]))
     ok = valid & (count >= dyn.min_number_neighbors)
@@ -233,6 +313,58 @@ def _build_problem(statics, dyn, level, raw, alphas, valid, qb, tb, qe, te,
         a2d, closest_dist, dyn.power_planarity, dyn.weight_alpha,
         dyn.weight_neighborhood, dyn.max_dist_to_plane,
         np.float32(max(dyn.min_number_neighbors, 1)))
+
+    if statics.solver == Solver.GN:
+        # reference GN path (ct_icp.cpp:777-806): weight = a2D^2, residual
+        # gated by |dist_to_plane| < max_dist_to_plane
+        geom_w = a2d * a2d
+        dist_to_plane = torch.abs(torch.sum((world - closest) * normals,
+                                            dim=-1))
+        ok = ok & (dist_to_plane < dyn.max_dist_to_plane)
+
+    anchors, cls = closest, None
+    if statics.solver == Solver.ROBUST:
+        # reference DoRegisterRobust (ct_icp.cpp:1227-1290): classify each
+        # neighbourhood, weight and anchor it by class, gate outliers by the
+        # distance to the association
+        planar = desc.planarity > dyn.threshold_planarity
+        linear = ~planar & (desc.linearity > dyn.threshold_linearity)
+        if not statics.use_lines:
+            # reclassify LINEAR (ct_icp.cpp:1243-1248)
+            planar = planar | (linear & (desc.planarity
+                                         > dyn.threshold_planarity))
+            linear = torch.zeros_like(linear)
+        one, two = torch.ones_like(count), torch.full_like(count, 2)
+        cls = torch.where(planar, one, torch.where(linear, two,
+                                                   torch.zeros_like(count)))
+        pp = float(dyn.power_planarity)
+        other = float(dyn.weight_neighborhood if statics.use_distribution
+                      else dyn.weight_point_to_point)
+        geom_w = torch.where(
+            planar, torch.pow(torch.abs(desc.planarity), pp),
+            torch.where(linear, torch.pow(torch.abs(desc.linearity), pp),
+                        torch.full_like(desc.planarity, other)))
+        anchors = desc.barycenter if statics.use_barycenter else closest
+        diff = anchors - world
+        line_n = lines / torch.clamp_min(
+            torch.linalg.norm(lines, dim=-1, keepdim=True), 1e-12)
+        d_line = torch.linalg.norm(s3.cross(diff, line_n), dim=-1)
+        d_plane = torch.abs(torch.sum(diff * normals, dim=-1))
+        d_other = torch.linalg.norm(diff, dim=-1)
+        dist = torch.where(planar, d_plane, torch.where(linear, d_line,
+                                                        d_other))
+        ok = ok & (dist < dyn.outlier_distance)
+
+    cov_inv = None
+    if (statics.distance == IcpDistance.POINT_TO_DISTRIBUTION
+            or (statics.solver == Solver.ROBUST
+                and statics.use_distribution)):
+        eye = torch.eye(3, dtype=raw.dtype, device=raw.device)
+        # inv_ex: no check of the factorization, so no host sync (a
+        # singular matrix gives non-finite entries, as jnp.linalg.inv does)
+        cov_inv = torch.linalg.inv_ex(desc.covariance
+                                      + DISTRIBUTION_EPS * eye).inverse
+
     kc = statics.num_closest_neighbors
     if not statics.ball_neighborhood and kc > 1:
         # kc residuals a keypoint, anchored at its kc nearest neighbours,
@@ -250,49 +382,54 @@ def _build_problem(statics, dyn, level, raw, alphas, valid, qb, tb, qe, te,
     sel = (torch.div(rank * cap_c, n_ok, rounding_mode="floor")
            != torch.div((rank - 1) * cap_c, n_ok, rounding_mode="floor"))
     ok = ok & (sel | (n_ok <= cap)).reshape(ok.shape)
-    return anchors, normals, geom_w, ok, cache
+    return Problem(anchors, normals, lines, cov_inv, geom_w, ok, cls, cache)
 
 
 def _lm_inner_loop(statics, dyn, raw, alphas, anchors, normals, geom_w, ok,
-                   qb, tb, qe, te, prior):
+                   qb, tb, qe, te, prior, lines=None, cov_inv=None,
+                   cls=None):
     """ceres::Solve replacement: up to min(ls_max_num_iters, 64) damped-GN
     steps with IRLS weights and accept/reject damping, ending at the
     function-tolerance exit: one ``lm_loop`` call (kernel K5 on the card,
-    kernels/lm_step.py), nothing read back. Returns (qb, tb, qe, te, cost,
+    kernels/lm_step.py) for the problem's residual family, nothing read
+    back. ``prior`` is f32[14] or f32[41]. Returns (qb, tb, qe, te, cost,
     n_res, host_syncs)."""
     n_steps = min(dyn.ls_max_num_iters, MAX_INNER_ITERS)
     if n_steps < 1:
         raise ValueError("the LM inner loop needs ls_max_num_iters >= 1")
+    family = lm.family_of(statics.solver, statics.distance)
     if anchors.dim() == 3:
         # one row a (keypoint, i-th neighbour): the keypoint's arrays
         # repeated kc times, row i of keypoint j at j * kc + i
         kc = anchors.shape[1]
-        raw, alphas = (raw.repeat_interleave(kc, 0),
-                       alphas.repeat_interleave(kc, 0))
-        normals = normals.repeat_interleave(kc, 0)
-        geom_w = geom_w.repeat_interleave(kc, 0)
+        def rep(x):
+            return None if x is None else x.repeat_interleave(kc, 0)
+        raw, alphas, normals, geom_w = (rep(raw), rep(alphas), rep(normals),
+                                        rep(geom_w))
+        lines, cov_inv = rep(lines), rep(cov_inv)
         anchors, ok = anchors.reshape(-1, 3), ok.reshape(-1)
     n_res = ok.sum(dtype=torch.int32)
-    rows = lm.pack_rows(raw, alphas, anchors, normals, geom_w, ok)
+    rows = lm.pack_rows(raw, alphas, anchors, normals, geom_w, ok, family,
+                        lines, cov_inv, cls)
     state = lm.init_state(qb, tb, qe, te)
     freeze_begin = statics.parametrization == PoseParametrization.SIMPLE
+    analytic = (statics.analytic_jacobian
+                and statics.solver != Solver.ROBUST
+                and statics.num_closest_neighbors <= 1)
     lm.lm_loop(rows, prior, n_res, state, n_steps, statics.loss,
-               dyn.ls_sigma, dyn.ls_tolerant_min_threshold, freeze_begin)
+               dyn.ls_sigma, dyn.ls_tolerant_min_threshold, freeze_begin,
+               family=family, use_distribution=statics.use_distribution,
+               analytic=analytic)
     return (state[0:4], state[4:7], state[7:11], state[11:14],
             state[lm.S_COST0], n_res, 0)
 
 
 def build_register_fn(statics: SolverStatics):
     """The registration loop for ``statics``:
-      (level, raw [K,3], alphas [K], valid [K], qb, tb, qe, te, prior [14],
-       dyn) -> RegistrationResult
-    with ``dyn`` a SolverDynamics or its packed vector."""
-    if (statics.solver != Solver.CERES
-            or statics.distance != IcpDistance.POINT_TO_PLANE
-            or statics.analytic_jacobian):
-        raise NotImplementedError(
-            "ct_icp_torch ports the CERES point-to-plane path with the "
-            f"autodiff Jacobian only; got {statics}")
+      (level, raw [K,3], alphas [K], valid [K], qb, tb, qe, te,
+       prior [14] or [41], dyn, timer=None) -> RegistrationResult
+    with ``dyn`` a SolverDynamics or its packed vector; a ``PhaseTimer``
+    ``timer`` gets the phases' wall times (the profiled registration)."""
     if statics.num_closest_neighbors > 1:
         # never a silent degrade to one residual a keypoint
         if statics.ball_neighborhood:
@@ -300,12 +437,20 @@ def build_register_fn(statics: SolverStatics):
                 "num_closest_neighbors > 1 needs the sorted neighbor list: "
                 "set ball_neighborhood=False (CTICPRegistration flips this "
                 "automatically when building statics from options)")
+        if statics.solver != Solver.CERES:
+            raise ValueError(
+                "num_closest_neighbors > 1 is a CERES-builder feature "
+                "(reference ct_icp.cpp:554); the GN/ROBUST paths never emit "
+                "k residuals per keypoint")
         if statics.max_neighbors < statics.num_closest_neighbors:
             raise ValueError(
                 f"num_closest_neighbors={statics.num_closest_neighbors} "
                 f"exceeds max_number_neighbors={statics.max_neighbors}")
 
-    def register(level, raw, alphas, valid, qb, tb, qe, te, prior, dyn):
+    def register(level, raw, alphas, valid, qb, tb, qe, te, prior, dyn,
+                 timer: Optional[PhaseTimer] = None):
+        if timer is not None:
+            timer.start()
         if not isinstance(dyn, SolverDynamics):
             dyn = unpack_dynamics(dyn)
         qb = s3.quat_normalize(qb)
@@ -325,17 +470,23 @@ def build_register_fn(statics: SolverStatics):
         cache, do_gather = None, True
         syncs = 0
         it = 0
+        if timer is not None:
+            timer.lap("init")
         # iteration 0 is the reference's peeled iteration: its gather is
         # unconditional and creates the cache the later iterations reuse
         while it < min(dyn.num_iters_icp, MAX_OUTER_ITERS) and not converged:
             if do_gather:
                 anchor_tr, anchor_qe, anchor_qb = te, qe, qb
-            anchors, normals, geom_w, ok, cache = _build_problem(
-                statics, dyn, level, raw, alphas, valid, qb, tb, qe, te,
-                radius, sensor_location, cache, do_gather)
+            p = _build_problem(statics, dyn, level, raw, alphas, valid, qb,
+                               tb, qe, te, radius, sensor_location, cache,
+                               do_gather)
+            cache = p.cache
+            if timer is not None:
+                timer.lap("neighborhood")
             nqb, ntb, nqe, nte, cost, n_res, lm_syncs = _lm_inner_loop(
-                statics, dyn, raw, alphas, anchors, normals, geom_w, ok,
-                qb, tb, qe, te, prior)
+                statics, dyn, raw, alphas, p.anchors, p.normals, p.geom_w,
+                p.ok, qb, tb, qe, te, prior, lines=p.lines,
+                cov_inv=p.cov_inv, cls=p.cls)
             syncs += lm_syncs
             # not enough residuals: freeze the state, fail the problem
             enough_t = n_res >= dyn.min_number_neighbors
@@ -365,6 +516,8 @@ def build_register_fn(statics: SolverStatics):
             syncs += 1
             converged, enough = flags[0], flags[1]
             do_gather = (it < dyn.regather_iters) or flags[2]
+            if timer is not None:
+                timer.lap("solve")
 
         return RegistrationResult(
             quat_begin=s3.quat_normalize(qb), tr_begin=tb,

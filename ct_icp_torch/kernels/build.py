@@ -5,10 +5,11 @@ first use.
 Each source is a standalone translation unit with a plain C interface: nvcc
 compiles it into ``build/ct_icp_torch/lib<name>-<hash>.so`` (the hash covers
 the source, the shared headers and the flags, so an edited kernel never
-loads a stale library) and ``ctypes`` loads it. Pointers and the CUDA
-stream cross as ``c_void_p``. Nothing here runs at import time: the CPU
-tests import every module, and a machine without a card may have no
-``nvcc``.
+loads a stale library) and ``ctypes`` loads it. A source of :data:`PARTS`
+is compiled into one library a part, each with its part's define.
+Pointers and the CUDA stream cross as ``c_void_p``. Nothing here runs at
+import time: the CPU tests import every module, and a machine without a
+card may have no ``nvcc``.
 
 Flags: ``-fmad=false`` because integer outputs (voxel ids, in-radius counts,
 histogram bins, min-distance accepts) come from float compares, and an FMA
@@ -29,6 +30,15 @@ BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "ct_icp_to
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false",
               "-Xptxas", "-v")
+
+# the sources built as several libraries, one a define: K5's instances, a
+# library a residual family (Family in kernels/lm_step.py), so that its
+# build, the longest, runs on several cores
+PARTS = {"lm_step": tuple(f"K5_FAMILY={f}" for f in range(5))}
+# the sources whose build is the longest; build_all runs every other nvcc
+# at a lower priority, so that these keep a core while they all build
+# together
+LONGEST_BUILDS = ("lm_step",)
 
 _loaded = {}
 # per-source build record: {"seconds": float, "ptxas": str} of the last build
@@ -62,36 +72,59 @@ def kernel_names():
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
+def libraries(name, defines=()):
+    """(name, defines) of each library of source ``name`` with ``defines``:
+    one, or one a part of :data:`PARTS`."""
+    return [(name, tuple(defines) + part)
+            for part in ([(p,) for p in PARTS[name]] if name in PARTS
+                         else [()])]
+
+
 def build_all(names, defines=()) -> None:
-    """Compile every missing library of ``names``, one nvcc per source, all
-    started together; ``defines`` (``"NAME"`` or ``"NAME=value"``) build a
-    variant of each, which the main path never loads. Raises with the
-    compiler output on any failure."""
-    todo = [(n, _lib_path(n, defines)) for n in names
-            if not _lib_path(n, defines).exists()]
+    """Compile every missing library of ``names`` (:func:`libraries`), one
+    nvcc per library, all started together; ``defines`` (``"NAME"`` or
+    ``"NAME=value"``) build a variant of each, which the main path never
+    loads. Raises with the compiler output on any failure."""
+    _build([lib for n in names for lib in libraries(n, defines)],
+           variant=bool(defines))
+
+
+def _build(libs, variant):
+    """Compile the missing ones of ``libs``, (name, defines) pairs."""
+    todo = [(n, d, _lib_path(n, d)) for n, d in libs
+            if not _lib_path(n, d).exists()]
     if not todo:
         return
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = []
     t0 = time.time()
-    for name, out in todo:
+    for name, defines, out in todo:
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc, *_flags(defines), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
-        procs.append((name, out, tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
+        lower = None if name in LONGEST_BUILDS and not variant \
+            else _lower_priority
+        procs.append((name, defines, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            preexec_fn=lower)))
     failed = []
-    for name, out, tmp, proc in procs:
+    for name, defines, out, tmp, proc in procs:
         log = proc.communicate()[0].decode(errors="replace")
         if proc.returncode != 0:
-            failed.append(f"--- {name} ---\n{log}")
+            failed.append(f"--- {name} {' '.join(defines)} ---\n{log}")
             continue
         os.replace(tmp, out)
-        build_info[" ".join((name,) + tuple(defines))] = {
+        build_info[" ".join((name,) + defines)] = {
             "seconds": time.time() - t0, "ptxas": log}
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
+def _lower_priority():
+    """Runs in a child nvcc before it starts: its own scheduling priority
+    lowered (``LONGEST_BUILDS``)."""
+    os.nice(10)
 
 
 _prepared = []
@@ -114,13 +147,15 @@ PTR, INT, LONG, FLOAT = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 
 
 def launcher(name: str, symbol: str, argtypes, defines=()):
-    """The C launcher ``symbol`` of ``csrc/<name>.cu`` (of its variant built
-    with ``defines``; built first if needed), with its argument types
+    """The C launcher ``symbol`` of ``csrc/<name>.cu`` (of its library built
+    with ``defines``, a part's define among them for a source of
+    :data:`PARTS`; built first if needed), with its argument types
     declared; it returns the ``cudaGetLastError()`` after its launches."""
     key = (name, symbol, tuple(defines))
     fn = _loaded.get(key)
     if fn is None:
-        build_all([name], defines)
+        _build([(name, tuple(defines))],
+               variant=any(d not in PARTS.get(name, ()) for d in defines))
         fn = getattr(ctypes.CDLL(str(_lib_path(name, defines))), symbol)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int

@@ -14,13 +14,23 @@ CUDA inputs and raises AssertionError on a disagreement. Tolerances:
     so within 1e-4 of each query's second-moment scale; the normal within
     1e-3 (|cos| of the angle, sign free) where the neighborhood is planar
     (a2D > 0.5 and >= 10 points); a2D within 1e-3 where >= 5 points;
+    with the full descriptor (``full``): the covariance within 1e-4 of the
+    second-moment scale, the barycenter within 1e-5 of it (its square root,
+    in metres) plus 1e-6 of the query's coordinates, linearity and
+    planarity within 1e-4 where >= 5 points, the line within 1e-3 (|cos|)
+    where the largest eigenvalue stands 5 % clear of the middle one, and
+    the ROBUST classes (planarity > 0.8, else linearity > 0.8: the
+    reference defaults) identical wherever both values lie more than 1e-4
+    from their thresholds; the keypoints within 1e-4 of one are counted
+    (``near_threshold``), not compared;
   * K4 (grid election) and K13 (the exact samplers): indices, count and
     validity identical;
   * K6 (row gather, one table or several in one launch) and K7 (the
     rebase's table, writers and num_points), and the whole
     ``rebuild_level`` they make up: identical (keys, counts, points,
     normals, flags, num_points);
-  * K5 (LM loop), one step from the same state: J^T W J and J^T W r within
+  * K5 (LM loop), any residual family, loss, prior size and Jacobian
+    branch, one step from the same state: J^T W J and J^T W r within
     1e-4 of their largest entry (K rows summed in another order: warp and
     cluster sums vs BLAS), the trial cost and the cost at delta = 0 within
     1e-5 relative, delta within 1e-3 of its largest entry (the 12x12 solve
@@ -120,11 +130,11 @@ def check_candidate_gather(level, queries, query_valid, resolution, nv,
 
 
 def check_plane_moments(points, slots, cnt_ok, queries, radius, k_nearest,
-                        cached_r_eff2=None):
+                        cached_r_eff2=None, full=False):
     got = k2.plane_moments(points, slots, cnt_ok, queries, radius, k_nearest,
-                           cached_r_eff2)
+                           cached_r_eff2, full=full)
     want = k2.plane_moments_plain(points, slots, cnt_ok, queries, radius,
-                                  k_nearest, cached_r_eff2)
+                                  k_nearest, cached_r_eff2, full=full)
     torch.cuda.synchronize()
     _same(got.count, want.count, "plane_moments count")
     _same(got.r_eff2, want.r_eff2, "plane_moments r_eff2")
@@ -145,13 +155,68 @@ def check_plane_moments(points, slots, cnt_ok, queries, radius, k_nearest,
     cosang = (got.normal * want.normal).sum(-1).abs()
     if planar.any() and (1.0 - cosang[planar]).max() > 1e-3:
         raise AssertionError("plane_moments normal beyond 1e-3")
-    full = want.count >= 5
-    a2d_err = (got.a2d[full] - want.a2d[full]).abs()
-    if full.any() and a2d_err.max() > 1e-3:
+    five = want.count >= 5
+    a2d_err = (got.a2d[five] - want.a2d[five]).abs()
+    if five.any() and a2d_err.max() > 1e-3:
         raise AssertionError(f"plane_moments a2D: {a2d_err.max().item()}")
-    return {"max_abs_err": max(
+    out = {"max_abs_err": max(
         (got.sum_rel - want.sum_rel).abs().max().item(),
         (got.sum_outer - want.sum_outer).abs().max().item())}
+    if full:
+        out.update(_check_descriptor(got, want, queries, scale, five))
+    return out
+
+
+# the ROBUST solver's class thresholds the check counts keypoints near
+# (CTICPOptions' threshold_planarity and threshold_linearity)
+CLASS_THRESHOLDS = (0.8, 0.8)
+
+
+def robust_classes(planarity, linearity, thresholds=CLASS_THRESHOLDS):
+    """solver._build_problem's classes: 1 planar, 2 linear, 0 other."""
+    planar = planarity > thresholds[0]
+    linear = ~planar & (linearity > thresholds[1])
+    return torch.where(planar, 1, torch.where(linear, 2, 0))
+
+
+def _check_descriptor(got, want, queries, scale, five):
+    """K2's full descriptor against the plain version's (tolerances in the
+    module docstring)."""
+    cov_err = ((got.covariance - want.covariance).abs().amax(dim=(1, 2))
+               / scale)
+    bar_err = ((got.barycenter - want.barycenter).abs().amax(-1)
+               - 1e-6 * queries.abs().amax(-1)) / scale.sqrt()
+    if cov_err.max() > 1e-4 or bar_err.max() > 1e-5:
+        raise AssertionError(f"plane_moments covariance / barycenter: "
+                             f"{cov_err.max().item()}, "
+                             f"{bar_err.max().item()}")
+    for name in ("linearity", "planarity"):
+        err = (getattr(got, name)[five] - getattr(want, name)[five]).abs()
+        if five.any() and err.max() > 1e-4:
+            raise AssertionError(f"plane_moments {name}: {err.max().item()}")
+    vals = torch.linalg.eigvalsh(want.covariance.double()).flip(-1).abs()
+    clear = five & (vals[:, 0] > 1.05 * vals[:, 1])
+    cos_line = (got.line * want.line).sum(-1).abs()
+    if clear.any() and (1.0 - cos_line[clear]).max() > 1e-3:
+        raise AssertionError("plane_moments line beyond 1e-3")
+    tol = 1e-4
+    near = torch.zeros_like(five)
+    for name, thr in zip(("planarity", "linearity"), CLASS_THRESHOLDS):
+        near |= ((getattr(got, name) - thr).abs() <= tol) | (
+            (getattr(want, name) - thr).abs() <= tol)
+    cls_g = robust_classes(got.planarity, got.linearity)
+    cls_w = robust_classes(want.planarity, want.linearity)
+    differ = (cls_g != cls_w) & ~near
+    if differ.any():
+        raise AssertionError(f"plane_moments classes: {int(differ.sum())} "
+                             "differ away from the thresholds")
+    return {"near_threshold": int(near.sum()),
+            "classes": [int((cls_w == c).sum()) for c in (0, 1, 2)],
+            "descriptor_max_abs_err": max(
+                (got.covariance - want.covariance).abs().max().item(),
+                (got.barycenter - want.barycenter).abs().max().item(),
+                (got.linearity - want.linearity).abs().max().item(),
+                (got.planarity - want.planarity).abs().max().item())}
 
 
 def check_knn_search(points, slots, cnt_ok, queries, radius, k):
@@ -269,12 +334,16 @@ def _rel_err(a, b):
 
 
 def check_lm_step(rows, prior, n_res, state, sigma, tolerant_a,
-                  freeze_begin=False, loop_steps=0):
+                  freeze_begin=False, loop_steps=0,
+                  loss=LeastSquares.CAUCHY, family=k5.Family.PLANE,
+                  use_distribution=True, analytic=False):
     """One K5 step and one plain step from copies of ``state``; then, with
     ``loop_steps``, one ``lm_loop`` call of that many steps against
     ``lm_loop_plain`` from ``state`` (each stops at done), with the steps
-    each ran."""
-    args = (LeastSquares.CAUCHY, sigma, tolerant_a, freeze_begin)
+    each ran. ``family``, ``use_distribution`` and ``analytic`` as
+    ``lm_loop`` takes them; ``prior`` f32[14] or f32[41]."""
+    args = (loss, sigma, tolerant_a, freeze_begin, family, use_distribution,
+            analytic)
     a, b = state.clone(), state.clone()
     k5.lm_loop(rows, prior, n_res, a, 1, *args)
     k5.lm_step_plain(rows, prior, n_res, b, *args)

@@ -12,6 +12,12 @@ The radius is a scalar or one a query (the distance strategy's per-point
 radius, the reference's ``radius_arr``). Bound on the card: bytes (each
 distinct live map point once, the slot pairs, queries, radii and outputs).
 
+With ``full``, the epilogue also writes the rest of the descriptor (the
+line, linearity, planarity, the barycenter and the covariance: the ROBUST
+solver's and the point-to-line and point-to-distribution distances'
+inputs), an instance of its own so that the normal-only instance stays as
+it was.
+
 A CPU tensor takes :func:`plane_moments_plain`; a CUDA tensor launches the
 kernel or raises.
 """
@@ -39,6 +45,14 @@ class Moments(NamedTuple):
     r_eff2: torch.Tensor         # f32 [M] squared radius the sums used
     normal: torch.Tensor         # f32 [M, 3] (sign arbitrary)
     a2d: torch.Tensor            # f32 [M]
+    # the rest of the descriptor (``full`` calls only, else None): the
+    # largest eigenvalue's vector, linearity, planarity, the barycenter and
+    # the covariance (ops/neighborhood.py::_describe)
+    line: Optional[torch.Tensor] = None          # f32 [M, 3]
+    linearity: Optional[torch.Tensor] = None     # f32 [M]
+    planarity: Optional[torch.Tensor] = None     # f32 [M]
+    barycenter: Optional[torch.Tensor] = None    # f32 [M, 3]
+    covariance: Optional[torch.Tensor] = None    # f32 [M, 3, 3]
 
 
 def radius_sq(radius):
@@ -85,7 +99,7 @@ def knn_radius2(d2, ok, query, m: int, radius, k_nearest: int,
 
 def plane_moments_plain(points, slots, cnt_ok, queries, radius,
                         k_nearest: Optional[int],
-                        cached_r_eff2=None) -> Moments:
+                        cached_r_eff2=None, full: bool = False) -> Moments:
     """Plain PyTorch version of :func:`plane_moments`, over the live
     candidates only (a voxel's points below its usable count). Candidate
     row (q, o) is ``points[slots[q, o]]``; the live points are read from it
@@ -156,12 +170,15 @@ def plane_moments_plain(points, slots, cnt_ok, queries, radius,
     closest_dist = torch.where(count > 0, torch.sqrt(cd2),
                                torch.full_like(cd2, inf))
     desc = description_from_moments(count, sum_rel, sum_outer, queries)
+    rest = ((desc.line, desc.linearity, desc.planarity, desc.barycenter,
+             desc.covariance) if full else ())
     return Moments(count, sum_rel, sum_outer, closest, closest_dist, r_eff2,
-                   desc.normal, desc.a2D)
+                   desc.normal, desc.a2D, *rest)
 
 
 def plane_moments(points, slots, cnt_ok, queries, radius,
-                  k_nearest: Optional[int], cached_r_eff2=None) -> Moments:
+                  k_nearest: Optional[int], cached_r_eff2=None,
+                  full: bool = False) -> Moments:
     """Moments of the in-radius candidates of each query, and the
     descriptor (normal, a2D) they give.
 
@@ -171,19 +188,21 @@ def plane_moments(points, slots, cnt_ok, queries, radius,
     float or f32[M] (a radius a query).
     ``k_nearest`` (None = no cap) caps the sums to ~the k nearest candidates
     by the 32-shell histogram radius, recomputed unless ``cached_r_eff2``
-    f32[M] is given."""
+    f32[M] is given. ``full``: the rest of the descriptor too (line,
+    linearity, planarity, barycenter, covariance), which the ROBUST solver
+    and the point-to-line and point-to-distribution distances read."""
     if queries.device.type == "cpu":
         return plane_moments_plain(points, slots, cnt_ok, queries, radius,
-                                   k_nearest, cached_r_eff2)
+                                   k_nearest, cached_r_eff2, full)
     global launches
     out = launch(points, slots, cnt_ok, queries, radius, k_nearest,
-                 cached_r_eff2)
+                 cached_r_eff2, full=full)
     launches += 1
     return out
 
 
 def launch(points, slots, cnt_ok, queries, radius,
-           k_nearest: Optional[int], cached_r_eff2=None,
+           k_nearest: Optional[int], cached_r_eff2=None, full: bool = False,
            defines=()) -> Moments:
     """One launch of ``csrc/plane_moments.cu`` on CUDA tensors, counted by
     no launch counter; ``defines`` pick a measurement variant of the kernel
@@ -217,6 +236,13 @@ def launch(points, slots, cnt_ok, queries, radius,
         r_eff2=torch.empty((m,), **f32),
         normal=torch.empty((m, 3), **f32),
         a2d=torch.empty((m,), **f32))
+    if full:
+        out = out._replace(
+            line=torch.empty((m, 3), **f32),
+            linearity=torch.empty((m,), **f32),
+            planarity=torch.empty((m,), **f32),
+            barycenter=torch.empty((m, 3), **f32),
+            covariance=torch.empty((m, 3, 3), **f32))
     fn = build.launcher("plane_moments", "k2_plane_moments", _ARGTYPES,
                         defines)
     status = fn(build.ptr(points), build.ptr(slots), build.ptr(cnt_ok),
@@ -225,10 +251,11 @@ def launch(points, slots, cnt_ok, queries, radius,
                 build.ptr(radius) if per_query else None,
                 -1 if k_nearest is None else int(k_nearest),
                 None if cached_r_eff2 is None else build.ptr(cached_r_eff2),
-                *(build.ptr(t) for t in out), build.stream_of(queries))
+                *(None if t is None else build.ptr(t) for t in out),
+                build.stream_of(queries))
     build.check_status(status, "plane_moments")
     return out
 
 
 _ARGTYPES = (build.PTR,) * 4 + (build.INT,) * 3 \
-    + (build.FLOAT, build.PTR, build.INT) + (build.PTR,) * 10
+    + (build.FLOAT, build.PTR, build.INT) + (build.PTR,) * 15

@@ -121,15 +121,18 @@ def gather_candidate_planes(level: MapLevel, queries, query_valid,
 
 
 def moments_from_planes(level: MapLevel, slots, cnt_ok, queries, radius,
-                        k_nearest=None, cached_r_eff2=None) -> k2.Moments:
+                        k_nearest=None, cached_r_eff2=None,
+                        full: bool = False) -> k2.Moments:
     """Scoring half (kernel K2): in-radius moments of the candidates that
     ``gather_candidate_planes`` found vs the current query positions, the
     closest candidate and the descriptor (normal, a2D) — see
     kernels/plane_moments.py. The reference scores its cached rows; this
     reads candidate o's points from ``level.points[slots[:, o]]``.
-    ``radius`` is a float or f32[M] (a radius a query)."""
+    ``radius`` is a float or f32[M] (a radius a query). ``full``: the rest
+    of the descriptor too (line, linearity, planarity, barycenter,
+    covariance)."""
     return k2.plane_moments(level.points, slots, cnt_ok, queries, radius,
-                            k_nearest, cached_r_eff2)
+                            k_nearest, cached_r_eff2, full=full)
 
 
 def ball_search_moments(level: MapLevel, queries, query_valid, radius,

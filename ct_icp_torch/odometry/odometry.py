@@ -63,8 +63,17 @@ through K13, NONE the sub-frame's first rows; the random cap; then
 insertion tracker or the robust decision, then the deferred map update).
 It reads its results back each frame; ``stream_frames`` refuses it.
 
-Not ported (they raise NotImplementedError): ``profile_registration`` and
-the CONSTANT_VELOCITY motion compensation.
+The CONSTANT_VELOCITY motion compensation bends each sub-frame by the
+frame's initial poses before its keypoints are elected (the frame core's
+``distort_constant_velocity``; on the staged path ``_initialize_frame``
+past frame 1), so ``prepare_frame`` elects no host keypoint prefix there:
+the device election runs. ``profile_registration`` fills the ICPSummary
+phase durations: the staged path registers through
+``CTICPRegistration.register_profiled``; the per-frame frame step commits
+its own result and then replays the same solver loop with a
+``solver.PhaseTimer`` on a copy of the searched level taken before the
+insert (``_profile_replay``; the replay's pose difference is logged as
+``profile_replay_pose_diff_m``).
 """
 
 from __future__ import annotations
@@ -263,11 +272,6 @@ class Odometry:
 
     def __init__(self, options: OdometryOptions, device=None, seed: int = 0):
         options = _apply_motion_compensation(options)
-        if options.motion_compensation == MotionCompensation.CONSTANT_VELOCITY:
-            raise NotImplementedError(
-                "CONSTANT_VELOCITY motion compensation is not ported")
-        if options.profile_registration:
-            raise NotImplementedError("profile_registration is not ported")
         self.device = resolve_device(device)
         self.options = options
         self.map_options = options.map_options
@@ -294,7 +298,10 @@ class Odometry:
         # reads them (reference odometry.py:186-188)
         self.with_normals = statics.use_normal_filter
         core_args = dict(host_prededuped=options.host_subsample,
-                         max_dirty=options.max_dirty_voxels)
+                         max_dirty=options.max_dirty_voxels,
+                         distort_constant_velocity=(
+                             options.motion_compensation
+                             == MotionCompensation.CONSTANT_VELOCITY))
         self._frame_step = pl.make_frame_step(self.map_options, statics, sub,
                                               **core_args)
         stream_args = dict(
@@ -663,6 +670,19 @@ class Odometry:
         xyz, timestamps = xyz[keep], timestamps[keep]
         n = xyz.shape[0]
         cap = min(o.max_scan_points, o.max_subsampled_points)
+        if o.motion_compensation == MotionCompensation.CONSTANT_VELOCITY:
+            # the device bends the sub-frame before the keypoint election
+            # (reference DistortFrame -> grid sampling, odometry.cpp:367,
+            # 538): a prefix elected on the unbent coordinates would part
+            # from it, so the device election runs (odometry.py:350-354)
+            alphas = self._frame_alphas(timestamps, info)
+            return {
+                "n": n,
+                "scan_host": pl.pack_scan_u16(xyz, alphas, n,
+                                              pl.scan_rung(cap, n)),
+                "xyz": xyz, "timestamps": timestamps, "alphas": alphas,
+                "kp_n": 0, "kp_voxel": 0.0,
+            }
         # KEYPOINT PREFIX: stable-partition the deduped scan so the
         # sample-voxel grid winners (first in scan order) come first; the
         # device takes keypoints as that prefix when it samples at this
@@ -866,6 +886,7 @@ class Odometry:
         non-robust per-frame path."""
         o = self.options
         k = info.registered_fid
+        t_frame_start = time.time()
         scan, n, kp_n, kp_voxel, prep = self._prepare_device_scan(
             xyz, timestamps, info, prep)
         frame = self.trajectory[k]
@@ -898,8 +919,16 @@ class Odometry:
             else 4.0,
             self._kp_prefix_scalar(kp_n, kp_voxel, fs1),
         ], dtype=np.float32)
-        _out, r = self._run_frame_step(scan, n, frame, self._prior(k), dyn,
-                                       fs)
+        prior = self._prior(k)
+        profile = o.profile_registration and k > 0
+        if profile:
+            # the searched level before the frame step inserts into it, and
+            # the initial poses: the replay's inputs
+            level_before = vm.MapLevel(*(
+                t.clone() for t in self.map_state[
+                    self.registration.level_index]))
+            pose_init = self._pose_init_packed(frame)
+        _out, r = self._run_frame_step(scan, n, frame, prior, dyn, fs)
         self._set_frame_poses(frame, r)
         summary.frame = frame
         self._fill_summary(summary, r)
@@ -918,6 +947,11 @@ class Odometry:
             tracker.insert_frame(k)
         else:
             tracker.skip_frame()
+        if profile:
+            self._profile_replay(summary, level_before, _out.keypoints,
+                                 pose_init, prior, dyn, r, t_frame_start)
+            del level_before
+            self._log_summary(summary)
         self._maybe_rebase()
         if self.callbacks.get(self.FINISHED_REGISTRATION):
             # the keypoints the frame step solved with: the prefix after
@@ -934,6 +968,36 @@ class Odometry:
                         cnt, int(dyn[pl._MNR_INDEX])))
         self._fire_callbacks(self.FINISHED_REGISTRATION, summary)
         return summary
+
+    def _profile_replay(self, summary: RegistrationSummary, level_before,
+                        keypoints, pose_init, prior, dyn, r, t_frame_start):
+        """The ICPSummary phase durations of a profiled frame step
+        (reference odometry.py:1810-1853). The committed estimate is the
+        frame step's; the durations come from a replay of the same solver
+        loop with a ``solver.PhaseTimer`` on the inputs the frame step's
+        solver saw: its keypoints after the residual-cap decimation, the
+        initial poses, prior and dynamics, and the searched level as it was
+        before the insert. The replay's largest translation difference to
+        the committed poses is logged (``profile_replay_pose_diff_m``; the
+        kernels repeat bit for bit, so 0)."""
+        from ct_icp_torch.icp.registration import fill_durations
+        from ct_icp_torch.icp.solver import PhaseTimer
+        icp = summary.icp_summary
+        dev = self.device
+        timer = PhaseTimer(dev)
+        pose = torch.as_tensor(pose_init, device=dev)
+        res = self.registration.register_fn(
+            level_before, *keypoints, pose[0:4], pose[4:7], pose[7:11],
+            pose[11:14], torch.as_tensor(prior, device=dev), dyn,
+            timer=timer)
+        tr = torch.cat([res.tr_begin, res.tr_end]).cpu().numpy()
+        self.host_syncs += res.host_syncs + 1
+        fill_durations(icp, timer, res.num_iters)
+        icp.duration_total = (time.time() - t_frame_start) * 1000.0
+        pose_diff = max(float(np.linalg.norm(tr[0:3] - r[4:7])),
+                        float(np.linalg.norm(tr[3:6] - r[11:14])))
+        summary.logged_values["profile_replay_pose_diff_m"] = pose_diff
+        summary.logged_values["profile_replay_num_iters"] = res.num_iters
 
     @staticmethod
     def _fill_summary(summary: RegistrationSummary, r):
@@ -1137,6 +1201,16 @@ class Odometry:
         sub_raw, sub_alphas, sub_valid, cnt = pl.preprocess(
             *pl.upload([raw, alphas, valid], self.device), sample_size,
             o.max_subsampled_points)
+        k = info.registered_fid
+        if (k > 1 and o.motion_compensation
+                == MotionCompensation.CONSTANT_VELOCITY):
+            # bent by the frame's initial poses (reference
+            # odometry.py:1415-1417)
+            pose = torch.as_tensor(
+                self._pose_init_packed(self.trajectory[k]),
+                device=self.device)
+            sub_raw = pl.distort_raw(sub_raw, sub_alphas, pose[0:4],
+                                     pose[4:7], pose[7:11], pose[11:14])
         self.host_syncs += 1
         return sub_raw, sub_alphas, sub_valid, int(cnt)
 
@@ -1187,9 +1261,11 @@ class Odometry:
                 num_iters_icp=max(opts.num_iters_icp, 15))
         keypoints = (kp_raw, kp_alphas, kp_valid)
         self._fire_callbacks(self.BEFORE_ITERATION, summary, keypoints)
-        icp = self.registration.register_device(
-            self.map_state, kp_raw, kp_alphas, kp_valid, summary.frame,
-            prior=prior, origin=self.origin, options=opts)
+        reg = (self.registration.register_profiled
+               if o.profile_registration
+               else self.registration.register_device)
+        icp = reg(self.map_state, kp_raw, kp_alphas, kp_valid, summary.frame,
+                  prior=prior, origin=self.origin, options=opts)
         self.host_syncs += icp.host_syncs
         self.result_reads += 1
         summary.icp_summary = icp

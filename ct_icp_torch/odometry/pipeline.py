@@ -82,6 +82,16 @@ def transform_points(raw, alphas, qb, tb, qe, te):
     return res.interp_world_points(qb, tb, qe, te, raw, alphas)
 
 
+def distort_raw(raw, alphas, qb, tb, qe, te):
+    """The CONSTANT_VELOCITY motion compensation: raw points bent into the
+    end pose's frame, raw' = end^-1 * interp(alpha) * raw (reference
+    pipeline.py:56, odometry.cpp:162-170). Plain torch, as B11's transform
+    (ROADMAP B)."""
+    world = res.interp_world_points(qb, tb, qe, te, raw, alphas)
+    qi, ti = s3.se3_inverse(qe, te)
+    return s3.quat_rotate(qi.expand(world.shape[:-1] + (4,)), world) + ti
+
+
 def preprocess(raw, alphas, valid, voxel_size: float, capacity: int):
     """Voxel-grid subsample the raw scan (K4, a 2^22 table) -> the
     sub-frame (raw f32[capacity, 3], alphas f32[capacity], valid
@@ -164,9 +174,12 @@ def insert_world(level, world, valid, resolution: float, min_dist: float,
 
 def make_frame_core(map_options, statics, sub_capacity: int,
                     host_prededuped: bool = True,
-                    max_dirty: int = 1 << 15):
+                    max_dirty: int = 1 << 15,
+                    distort_constant_velocity: bool = False):
     """One odometry frame: the device sub-sample of the raw scan (when the
-    host did not dedup it) -> keypoint prefix (or the device grid election)
+    host did not dedup it) -> with ``distort_constant_velocity``, the
+    sub-frame bent by the initial poses (:func:`distort_raw`; reference
+    pipeline.py:275-276) -> keypoint prefix (or the device grid election)
     -> decimation -> CT registration -> world transform -> assessment ->
     insertion decision -> prune + insert (in place on ``map_state``; with
     the voxel normals where the solver reads them).
@@ -210,6 +223,8 @@ def make_frame_core(map_options, statics, sub_capacity: int,
             idx = idx.to(torch.int64)
             sub_raw, sub_alphas = raw[idx], alphas[idx]
             sub_count = sub_cnt_t.to(torch.float32).reshape(1)
+        if distort_constant_velocity:
+            sub_raw = distort_raw(sub_raw, sub_alphas, qb0, tb0, qe0, te0)
         mnr = int(dyn_packed[_MNR_INDEX])
         if fs[16] > 0:
             # KEYPOINT PREFIX: prepare_frame put the fs[1]-grid winners
@@ -318,7 +333,8 @@ def init_odo_state():
 
 
 def make_frame_step(map_options, statics, sub_capacity: int,
-                    host_prededuped: bool = True, max_dirty: int = 1 << 15):
+                    host_prededuped: bool = True, max_dirty: int = 1 << 15,
+                    distort_constant_velocity: bool = False):
     """One frame of the per-frame (``register_frame``) path, the pose
     initialization and the prior given by the host (reference
     make_frame_step_fn, pipeline.py:434-458):
@@ -326,7 +342,8 @@ def make_frame_step(map_options, statics, sub_capacity: int,
         -> FrameResult
     with do_register, force_insert and skipped in fs[3], fs[4], fs[6]."""
     core = make_frame_core(map_options, statics, sub_capacity,
-                           host_prededuped, max_dirty)
+                           host_prededuped, max_dirty,
+                           distort_constant_velocity)
 
     def frame_step(map_state, scan_packed, n_points: int, pose_init, prior,
                    dyn_packed, fs):
@@ -410,7 +427,8 @@ def make_stream_body(map_options, statics, sub_capacity: int,
                      always_insert: bool, do_no_insert: bool,
                      robust_gated: bool = False,
                      host_prededuped: bool = True,
-                     max_dirty: int = 1 << 15):
+                     max_dirty: int = 1 << 15,
+                     distort_constant_velocity: bool = False):
     """Per-frame streaming body:
       (map_state, odo_state, scan_packed, n, k, prior_betas, dyn, fs)
         -> (odo_state, packed [24], host_syncs)
@@ -420,7 +438,8 @@ def make_stream_body(map_options, statics, sub_capacity: int,
     robust assessment passes) after the first inserted frame — the
     speculative robust streamer's mode."""
     core = make_frame_core(map_options, statics, sub_capacity,
-                           host_prededuped, max_dirty)
+                           host_prededuped, max_dirty,
+                           distort_constant_velocity)
 
     def stream_body(map_state, odo_state, scan_packed, n_points: int, k: int,
                     prior_betas, dyn_packed, fs):

@@ -9,9 +9,14 @@ of each on the same inputs (four LM calls: K = 900 to 70,000 rows, 1 to 20
 steps, drawn from one numpy generator) and compares the final states bit
 for bit, and the kernels' SASS instructions (``cuobjdump -sass``, the
 instruction lines only: the entry's mangled name carries a per-file hash).
-Prints one JSON line; exits 1 when anything differs. It shows that a
-change to K5's source that should not change its code (moving device code
-into a shared header) did not.
+Prints one JSON line; exits 1 when a final state differs (the SASS may
+differ: it is reported, not held). It shows that a change to K5's source
+that should not change the point-to-plane Cauchy call's results (moving
+device code into a shared header; more instances beside it; one library
+a family) did not.
+Each call is also timed, a CUDA graph of its one launch
+(``tools/timing.py::time_graph``, the tree's own), the trees in the order
+other, this, this, other.
 """
 
 import json
@@ -26,6 +31,7 @@ sys.path.insert(0, sys.argv[1])
 import numpy as np, torch
 from ct_icp_torch.config.options import LeastSquares
 from ct_icp_torch.kernels import build, lm_step as k5
+from ct_icp_torch.tools.timing import time_graph
 assert build.__file__.startswith(sys.argv[1]), build.__file__
 dev = torch.device("cuda")
 rng = np.random.default_rng(7)
@@ -51,13 +57,21 @@ for k, steps in ((2941, 20), (2941, 1), (900, 3), (70000, 5)):
                                                       device=dev),
                           qe / qe.norm(), torch.tensor([0.6, 0.1, 0.02],
                                                       device=dev))
+    state0 = state.clone()
     k5.lm_loop(rows, prior, n_res, state, steps, LeastSquares.CAUCHY, 0.5,
                0.0, False)
     torch.cuda.synchronize()
     out[f"K={k} steps={steps}"] = state.cpu().numpy().tobytes().hex()
-sass = subprocess.run(["cuobjdump", "-sass", str(build._lib_path("lm_step"))],
-                      capture_output=True, text=True, check=True).stdout
-ins = [line.strip() for line in sass.splitlines() if "/*0" in line]
+    st = state0.clone()
+    ms, _ = time_graph(lambda: st.copy_(state0), lambda: k5.lm_loop(
+        rows, prior, n_res, st, steps, LeastSquares.CAUCHY, 0.5, 0.0, False))
+    out[f"ms K={k} steps={steps}"] = ms
+# every library of the source (a tree that builds one a family has several)
+libs = ([build._lib_path(*lib) for lib in build.libraries("lm_step")]
+        if hasattr(build, "libraries") else [build._lib_path("lm_step")])
+ins = [line.strip() for lib in libs for line in subprocess.run(
+    ["cuobjdump", "-sass", str(lib)], capture_output=True, text=True,
+    check=True).stdout.splitlines() if "/*0" in line]
 out["sass"] = hashlib.sha256("\n".join(ins).encode()).hexdigest()
 out["sass_instructions"] = len(ins)
 print(json.dumps(out))
@@ -82,12 +96,16 @@ def main(argv=None) -> int:
         return 2
     here = Path(__file__).resolve().parents[2]
     other = Path(args[0]).resolve()
-    a, b = _run(here), _run(other)
-    same = {key: a[key] == b[key] for key in a}
+    b1, a1, a2, b2 = _run(other), _run(here), _run(here), _run(other)
+    states = [key for key in a1 if key.startswith("K=")]
+    same = {key: a1[key] == b1[key] == a2[key] == b2[key] for key in states}
+    times = {key[3:]: {"other": [b1[key], b2[key]], "this": [a1[key], a2[key]]}
+             for key in a1 if key.startswith("ms ")}
     print(json.dumps({"this": str(here), "other": str(other),
-                      "identical": same,
-                      "sass_instructions": [a["sass_instructions"],
-                                            b["sass_instructions"]]}))
+                      "identical": same, "ms (other, this, this, other)":
+                      times, "sass_identical": a1["sass"] == b1["sass"],
+                      "sass_instructions": [a1["sass_instructions"],
+                                            b1["sass_instructions"]]}))
     return 0 if all(same.values()) else 1
 
 

@@ -32,7 +32,7 @@ from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.tools.timing import time_graph
 
 SIGMA = np.float32(0.2)
-ARGS = (LeastSquares.CAUCHY, SIGMA, False)
+ARGS = (LeastSquares.CAUCHY, SIGMA, 0.0, False)
 # the kernel's builds: the main path's, and the measurement variants
 MAIN, EIGHT, MARKS = (), ("K5_CLUSTER=8",), ("K5_MARKS",)
 # the phases of a step, in the order of csrc/lm_step.cu's MARK sites
@@ -87,7 +87,8 @@ def time_call(rows, prior, n_res, state0, steps, defines):
 
 def phase_shares(rows, prior, n_res, state0, steps):
     """Each phase's share of the clock cycles of one call's steps."""
-    read = build.launcher("lm_step", "k5_read_marks", (build.PTR,), MARKS)
+    read = build.launcher("lm_step", "k5_read_marks", (build.PTR,),
+                          k5.library(k5.Family.PLANE, MARKS))
     cycles = np.zeros(len(PHASES), dtype=np.int64)
     build.check_status(read(cycles.ctypes.data), "k5_read_marks")
     k5.launch(rows, prior, n_res, state0.clone(), steps, *ARGS,
@@ -108,8 +109,6 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    for defines in (EIGHT, MARKS):
-        build.build_all(["lm_step"], defines)
     rng = np.random.default_rng(0)
     for k in (0, 1350, 2941, 4096, 16384, k5.rows_on_chip() + 1000):
         rows, prior, n_res, state = problem(rng, k, dev)

@@ -256,6 +256,9 @@ def _run_job(kind, fn, args, restore):
 
 
 def _tracer_main(inbox, outbox):
+    # the context now, so that a process started ahead has it when its
+    # first jobs come (no trace yet: its age starts at the first one)
+    torch.zeros(1, device="cuda")
     first = None
     while True:
         jobs = inbox.get()
@@ -268,8 +271,9 @@ def _tracer_main(inbox, outbox):
         outbox.put((results, time.time() - first))
 
 
-# the tracing process: [process, its inbox, its outbox]
-_TRACER = []
+# the tracing processes, each [process, its inbox, its outbox]: the one the
+# next call takes first, then those started ahead of it
+_TRACERS = []
 
 
 def _spawn_tracer():
@@ -279,16 +283,28 @@ def _spawn_tracer():
     proc = ctx.Process(target=_tracer_main, args=(inbox, outbox),
                        daemon=True)
     proc.start()
-    _TRACER[:] = [proc, inbox, outbox]
+    return [proc, inbox, outbox]
 
 
-def fresh_process_traces(jobs):
+def _end(tracer):
+    proc, inbox, _ = tracer
+    if proc.is_alive():
+        inbox.put(None)
+        proc.join(timeout=30)
+    if proc.is_alive():
+        proc.kill()
+        proc.join()
+
+
+def fresh_process_traces(jobs, ahead=1):
     """Traces taken in a process whose first trace is recent: on some of
     the card's machines a process's traces hold no device activity from
     about 10 s after its first trace on (PERF.md §6). The process is
     spawned at the first call; once it has traced for
-    :data:`FRESH_PROCESS_AGE_S` it is ended after the call and the next
-    one spawned, to start while this process goes on. ``jobs`` is a list
+    :data:`FRESH_PROCESS_AGE_S` it is ended after the call, and ``ahead``
+    processes are kept started for the calls to come, the next of them
+    taking the next call (more than one where calls follow each other
+    closely: each needs seconds to start). ``jobs`` is a list
     of (kind, fn, args, restore): ``fn`` a function a module defines,
     ``args`` a tuple whose tensors are this process's, shared with the
     tracing process (CUDA IPC, no copy) and updated in place by the calls,
@@ -299,10 +315,10 @@ def fresh_process_traces(jobs):
     "ops" the device operations' names of the first of up to ten traces
     that saw the device (None where none did) and the traces taken.
     Returns the results in the order of ``jobs``; :func:`end_fresh_process`
-    ends the process."""
-    if not _TRACER:
-        _spawn_tracer()
-    proc, inbox, outbox = _TRACER
+    ends the processes."""
+    if not _TRACERS:
+        _TRACERS.append(_spawn_tracer())
+    proc, inbox, outbox = _TRACERS[0]
     torch.cuda.synchronize()
     inbox.put(jobs)
     t0 = time.time()
@@ -312,7 +328,7 @@ def fresh_process_traces(jobs):
             break
         except queue.Empty:
             if not proc.is_alive():
-                _TRACER.clear()
+                _TRACERS.pop(0)
                 raise RuntimeError("the tracing process exited with code "
                                    f"{proc.exitcode}") from None
             if time.time() - t0 > FRESH_PROCESS_TIMEOUT_S:
@@ -321,21 +337,17 @@ def fresh_process_traces(jobs):
                                    f"{FRESH_PROCESS_TIMEOUT_S} s") from None
     torch.cuda.ipc_collect()
     if traced_s > FRESH_PROCESS_AGE_S:
-        end_fresh_process()
-        _spawn_tracer()
+        _end(_TRACERS.pop(0))
+        torch.cuda.ipc_collect()
+        while len(_TRACERS) < ahead:
+            _TRACERS.append(_spawn_tracer())
     return results
 
 
 def end_fresh_process():
-    """End the tracing process of :func:`fresh_process_traces`, if any."""
-    if not _TRACER:
+    """End the tracing processes of :func:`fresh_process_traces`, if any."""
+    if not _TRACERS:
         return
-    proc, inbox, _ = _TRACER
-    _TRACER.clear()
-    if proc.is_alive():
-        inbox.put(None)
-        proc.join(timeout=30)
-    if proc.is_alive():
-        proc.kill()
-        proc.join()
+    while _TRACERS:
+        _end(_TRACERS.pop())
     torch.cuda.ipc_collect()

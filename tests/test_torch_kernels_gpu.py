@@ -6,7 +6,9 @@ from call to call, K8 one launch per CT-BA step (its inner iterations in
 one launch), K9 one launch an eviction of every level on per-device
 accumulators it leaves zero, K10 one launch a level's normal refit, K12
 one launch a k-NN search, K11 one launch an owner pack; K1 with the
-normal filter, K2 with a radius a query; K13 one launch an exact sample,
+normal filter, K2 with a radius a query and with the full descriptor; K5
+for every residual family, loss, the [41] prior and the analytic
+Jacobian; K13 one launch an exact sample,
 bit for bit, on a table kept from call to call, and the staged path's
 register_frame through K13 and K4 and no plain version). The tests that
 count a call's device operations read torch.profiler in a fresh process
@@ -488,6 +490,167 @@ def test_lm_loop_rows_beyond_shared_memory(cuda):
     out = checks.check_lm_step(rows, prior, n_res, state, np.float32(0.2),
                                np.float32(0.05), False, loop_steps=20)
     assert out["loop"]["steps_run"] >= 1
+
+
+def _lm_family_problem(rng, dev, k, family):
+    """``_lm_problem``'s rows for another residual family: lines and SPD
+    covariance inverses at random, the ROBUST classes 0 / 1 / 2 in equal
+    parts."""
+    pts = _scene(rng, k)[:k]
+    alphas = rng.uniform(0, 1, k).astype(np.float32)
+    anchors = pts + rng.normal(scale=0.03, size=pts.shape).astype(np.float32)
+    normals = rng.normal(size=pts.shape).astype(np.float32)
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    lines = rng.normal(size=pts.shape).astype(np.float32)
+    a = rng.normal(scale=0.3, size=(k, 3, 3))
+    cov_inv = np.linalg.inv(np.einsum("nij,nkj->nik", a, a)
+                            + 0.05 * np.eye(3)).astype(np.float32)
+    cls = rng.integers(0, 3, k).astype(np.int64)
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    ok = t(rng.uniform(size=k) < 0.75)
+    rows = k5.pack_rows(t(pts), t(alphas), t(anchors), t(normals),
+                        t(rng.uniform(0.2, 1.0, k).astype(np.float32)), ok,
+                        family, t(lines), t(cov_inv), t(cls))
+    def f(x):
+        return torch.tensor(x, dtype=torch.float32, device=dev)
+
+    state = k5.init_state(
+        f([1.0, 0, 0, 0]), f([0.02, -0.01, 0.0]),
+        torch.nn.functional.normalize(f([0.99997, 0.001, -0.002, 0.007]),
+                                      dim=0), f([0.35, 0.04, 0.01]))
+    prior = f([1.0, 0, 0, -0.001, -0.02, 0, 0, 0.3, 0.0, 0, 0.001, 0.01,
+               0.001, 0.0005])
+    return rows, prior, ok.sum(dtype=torch.int32), state
+
+
+def _prior41(prior14, dev):
+    """A [41] prior: ``prior14``, then a prediction near the problem's
+    start pose with every weight set."""
+    rng = np.random.default_rng(41)
+    out = np.zeros(41, np.float32)
+    out[:14] = prior14.cpu().numpy()
+    for base in (14, 21, 28):
+        q = np.array([1.0, 0, 0, 0]) + rng.normal(scale=0.002, size=4)
+        out[base:base + 4] = q / np.linalg.norm(q)
+    out[18:21] = [0.02, -0.01, 0.0]
+    out[25:28] = [0.33, 0.05, 0.0]
+    out[32:35] = [0.31, 0.05, 0.01]
+    out[35:41] = rng.uniform(0.5, 5.0, 6)
+    return torch.from_numpy(out).to(dev)
+
+
+FAMILIES = [(k5.Family.PLANE, True), (k5.Family.POINT, True),
+            (k5.Family.LINE, True), (k5.Family.DISTRIBUTION, True),
+            (k5.Family.ROBUST, True), (k5.Family.ROBUST, False)]
+
+
+@pytest.mark.parametrize("family, use_distribution", FAMILIES)
+def test_lm_family_matches_plain(cuda, family, use_distribution):
+    """Each residual family's instance of K5 (the ROBUST rows with the
+    distribution distance and with point-to-point for the "other" class),
+    one launch a call."""
+    rng = np.random.default_rng(int(family) + 20)
+    rows, prior, n_res, state = _lm_family_problem(rng, cuda, 2941, family)
+    launches = k5.launches
+    out = checks.check_lm_step(rows, prior, n_res, state, np.float32(0.2),
+                               np.float32(0.05), False, loop_steps=20,
+                               family=family,
+                               use_distribution=use_distribution)
+    assert k5.launches == launches + 2
+    assert out["loop"]["steps_run"] >= 1
+
+
+@pytest.mark.parametrize("loss", ["STANDARD", "CAUCHY", "HUBER", "TOLERANT",
+                                  "TRUNCATED"])
+@pytest.mark.parametrize("family", [k5.Family.PLANE, k5.Family.ROBUST])
+def test_lm_loss_matches_plain(cuda, loss, family):
+    from ct_icp_torch.config.options import LeastSquares
+    rng = np.random.default_rng(31)
+    rows, prior, n_res, state = _lm_family_problem(rng, cuda, 2048, family)
+    checks.check_lm_step(rows, prior, n_res, state, np.float32(0.2),
+                         np.float32(0.05), False, loop_steps=20,
+                         loss=getattr(LeastSquares, loss), family=family)
+
+
+@pytest.mark.parametrize("family", [k5.Family.PLANE, k5.Family.ROBUST])
+@pytest.mark.parametrize("freeze_begin", [False, True])
+def test_lm_prior41_matches_plain(cuda, family, freeze_begin):
+    """The [41] prior: the 12 prediction-consistency rows beside the 10
+    motion-model rows, their Jacobian on the pose warp."""
+    rng = np.random.default_rng(41)
+    rows, prior, n_res, state = _lm_family_problem(rng, cuda, 2048, family)
+    checks.check_lm_step(rows, _prior41(prior, cuda), n_res, state,
+                         np.float32(0.2), np.float32(0.05), freeze_begin,
+                         loop_steps=20, family=family)
+
+
+@pytest.mark.parametrize("family", [k5.Family.PLANE, k5.Family.POINT,
+                                    k5.Family.LINE, k5.Family.DISTRIBUTION])
+@pytest.mark.parametrize("freeze_begin", [False, True])
+def test_lm_analytic_matches_plain(cuda, family, freeze_begin):
+    """The analytic Jacobian (cross products from the world-point
+    gradient) of each distance."""
+    rng = np.random.default_rng(int(family) + 50)
+    rows, prior, n_res, state = _lm_family_problem(rng, cuda, 2941, family)
+    checks.check_lm_step(rows, prior, n_res, state, np.float32(0.2),
+                         np.float32(0.05), freeze_begin, loop_steps=20,
+                         family=family, analytic=True)
+
+
+def test_lm_robust_rows_beyond_shared_memory(cuda):
+    """A ROBUST problem larger than the cluster keeps on chip (the widest
+    rows: fewer of them fit)."""
+    rng = np.random.default_rng(13)
+    k = k5.rows_on_chip(k5.Family.ROBUST) + 1000
+    rows, prior, n_res, state = _lm_family_problem(rng, cuda, k,
+                                                   k5.Family.ROBUST)
+    out = checks.check_lm_step(rows, prior, n_res, state, np.float32(0.2),
+                               np.float32(0.05), False, loop_steps=20,
+                               family=k5.Family.ROBUST)
+    assert out["loop"]["steps_run"] >= 1
+
+
+def test_lm_robust_repeats_bit_for_bit(cuda):
+    """100 launches of one ROBUST call from the same state end bit for bit
+    alike (no float atomics: the partials are summed in a fixed order)."""
+    rng = np.random.default_rng(17)
+    rows, prior, n_res, state = _lm_family_problem(rng, cuda, 2941,
+                                                   k5.Family.ROBUST)
+    from ct_icp_torch.config.options import LeastSquares
+    args = (LeastSquares.CAUCHY, np.float32(0.2), np.float32(0.05), False,
+            k5.Family.ROBUST)
+    first = state.clone()
+    k5.lm_loop(rows, prior, n_res, first, 20, *args)
+    for _ in range(100):
+        again = state.clone()
+        k5.lm_loop(rows, prior, n_res, again, 20, *args)
+        assert torch.equal(again, first)
+
+
+@pytest.mark.parametrize("k_nearest", [40, None])
+def test_plane_moments_full_matches_plain(cuda, k_nearest):
+    """K2's full instance: the line, linearity, planarity, barycenter and
+    covariance beside the normal-only outputs, on a level with noisy
+    planes (non-planar neighbourhoods too)."""
+    rng = np.random.default_rng(5)
+    level = _warm_level(rng, cuda, noise=0.05)
+    q = torch.from_numpy(_scene(rng, 700)).to(cuda)
+    valid = torch.ones(q.shape[0], dtype=torch.bool, device=cuda)
+    slots, cnt = vm.gather_candidate_planes(level, q, valid, 0.8, 1)
+    launches = k2.launches
+    out = checks.check_plane_moments(level.points, slots, cnt, q, 0.75,
+                                     k_nearest, full=True)
+    assert k2.launches == launches + 1
+    assert sum(out["classes"]) == q.shape[0]
+    # the normal-only instance's outputs are the full one's
+    got = k2.plane_moments(level.points, slots, cnt, q, 0.75, k_nearest)
+    full = k2.plane_moments(level.points, slots, cnt, q, 0.75, k_nearest,
+                            full=True)
+    for a, b in zip(got[:8], full[:8]):
+        assert torch.equal(a, b)
+    assert got.line is None and full.line is not None
 
 
 @pytest.mark.parametrize("w, dtype, with_sub", [

@@ -207,14 +207,16 @@ def test_robust_corridor_frames_match_bench(scene):
                                   "constant_velocity", "frame_ring",
                                   "rebase"])
 def test_paths_out_of_the_port_raise_not_implemented(path):
-    """The paths this port does not carry yet refuse to run, always with
+    """Every path here is ported now and none raises
     NotImplementedError: profile_registration and the CONSTANT_VELOCITY
-    motion compensation. The others are ported: the CT-BA backend on a
-    robust profile ("backend"), its replay and the frame ring on any
-    profile (the ring grows to the backend's window; a replay of frames the
-    ring does not hold inserts nothing), and the rebase: a frame past the
-    rebase distance moves the origin to its end position and the map with
-    it."""
+    motion compensation build on a robust profile (the SIMPLE
+    parametrization without distortion for the latter;
+    tests/test_torch_constant_velocity.py and test_torch_profiled.py run
+    them), the CT-BA backend on a robust profile ("backend"), its replay
+    and the frame ring on any profile (the ring grows to the backend's
+    window; a replay of frames the ring does not hold inserts nothing), and
+    the rebase: a frame past the rebase distance moves the origin to its
+    end position and the map with it."""
     opts = options_from_dict(dataclasses.asdict(robust_options()))
     if path == "backend":
         opts = dataclasses.replace(opts, backend=dataclasses.replace(
@@ -233,8 +235,13 @@ def test_paths_out_of_the_port_raise_not_implemented(path):
             opts, motion_compensation=type(opts.motion_compensation)(
                 "CONSTANT_VELOCITY"))
     if path in ("profile_registration", "constant_velocity"):
-        with pytest.raises(NotImplementedError):
-            TOdometry(opts, device="cpu")
+        odo = TOdometry(opts, device="cpu")
+        icp = odo.options.ct_icp_options
+        if path == "constant_velocity":
+            assert icp.parametrization.name == "SIMPLE"
+            assert not icp.point_to_plane_with_distortion
+        else:
+            assert odo.options.profile_registration
         return
     odo = TOdometry(opts, device="cpu")
     if path in ("backend", "backend_replay"):

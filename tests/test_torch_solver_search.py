@@ -169,13 +169,14 @@ def test_registration_matches_reference(case):
                                   "robust", "point_to_point",
                                   "analytic_jacobian", "kc2_on_the_ball"])
 def test_what_stays_unported_raises(what):
-    """The solvers, distances and Jacobian this port does not carry still
-    refuse with NotImplementedError; two residuals a keypoint on the ball
-    neighbourhood, which has no sorted list, is refused as in the
-    reference (ValueError). The keypoint samplers of the reference's
-    staged path (ADAPTIVE, NONE, the random cap) are ported to the staged
-    per-frame path, and streaming them is refused, as the reference
-    asserts (ValueError; tests/test_torch_staged.py runs them)."""
+    """Nothing here stays unported: the GN and ROBUST solvers, the
+    point-to-point distance and the analytic Jacobian build
+    (tests/test_torch_solver_families.py runs them); two residuals a
+    keypoint on the ball neighbourhood, which has no sorted list, is
+    refused as in the reference (ValueError). The keypoint samplers of the
+    reference's staged path (ADAPTIVE, NONE, the random cap) are ported to
+    the staged per-frame path, and streaming them is refused, as the
+    reference asserts (ValueError; tests/test_torch_staged.py runs them)."""
     from ct_icp_torch.icp import solver as tslv
     from ct_icp_torch.odometry.odometry import Odometry
     d = topt.default_driving_profile()
@@ -195,6 +196,8 @@ def test_what_stays_unported_raises(what):
           "kc2_on_the_ball": dict(num_closest_neighbors=2)}[what]
     statics = tslv.SolverStatics(num_keypoints=64, max_neighbors=20,
                                  level_index=0, voxel_neighborhood=1, **kw)
-    with pytest.raises(ValueError if what == "kc2_on_the_ball"
-                       else NotImplementedError):
+    if what != "kc2_on_the_ball":
+        assert callable(tslv.build_register_fn(statics))
+        return
+    with pytest.raises(ValueError, match="sorted neighbor list"):
         tslv.build_register_fn(statics)

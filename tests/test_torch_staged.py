@@ -18,8 +18,9 @@ differ (by 0.1 um to 1.5 mm on these frames; frame 1, whose begin pose the
 all-ones alphas leave unobserved, by up to 90 um on denser frames) a point
 within that distance of a voxel face or of another point's 0.1 m
 min-distance sphere lands on the other side.
-Also: ``stream_frames`` refuses a staged profile, and CONSTANT_VELOCITY and
-``profile_registration`` still raise.
+Also: ``stream_frames`` refuses a staged profile; CONSTANT_VELOCITY and
+``profile_registration`` build (tests/test_torch_constant_velocity.py and
+test_torch_profiled.py hold them to the reference).
 """
 
 import dataclasses
@@ -180,8 +181,7 @@ def test_stream_and_unported_options_raise(frames):
     cv = dataclasses.replace(
         base, motion_compensation=type(base.motion_compensation)
         .CONSTANT_VELOCITY)
-    with pytest.raises(NotImplementedError, match="CONSTANT_VELOCITY"):
-        TOdometry(cv, device="cpu")
-    with pytest.raises(NotImplementedError, match="profile_registration"):
-        TOdometry(dataclasses.replace(base, profile_registration=True),
-                  device="cpu")
+    # ported: they build, on the fused path
+    assert TOdometry(cv, device="cpu")._use_fused
+    assert TOdometry(dataclasses.replace(base, profile_registration=True),
+                     device="cpu")._use_fused

@@ -16,8 +16,10 @@ APE, with 0 failures), for each of:
     PYTHONPATH=. python tests/torch_search_reference.py [--runs knn,devsub]
 
 The frames are the 80-frame driving corridor, seed 3
-(``ct_icp_torch/datasets/corridor.py``, numpy only), streamed at batch 16.
-Prints one JSON line a run. Not collected by pytest.
+(``ct_icp_torch/datasets/corridor.py``, numpy only), streamed at batch 16:
+its first ``--first`` (40, as chip_smoke.py's search runs take them) for
+knn, distance and devsub, its first ``--kc2-frames`` for knn_kc2. Prints
+one JSON line a run. Not collected by pytest.
 """
 
 import argparse
@@ -59,6 +61,7 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=80)
     ap.add_argument("--kc2-frames", type=int, default=10)
+    ap.add_argument("--first", type=int, default=40)
     ap.add_argument("--seed", type=int, default=cor.APE_SEEDS[0])
     ap.add_argument("--runs", default="knn,knn_kc2,distance,devsub")
     a = ap.parse_args()
@@ -66,7 +69,7 @@ def main():
     traj = cor.straight_trajectory(400, a.frames * 0.1 + 0.5)
     frames = cor.render_corridor(scene, traj, a.frames, a.seed)
     for name in [r for r in a.runs.split(",") if r]:
-        n = a.kc2_frames if name == "knn_kc2" else a.frames
+        n = a.kc2_frames if name == "knn_kc2" else min(a.first, a.frames)
         t0 = time.time()
         odo = Odometry(run_options(name))
         preps = [odo.prepare_frame(f["xyz"], f["timestamps"], i, frame_id=i,

@@ -19,8 +19,8 @@ Every run registers the driving corridor's frames (seed 3,
 ``ct_icp_torch/datasets/corridor.py``, numpy only) one at a time through
 ``Odometry.register_frame``: ``--frames`` (default 80) are rendered, as
 chip_smoke.py's driving phase renders them, and a run takes all of them or,
-given as ``name:n``, the first n (chip_smoke.py runs none and
-adaptive_k2_cap for 10 frames). Prints one JSON line a run. Not collected
+given as ``name:n``, the first n (chip_smoke.py runs cap for 40 frames,
+none and adaptive_k2_cap for 10). Prints one JSON line a run. Not collected
 by pytest.
 
     PYTHONPATH=. python tests/torch_staged_reference.py --per-frame \\
@@ -306,9 +306,9 @@ def port_iterations(name, cap):
 
     def spy_build(*a, **kw):
         r = build(*a, **kw)
-        anchors, normals, geom_w, ok, _ = r
-        pending.update(ok=ok.numpy().copy(), weight=geom_w.numpy().copy(),
-                       normal=normals.numpy().copy())
+        pending.update(ok=r.ok.numpy().copy(),
+                       weight=r.geom_w.numpy().copy(),
+                       normal=r.normals.numpy().copy())
         return r
 
     def spy_lm(*a, **kw):
@@ -473,7 +473,7 @@ def main():
         per_frame((a.runs or ",".join(rec.RUNS)).split(","), a.frames,
                   a.port, [int(u) for u in a.nudge.split(",") if u])
         return
-    a.runs = a.runs or ("adaptive,adaptive_robust,cap,none:10,"
+    a.runs = a.runs or ("adaptive,adaptive_robust,cap:40,none:10,"
                         "adaptive_k2_cap:10")
     runs = []
     for r in (r for r in a.runs.split(",") if r):
