@@ -277,7 +277,41 @@ when either is missing. Phases; any failure raises and exits non-zero:
      planarity, barycenter, covariance; the ROBUST classes away from their
      thresholds) on the ROBUST run's first full call; each timed as a CUDA
      graph of 20 (K5: of one launch) with its bound;
-  in 4-8, 10, 12, 14, 15, 18-20, 22-24, 26-28 and 30 every kernel count and
+  32. the CLI: the driving phase's 80 corridor frames written as
+     PLY frames with their KITTI-format ground truth, in the KITTI layout
+     (tools/runner_data.py; a PLY_DIRECTORY reads no ground truth), and
+     ``python3 -m ct_icp_torch.cli --profile driving --dataset KITTI
+     --html-viewer`` run on them in a process of its own (a non-zero exit
+     fails the run): its metrics.yaml, KITTI poses, trajectory.ply and
+     viewer.html read back; MEAN_APE within 1.5 x the JAX package's CLI on
+     the same files on the CPU (RUNNER_REF_APE_M,
+     tests/torch_runner_reference.py) and under the driving gate's 0.07 m,
+     every frame a success; its ms a frame (PLY read and prefetch inside)
+     beside the driving phase's frames/s;
+  33. checkpoint and resume: the corridor's first 40 frames streamed
+     (batch 8) and saved (odometry/checkpoint.py), loaded into a fresh
+     Odometry on the card, which streams the other 40; the same 80 streamed
+     uninterrupted: the first frame where the two trajectories part (none
+     when bit for bit) and by how much, held within the reference's
+     test_checkpoint_roundtrip bound (1e-6 m, 1e-4 deg);
+  34. the regression harness: ``python3 -m ct_icp_torch.regression -c
+     configs/regression_synthetic.yaml`` in a process of its own must exit
+     0; its Tr, APE and runtime;
+  35. the CT-BA backend on a staged profile: default_driving_profile()
+     with ADAPTIVE keypoints, min_number_neighbors 10 and the backend
+     gate's backend (window 8, period 8, 2 steps of 2 iterations), through
+     OdometryRunner.run_sequence on the long drive's first 320 frames
+     (rendered by phase 7), backend on then off: %Tr, APE, refinements,
+     frames/s, host syncs a frame and event waits; 0 failures,
+     refinements > 0, %Tr on within 1.5 x the JAX package's staged-backend
+     run on the CPU over the same frames (STAGED_BACKEND_REF; its %Tr on is
+     not under its off, so on against off is not held); K4, K13, K1, K2,
+     K3, K5 launched on both, K8 on the backend's run only;
+  36. K8 against its plain version on 35's first refine over a full window
+     (check_ct_ba_block's tolerances), timed as in phase 9: the "staged"
+     record of K8;
+  in 4-8, 10, 12, 14, 15, 18-20, 22-24, 26-28, 30, 33 and 35 every
+  kernel count and
   K5's device count of LM steps are set to 0 just before the path and read
   just after it (in 20, in each rank's process); each
   path must launch its kernels (4-8, 10, 12 and 22-24: K5 and the
@@ -285,7 +319,7 @@ when either is missing. Phases; any failure raises and exits non-zero:
   frame than LM steps (one per ICP iteration and readback where no batch
   rolled back, and in 23 one a level for each insert); the driving path
   one K5 launch per ICP iteration;
-  32. one JSON line of the kernels (K1-K5 with an "indoor" record, K3
+  37. one JSON line of the kernels (K1-K5 with an "indoor" record, K3
      with "indoor level 1" and "indoor level 2" as well, K1 and K2 with a
      "backend" record, K8 with its "blocks" mode beside its "gn" one, K9
      and K10 on level 0 with "level 1" and "level 2" records, K3's
@@ -293,13 +327,16 @@ when either is missing. Phases; any failure raises and exits non-zero:
      with the normal filter, K2 with a radius a query, K4 at the scan's
      rung, K12, K13 with its "k=2, max_keep" record, K5 with a record for
      each family, loss, the [41] prior and the analytic branch of phase 31,
-     K2 with its "full descriptor" record), the card's line, and the
+     K2 with its "full descriptor" record, K8 with its "staged" record),
+     the card's line, and the
      result line. The log gives each phase's seconds ("-- name: s").
 """
 
+import base64
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -316,6 +353,7 @@ from ct_icp_torch.config.options import (AdaptiveGridSamplingOptions,
                                          default_driving_profile,
                                          default_robust_outdoor_low_inertia,
                                          robust_driving_profile)
+from ct_icp_torch.config.yaml_config import RunnerConfig, read_yaml
 from ct_icp_torch.core import se3_np as s3n
 from ct_icp_torch.datasets import corridor as cor
 from ct_icp_torch.datasets import indoor_walk as iw
@@ -323,6 +361,8 @@ from ct_icp_torch.datasets import long_drive as ld
 from ct_icp_torch.datasets import room
 from ct_icp_torch.datasets.streaming import (CachedAcquisition,
                                              stream_acquisition)
+from ct_icp_torch.io.ply import read_ply
+from ct_icp_torch.io.trajectory_io import load_poses_kitti_format
 from ct_icp_torch.kernels import build
 from ct_icp_torch.kernels import candidate_gather as k1
 from ct_icp_torch.kernels import checks
@@ -340,12 +380,15 @@ from ct_icp_torch.kernels import rebuild as k7
 from ct_icp_torch.kernels import row_gather as k6
 from ct_icp_torch.mapping import voxel_map as vm
 from ct_icp_torch.odometry import pipeline as pl
+from ct_icp_torch.odometry.checkpoint import load_checkpoint, save_checkpoint
 from ct_icp_torch.odometry.odometry import PRUNE_PERIOD, Odometry
 from ct_icp_torch.ops import sampling as smp
 from ct_icp_torch.ops import voxel as vx
 from ct_icp_torch.parallel import ct_ba
+from ct_icp_torch.runner import OdometryRunner
 from ct_icp_torch.tools import bench as gates
 from ct_icp_torch.tools import exp_header_trees as eht
+from ct_icp_torch.tools import runner_data
 from ct_icp_torch.tools import scale_out
 from ct_icp_torch.tools.exp_gather import k6_bytes, k6_fields_bytes
 from ct_icp_torch.tools.exp_moments import k2_bytes, live_work
@@ -528,6 +571,36 @@ REGISTER41_BOUND = (1e-4, 1e-3)
 # the profiled run's replay of each frame's solver against its committed
 # poses (the reference's own guard, tests/test_round2.py:145-160)
 PROFILE_REPLAY_BOUND_M = 1e-3
+# the runner phases (32-36). The CLI's MEAN_APE on the corridor's 80
+# frames written in the KITTI layout, within 1.5 times the JAX package's
+# CLI on the same files on the CPU and under the driving gate's 0.07 m
+# (tests/torch_runner_reference.py --runs cli)
+RUNNER_REF_APE_M = 0.047824271840367194
+RUNNER_APE_FACTOR = 1.5
+RUNNER_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_runner"
+RUNNER_TIMEOUT_S = 300
+# checkpoint and resume (phase 33): the first CHECKPOINT_SPLIT corridor
+# frames, then the rest in a fresh Odometry, in batches of CHECKPOINT_BATCH
+# (a divisor of both halves, so that both runs batch the frames alike),
+# held to the reference's test_checkpoint_roundtrip bound (m, deg)
+CHECKPOINT_SPLIT = 40
+CHECKPOINT_BATCH = 8
+CHECKPOINT_BOUND = (1e-6, 1e-4)
+# the backend on a staged profile (phase 35): default_driving_profile()
+# with ADAPTIVE keypoints, min_number_neighbors 10 (at the profile's 20 the
+# JAX package's own run fails the long drive's frame 1) and the backend
+# gate's CT-BA backend, on and off, over the long drive's first 320 frames
+# through OdometryRunner.run_sequence; the JAX package's run on the CPU
+# over the same frames (tests/torch_runner_reference.py --runs
+# staged_backend): its %Tr on is not under its off, so only the 1.5 x
+# bound on %Tr is held
+STAGED_BACKEND_FRAMES = 320
+STAGED_BACKEND_MIN_NEIGHBORS = 10
+STAGED_BACKEND_REF = {
+    "on": dict(tr_pct=0.21433124096818668, mean_ape_m=0.4679730470430643,
+               refinements=39),
+    "off": dict(tr_pct=0.2108173895322036, mean_ape_m=0.46720085627389746)}
+STAGED_BACKEND_FACTOR = 1.5
 
 KERNELS = {
     "candidate_gather": dict(
@@ -4013,6 +4086,262 @@ def _register41(dev):
     return out
 
 
+def _run_module(args, what):
+    """``python3 -m <args>`` from the repository root on the card: its
+    exit code must be 0. Returns (stdout, seconds)."""
+    t0 = time.time()
+    proc = subprocess.run([sys.executable, "-m", *args],
+                          cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True,
+                          timeout=RUNNER_TIMEOUT_S)
+    seconds = time.time() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"{what} exited {proc.returncode}: "
+                           f"{proc.stderr[-3000:]}")
+    return proc.stdout, seconds
+
+
+def phase_cli(frames, driving):
+    """The CLI on the corridor's frames: written as PLY frames with their
+    KITTI-format ground truth in the KITTI layout (a PLY_DIRECTORY reads no
+    ground truth), run as ``python3 -m ct_icp_torch.cli --profile driving
+    --dataset KITTI --html-viewer`` in a process of its own on the card,
+    its metrics.yaml, KITTI poses, trajectory.ply and viewer.html read
+    back."""
+    shutil.rmtree(RUNNER_DIR, ignore_errors=True)
+    t0 = time.time()
+    runner_data.write_kitti_sequence(frames, RUNNER_DIR / "kitti")
+    write_s = time.time() - t0
+    out_dir = RUNNER_DIR / "cli_out"
+    stdout, seconds = _run_module(
+        ["ct_icp_torch.cli", "--profile", "driving", "--dataset", "KITTI",
+         "--root-path", str(RUNNER_DIR / "kitti"), "--output-dir",
+         str(out_dir), "--html-viewer"], "the CLI")
+    (run_dir,) = out_dir.iterdir()
+    metrics = read_yaml(run_dir / "metrics.yaml")["00"]
+    seq_dir = run_dir / "00"
+    poses = load_poses_kitti_format(seq_dir / "00.txt")
+    ply = read_ply(seq_dir / "trajectory.ply")
+    html = (seq_dir / "viewer.html").read_text()
+    viewer_points = len(base64.b64decode(re.search(
+        r'pts = decode\("([A-Za-z0-9+/=]*)"\)', html).group(1))) // 12
+    n = len(frames)
+    ape = float(metrics["MEAN_APE"])
+    out = dict(frames=n, success=metrics["success"], mean_ape_m=ape,
+               mean_rpe_pct=float(metrics["MEAN_RPE"]),
+               ms_per_frame=float(metrics["Average(ms)"]),
+               kitti_poses=len(poses), trajectory_ply_rows=len(ply["x"]),
+               viewer_map_points=viewer_points, ply_write_s=write_s,
+               process_s=seconds, reference_ape_m=RUNNER_REF_APE_M,
+               stdout=stdout.strip().splitlines()[-1])
+    log("CLI on the corridor's PLY frames: " + json.dumps(out))
+    log(f"  MEAN_APE {ape:.6f} m (JAX CLI on the CPU {RUNNER_REF_APE_M:.6f}, "
+        f"bound {RUNNER_APE_FACTOR} x and {cor.APE_BOUND_M} m); "
+        f"{out['ms_per_frame']:.2f} ms a frame with the PLY read and the "
+        f"prefetch (the driving phase streams "
+        f"{driving['median_batch_fps']:.2f} frames/s in batches of {BATCH})")
+    if not (metrics["success"] is True and len(poses) == n
+            and len(ply["x"]) == n and viewer_points > 0):
+        raise RuntimeError(f"CLI: a failed frame or an output short of "
+                           f"{n} frames: {json.dumps(out)}")
+    if not (ape <= RUNNER_APE_FACTOR * RUNNER_REF_APE_M
+            and ape < cor.APE_BOUND_M and np.isfinite(ape)):
+        raise RuntimeError(f"CLI: MEAN_APE {ape} m")
+    return out
+
+
+def _trajectory_gaps(a, b):
+    """(first frame where the two trajectories differ or None, the largest
+    end-pose gap in m and deg)."""
+    first = next((i for i, (x, y) in enumerate(zip(a, b)) if not (
+        np.array_equal(x.begin_pose.quat, y.begin_pose.quat)
+        and np.array_equal(x.begin_pose.tr, y.begin_pose.tr)
+        and np.array_equal(x.end_pose.quat, y.end_pose.quat)
+        and np.array_equal(x.end_pose.tr, y.end_pose.tr))), None)
+    return first, max(x.end_pose.location_distance(y.end_pose)
+                      for x, y in zip(a, b)), \
+        max(x.end_pose.angular_distance(y.end_pose) for x, y in zip(a, b))
+
+
+def phase_checkpoint(dev, frames):
+    """Checkpoint and resume: the corridor's first CHECKPOINT_SPLIT frames
+    streamed and saved (odometry/checkpoint.py), loaded into a fresh
+    Odometry on the card, which streams the rest; against the same frames
+    streamed uninterrupted."""
+    opts = default_driving_profile()
+    ckpt = RUNNER_DIR / "checkpoint" / "state"
+
+    def stream(odo, first, last):
+        preps = [odo.prepare_frame(f["xyz"], f["timestamps"], i, frame_id=i)
+                 for i, f in zip(range(first, last), frames[first:last])]
+        return _stream(odo, preps, CHECKPOINT_BATCH)[0]
+
+    _reset_counts()
+    t0 = time.time()
+    whole = Odometry(opts, device=dev)
+    s_whole = stream(whole, 0, len(frames))
+    whole_s = time.time() - t0
+    t0 = time.time()
+    first = Odometry(opts, device=dev)
+    s_first = stream(first, 0, CHECKPOINT_SPLIT)
+    t1 = time.time()
+    save_checkpoint(first, ckpt)
+    save_s = time.time() - t1
+    t1 = time.time()
+    resumed = Odometry(opts, device=dev)
+    load_checkpoint(resumed, ckpt)
+    load_s = time.time() - t1
+    s_rest = stream(resumed, CHECKPOINT_SPLIT, len(frames))
+    split_s = time.time() - t0
+    launches, lm_steps = _read_counts(), _read_steps()
+    joined = first.get_trajectory() + resumed.get_trajectory()[
+        CHECKPOINT_SPLIT:]
+    part, gap_m, gap_deg = _trajectory_gaps(joined, whole.get_trajectory())
+    failures = sum(not s.success for s in s_whole + s_first + s_rest)
+    out = dict(frames=len(frames), split=CHECKPOINT_SPLIT,
+               batch=CHECKPOINT_BATCH, failures=failures,
+               bit_for_bit=part is None, first_differing_frame=part,
+               max_gap_m=gap_m, max_gap_deg=gap_deg,
+               bound=CHECKPOINT_BOUND, save_s=save_s, load_s=load_s,
+               checkpoint_bytes=sum(p.stat().st_size
+                                    for p in ckpt.parent.iterdir()),
+               uninterrupted_s=whole_s, split_s=split_s, launches=launches,
+               lm_steps=lm_steps)
+    log("checkpoint and resume: " + json.dumps(out))
+    log(f"  resumed at frame {CHECKPOINT_SPLIT}: "
+        + ("bit for bit the uninterrupted run" if part is None else
+           f"parts from the uninterrupted run at frame {part}, by at most "
+           f"{gap_m:.3e} m and {gap_deg:.3e} deg"))
+    if failures:
+        raise RuntimeError(f"checkpoint: {failures} failed frames")
+    if not (gap_m <= CHECKPOINT_BOUND[0] and gap_deg <= CHECKPOINT_BOUND[1]):
+        raise RuntimeError(f"checkpoint: the resumed run parts by {gap_m} m, "
+                           f"{gap_deg} deg")
+    _require_launches("checkpoint", launches, ["candidate_gather",
+                                               "plane_moments", "map_insert",
+                                               "lm_step"])
+    return out
+
+
+def phase_regression():
+    """The regression harness: ``python3 -m ct_icp_torch.regression -c
+    configs/regression_synthetic.yaml -o <baseline>`` on the card, in a
+    process of its own; its Tr, APE and runtime."""
+    baseline = RUNNER_DIR / "regression_baseline.yaml"
+    stdout, seconds = _run_module(
+        ["ct_icp_torch.regression", "-c", "configs/regression_synthetic.yaml",
+         "-o", str(baseline)], "the regression harness")
+    runs = read_yaml(baseline)["runs"]
+    out = dict(runs=runs, process_s=seconds,
+               lines=[ln for ln in stdout.splitlines()
+                      if ln.startswith("[regression]")])
+    log("regression harness: " + json.dumps(out))
+    for r in runs:
+        log(f"  {r['sequence_name']}: Tr {r['kitti_Tr']:.4f} %, APE "
+            f"{r['mean_ape_m']:.6f} m, runtime {r['avg_runtime_sec']:.4f} s "
+            f"a frame over {r['max_num_frames']} frames")
+    return out
+
+
+def staged_backend_options(on: bool):
+    d = default_driving_profile()
+    return dataclasses.replace(
+        d, sampling=SamplingOption.ADAPTIVE,
+        ct_icp_options=dataclasses.replace(
+            d.ct_icp_options,
+            min_number_neighbors=STAGED_BACKEND_MIN_NEIGHBORS),
+        backend=dataclasses.replace(d.backend, enabled=on))
+
+
+def phase_staged_backend(dev, acq):
+    """The CT-BA backend on a staged profile: the long drive's first
+    STAGED_BACKEND_FRAMES frames (rendered by phase 7) through
+    OdometryRunner.run_sequence with staged_backend_options(on), backend on
+    then off (register_frame_prepared frame by frame, the backend fed by
+    the staged path's FINISHED_REGISTRATION callback). Returns (on, off,
+    the first refine over a full window's inputs)."""
+    n = STAGED_BACKEND_FRAMES
+    frames = [acq.frame(i) for i in range(n)]
+    gt = runner_data.mid_frame_ground_truth(frames)
+    runs, capture = {}, {}
+    for name, on in (("on", True), ("off", False)):
+        opts = staged_backend_options(on)
+        odo = Odometry(opts, device=dev)
+        runner = OdometryRunner(RunnerConfig(
+            odometry_options=opts, output_results=False, progress_bar=False,
+            compute_metrics_period=0), device=dev)
+        if on:
+            _capture_full_refine(odo.backend, capture)
+        seq = runner_data.FrameSequence(frames, name="long drive", gt=gt)
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        r = runner.run_sequence(seq, driving=True, odometry=odo)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        out = dict(frames=r.num_frames, success=r.success,
+                   failures=n - r.num_frames + (not r.success),
+                   tr_pct=float(r.metrics.mean_rpe),
+                   mean_ape_m=float(r.metrics.mean_ape),
+                   frames_per_s=r.num_frames / wall, wall_s=wall,
+                   runner_ms_per_frame=r.avg_runtime_ms,
+                   host_syncs_per_frame=odo.host_syncs / r.num_frames,
+                   rebases=odo.rebases, launches=_read_counts(),
+                   lm_steps=_read_steps(),
+                   reference=STAGED_BACKEND_REF[name])
+        if on:
+            b = odo.backend
+            out.update(refinements=b.refinements, event_waits=b.event_waits,
+                       event_waits_per_frame=b.event_waits / r.num_frames,
+                       refine_ms_median=float(np.median(b.refine_ms))
+                       if b.refine_ms else None)
+        runs[name] = out
+        log(f"staged backend {name}: " + json.dumps(out))
+        del odo, runner
+        torch.cuda.empty_cache()
+    on, off = runs["on"], runs["off"]
+    ref = STAGED_BACKEND_REF["on"]["tr_pct"]
+    log(f"  {n} frames: {on['tr_pct']:.4f} %Tr on, {off['tr_pct']:.4f} off "
+        f"(JAX on the CPU {ref:.4f} on, "
+        f"{STAGED_BACKEND_REF['off']['tr_pct']:.4f} off; bound "
+        f"{STAGED_BACKEND_FACTOR} x on); APE {on['mean_ape_m']:.4f} m on, "
+        f"{off['mean_ape_m']:.4f} off; {on['refinements']} refinements "
+        f"(JAX {STAGED_BACKEND_REF['on']['refinements']}); frames/s "
+        f"{on['frames_per_s']:.2f} on, {off['frames_per_s']:.2f} off; host "
+        f"syncs a frame {on['host_syncs_per_frame']:.3f} on, "
+        f"{off['host_syncs_per_frame']:.3f} off; event waits "
+        f"{on['event_waits']}; launches on {json.dumps(on['launches'])}")
+    for name, r in runs.items():
+        if r["failures"] or r["frames"] != n:
+            raise RuntimeError(f"staged backend {name}: {r['failures']} "
+                               f"failed frames")
+        _require_launches(f"staged backend {name}", r["launches"],
+                          ["grid_sample", "exact_sample", "candidate_gather",
+                           "plane_moments", "map_insert", "lm_step"])
+    if not on["refinements"] > 0:
+        raise RuntimeError("staged backend: no refinement")
+    _require_launches("staged backend on", on["launches"], ["ct_ba_block"])
+    if off["launches"]["ct_ba_block"]:
+        raise RuntimeError("staged backend off: K8 launched")
+    if not on["tr_pct"] <= STAGED_BACKEND_FACTOR * ref:
+        raise RuntimeError(f"staged backend: {on['tr_pct']} %Tr > "
+                           f"{STAGED_BACKEND_FACTOR} x {ref}")
+    if not capture:
+        raise RuntimeError("staged backend: no refine over a full window")
+    return on, off, capture
+
+
+def phase_kernels_staged_backend(capture):
+    """K8 against its plain version on the staged backend run's first
+    refine over a full window (its 2 steps x 2 inner iterations in one
+    launch), with check_ct_ba_block's tolerances, timed as in phase 9."""
+    poses = ct_ba.pack_state(ct_ba.CTBAState(*capture["args"][3:7]))
+    iters = 2 * staged_backend_options(True).backend.num_steps
+    rec = _kernel_k8(capture["problem"], poses, "gn", "staged", iters)
+    rec["frame"] = capture["frame"]
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this script "
@@ -4065,7 +4394,6 @@ def main() -> int:
     long_drive, long_capture, long_acq = phase_long(dev)
     mark("long")
     backend_runs, refine_capture = phase_backend(dev, long_acq)
-    del long_acq
     mark("backend")
     backend_records = phase_kernels_backend(dev, refine_capture)
     del refine_capture
@@ -4124,6 +4452,18 @@ def main() -> int:
     solver_records = phase_kernels_solver(dev, solver_firsts)
     del solver_firsts
     mark("solver")
+    cli_run = phase_cli(frames, driving)
+    checkpoint_run = phase_checkpoint(dev, frames)
+    regression_run = phase_regression()
+    mark("cli, checkpoint, regression")
+    staged_backend_on, staged_backend_off, staged_capture = \
+        phase_staged_backend(dev, long_acq)
+    del long_acq
+    backend_records["ct_ba_block"]["others"]["staged"] = \
+        phase_kernels_staged_backend(staged_capture)
+    del staged_capture
+    shutil.rmtree(RUNNER_DIR, ignore_errors=True)
+    mark("staged backend")
 
     paths = {"driving": driving, "robust": robust, "escalation": escalation,
              "long_drive": long_drive, "robust_rebase": robust_rebase,
@@ -4144,7 +4484,10 @@ def main() -> int:
              "staged_adaptive_robust": staged_robust,
              "staged_cap": staged_cap, "staged_none": staged_none,
              "staged_adaptive_k2_cap": staged_k2cap,
-             **{f"solver_{k}": v for k, v in solver_runs.items()}}
+             **{f"solver_{k}": v for k, v in solver_runs.items()},
+             "checkpoint_resume": checkpoint_run,
+             "staged_backend": staged_backend_on,
+             "staged_backend_off": staged_backend_off}
     primary = {**robust_records, **rebase_records,
                "ct_ba_block": backend_records["ct_ba_block"],
                **replay_records, "owner_pack": scale_records["owner_pack"],
@@ -4238,6 +4581,8 @@ def main() -> int:
             register_timing,
         "CTICPRegistration.register with a [41] prior, card vs CPU":
             register41,
+        "CLI (corridor as PLY frames, KITTI layout)": cli_run,
+        "regression harness": regression_run,
         "phase seconds": phase_s,
         "lm_step calls (robust, driving, jolt)": [
             {k: r[k] for k in ("ms", "plain_ms", "loop_steps", "steps_run",

@@ -1,7 +1,8 @@
-"""The synthetic scene files (``configs/synthetic_*.yaml``): a reader for the
-YAML they are written in, and the scene and sequence loaders
-(counterpart of ``ct_icp_tpu/config/yaml_config.py::
-synthetic_scene_from_node`` and ``synthetic_sequence_from_yaml``, :175-264).
+"""The configuration files (``configs/*.yaml``): a reader for the YAML they
+are written in, the option readers (counterpart of
+``ct_icp_tpu/config/yaml_config.py``, :23-168: the reference's
+``yaml_to_*_options``, config.cpp:26-321, and the runner's config) and the
+synthetic scene and sequence loaders (:175-264).
 
 The port does not depend on PyYAML. :func:`load_yaml` reads the subset of
 YAML those files use and gives what ``yaml.safe_load`` gives for it:
@@ -12,7 +13,7 @@ YAML those files use and gives what ``yaml.safe_load`` gives for it:
   * plain scalars resolved as YAML 1.1 does: int (decimal), float (with a
     dot, or .inf / .nan), bool (true / false / yes / no / on / off in
     their three spellings), null (``~``, ``null``, empty), else a string;
-    single- or double-quoted strings (without escapes);
+    single- or double-quoted strings (without escapes), also as keys;
   * ``#`` comments, on their own line or after a value.
 Anchors, tags, flow mappings, block scalars and multi-document files raise
 ValueError.
@@ -20,11 +21,14 @@ ValueError.
 
 from __future__ import annotations
 
+import dataclasses
+import enum
 import re
-from typing import Any, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ct_icp_torch.config import options as O
 from ct_icp_torch.datasets import synthetic as syn
 
 _INT = re.compile(r"^[-+]?(?:0|[1-9][0-9_]*)$")
@@ -144,8 +148,10 @@ def _lines(text: str) -> List[Tuple[int, str]]:
 
 
 def _split_key(content: str):
-    """``key: value`` -> (key, value text), else None."""
-    m = re.match(r"^([^\s'\"\[\]{}#:][^:#]*?)\s*:(?:\s+(.*)|)$", content)
+    """``key: value`` -> (key, value text), else None. The key is plain or
+    quoted (``"00": value``, as the runner's metrics.yaml writes it)."""
+    m = re.match(r"^([^\s'\"\[\]{}#:][^:#]*?|\"[^\"]*\"|'[^']*')\s*:"
+                 r"(?:\s+(.*)|)$", content)
     if m is None:
         return None
     return m.group(1), (m.group(2) or "")
@@ -231,6 +237,155 @@ def load_yaml(text: str) -> Any:
 def read_yaml(path: str) -> Any:
     with open(path) as f:
         return load_yaml(f.read())
+
+
+# ------------------------------------------------------------ option readers —
+
+def _fill_dataclass(cls, node: Optional[Dict], base=None, skip=()):
+    """Overlay YAML keys on a (frozen) dataclass instance, coercing enums."""
+    obj = base if base is not None else cls()
+    if not node:
+        return obj
+    updates = {}
+    for f in dataclasses.fields(cls):
+        if f.name in skip or f.name not in node:
+            continue
+        val = node[f.name]
+        cur = getattr(obj, f.name)
+        if isinstance(cur, enum.Enum):
+            updates[f.name] = type(cur)[str(val)]
+        elif isinstance(cur, bool):
+            updates[f.name] = bool(val)
+        elif isinstance(cur, int) and not isinstance(cur, bool):
+            updates[f.name] = int(val)
+        elif isinstance(cur, float):
+            updates[f.name] = float(val)
+        elif isinstance(cur, str):
+            updates[f.name] = str(val)
+        # nested dataclasses handled explicitly by the callers
+    return dataclasses.replace(obj, **updates)
+
+
+def yaml_to_ct_icp_options(node: Dict) -> O.CTICPOptions:
+    """Reference yaml_to_ct_icp_options (config.cpp:26-122)."""
+    return _fill_dataclass(O.CTICPOptions, node)
+
+
+def yaml_to_map_options(node: Dict) -> O.MultiResolutionVoxelMapOptions:
+    """Reference yaml_to_map_options (map.h:612, src/ct_icp/map.cpp)."""
+    base = O.MultiResolutionVoxelMapOptions()
+    if not node:
+        return base
+    resolutions = []
+    if "resolutions" in node:
+        for i, rnode in enumerate(node["resolutions"]):
+            default = (base.resolutions[i] if i < len(base.resolutions)
+                       else O.ResolutionParam())
+            resolutions.append(_fill_dataclass(O.ResolutionParam, rnode,
+                                               base=default))
+    else:
+        resolutions = list(base.resolutions)
+    out = _fill_dataclass(O.MultiResolutionVoxelMapOptions, node)
+    return dataclasses.replace(out, resolutions=tuple(resolutions))
+
+
+def yaml_to_motion_model_options(node: Dict) -> O.MotionModelOptions:
+    """Reference yaml_to_motion_model_options (config.cpp:304-318)."""
+    return _fill_dataclass(O.MotionModelOptions, node)
+
+
+def yaml_to_odometry_options(node: Dict) -> O.OdometryOptions:
+    """Reference yaml_to_odometry_options (config.cpp:132-255)."""
+    opts = _fill_dataclass(O.OdometryOptions, node)
+    updates: Dict[str, Any] = {}
+    if "map_options" in node:
+        updates["map_options"] = yaml_to_map_options(node["map_options"])
+    if "neighborhood_strategy" in node:
+        snode = node["neighborhood_strategy"]
+        stype = snode.get("type", "NEAREST_NEIGHBOR_STRATEGY")
+        if stype == "DISTANCE_BASED_STRATEGY":
+            updates["distance_strategy"] = _fill_dataclass(
+                O.DistanceBasedStrategyOptions, snode)
+        updates["neighborhood_strategy"] = _fill_dataclass(
+            O.NearestNeighborStrategyOptions, snode)
+    if "default_motion_model" in node:
+        updates["default_motion_model"] = yaml_to_motion_model_options(
+            node["default_motion_model"])
+    if "ct_icp_options" in node:
+        updates["ct_icp_options"] = yaml_to_ct_icp_options(node["ct_icp_options"])
+    if "adaptive_options" in node:
+        updates["adaptive_options"] = _fill_dataclass(
+            O.AdaptiveGridSamplingOptions, node["adaptive_options"])
+    if "backend" in node:
+        updates["backend"] = _fill_dataclass(
+            O.BackendOptions, node["backend"])
+    return dataclasses.replace(opts, **updates)
+
+
+def yaml_to_dataset_options(node: Dict):
+    """Reference yaml_to_dataset_options (config.cpp:264-301)."""
+    from ct_icp_torch.datasets.dataset import DatasetEnum, DatasetOptions
+    opts = DatasetOptions()
+    if "dataset" in node:
+        opts.dataset = DatasetEnum[str(node["dataset"])]
+    for key in ("root_path", "fail_if_incomplete", "min_dist_lidar_center",
+                "max_dist_lidar_center", "nclt_num_aggregated_pc",
+                "use_all_datasets"):
+        if key in node:
+            setattr(opts, key, node[key])
+    if "sequence_options" in node:
+        opts.sequence_options = list(node["sequence_options"])
+    return opts
+
+
+def yaml_to_dataset_options_vector(node_list: List[Dict]):
+    return [yaml_to_dataset_options(n) for n in node_list]
+
+
+@dataclasses.dataclass
+class RunnerConfig:
+    """Runner-level config (reference command/odometry_runner.h)."""
+
+    odometry_options: O.OdometryOptions = dataclasses.field(
+        default_factory=O.OdometryOptions)
+    dataset_options: List = dataclasses.field(default_factory=list)
+    output_dir: str = ".outputs"
+    output_results: bool = True
+    generate_directory_prefix: bool = True
+    progress_bar: bool = True
+    debug_information: bool = False
+    exit_early: bool = True
+    compute_metrics_period: int = 200
+    max_frames: int = -1
+    use_outdoor_evaluation: bool = True
+    save_mid_frame_trajectory: bool = True
+    #: write an interactive standalone viewer.html per sequence (viewer.py)
+    html_viewer: bool = False
+
+
+def load_runner_config(path: str) -> RunnerConfig:
+    return runner_config_from_node(read_yaml(path))
+
+
+def runner_config_from_node(root: Dict) -> RunnerConfig:
+    cfg = RunnerConfig()
+    for key in ("output_dir", "output_results", "generate_directory_prefix",
+                "progress_bar", "debug_information", "exit_early",
+                "compute_metrics_period", "max_frames",
+                "use_outdoor_evaluation", "save_mid_frame_trajectory",
+                "html_viewer"):
+        if key in root:
+            setattr(cfg, key, root[key])
+    if "odometry_options" in root:
+        cfg.odometry_options = yaml_to_odometry_options(root["odometry_options"])
+    if "dataset_options" in root:
+        cfg.dataset_options = yaml_to_dataset_options_vector(
+            root["dataset_options"])
+    return cfg
+
+
+def read_odometry_options(path: str) -> O.OdometryOptions:
+    return yaml_to_odometry_options(read_yaml(path))
 
 
 # ----------------------------------------------------------- synthetic YAML —

@@ -21,6 +21,10 @@
   a .meta.json).
 
 The parity tests use both so the two packages compute from the same state.
+
+* :func:`convert_sequence` writes a dataset sequence as a PLY_DIRECTORY
+  (``frame_%05d.ply`` with per-point timestamps; counterpart of
+  ``ct_icp_tpu/convert.py::convert_sequence``).
 """
 
 import dataclasses
@@ -34,6 +38,7 @@ import torch
 
 from ct_icp_torch.config import options as opt
 from ct_icp_torch.core.pose import Pose, TrajectoryFrame
+from ct_icp_torch.io.ply import write_ply_xyzt
 from ct_icp_torch.mapping.frame_ring import FrameRing
 from ct_icp_torch.mapping.voxel_map import MapLevel
 from ct_icp_torch.parallel.ct_ba import CTBAProblem, CTBAState
@@ -243,3 +248,18 @@ def read_sharded_checkpoint(path):
         Pose(row[9:13], row[13:16], float(row[16]), int(row[17])))
         for row in rows]
     return levels, trajectory, meta
+
+
+def convert_sequence(sequence, output_dir, max_frames: int = -1,
+                     pattern: str = "frame_{:05d}.ply") -> int:
+    """Drain ``sequence`` (has_next/next_frame) into ``output_dir``."""
+    out = Path(output_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    i = 0
+    while sequence.has_next() and (max_frames < 0 or i < max_frames):
+        fr = sequence.next_frame()
+        write_ply_xyzt(out / pattern.format(i),
+                       np.asarray(fr["xyz"], np.float32),
+                       fr.get("timestamps"))
+        i += 1
+    return i

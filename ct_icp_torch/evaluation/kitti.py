@@ -1,12 +1,15 @@
 """KITTI odometry metrics: segment RPE, APE, local errors.
 
-Host copy of ``ct_icp_tpu/evaluation/kitti.py`` (:28-145), the reference's
+Host copy of ``ct_icp_tpu/evaluation/kitti.py`` (:28-163), the reference's
 KITTI-devkit evaluation (reference include/SlamCore/eval.h:1-110,
 src/SlamCore/eval.cxx:35-180):
   * ``compute_mean_rpe`` over segment lengths {100..800} m (driving) or
     {10..80} m (indoor), start step 10 frames, in percent (%Tr);
   * mean / max APE (absolute translation error);
-  * mean / max local (frame-to-frame distance) error.
+  * mean / max local (frame-to-frame distance) error;
+  * the estimate as a continuous trajectory, interpolated at each GT
+    timestamp (eval.cxx:103-110), and the ``metrics.yaml`` text
+    (eval.cxx:113-133).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 
 from ct_icp_torch.core.pose import Pose
+from ct_icp_torch.core.trajectory import LinearContinuousTrajectory
 
 KITTI_SEGMENT_LENGTHS = [100.0, 200.0, 300.0, 400.0, 500.0, 600.0, 700.0, 800.0]
 INDOOR_SEGMENT_LENGTHS = [10.0, 20.0, 30.0, 40.0, 50.0, 60.0, 70.0, 80.0]
@@ -138,3 +142,24 @@ def evaluate_poses(poses_gt: Sequence[Pose], poses_est: Sequence[Pose],
     lengths = KITTI_SEGMENT_LENGTHS if driving else INDOOR_SEGMENT_LENGTHS
     return evaluate_matrices([p.matrix() for p in poses_gt],
                              [p.matrix() for p in poses_est], lengths)
+
+
+def evaluate_continuous_trajectory(poses_gt: Sequence[Pose],
+                                   trajectory: LinearContinuousTrajectory,
+                                   driving: bool = True) -> SeqErrors:
+    """Interpolate the estimate at every GT timestamp
+    (reference eval.cxx:103-110)."""
+    est = [trajectory.interpolate_pose(p.timestamp, clip=True)
+           for p in poses_gt]
+    return evaluate_poses(poses_gt, est, driving)
+
+
+def generate_metrics_yaml(metrics: Dict[str, SeqErrors]) -> str:
+    """YAML text matching the reference metric dump
+    (GenerateMetricYAMLNode, eval.cxx:113-133)."""
+    lines = []
+    for name, err in metrics.items():
+        lines.append(f'"{name}":')  # quoted: "00" must stay a string key
+        for k, v in err.to_dict().items():
+            lines.append(f"  {k}: {v}")
+    return "\n".join(lines) + "\n"

@@ -1,5 +1,6 @@
-"""ct_icp_torch stands alone: it imports neither JAX nor ct_icp_tpu, and its
-entry points default to the card.
+"""ct_icp_torch stands alone: it imports neither JAX nor ct_icp_tpu, nor
+PyYAML and lz4 (the card's machine has neither), and its entry points
+default to the card.
 
 The import check runs in a subprocess with both packages blocked in
 ``sys.modules``, because this test process has already imported JAX
@@ -24,6 +25,7 @@ from ct_icp_torch.odometry.odometry import Odometry
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PKG = ROOT / "ct_icp_torch"
 _BLOCKED = ("jax", "ct_icp_tpu")
+_NOT_ON_THE_CARD = ("yaml", "lz4")
 
 
 def _port_modules():
@@ -40,7 +42,7 @@ def test_every_module_imports_with_jax_blocked():
     mods = _port_modules() + ["chip_smoke"]
     code = (
         "import importlib, json, sys\n"
-        f"for name in {_BLOCKED!r}:\n"
+        f"for name in {_BLOCKED + _NOT_ON_THE_CARD!r}:\n"
         "    sys.modules[name] = None\n"
         f"mods = {mods!r}\n"
         "for m in mods:\n"
@@ -72,6 +74,17 @@ def test_no_source_imports_jax_or_the_reference():
     files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f))
                                             & set(_BLOCKED))
+           for f in files}
+    assert {f: b for f, b in bad.items() if b} == {}
+    assert len(files) > 20
+
+
+def test_no_source_imports_yaml_or_lz4():
+    """No module of the port and not chip_smoke.py imports PyYAML or lz4,
+    at any depth of the code (a function's local import included)."""
+    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    bad = {str(f.relative_to(ROOT)): sorted(set(_imported_roots(f))
+                                            & set(_NOT_ON_THE_CARD))
            for f in files}
     assert {f: b for f, b in bad.items() if b} == {}
     assert len(files) > 20
@@ -173,8 +186,9 @@ def test_entry_points_default_to_the_card():
 
 def test_the_card_path_needs_no_yaml():
     """The machine with the card is not promised PyYAML: chip_smoke.py and
-    the modules it reaches (the long drive's scene reader among them)
-    import and read a scene file with ``yaml`` blocked too."""
+    the modules it reaches (the long drive's scene reader, the CLI and the
+    regression harness among them) import and read a scene file, a
+    regression baseline and a runner config with ``yaml`` blocked too."""
     code = (
         "import sys\n"
         "for name in ('yaml', 'jax', 'ct_icp_tpu'):\n"
@@ -182,7 +196,14 @@ def test_the_card_path_needs_no_yaml():
         "import chip_smoke\n"
         "from ct_icp_torch.datasets import long_drive as ld\n"
         "from ct_icp_torch.tools import bench, exp_gather\n"
+        "from ct_icp_torch import cli, regression\n"
+        "from ct_icp_torch.config.yaml_config import load_runner_config\n"
         "acq = ld.load_acquisition(ld.LONG_SEEDS[0])\n"
+        "cfg = regression.load_regression_config(\n"
+        "    'configs/regression_synthetic.yaml')\n"
+        "assert cfg.runs and cfg.odometry_options is not None\n"
+        "assert load_runner_config('configs/driving_config.yaml')"
+        ".dataset_options\n"
         "print(acq.num_frames(), len(acq.scene.primitives))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
