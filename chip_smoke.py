@@ -310,8 +310,31 @@ when either is missing. Phases; any failure raises and exits non-zero:
   36. K8 against its plain version on 35's first refine over a full window
      (check_ct_ba_block's tolerances), timed as in phase 9: the "staged"
      record of K8;
-  in 4-8, 10, 12, 14, 15, 18-20, 22-24, 26-28, 30, 33 and 35 every
-  kernel count and
+  37. rosbag + online node: the driving phase's first 40 corridor frames
+     written as a rosbag 2.0 file (tools/bag_writer.py: PointCloud2 with
+     x, y, z float32 and timestamp float64 at point_step 24, stamps offset
+     by 1.6e9 s, one chunk a frame, and an Imu topic), 2 of them also in a
+     bz2-compressed bag whose PLY files must equal the first bag's byte
+     for byte; ``python3 -m ct_icp_torch.convert --bag`` in a process of
+     its own (exit 0, 40 frames and imu_data.ply); the frames read back
+     through a PLY_DIRECTORY Dataset and fed to
+     OnlineOdometry(default_driving_profile(), expected_frame_period 0.1)
+     on the card with an EvaluationNode against the corridor's poses and
+     an AggregatedFramesDump (period 20) registered: 0 failures and 0
+     dropped frames, then one frame 0.3 s late dropped; APE within 1.5 x
+     the JAX package's node on the same PLY frames on the CPU
+     (ONLINE_REF_APE_M, tests/torch_online_reference.py) and under 0.07 m;
+     the aggregated PLY files' points the frames' valid corrected points;
+     frames/s and host syncs a frame beside the driving phase's;
+  38. pyct_icp + export: compat.pyct_icp.Odometry(OdometryOptions.
+     DefaultDrivingProfile()) on the card over the first 10 of those PLY
+     frames through LiDARFrame.from_xyz: its poses the online node's bit
+     for bit; then GetLocalMap(), export_map_ply and
+     get_visible_map_points from the last pose, the PLY read back: the
+     visible points a subset of the exported ones, every visible normal
+     facing the view point;
+  in 4-8, 10, 12, 14, 15, 18-20, 22-24, 26-28, 30, 33, 35, 37 and 38
+  every kernel count and
   K5's device count of LM steps are set to 0 just before the path and read
   just after it (in 20, in each rank's process); each
   path must launch its kernels (4-8, 10, 12 and 22-24: K5 and the
@@ -319,7 +342,7 @@ when either is missing. Phases; any failure raises and exits non-zero:
   frame than LM steps (one per ICP iteration and readback where no batch
   rolled back, and in 23 one a level for each insert); the driving path
   one K5 launch per ICP iteration;
-  37. one JSON line of the kernels (K1-K5 with an "indoor" record, K3
+  39. one JSON line of the kernels (K1-K5 with an "indoor" record, K3
      with "indoor level 1" and "indoor level 2" as well, K1 and K2 with a
      "backend" record, K8 with its "blocks" mode beside its "gn" one, K9
      and K10 on level 0 with "level 1" and "level 2" records, K3's
@@ -601,6 +624,22 @@ STAGED_BACKEND_REF = {
                refinements=39),
     "off": dict(tr_pct=0.2108173895322036, mean_ape_m=0.46720085627389746)}
 STAGED_BACKEND_FACTOR = 1.5
+# rosbag + online node (phase 37): the driving phase's first ONLINE_FRAMES
+# frames as a rosbag (stamps offset by ONLINE_BAG_T0 s), ONLINE_BZ2_FRAMES
+# of them also bz2-compressed, converted in a process of its own, read back
+# and fed to the online node; the JAX package's node on the same PLY frames
+# on the CPU (tests/torch_online_reference.py): its mean APE
+ONLINE_FRAMES = 40
+ONLINE_BZ2_FRAMES = 2
+ONLINE_BAG_T0 = 1.6e9
+ONLINE_GAP_S = 0.3
+ONLINE_DUMP_PERIOD = 20
+ONLINE_REF_APE_M = 0.028222758119049608
+ONLINE_APE_FACTOR = 1.5
+ONLINE_DIR = Path(__file__).resolve().parent / "build" / "chip_smoke_online"
+# pyct_icp + export (phase 38): the binding's Odometry over the first
+# PYCT_FRAMES of those PLY frames
+PYCT_FRAMES = 10
 
 KERNELS = {
     "candidate_gather": dict(
@@ -4342,6 +4381,182 @@ def phase_kernels_staged_backend(capture):
     return rec
 
 
+def phase_online(dev, frames, driving):
+    """The rosbag converter and the online node on the card (phase 37).
+    Returns (the path's record, the PLY frames read back)."""
+    from ct_icp_torch.datasets.dataset import (Dataset, DatasetEnum,
+                                               DatasetOptions)
+    from ct_icp_torch.online import (EvaluationNode, OnlineOdometry,
+                                     OnlineOdometryConfig)
+    from ct_icp_torch.tools import bag_writer
+    from ct_icp_torch.visualization import AggregatedFramesDump
+    shutil.rmtree(ONLINE_DIR, ignore_errors=True)
+    t0 = time.time()
+    bag = bag_writer.write_frames_bag(ONLINE_DIR / "corridor.bag",
+                                      frames[:ONLINE_FRAMES], ONLINE_BAG_T0)
+    small = bag_writer.write_frames_bag(
+        ONLINE_DIR / "corridor_bz2.bag", frames[:ONLINE_BZ2_FRAMES],
+        ONLINE_BAG_T0, compression="bz2")
+    write_s = time.time() - t0
+    ply = ONLINE_DIR / "ply"
+    stdout, convert_s = _run_module(
+        ["ct_icp_torch.convert", "--bag", str(bag), "--output-dir",
+         str(ply)], "the rosbag converter")
+    written = sorted((ply / "frames").iterdir())
+    imu = read_ply(ply / "imu_data.ply")
+    n_bz2 = convert.bag_to_ply(small, ONLINE_DIR / "ply_bz2")
+    bz2_equal = all(
+        (ply / "frames" / f.name).read_bytes() == f.read_bytes()
+        for f in sorted((ONLINE_DIR / "ply_bz2" / "frames").iterdir()))
+    if not (len(written) == ONLINE_FRAMES and n_bz2 == ONLINE_BZ2_FRAMES
+            and bz2_equal and len(imu["timestamp"])
+            == bag_writer.IMU_PER_FRAME * ONLINE_FRAMES):
+        raise RuntimeError(
+            f"rosbag conversion: {len(written)} frames, "
+            f"{len(imu['timestamp'])} IMU samples, bz2 bag {n_bz2} frames, "
+            f"equal {bz2_equal}: {stdout}")
+    t0 = time.time()
+    seq = Dataset.load_dataset(DatasetOptions(
+        dataset=DatasetEnum.PLY_DIRECTORY,
+        root_path=str(ply))).sequences[0]
+    ply_frames = [seq.next_frame() for _ in range(seq.num_frames())]
+    read_s = time.time() - t0
+
+    first = frames[0]["begin_pose"]
+    gt = [(first.inverse() * f["end_pose"]).matrix()
+          for f in frames[:ONLINE_FRAMES]]
+    node = OnlineOdometry(OnlineOdometryConfig(
+        odometry_options=default_driving_profile(),
+        expected_frame_period=0.1), device=dev)
+    evaluation = EvaluationNode(gt, period_sec=1e9)
+    node.pose_output.subscribe(evaluation.on_pose)
+    events, points = [], []
+    node.monitor_output.subscribe(events.append)
+    node.points_output.subscribe(points.append)
+    dump = AggregatedFramesDump(ONLINE_DIR / "viz", period=ONLINE_DUMP_PERIOD,
+                                max_points_per_frame=1 << 20)
+    node.odometry.register_callback(node.odometry.FINISHED_REGISTRATION,
+                                    dump)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    summaries = [node.on_pointcloud(fr["xyz"], fr["timestamps"])
+                 for fr in ply_frames]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches, lm_steps = _read_counts(), _read_steps()
+    syncs = node.odometry.host_syncs
+    last = ply_frames[-1]["timestamps"]
+    late = ply_frames[0]["timestamps"] - ply_frames[0]["timestamps"].min() \
+        + last.min() + ONLINE_GAP_S
+    gated = node.on_pointcloud(ply_frames[0]["xyz"], late)
+    metrics = evaluation.compute_metrics()
+    valid = [int(p[1].sum()) for p in points]
+    aggregated = sorted((ONLINE_DIR / "viz").glob("aggregated_*.ply"))
+    agg_points = [len(read_ply(f)["x"]) for f in aggregated]
+    dropped = [e for e in events if e.get("event") == "frame_dropped"]
+    failures = sum(s is None or not s.success for s in summaries)
+    outer = sum(s.icp_summary.num_iters for s in summaries if s)
+    out = dict(
+        frames=len(summaries), failures=failures,
+        dropped_before_gap=len(dropped) - (gated is None),
+        gap_dropped=gated is None and len(dropped) >= 1,
+        gap_r_dt=dropped[-1]["r_dt"] if dropped else None,
+        mean_ape_m=metrics.mean_ape, max_ape_m=metrics.max_ape,
+        mean_rpe_pct=metrics.mean_rpe,
+        reference_ape_m=ONLINE_REF_APE_M, frames_per_s=len(summaries) / wall,
+        wall_s=wall, host_syncs_per_frame=syncs / len(summaries),
+        icp_iters_per_frame=outer / len(summaries),
+        valid_corrected_points=sum(valid), aggregated_files=[
+            f.name for f in aggregated], aggregated_points=agg_points,
+        bag_bytes=bag.stat().st_size, bag_write_s=write_s,
+        convert_process_s=convert_s, ply_read_s=read_s, bz2_equal=bz2_equal,
+        imu_samples=len(imu["timestamp"]), launches=launches,
+        lm_steps=lm_steps, convert_stdout=stdout.strip().splitlines()[-1])
+    log("rosbag + online node: " + json.dumps(out))
+    log(f"  {out['frames_per_s']:.2f} frames/s frame by frame through the "
+        f"node, {out['host_syncs_per_frame']:.3f} host syncs a frame beside "
+        f"{out['icp_iters_per_frame']:.3f} ICP iterations (the driving "
+        f"phase streams {driving['median_batch_fps']:.2f} frames/s in "
+        f"batches of {BATCH} at {driving['host_syncs_per_frame']:.3f} syncs "
+        f"a frame); mean APE {metrics.mean_ape:.6f} m (the JAX package's "
+        f"node on the CPU {ONLINE_REF_APE_M}, bound {ONLINE_APE_FACTOR} x "
+        f"and {cor.APE_BOUND_M} m)")
+    if failures or out["dropped_before_gap"] or not out["gap_dropped"]:
+        raise RuntimeError(f"online node: {failures} failures, "
+                           f"{out['dropped_before_gap']} frames dropped, the "
+                           f"late frame dropped: {out['gap_dropped']}")
+    if not (np.isfinite(metrics.mean_ape) and metrics.mean_ape
+            < cor.APE_BOUND_M
+            and metrics.mean_ape <= ONLINE_APE_FACTOR * ONLINE_REF_APE_M):
+        raise RuntimeError(f"online node: mean APE {metrics.mean_ape} m")
+    if sum(agg_points) != sum(valid) or len(aggregated) != \
+            ONLINE_FRAMES // ONLINE_DUMP_PERIOD:
+        raise RuntimeError(f"aggregated dump: {agg_points} points in "
+                           f"{len(aggregated)} files for {sum(valid)} valid "
+                           f"corrected points")
+    _require_launches("online node", launches, [
+        "candidate_gather", "plane_moments", "map_insert", "lm_step"])
+    return out, node, ply_frames
+
+
+def phase_pyct_icp(dev, node, ply_frames):
+    """The pyct_icp binding on the card and the map export (phase 38)."""
+    from ct_icp_torch.compat import pyct_icp
+    from ct_icp_torch.visualization import export_map_ply
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    odo = pyct_icp.Odometry(pyct_icp.OdometryOptions.DefaultDrivingProfile(),
+                            device=dev)
+    summaries = [odo.RegisterFrame(pyct_icp.LiDARFrame.from_xyz(
+        fr["xyz"], fr["timestamps"])) for fr in ply_frames[:PYCT_FRAMES]]
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    ours = odo.Trajectory()
+    theirs = node.odometry.get_trajectory()[:PYCT_FRAMES]
+    keys = ("quat", "tr")
+    part = next((i for i, (a, b) in enumerate(zip(ours, theirs)) if not all(
+        np.array_equal(getattr(x, k), getattr(y, k))
+        for x, y in ((a.begin_pose, b.begin_pose), (a.end_pose, b.end_pose))
+        for k in keys)), None)
+    t0 = time.time()
+    local = odo.GetLocalMap()
+    path = ONLINE_DIR / "map.ply"
+    export_map_ply(odo._odometry, path)
+    view = ours[-1].end_pose.tr
+    visible = odo._odometry.get_visible_map_points(view, 0)
+    export_s = time.time() - t0
+    launches, lm_steps = _read_counts(), _read_steps()
+    exported = read_ply(path)
+    rows = {r.tobytes() for r in np.stack(
+        [exported[k] for k in ("x", "y", "z")], 1).astype(np.float32)}
+    subset = all(r.tobytes() in rows
+                 for r in visible[:, 0:3].astype(np.float32))
+    facing = bool(np.all(np.sum(visible[:, 3:6] * (visible[:, 0:3] - view),
+                                axis=1) < 0))
+    out = dict(frames=len(summaries),
+               failures=sum(not s.success for s in summaries),
+               bit_for_bit_with_node=part is None, first_differing_frame=part,
+               map_size=odo.MapSize(), local_map_points=int(local.shape[0]),
+               exported_points=len(exported["x"]),
+               visible_points=int(visible.shape[0]),
+               visible_subset=subset, visible_facing=facing,
+               frames_per_s=len(summaries) / wall, export_s=export_s,
+               launches=launches, lm_steps=lm_steps)
+    log("pyct_icp + export: " + json.dumps(out))
+    if part is not None or out["failures"]:
+        raise RuntimeError(f"pyct_icp: {out['failures']} failures; its poses "
+                           f"part from the online node's at frame {part}")
+    if not (subset and facing and out["visible_points"] > 0
+            and out["exported_points"] == out["local_map_points"]):
+        raise RuntimeError(f"map export: {json.dumps(out)}")
+    _require_launches("pyct_icp", launches, [
+        "candidate_gather", "plane_moments", "map_insert", "lm_step",
+        "level_normals"])
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False: this script "
@@ -4464,6 +4679,11 @@ def main() -> int:
     del staged_capture
     shutil.rmtree(RUNNER_DIR, ignore_errors=True)
     mark("staged backend")
+    online_run, online_node, ply_frames = phase_online(dev, frames, driving)
+    pyct_run = phase_pyct_icp(dev, online_node, ply_frames)
+    del online_node, ply_frames
+    shutil.rmtree(ONLINE_DIR, ignore_errors=True)
+    mark("rosbag, online node, pyct_icp")
 
     paths = {"driving": driving, "robust": robust, "escalation": escalation,
              "long_drive": long_drive, "robust_rebase": robust_rebase,
@@ -4487,7 +4707,8 @@ def main() -> int:
              **{f"solver_{k}": v for k, v in solver_runs.items()},
              "checkpoint_resume": checkpoint_run,
              "staged_backend": staged_backend_on,
-             "staged_backend_off": staged_backend_off}
+             "staged_backend_off": staged_backend_off,
+             "online": online_run, "pyct_icp": pyct_run}
     primary = {**robust_records, **rebase_records,
                "ct_ba_block": backend_records["ct_ba_block"],
                **replay_records, "owner_pack": scale_records["owner_pack"],

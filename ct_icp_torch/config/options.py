@@ -143,6 +143,17 @@ class DistanceBasedStrategyOptions:
     radius_max: float = 2.0
     exponent: float = 1.0
 
+    def compute_radius(self, distance_to_sensor):
+        """alpha = (min(|d|, r_max)/r_max)^exp; r = a*r_max + (1-a)*r_min.
+
+        (Reference neighborhood_strategy.h:124-129: it clamps the distance
+        by radius_max, not distance_max; kept as it is.)
+        """
+        import numpy as np
+        alpha = (np.minimum(np.abs(distance_to_sensor), self.radius_max)
+                 / self.radius_max) ** self.exponent
+        return alpha * self.radius_max + (1.0 - alpha) * self.radius_min
+
 
 # -------------------------------------------------------------- motion model —
 

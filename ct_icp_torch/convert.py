@@ -24,12 +24,23 @@ The parity tests use both so the two packages compute from the same state.
 
 * :func:`convert_sequence` writes a dataset sequence as a PLY_DIRECTORY
   (``frame_%05d.ply`` with per-point timestamps; counterpart of
-  ``ct_icp_tpu/convert.py::convert_sequence``).
+  ``ct_icp_tpu/convert.py::convert_sequence``);
+  :func:`convert_structured_stream` a stream of structured point arrays
+  (the PointCloud2 analog, ``io/structured.py``); :func:`bag_to_ply` a
+  rosbag 2.0 file's PointCloud2 and Imu messages (``io/rosbag.py``), the
+  reference's rosbag_to_ply node. These write files and need no device.
+
+    python -m ct_icp_torch.convert --bag drive.bag --output-dir out/ \
+        [--topic /points] [--max-frames N]
+    python -m ct_icp_torch.convert --dataset NCLT --root-path /data/nclt \
+        --output-dir out/ [--sequence 2012-01-08] [--max-frames N]
 """
 
+import argparse
 import dataclasses
 import enum
 import json
+import struct
 import typing
 from pathlib import Path
 
@@ -38,7 +49,9 @@ import torch
 
 from ct_icp_torch.config import options as opt
 from ct_icp_torch.core.pose import Pose, TrajectoryFrame
-from ct_icp_torch.io.ply import write_ply_xyzt
+from ct_icp_torch.io import rosbag as rb
+from ct_icp_torch.io.ply import write_ply, write_ply_xyzt
+from ct_icp_torch.io.structured import structured_to_frame
 from ct_icp_torch.mapping.frame_ring import FrameRing
 from ct_icp_torch.mapping.voxel_map import MapLevel
 from ct_icp_torch.parallel.ct_ba import CTBAProblem, CTBAState
@@ -263,3 +276,125 @@ def convert_sequence(sequence, output_dir, max_frames: int = -1,
                        fr.get("timestamps"))
         i += 1
     return i
+
+
+def convert_structured_stream(arrays, output_dir, max_frames: int = -1,
+                              pattern: str = "frame_{:05d}.ply") -> int:
+    """Write an iterable of structured point arrays (PointCloud2 analogs)
+    as a PLY directory."""
+    out = Path(output_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    i = 0
+    for arr in arrays:
+        if max_frames >= 0 and i >= max_frames:
+            break
+        xyz, ts = structured_to_frame(arr)
+        write_ply_xyzt(out / pattern.format(i), np.asarray(xyz, np.float32),
+                       ts)
+        i += 1
+    return i
+
+
+def bag_to_ply(bag_path, output_dir, topic=None, max_frames: int = -1,
+               pattern: str = "frame_{:05d}.ply") -> int:
+    """A rosbag 2.0 file's PointCloud2 stream (and Imu stream) as the
+    PLY_DIRECTORY layout, in one pass over the bag (reference
+    rosbag_to_ply.cxx:109-180; ``ct_icp_tpu/convert.py::bag_to_ply``):
+    frames in ``output_dir/frames/`` with per-point timestamps rebased so
+    the first cloud's minimum is 0, the header stamp relative to the first
+    message for clouds without a timestamp field, and the IMU samples in
+    ``output_dir/imu_data.ply``. Returns the number of frames written."""
+    root = Path(output_dir)
+    out = root / "frames"
+    out.mkdir(parents=True, exist_ok=True)
+    i = 0
+    t0_header = None   # first message header stamp (initial_nano_seconds)
+    t0_points = None   # first cloud's min point timestamp
+    imu = []
+    for msg in rb.read_bag(bag_path):
+        if msg.msg_type == "sensor_msgs/Imu":
+            imu.append(rb.parse_imu(msg.raw))
+            continue
+        if msg.msg_type and msg.msg_type != "sensor_msgs/PointCloud2":
+            continue
+        if topic is not None and msg.topic != topic:
+            continue
+        if max_frames >= 0 and i >= max_frames:
+            continue  # keep draining for IMU samples
+        try:
+            pc = rb.parse_pointcloud2(msg.raw)
+        except (ValueError, struct.error, IndexError):
+            if msg.msg_type == "sensor_msgs/PointCloud2":
+                raise
+            continue  # an untyped connection that was not a point cloud
+        stamp = pc.stamp
+        xyz, ts = structured_to_frame(pc.to_structured())
+        if t0_header is None:
+            t0_header = stamp
+        if ts is not None:
+            if t0_points is None:
+                t0_points = float(np.min(ts)) if len(ts) else stamp
+            ts = np.asarray(ts, np.float64) - t0_points
+        else:
+            ts = np.full(len(xyz), stamp - t0_header, np.float64)
+        write_ply_xyzt(out / pattern.format(i), np.asarray(xyz, np.float32),
+                       ts)
+        i += 1
+
+    if imu and t0_header is None:
+        # no clouds in the bag: rebase the IMU to its own first sample
+        t0_header = imu[0].stamp
+    if imu:
+        columns = {"timestamp": np.array([s.stamp - t0_header for s in imu])}
+        for field, names in (("orientation", ("qx", "qy", "qz", "qw")),
+                             ("angular_velocity", ("wx", "wy", "wz")),
+                             ("linear_acceleration", ("ax", "ay", "az"))):
+            for j, name in enumerate(names):
+                columns[name] = np.array([getattr(s, field)[j] for s in imu])
+        write_ply(root / "imu_data.ply", columns)
+    return i
+
+
+def main(argv=None):
+    from ct_icp_torch.datasets.dataset import (Dataset, DatasetEnum,
+                                               DatasetOptions)
+    p = argparse.ArgumentParser(
+        description="Convert any supported dataset or a rosbag to a PLY "
+                    "directory (rosbag_to_ply analog)")
+    p.add_argument("--dataset", default=None,
+                   help="Dataset type (NCLT, KITTI_raw, SYNTHETIC, ...)")
+    p.add_argument("--bag", default=None,
+                   help="rosbag 2.0 file with PointCloud2 messages")
+    p.add_argument("--topic", default=None,
+                   help="PointCloud2 topic to convert (with --bag)")
+    p.add_argument("--root-path", default=None)
+    p.add_argument("--sequence", default=None, help="Only this sequence")
+    p.add_argument("--output-dir", required=True)
+    p.add_argument("--max-frames", type=int, default=-1)
+    args = p.parse_args(argv)
+
+    if args.bag is not None:
+        n = bag_to_ply(args.bag, args.output_dir,
+                       topic=args.topic, max_frames=args.max_frames)
+        print(f"[{args.bag}] wrote {n} frames -> {args.output_dir}")
+        return 0 if n else 1
+    if args.dataset is None or args.root_path is None:
+        p.error("either --bag or --dataset + --root-path is required")
+
+    ds = Dataset.load_dataset(DatasetOptions(
+        dataset=DatasetEnum[args.dataset], root_path=args.root_path))
+    total = 0
+    for seq in ds.sequences:
+        name = getattr(seq, "name", None) or getattr(seq, "sequence_name", "")
+        if args.sequence and name != args.sequence:
+            continue
+        out = Path(args.output_dir) / name / "frames" if name \
+            else Path(args.output_dir)
+        n = convert_sequence(seq, out, args.max_frames)
+        print(f"[{name or 'sequence'}] wrote {n} frames -> {out}")
+        total += n
+    return 0 if total else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

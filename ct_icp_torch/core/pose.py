@@ -68,6 +68,14 @@ class Pose:
         ts = (1.0 - alpha) * self.timestamp + alpha * other.timestamp
         return Pose(q, t, ts, self.frame_id)
 
+    def interpolate(self, other: "Pose", timestamp: float) -> "Pose":
+        """The pose at ``timestamp`` between this pose and ``other``
+        (alpha clamped to [0, 1]), stamped ``timestamp``."""
+        alpha = self.alpha_timestamp(timestamp, other)
+        p = self.interpolate_alpha(other, float(alpha))
+        p.timestamp = timestamp
+        return p
+
     def continuous_transform(self, raw_points, other: "Pose", timestamps):
         """Per-point interpolated transform (reference types.h:414-419):
         ``raw_points`` [N, 3], ``timestamps`` [N] -> world points [N, 3],
@@ -111,6 +119,21 @@ class TrajectoryFrame:
 
     def ego_angular_distance(self) -> float:
         return self.begin_pose.angular_distance(self.end_pose)
+
+    def translation_distance(self, other: "TrajectoryFrame") -> float:
+        return (self.begin_pose.location_distance(other.begin_pose)
+                + self.end_pose.location_distance(other.end_pose))
+
+    def rotation_distance(self, other: "TrajectoryFrame") -> float:
+        return (self.begin_pose.angular_distance(other.begin_pose)
+                + self.end_pose.angular_distance(other.end_pose))
+
+    def mid_pose(self) -> np.ndarray:
+        """The 4x4 matrix of the pose halfway between begin and end."""
+        return self.begin_pose.interpolate_alpha(self.end_pose, 0.5).matrix()
+
+    def relative_begin_end(self) -> Pose:
+        return self.begin_pose.inverse() * self.end_pose
 
     def copy(self) -> "TrajectoryFrame":
         return TrajectoryFrame(self.begin_pose.copy(), self.end_pose.copy())

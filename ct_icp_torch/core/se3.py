@@ -70,6 +70,7 @@ quat_normalize = _m.quat_normalize
 quat_mul = _m.quat_mul
 quat_conj = _m.quat_conj
 quat_rotate = _m.quat_rotate
+quat_to_matrix = _m.quat_to_matrix
 quat_from_rotvec = _m.quat_from_rotvec
 quat_slerp = _m.quat_slerp
 angular_distance_deg = _m.angular_distance_deg
@@ -78,6 +79,23 @@ se3_compose = _m.se3_compose
 se3_inverse = _m.se3_inverse
 se3_interpolate = _m.se3_interpolate
 alpha_timestamp = _m.alpha_timestamp
+
+
+def quat_from_matrix(m):
+    """Rotation matrix [..., 3, 3] -> unit quaternion [..., 4] (w first),
+    by core/math_impl.py's branchless Shepperd's method; its constant
+    tensors are made on ``m``'s device."""
+    with torch.device(m.device):
+        return _m.quat_from_matrix(m)
+
+
+def se3_matrix(q, t):
+    """(quaternion [..., 4], translation [..., 3]) -> [..., 4, 4]; the
+    bottom row is made on ``t``'s device."""
+    with torch.device(t.device):
+        return _m.se3_matrix(q, t)
+
+
 # array helpers of the same namespace, for code written against either this
 # module or core/dual.py's ``math`` (the residuals take one or the other)
 sum = _xp.sum

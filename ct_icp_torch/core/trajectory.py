@@ -30,6 +30,10 @@ class LinearContinuousTrajectory:
         self._quats = np.stack([p.quat for p in poses]) if poses else np.zeros((0, 4))
         self._trs = np.stack([p.tr for p in poses]) if poses else np.zeros((0, 3))
 
+    @staticmethod
+    def create(poses: Sequence[Pose]) -> "LinearContinuousTrajectory":
+        return LinearContinuousTrajectory(poses)
+
     @property
     def poses(self) -> List[Pose]:
         return self._poses
@@ -78,3 +82,36 @@ class LinearContinuousTrajectory:
         q, t = s3.se3_interpolate(
             self._quats[i0], self._trs[i0], self._quats[i1], self._trs[i1], alpha)
         return q, t
+
+    def transform_points(self, raw_points: np.ndarray, timestamps: np.ndarray):
+        """Raw points + per-point timestamps -> world points [N, 3]."""
+        q, t = self.interpolate_poses(timestamps)
+        return s3.quat_rotate(q, np.asarray(raw_points, dtype=np.float64)) + t
+
+    # ------------------------------------------------------------ transforms —
+    def to_relative_poses(self) -> List[Pose]:
+        """Pose deltas between consecutive poses; the first is absolute."""
+        out = []
+        prev = None
+        for p in self._poses:
+            out.append(p.copy() if prev is None else prev.inverse() * p)
+            prev = p
+        return out
+
+    @staticmethod
+    def from_relative_poses(rel: Sequence[Pose]) -> "LinearContinuousTrajectory":
+        acc = None
+        out = []
+        for p in rel:
+            acc = p.copy() if acc is None else acc * p
+            acc.timestamp = p.timestamp
+            out.append(acc.copy())
+        return LinearContinuousTrajectory(out)
+
+    def change_reference_frame(self, new_ref: Pose) -> "LinearContinuousTrajectory":
+        """Left-multiply every pose by ``new_ref`` (reference-frame change)."""
+        return LinearContinuousTrajectory([new_ref * p for p in self._poses])
+
+    def select_window(self, t_min: float, t_max: float) -> "LinearContinuousTrajectory":
+        keep = [p for p in self._poses if t_min <= p.timestamp <= t_max]
+        return LinearContinuousTrajectory(keep)

@@ -275,6 +275,24 @@ class SyntheticSensorAcquisition:
                 "begin_pose": begin, "end_pose": end}
 
 
+def apply_uniform_noise(poses: Sequence[Pose], rng, tr_scale: float,
+                        rot_scale_deg: float) -> List[Pose]:
+    """Uniform pose-noise injection (reference ApplyUniformNoise,
+    synthetic.h:233-242): ``rng`` (a numpy Generator) draws, for each pose,
+    a translation in [-tr_scale, tr_scale]^3, then a rotation axis and an
+    angle in [0, rot_scale_deg], in that order."""
+    out = []
+    for p in poses:
+        dtr = rng.uniform(-tr_scale, tr_scale, 3)
+        rv = rng.uniform(-1, 1, 3)
+        rv = rv / max(np.linalg.norm(rv), 1e-12) * np.deg2rad(
+            rng.uniform(0, rot_scale_deg))
+        q = s3n.quat_mul(s3n.quat_from_rotvec(rv), p.quat)
+        out.append(Pose(s3n.quat_normalize(q), p.tr + dtr, p.timestamp,
+                        p.frame_id))
+    return out
+
+
 def circular_trajectory(radius=8.0, height=1.5, num_poses=200,
                         total_time=10.0, angle_span=2 * np.pi
                         ) -> LinearContinuousTrajectory:

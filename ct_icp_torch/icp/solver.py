@@ -76,7 +76,8 @@ from ct_icp_torch.core import se3 as s3
 from ct_icp_torch.icp import residuals as res
 from ct_icp_torch.kernels import lm_step as lm
 from ct_icp_torch.mapping import voxel_map as vm
-from ct_icp_torch.ops.neighborhood import compute_description
+from ct_icp_torch.ops.neighborhood import (CLASS_LINEAR, CLASS_PLANAR,
+                                           classify, compute_description)
 
 # FunctorPointToDistribution's epsilon (reference cost_functions.h:180)
 DISTRIBUTION_EPS = 0.05
@@ -327,8 +328,9 @@ def _build_problem(statics, dyn, level, raw, alphas, valid, qb, tb, qe, te,
         # reference DoRegisterRobust (ct_icp.cpp:1227-1290): classify each
         # neighbourhood, weight and anchor it by class, gate outliers by the
         # distance to the association
-        planar = desc.planarity > dyn.threshold_planarity
-        linear = ~planar & (desc.linearity > dyn.threshold_linearity)
+        cls = classify(desc, dyn.threshold_linearity,
+                       dyn.threshold_planarity, count)
+        planar, linear = cls == CLASS_PLANAR, cls == CLASS_LINEAR
         if not statics.use_lines:
             # reclassify LINEAR (ct_icp.cpp:1243-1248)
             planar = planar | (linear & (desc.planarity

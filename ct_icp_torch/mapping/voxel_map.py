@@ -36,6 +36,8 @@ from ct_icp_torch.kernels import map_insert as k3
 from ct_icp_torch.kernels import plane_moments as k2
 from ct_icp_torch.kernels import rebuild as k7
 from ct_icp_torch.kernels import row_gather as k6
+# the identity key lives in ops/voxel.py; the reference defines it here
+from ct_icp_torch.ops.voxel import voxel_key_u32  # noqa: F401
 
 EMPTY = k3.EMPTY
 TOMB = k3.TOMB
@@ -85,6 +87,11 @@ def find_slots_with_count(level: MapLevel, query_coords):
     """Voxel coords [..., 3] -> (slot [...], count [...]); slot -1 where the
     voxel is absent (count 0 there)."""
     return k1.find_slots_with_count(level.keys, level.count, query_coords)
+
+
+def find_slots(level: MapLevel, query_coords):
+    """Voxel coords [M, 3] -> slot index [M] (-1 absent)."""
+    return find_slots_with_count(level, query_coords)[0]
 
 
 def _filter_args(level: MapLevel, sensor_location, use_normal_filter):

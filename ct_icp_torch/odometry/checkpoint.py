@@ -196,6 +196,7 @@ def load_checkpoint(odometry: "Odometry", path) -> None:
         sidecar["prev_frame"])
     odometry.frame_ring.clear()
     odometry._pending_scans.clear()
+    odometry._pending_worlds.clear()
     odometry._pending_kp.clear()
     odometry._prune_owed = False
     odometry._odo_state = _odo_state(odometry)

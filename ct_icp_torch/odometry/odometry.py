@@ -350,6 +350,8 @@ class Odometry:
         # streamed frames' scans and keypoint prefixes until their results
         # are read: fid -> (xyz, timestamps) and fid -> (kp_n, xyz, alphas)
         self._pending_scans: Dict[int, tuple] = {}
+        # streamed frames' (world, world_valid) awaiting their finish
+        self._pending_worlds: Dict[int, tuple] = {}
         self._pending_kp: Dict[int, tuple] = {}
         # the sliding-window CT-BA backend, attached last: it registers a
         # FINISHED_REGISTRATION callback
@@ -515,6 +517,18 @@ class Odometry:
         pn[:, 0:3] += self.origin
         return pn
 
+    def get_visible_map_points(self, view_point: np.ndarray,
+                               level: int = 0) -> np.ndarray:
+        """The map points whose normal faces ``view_point``: normal .
+        (point - view) < 0 (reference GetVisibleMapPoints, map.h:378-407;
+        an unoriented normal is a zero vector here and fails the strict
+        inequality, as it is skipped there). Through ``get_map_points``
+        (K10)."""
+        pn = self.get_map_points(level)
+        scal = np.sum(pn[:, 3:6] * (pn[:, 0:3] - np.asarray(view_point)),
+                      axis=1)
+        return pn[scal < 0.0]
+
     def reset(self, options: Optional[OdometryOptions] = None):
         """Reference Odometry::Reset (odometry.cpp:956-975): an empty map
         at the origin, no trajectory, the frame ring cleared."""
@@ -533,6 +547,7 @@ class Odometry:
         self.insertion_tracker = _InsertionTracker()
         self.frame_ring.clear()
         self._pending_scans.clear()
+        self._pending_worlds.clear()
         self._pending_kp.clear()
         self._prune_owed = False
         self.default_motion_model.reset()
@@ -631,7 +646,12 @@ class Odometry:
         # after batch k + 1) once batch k + 1 has run
         pending = None
         for group in groups():
-            cur = self._stream_frames_batched(group)
+            # the reference streams a batch of 1, and the frames left over
+            # after the last full batch, through its single-frame step,
+            # whose summaries carry the corrected points; a full batch's
+            # carry none (reference odometry.py:600-605, 759-762)
+            cur = self._stream_frames_batched(
+                group, keep_world=batch <= 1 or len(group) < batch)
             if pending is not None:
                 yield from self._finish_batch(*pending)
             pending = cur
@@ -931,6 +951,9 @@ class Odometry:
         _out, r = self._run_frame_step(scan, n, frame, prior, dyn, fs)
         self._set_frame_poses(frame, r)
         summary.frame = frame
+        # the corrected sub-frame stays on the device (reference
+        # odometry.py:1948): read back only by a consumer that asks
+        summary.corrected_points = (_out.world, _out.world_valid)
         self._fill_summary(summary, r)
         summary.points_added = bool(r[21])
         summary.logged_values["odometry_num_subsampled"] = int(r[18])
@@ -1023,6 +1046,9 @@ class Odometry:
         out, inserted, count = self._robust_registration_fused(
             xyz, timestamps, info, summary, self._prior(k), prep=prep)
         self.trajectory[k] = summary.frame
+        # the kept attempt's corrected sub-frame, on the device (reference
+        # odometry.py:1799)
+        summary.corrected_points = (out.world, out.world_valid)
         self._compute_summary_metrics(summary, k)
         self._update_map_host(summary, out.world, out.world_valid, k,
                               device_inserted=inserted,
@@ -1578,9 +1604,11 @@ class Odometry:
                 [p["n"] for p in group],
                 [p["info"].registered_fid for p in group])
 
-    def _stream_frames_batched(self, group):
+    def _stream_frames_batched(self, group, keep_world: bool = False):
         """Run one group's frames in order; returns (infos, packed results
-        [B, 24] on the device, origin)."""
+        [B, 24] on the device, origin). ``keep_world``: each frame's
+        (world, world_valid) device tensors wait for its finish, which hands
+        them to its summary."""
         for prep in group:
             if prep["info"].registered_fid != self.registered_frames:
                 raise ValueError("Prepared frames must be streamed in order")
@@ -1591,9 +1619,12 @@ class Odometry:
             self._effective_icp_options(p["info"])) for p in group]
         fss = [self._frame_scalars(p) for p in group]
         betas = torch.as_tensor(self._betas(), device=self.device)
-        self._odo_state, packed, syncs, _ = self._multi_step(
+        self._odo_state, packed, syncs, _, worlds = self._multi_step(
             self.map_state, self._odo_state, scans, ns, ks, betas, dyns, fss)
         self.host_syncs += syncs
+        if keep_world:
+            for p, world in zip(group, worlds):
+                self._pending_worlds[p["info"].registered_fid] = world
         return [p["info"] for p in group], packed, self.origin.copy()
 
     def _read_rows(self, packed_all):
@@ -1613,7 +1644,9 @@ class Odometry:
         callbacks (reference odometry.py:808-873). ``allow_rebase=False``
         defers the rebase to the caller: the speculative robust streamer
         must not rebase while a later batch is in flight (its checkpoint
-        would straddle the change of frame)."""
+        would straddle the change of frame). The summary's
+        ``corrected_points`` are the frame's device tensors where its batch
+        kept them, else None."""
         k = info.registered_fid
         frame = TrajectoryFrame(
             Pose(timestamp=info.begin_timestamp, frame_id=info.frame_id),
@@ -1629,6 +1662,7 @@ class Odometry:
         summary = RegistrationSummary()
         summary.frame = frame
         summary.initial_frame = frame.copy()
+        summary.corrected_points = self._pending_worlds.pop(k, None)
         self._fill_summary(summary, r)
         summary.points_added = bool(r[21])
         summary.logged_values["odometry_num_subsampled"] = int(r[18])
@@ -1787,7 +1821,7 @@ class Odometry:
             group, scans, ns, ks, per_level = upload
             level = self.next_robust_level
             dyns, fss = per_level[level]
-            self._odo_state, packed, syncs, ckpt = self._multi_step(
+            self._odo_state, packed, syncs, ckpt, _ = self._multi_step(
                 self.map_state, self._odo_state, scans, ns, ks, betas, dyns,
                 fss, with_checkpoint=True)
             self.host_syncs += syncs
@@ -1865,7 +1899,7 @@ class Odometry:
                 fss = [f.copy() for f in fss]
                 for f in fss[commit_n:]:
                     f[8] = -1.0
-                self._odo_state, _rows, syncs, _ = self._multi_step(
+                self._odo_state, _rows, syncs, _, _ = self._multi_step(
                     self.map_state, self._odo_state, scans, ns, ks, betas,
                     dyns, fss)
                 self.host_syncs += syncs

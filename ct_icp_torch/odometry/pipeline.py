@@ -431,7 +431,7 @@ def make_stream_body(map_options, statics, sub_capacity: int,
                      distort_constant_velocity: bool = False):
     """Per-frame streaming body:
       (map_state, odo_state, scan_packed, n, k, prior_betas, dyn, fs)
-        -> (odo_state, packed [24], host_syncs)
+        -> (odo_state, packed [24], host_syncs, (world, world_valid))
     ``k`` is the frame's registration index — the host's copy of
     odo_state[28] (the reference reads it on the device).
     ``robust_gated``: insertion mode 2 (insert only when the on-device
@@ -497,7 +497,7 @@ def make_stream_body(map_options, statics, sub_capacity: int,
             torch.stack([s[28] + 1.0, new_skipped, total_ins + addf,
                          torch.zeros_like(addf)]),
         ])
-        return new_state, packed, out.host_syncs
+        return new_state, packed, out.host_syncs, (out.world, out.world_valid)
 
     return stream_body
 
@@ -506,21 +506,25 @@ def make_multi_step(body):
     """A batch of frames through the streaming ``body``, one after another
     (reference make_multi_step_fn, pipeline.py:599-667):
       (map_state, odo_state, scans [B, R, 4], ns, ks, betas, dyns, fss,
-       with_checkpoint) -> (odo_state, packed [B, 24], host_syncs, ckpt)
+       with_checkpoint) -> (odo_state, packed [B, 24], host_syncs, ckpt,
+       worlds)
     ``ckpt`` (with_checkpoint) is the snapshot of the map and the odometry
     state before the batch — the speculative robust streamer's rollback
-    point — else None."""
+    point — else None; ``worlds`` the frames' (world, world_valid) device
+    tensors."""
 
     def multi_step(map_state, odo_state, scans, ns, ks, betas, dyns, fss,
                    with_checkpoint: bool = False):
         ckpt = snapshot(map_state, odo_state) if with_checkpoint else None
-        rows, syncs = [], 0
+        rows, syncs, worlds = [], 0, []
         for b in range(len(ns)):
-            odo_state, row, s = body(map_state, odo_state, scans[b], ns[b],
-                                     ks[b], betas, dyns[b], fss[b])
+            odo_state, row, s, world = body(map_state, odo_state, scans[b],
+                                            ns[b], ks[b], betas, dyns[b],
+                                            fss[b])
             rows.append(row)
+            worlds.append(world)
             syncs += s
-        return odo_state, torch.stack(rows), syncs, ckpt
+        return odo_state, torch.stack(rows), syncs, ckpt, worlds
 
     return multi_step
 

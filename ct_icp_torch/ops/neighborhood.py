@@ -17,6 +17,12 @@ import torch
 
 from ct_icp_torch.ops.eigen3 import eigh3x3
 
+# Classification of a neighborhood (reference neighborhood.h:268-282)
+CLASS_NONE = 0
+CLASS_PLANAR = 1
+CLASS_LINEAR = 2
+CLASS_VOLUMIC = 3
+
 
 class NeighborhoodDescription(NamedTuple):
     barycenter: torch.Tensor   # [..., 3]
@@ -83,3 +89,13 @@ def _describe(cov, barycenter):
         barycenter=barycenter, covariance=cov, normal=vecs[..., 2, :],
         line=vecs[..., 0, :], linearity=linearity, planarity=planarity,
         a2D=a2d, eigvals=vals)
+
+
+def classify(desc, linearity_threshold, planarity_threshold, count):
+    """PLANAR / LINEAR / VOLUMIC / NONE (reference neighborhood.h:268-282):
+    planarity first, then linearity, then VOLUMIC where more than five
+    points were found."""
+    cls = torch.where(count > 5, CLASS_VOLUMIC, CLASS_NONE)
+    cls = torch.where(desc.linearity > linearity_threshold, CLASS_LINEAR, cls)
+    return torch.where(desc.planarity > planarity_threshold, CLASS_PLANAR,
+                       cls)

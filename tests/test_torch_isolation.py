@@ -8,6 +8,7 @@ The import check runs in a subprocess with both packages blocked in
 
 import ast
 import dataclasses
+import importlib
 import json
 import pathlib
 import subprocess
@@ -210,3 +211,127 @@ def test_the_card_path_needs_no_yaml():
     assert out.returncode == 0, out.stderr
     frames, prims = map(int, out.stdout.split())
     assert frames >= 500 and prims > 1000
+
+
+# ct_icp_tpu's public names that are XLA compile structure or TPU layout and
+# so have no counterpart of the same name in the port: each mapped to the
+# port's "module:attribute" that takes its place
+JAX_ONLY = {
+    "odometry/pipeline.py::make_frame_step_fn":
+        "ct_icp_torch.odometry.pipeline:make_frame_step",
+    "odometry/pipeline.py::make_multi_step_fn":
+        "ct_icp_torch.odometry.pipeline:make_multi_step",
+    "odometry/pipeline.py::make_streaming_step_fn":
+        "ct_icp_torch.odometry.pipeline:make_stream_body",
+    "odometry/pipeline.py::make_update_map_fn":
+        "ct_icp_torch.odometry.pipeline:update_map",
+    "odometry/pipeline.py::make_device_copy_fn":
+        "ct_icp_torch.odometry.pipeline:snapshot",
+    # the keypoint capacity ladder of XLA's static shapes: the port's
+    # frame core slices the keypoint prefix at its length
+    "odometry/pipeline.py::kp_ladder_rungs":
+        "ct_icp_torch.odometry.pipeline:make_frame_core",
+    "icp/solver.py::jitted_register_fn":
+        "ct_icp_torch.icp.solver:build_register_fn",
+    "icp/solver.py::build_staged_fns":
+        "ct_icp_torch.icp.solver:build_register_fn",
+    "icp/solver.py::make_dynamics": "ct_icp_torch.icp.solver:unpack_dynamics",
+    "icp/solver.py::unpack_prior":
+        "ct_icp_torch.icp.residuals:motion_prior_residuals",
+    "icp/registration.py::staged_register_loop":
+        "ct_icp_torch.icp.registration:CTICPRegistration.register_device",
+    "icp/registration.py::StagedLoopResult":
+        "ct_icp_torch.icp.solver:RegistrationResult",
+    # the TPU probe window: K1 probes the keys directly
+    "mapping/voxel_map.py::build_window":
+        "ct_icp_torch.mapping.voxel_map:find_slots_with_count",
+    # the XLA lexsort path of the exact samplers: K13
+    "ops/voxel.py::lexsort_order":
+        "ct_icp_torch.kernels.exact_sample:exact_sample",
+    "ops/voxel.py::group_starts":
+        "ct_icp_torch.kernels.exact_sample:exact_sample",
+}
+
+
+def _public_names(path):
+    """The public top-level functions, classes, class methods and assigned
+    names (constants, aliases) of a module."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.ClassDef):
+            out.add(node.name)
+            out.update(f"{node.name}.{sub.name}" for sub in node.body
+                       if isinstance(sub, (ast.FunctionDef,
+                                           ast.AsyncFunctionDef)))
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = (node.targets if isinstance(node, ast.Assign)
+                       else [node.target])
+            out.update(n.id for t in targets for n in ast.walk(t)
+                       if isinstance(n, ast.Name))
+    return {n for n in out if not any(p.startswith("_")
+                                      for p in n.split("."))}
+
+
+def _resolve(module, dotted):
+    obj = importlib.import_module(module)
+    for part in dotted.split("."):
+        obj = getattr(obj, part)
+    return obj
+
+
+def test_every_reference_name_has_a_counterpart():
+    """Every public module, function, class, method and constant of
+    ct_icp_tpu/ has a counterpart of the same name in ct_icp_torch/, or is
+    in JAX_ONLY with the port function that takes its place (which must
+    exist, while the name itself must not: the list stays honest)."""
+    ref_root = ROOT / "ct_icp_tpu"
+    missing, seen = [], 0
+    for path in sorted(ref_root.rglob("*.py")):
+        rel = path.relative_to(ref_root)
+        parts = ("ct_icp_torch",) + rel.with_suffix("").parts
+        module = ".".join(parts[:-1] if parts[-1] == "__init__" else parts)
+        for name in sorted(_public_names(path)) or [None]:
+            seen += 1
+            key = f"{rel.as_posix()}::{name}" if name else rel.as_posix()
+            try:
+                if name is None:
+                    importlib.import_module(module)
+                else:
+                    _resolve(module, name)
+            except (ImportError, AttributeError):
+                missing.append(key)
+    assert sorted(missing) == sorted(JAX_ONLY), \
+        sorted(set(missing) ^ set(JAX_ONLY))
+    for key, repl in JAX_ONLY.items():
+        module, attr = repl.split(":")
+        assert callable(_resolve(module, attr)), (key, repl)
+    assert seen > 500
+
+
+def test_online_node_and_binding_default_to_the_card():
+    """The online node and the pyct_icp binding's Odometry run on the card
+    by default: with no card they raise, never falling back; device="cpu"
+    runs the plain path."""
+    from ct_icp_torch.compat import pyct_icp
+    from ct_icp_torch.online import OnlineOdometry, OnlineOdometryConfig
+    cfg = OnlineOdometryConfig(odometry_options=default_driving_profile())
+    opts = pyct_icp.OdometryOptions.DefaultDrivingProfile()
+    if torch.cuda.is_available():
+        assert OnlineOdometry(cfg).odometry.device.type == "cuda"
+        assert pyct_icp.Odometry(opts)._odometry.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            OnlineOdometry(cfg)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pyct_icp.Odometry(opts)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            pyct_icp.Odometry()
+    node = OnlineOdometry(cfg, device="cpu")
+    assert node.odometry.device.type == "cpu"
+    odo = pyct_icp.Odometry(opts, device="cpu")
+    assert odo._odometry.device.type == "cpu" and odo.MapSize() == 0
+    odo.Reset(opts)
+    assert odo._odometry.device.type == "cpu"

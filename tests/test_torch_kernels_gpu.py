@@ -1608,3 +1608,115 @@ def test_staged_register_frame_launches_k13_and_k4(cuda, monkeypatch):
     assert all(s.success for s in summaries)
     assert all(s.sample_size > 0 for s in summaries[1:])
 
+
+
+def _small_room(n):
+    """tests/test_odometry.py's small options and room (seed 29), built
+    from the port alone (this file runs where JAX is not installed)."""
+    from ct_icp_torch.config.options import (CTICPOptions,
+                                             MultiResolutionVoxelMapOptions,
+                                             OdometryOptions,
+                                             ResolutionParam)
+    from ct_icp_torch.datasets import synthetic as syn
+
+    def options(**kw):
+        return OdometryOptions(
+            map_options=MultiResolutionVoxelMapOptions(
+                resolutions=(ResolutionParam(0.2, 0.03, 30, 16),
+                             ResolutionParam(0.5, 0.1, 25, 15),
+                             ResolutionParam(1.5, 0.15, 25, 13)),
+                default_radius=0.8),
+            max_scan_points=8192, max_subsampled_points=8192,
+            max_keypoints=2048, max_dirty_voxels=4096, init_num_frames=5,
+            max_distance=100.0,
+            ct_icp_options=CTICPOptions(
+                num_iters_icp=6, ls_max_num_iters=2, min_number_neighbors=10,
+                min_num_residuals=50), **kw)
+
+    prims = syn.box_room(half_extent=12.0, height=5.0)
+    prims.append(syn.Sphere(np.array([0.0, 0.0, 2.0]), 2.0))
+    prims.append(syn.Ball(np.array([5.0, -4.0, 1.0]), 1.0))
+    prims += syn.rectangle([-4, 2, 0], [3, 0, 0], [0, 0, 3])
+    traj = syn.circular_trajectory(radius=6.0, height=1.5, num_poses=200,
+                                   total_time=25 * 0.1 + 0.2,
+                                   angle_span=np.pi / 2)
+    acq = syn.SyntheticSensorAcquisition(
+        syn.Scene(prims), traj,
+        syn.SyntheticAcquisitionOptions(num_points_per_frame=6000,
+                                        frame_duration=0.1, max_range=60.0),
+        seed=29)
+    return options, [acq.frame(i) for i in range(n)]
+
+
+# the cross-package pose bound of tests/test_torch_odometry.py, which the
+# card's run and the CPU's each meet against the JAX package
+_ACROSS = (5e-3, 0.05)
+
+
+def _same_corrected(card, cpu):
+    """Card and CPU summaries: corrected points set alike, the card's on
+    the card, equal valid rows, points within the bound times the range."""
+    for a, b in zip(card, cpu):
+        assert (a.corrected_points is None) == (b.corrected_points is None)
+        assert a.frame.end_pose.location_distance(b.frame.end_pose) \
+            < _ACROSS[0]
+        assert a.frame.end_pose.angular_distance(b.frame.end_pose) \
+            < _ACROSS[1]
+        if a.corrected_points is None:
+            continue
+        (wa, va), (wb, vb) = a.corrected_points, b.corrected_points
+        assert wa.device.type == "cuda" and wb.device.type == "cpu"
+        assert torch.equal(va.cpu(), vb)
+        pa, pb = wa[va].cpu().double(), wb[vb].double()
+        tol = _ACROSS[0] + np.deg2rad(_ACROSS[1]) * torch.linalg.norm(
+            pb - torch.from_numpy(b.frame.end_pose.tr), dim=1)
+        assert bool((torch.linalg.norm(pa - pb, dim=1) <= tol).all())
+
+
+def test_corrected_points_on_card_match_cpu(cuda):
+    """RegistrationSummary.corrected_points on the fused, robust and
+    streamed paths (batch 2 over 3 frames: the full batch's frames carry
+    none, the last frame's are kept), on the card against the CPU."""
+    from ct_icp_torch.odometry.odometry import Odometry
+    options, fr = _small_room(3)
+    for robust in (False, True):
+        runs = []
+        for dev in (cuda, "cpu"):
+            odo = Odometry(options(robust_registration=robust), device=dev)
+            runs.append([odo.register_frame(f["xyz"], f["timestamps"],
+                                            frame_id=i)
+                         for i, f in enumerate(fr)])
+        assert all(s.corrected_points is not None for s in runs[0])
+        _same_corrected(*runs)
+    runs = []
+    for dev in (cuda, "cpu"):
+        odo = Odometry(options(), device=dev)
+        preps = [odo.prepare_frame(f["xyz"], f["timestamps"], i)
+                 for i, f in enumerate(fr)]
+        runs.append(list(odo.stream_frames(iter(preps), batch=2)))
+    assert [s.corrected_points is not None for s in runs[0]] == \
+        [False, False, True]
+    _same_corrected(*runs)
+
+
+def test_online_node_on_card_matches_cpu(cuda):
+    """The online node on the card by default: its first 4 frames' poses
+    and world points against the CPU node's, then a frame 0.5 s late
+    dropped by both."""
+    from ct_icp_torch.online import OnlineOdometry, OnlineOdometryConfig
+    options, fr = _small_room(9)
+    out = []
+    for dev in (None, "cpu"):
+        node = OnlineOdometry(OnlineOdometryConfig(
+            odometry_options=options(), expected_frame_period=0.1),
+            device=dev)
+        points = []
+        node.points_output.subscribe(points.append)
+        summaries = [node.on_pointcloud(f["xyz"], f["timestamps"])
+                     for f in fr[:4] + [fr[8]]]
+        assert summaries[-1] is None and all(s.success
+                                             for s in summaries[:4])
+        assert len(points) == 4
+        out.append((node, summaries[:4]))
+    assert out[0][0].odometry.device.type == "cuda"
+    _same_corrected(out[0][1], out[1][1])
