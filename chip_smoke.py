@@ -9,7 +9,7 @@ It needs one CUDA device and nvcc, and exits non-zero without a result line
 when either is missing. Phases; any failure raises and exits non-zero:
 
   1. the card: nvidia-smi's name and power limit, torch's device name;
-  2. build the CUDA kernels K1-K13 from ct_icp_torch/csrc with nvcc (one
+  2. build the CUDA kernels K1-K17 from ct_icp_torch/csrc with nvcc (one
      process per library, all started together: one a source, K5's one a
      residual family, kernels/build.py::PARTS); print the build time and
      ptxas's register / shared-memory / spill lines (and keep each entry's
@@ -44,14 +44,22 @@ when either is missing. Phases; any failure raises and exits non-zero:
      process whose first trace is recent, on this process's tensors
      (tools/timing.py::fresh_process_traces): on some of the card's
      machines a process's traces hold no device activity from about 10 s
-     after its first trace on. The stages
-     that stay plain torch (ROADMAP B9-B11) are timed the same way, each
-     with its bound;
+     after its first trace on;
   4. the driving path: Odometry(default_driving_profile(), device="cuda")
      over the 80-frame synthetic corridor, seed 3, stream_frames(batch=16):
      median per-batch frames/s, failures, mean APE (against the 0.07 m gate
      of the 3-seed benchmark; asserted <= 0.10 m on this seed), map points,
-     host syncs per frame beside ICP iterations per frame;
+     host syncs per frame beside ICP iterations per frame; K14 launched
+     twice a frame (the unpack, the world transform) and once an ICP
+     iteration (the solver's keypoints to the world), K15 once a pruning
+     frame (every 8th, all levels in one launch), K16 and K17 not; then K14
+     (the unpack of the first frame's scan; the world transform of the
+     first sub-frame whose poses take the slerp branch and whose alphas
+     span the frame, held to have moved the points and to differ from the
+     end pose's transform; distort_raw on the same inputs) against its
+     plain versions, bit for bit, one device operation a call, timed with
+     the L2 flushed, as a CUDA graph of 20 and with its host side, each
+     with its bound;
   5. the robust path: Odometry(robust_driving_profile(), device="cuda")
      over bench.py's robust corridor (80 frames, 8 m/s, seed 3),
      stream_frames(batch=8) of frames prepared beforehand: median per-batch
@@ -75,7 +83,11 @@ when either is missing. Phases; any failure raises and exits non-zero:
      counts and flags in one launch); median per-batch frames/s, %Tr, APE,
      map points, host syncs a frame, render and stream wall times (the
      stream's includes the copy of the first rebase's level that phase 11 is
-     held on, and its host time);
+     held on, and its host time); then K15 on the drive's first prune that
+     tombstones a voxel against its plain version (keys, counts, flags and
+     num_points bit for bit; tombstones and removed points asserted), one
+     device operation a call, timed as a CUDA graph of 20 on a copy
+     restored before each replay, with its bound;
   8. the backend gate (tools/bench.py --backend): the long drive's first
      320 frames (rendered in phase 7) through
      Odometry(default_driving_profile() with backend.enabled)
@@ -137,8 +149,14 @@ when either is missing. Phases; any failure raises and exits non-zero:
      and at least three times a frame; %Tr (INDOOR segments), frames/s,
      attempts and host syncs a frame, the device memory peak, then on the
      walk's map the checkpoint's clone of the three levels
-     (pipeline.snapshot, once a speculative batch) and prune_level on each
-     level, timed;
+     (pipeline.snapshot, once a speculative batch), K15 against its plain
+     version on the three levels from a location max_distance beyond the
+     map's middle (bit for bit; nothing tombstoned gated off, voxels
+     tombstoned on every level gated on), K15 on each level and
+     on all three in one launch, and the plain prune on each level, timed
+     (CUDA graphs of 20 on copies restored before each replay);
+     K14 and K15 launched, K15 at most once a frame, and K16 (the device
+     keypoint election's residual cap of the escalated frames);
   13. K1-K5 against their plain versions at the indoor walk's shapes, and
      timed as in phase 3: K5 on the first LM call of walk frame 10 (600
      residuals at most, 10 LM steps, WeightingScheme.ALL); K1 and K2 on
@@ -219,22 +237,27 @@ when either is missing. Phases; any failure raises and exits non-zero:
      host syncs a frame beside the driving
      phase's, APE within 1.5 times the JAX package's on the same frames on
      the CPU (SEARCH_REF_APE_M, tests/torch_search_reference.py), 0
-     failures; K1, K12, K3 and K5 launched, one K12 a K1, K2 and K4 not;
+     failures; K1, K17, K3 and K5 launched, one K17 (K12's descriptor
+     instance) a K1, K2, K4 and K12's own instance not;
      then its first 10 frames with num_closest_neighbors=2 (held the same
      way): the residual rows a frame beside the keypoints, and K5 given
-     two rows for each keypoint K12 searched;
+     two rows for each keypoint K17 searched;
   23. the distance strategy at the reference's defaults
      (DistanceBasedStrategyOptions(): 0.1-2.0 m, nv = 3, 343 voxels kept
      to 48): the same figures; K1 with the normal filter, K2 with a
      radius a keypoint, K10 on the inserts' dirty lists (one host sync a
-     level a frame more), K12 not;
+     level a frame more), K12 and K17 not;
   24. the device sub-sample (host_subsample=False): the same figures; K4
-     twice a frame (the raw scan at its rung, then the keypoints);
-  25. K12, K1 with the filter, K2 with a radius a query and K4 at the
-     scan's rung against their plain versions on the inputs of their first
-     calls in 22-24 (K12 and K1 identical, K2 within kernels/checks.py's
-     tolerance, K4 identical), timed as in phase 3; K12's device
-     operations a call (one);
+     twice a frame (the raw scan at its rung, then the keypoints), K16
+     once (the keypoints' residual cap);
+  25. K12 (off the paths since K17: on K17's first call's inputs), K17
+     (normal-only, as the run takes it, and full), K1 with the
+     filter, K2 with a radius a query, K4 at the scan's rung and K16
+     against their plain versions on the inputs of their first calls in
+     22-24 (K12, K1, K4 and K16 identical; K17's list identical, its
+     descriptor and K2 within kernels/checks.py's tolerance), timed as in
+     phase 3 (K16 also with the L2 flushed, beside torch.nonzero); one
+     device operation a call for K12, K16 and K17;
   26. the staged per-frame path: Odometry(default_driving_profile()
      with sampling=ADAPTIVE).register_frame frame by frame over the driving
      phase's 80 frames (the host side of each frame inside the timed span):
@@ -350,7 +373,9 @@ when either is missing. Phases; any failure raises and exits non-zero:
      with the normal filter, K2 with a radius a query, K4 at the scan's
      rung, K12, K13 with its "k=2, max_keep" record, K5 with a record for
      each family, loss, the [41] prior and the analytic branch of phase 31,
-     K2 with its "full descriptor" record, K8 with its "staged" record),
+     K2 with its "full descriptor" record, K8 with its "staged" record,
+     K14 with its "unpack" and "distort_raw" records, K15, K16, K17 with
+     its "full descriptor" record),
      the card's line, and the
      result line. The log gives each phase's seconds ("-- name: s").
 """
@@ -389,6 +414,7 @@ from ct_icp_torch.io.trajectory_io import load_poses_kitti_format
 from ct_icp_torch.kernels import build
 from ct_icp_torch.kernels import candidate_gather as k1
 from ct_icp_torch.kernels import checks
+from ct_icp_torch.kernels import compact_mask as k16
 from ct_icp_torch.kernels import ct_ba_block as k8
 from ct_icp_torch.kernels import evict_voxels as k9
 from ct_icp_torch.kernels import exact_sample as k13
@@ -399,8 +425,10 @@ from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.kernels import map_insert as k3
 from ct_icp_torch.kernels import owner_pack as k11
 from ct_icp_torch.kernels import plane_moments as k2
+from ct_icp_torch.kernels import prune_levels as k15
 from ct_icp_torch.kernels import rebuild as k7
 from ct_icp_torch.kernels import row_gather as k6
+from ct_icp_torch.kernels import scan_transform as k14
 from ct_icp_torch.mapping import voxel_map as vm
 from ct_icp_torch.odometry import pipeline as pl
 from ct_icp_torch.odometry.checkpoint import load_checkpoint, save_checkpoint
@@ -681,7 +709,30 @@ KERNELS = {
     "exact_sample": dict(
         module=k13, source="ct_icp_torch/csrc/exact_sample.cu",
         replaces="ct_icp_tpu/ops/sampling.py:89"),
+    # K14: transform_points (:66), also unpack_scan (:125) and distort_raw
+    # (:56) of the same file
+    "scan_transform": dict(
+        module=k14, source="ct_icp_torch/csrc/scan_transform.cu",
+        replaces="ct_icp_tpu/odometry/pipeline.py:66",
+        also_replaces=["ct_icp_tpu/odometry/pipeline.py:125",
+                       "ct_icp_tpu/odometry/pipeline.py:56"]),
+    "prune_levels": dict(
+        module=k15, source="ct_icp_torch/csrc/prune_levels.cu",
+        replaces="ct_icp_tpu/mapping/voxel_map.py:596"),
+    "compact_mask": dict(
+        module=k16, source="ct_icp_torch/csrc/compact_mask.cu",
+        replaces="ct_icp_tpu/ops/voxel.py:55"),
+    # K17: K12's descriptor instance (counted apart from K12's own)
+    "knn_describe": dict(
+        module=k12, counter="describe_launches",
+        source="ct_icp_torch/csrc/knn_search.cu",
+        replaces="ct_icp_tpu/ops/neighborhood.py:39"),
 }
+# the sources built: one a kernel but K17, an instance of K12's source
+SOURCES = sorted({Path(spec["source"]).stem for spec in KERNELS.values()})
+# K12's kernel instances by the descriptor flag of their mangled names
+# (knn_search_kernel<R, kDesc>): kDesc 0 is K12's, 1 and 2 K17's
+K12_INSTANCE = re.compile(r"knn_search_kernelILi\dELi(\d)E")
 # a kernel record's further times and work counts, copied to the kernels
 # line where present
 WORK_KEYS = ("host_ms", "warm_ms", "library_warm_ms", "step_ms",
@@ -754,10 +805,10 @@ def ptxas_summary(log_text):
 
 
 def phase_build():
-    names = list(KERNELS)
-    if sorted(names) != build.kernel_names():
+    names = SOURCES
+    if names != build.kernel_names():
         raise RuntimeError(f"kernel sources {build.kernel_names()} are not "
-                           f"the kernels checked here {sorted(names)}")
+                           f"the kernels checked here {names}")
     t0 = time.time()
     # K8's phase-mark variant (phase 9) builds beside the kernels
     marks = threading.Thread(target=build.build_all,
@@ -783,8 +834,17 @@ def phase_build():
                         or "Compiling entry" in line):
                     log("   ", line.strip())
             ptxas.update(ptxas_summary(info["ptxas"]))
-        KERNELS[name]["ptxas"] = ptxas
-        log(f"  {name} registers / spills: {json.dumps(ptxas)}")
+        for kernel, spec in KERNELS.items():
+            if Path(spec["source"]).stem != name:
+                continue
+            # K12's source holds K17's instances too: each its own
+            spec["ptxas"] = {
+                entry: v for entry, v in ptxas.items()
+                if name != "knn_search" or (
+                    (K12_INSTANCE.search(entry) or [0, "0"])[1] != "0")
+                == (kernel == "knn_describe")}
+            log(f"  {kernel} registers / spills: "
+                f"{json.dumps(spec['ptxas'])}")
 
 
 def _level_copy(level):
@@ -1263,58 +1323,198 @@ def phase_kernels_robust(dev, odo, preps):
     return records
 
 
-def phase_stages(dev, odo, preps_by_fid):
-    """The driving path's device stages that stay plain torch (ROADMAP
-    B9-B11), timed on the card at driving shapes, each with its bound.
-    Returns {stage: record}."""
-    res = odo.options.map_options.resolutions[0]
-    level = _warm_level(dev, res, preps_by_fid[0])
-    prep = preps_by_fid[max(preps_by_fid)]         # a cruise frame
-    n = prep["n"]
-    out = {}
+# one transformed point's float32 operations in K14 (the slerp blend, its
+# two sinf at ~20 each, the normalization, the rotation, the lerp and the
+# sum; distort_raw adds a rotation and a sum)
+K14_OPS_PER_POINT = 120.0
+K14_DISTORT_OPS_PER_POINT = 150.0
+# one query's eigensolve and descriptor in K17 and K2 (the closed-form 3x3
+# eigensolve, two eigenvector fits, the descriptor's few divisions)
+DESCRIBE_OPS_PER_QUERY = 400.0
 
-    # B11: unpack_scan + transform_points of the frame's uploaded scan
-    scan = torch.from_numpy(prep["scan_host"].view(np.int16)).to(dev)
-    qb, tb = _identity_pose(dev)
-    qe = torch.tensor([0.99995, 0.0, 0.0, 0.01], device=dev)
-    te = torch.tensor([1.0, 0.02, 0.0], device=dev)
 
-    def b11():
-        raw, alphas = pl.unpack_scan(scan)
-        return pl.transform_points(raw[:n], alphas[:n], qb, tb, qe, te)
+def _k14_inputs(raw, alphas, qb, qe):
+    """The host's view of a K14 transform call's inputs: the quaternions'
+    |dot| and the branch the plain slerp takes on it (nlerp where
+    |dot| > 1 - 1e-7 in float32), and the alphas' range."""
+    d = (qb * qe).sum().abs()
+    near = d > 1.0 - 1e-7
+    dot, nlerp, lo, hi = torch.stack([
+        d, near.to(d.dtype), alphas.min(), alphas.max()]).tolist()
+    return dict(dot=dot, branch="nlerp" if nlerp else "slerp",
+                alpha_min=lo, alpha_max=hi)
 
-    ms, how = time_stateless(b11)
-    rows = scan.shape[0]
-    out["B11 unpack_scan+transform_points"] = dict(
-        ms=ms, timing=how, bytes=rows * (8 + 16) + n * (16 + 12),
-        ops=n * 60.0, shape=f"R={rows} n={n}")
 
-    # B9: compact_mask of an insert-size mask (the plain K3 version's use)
-    mask = torch.from_numpy(np.random.default_rng(SEED).uniform(size=n)
-                            < 0.3).to(dev)
-    ms, how = time_stateless(lambda: vx.compact_mask(mask, n))
-    out["B9 compact_mask"] = dict(ms=ms, timing=how, bytes=n * (1 + 4),
-                                  ops=0.0, shape=f"N={n}")
+def _slerp_call(min_rows):
+    """A ``_FirstCall`` condition of K14's transform: a world transform
+    (not distort) over at least ``min_rows`` points (a sub-frame, not the
+    solver's keypoints) whose poses take the slerp branch and whose alphas
+    span the frame. Reads the poses and alphas on the host, once a
+    sub-frame until it holds."""
+    def when(raw, alphas, qb, tb, qe, te, distort=False):
+        if distort or raw.shape[0] < min_rows:
+            return False
+        seen = _k14_inputs(raw, alphas, qb, qe)
+        return (seen["branch"] == "slerp" and seen["alpha_min"] < 0.25
+                and seen["alpha_max"] > 0.75)
+    return when
 
-    # B10: prune_level over all C slots (updates the level in place)
-    loc = torch.tensor([5.0, 0.0, 0.0], device=dev)
-    ms, how = time_mutating(lambda: _level_copy(level),
-                            lambda lv: vm.prune_level(lv, loc, 10.0))
-    c = level.capacity
-    out["B10 prune_level"] = dict(ms=ms, timing=how, bytes=c * (24 + 12),
-                                  ops=c * 9.0, shape=f"C={c}")
-    for name, r in out.items():
-        r["bound_ms"], r["bound_by"] = bound(r["bytes"], r["ops"])
-        log(f"{name} ({r['shape']}): {r['ms']:.4f} ms ({r['timing']}), "
-            f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
-    del level
+
+def _prunes_some(levels, location, max_distance, gate=None):
+    """A ``_FirstCall`` condition of K15: a prune that tombstones a voxel
+    (the plain version's test, read on the host once a pruning frame until
+    it holds)."""
+    drop = torch.zeros((), dtype=torch.bool, device=location.device)
+    for lv in levels:
+        p = lv.points.shape[1] // 3
+        d = lv.points[:, [0, p, 2 * p]] - location
+        d2 = d[:, 0] * d[:, 0] + d[:, 1] * d[:, 1] + d[:, 2] * d[:, 2]
+        occupied = (lv.keys != k15.EMPTY) & (lv.keys != k15.TOMB)
+        drop |= (occupied & (d2 > float(max_distance) ** 2)).any()
+    if gate is not None:
+        drop &= gate
+    return bool(drop)
+
+
+def phase_kernels_stages(dev, unpack_first, transform_call):
+    """K14 (the unpack of the driving path's first scan; the world
+    transform of a later sub-frame whose poses take the slerp branch and
+    whose alphas span the frame, and distort_raw on the same inputs)
+    against its plain versions, one device operation a call, then timed
+    with the L2 flushed (``ms``), as a CUDA graph of 20 (``warm_ms``) and
+    with its host side. Fails unless the transform's points moved and its
+    begin pose mattered (the result is not the end pose's alone). Returns
+    {name: record}."""
+    records = {}
+    (scan,) = unpack_first.args
+    raw, alphas, qb, tb, qe, te = transform_call.args[:6]
+    seen = _k14_inputs(raw, alphas, qb, qe)
+    checks.check_scan_unpack(scan)
+    err = checks.check_scan_transform(raw, alphas, qb, tb, qe, te)
+    checks.check_scan_transform(raw, alphas, qb, tb, qe, te, True)
+    world = k14.transform(raw, alphas, qb, tb, qe, te)
+    end_only = k14.transform_plain(raw, torch.ones_like(alphas), qb, tb, qe,
+                                   te)
+    moved, from_end = (torch.stack([(world - raw).abs().max(),
+                                    (world - end_only).abs().max()])
+                       .tolist())
+    seen.update(moved_m=moved, from_end_pose_m=from_end)
+    log(f"K14 transform's inputs: {json.dumps(seen)}")
+    if not (seen["branch"] == "slerp" and moved > 0.1 and from_end > 1e-3):
+        raise RuntimeError(f"K14: the checked transform does not exercise "
+                           f"the slerp blend: {seen}")
+    del world, end_only
+    traced = _traced("K14", [
+        ("ops", k14.unpack, (scan,), None),
+        ("ops", k14.transform, (raw, alphas, qb, tb, qe, te), None)])
+    ops = [_require_ops(name, t, 1) for name, t in
+           zip(("K14 unpack", "K14 transform"), traced)]
+    rows, n = scan.shape[0], raw.shape[0]
+    poses_bytes = 14 * 4
+
+    def k14_times(fn, plain):
+        ms, how = time_cold(fn)
+        warm_ms, _ = time_stateless(fn)
+        host_ms, _ = time_host(fn)
+        plain_ms, _ = time_stateless(plain)
+        return dict(ms=ms, timing=how, warm_ms=warm_ms, host_ms=host_ms,
+                    plain_ms=plain_ms, library_ms=None, max_abs_err=0.0)
+
+    unpack = k14_times(lambda: k14.unpack(scan),
+                       lambda: k14.unpack_plain(scan))
+    unpack.update(bytes=rows * (8 + 16), ops=rows * 4.0,
+                  device_ops_per_call=ops[0], shape=f"R={rows}")
+    transform = k14_times(
+        lambda: k14.transform(raw, alphas, qb, tb, qe, te),
+        lambda: k14.transform_plain(raw, alphas, qb, tb, qe, te))
+    transform.update(bytes=n * (16 + 12) + poses_bytes,
+                     ops=n * K14_OPS_PER_POINT, device_ops_per_call=ops[1],
+                     max_abs_err=err["max_abs_err"], inputs=seen,
+                     shape=f"n={n} (a sub-frame, {seen['branch']})")
+    distort = k14_times(
+        lambda: k14.transform(raw, alphas, qb, tb, qe, te, True),
+        lambda: k14.transform_plain(raw, alphas, qb, tb, qe, te, True))
+    distort.update(bytes=n * (16 + 12) + poses_bytes,
+                   ops=n * K14_DISTORT_OPS_PER_POINT, shape=f"n={n}")
+    transform["others"] = {"unpack (driving frame 0's scan)": unpack,
+                           "distort_raw (the same inputs)": distort}
+    records["scan_transform"] = transform
+    for name, r in (("unpack", unpack), ("transform", transform),
+                    ("distort_raw", distort)):
+        b_ms, b_by = bound(r["bytes"], r["ops"])
+        log(f"K14 {name} ({r['shape']}): identical to plain; {r['ms']:.4f} "
+            f"ms ({r['timing']}), {r['warm_ms']:.4f} ms back to back, "
+            f"{r['host_ms']:.4f} ms with its host side; plain "
+            f"{r['plain_ms']:.4f} ms; bound {b_ms:.5f} ms ({b_by})")
+    del unpack_first.args, transform_call.args
     torch.cuda.empty_cache()
-    return out
+    return records
+
+
+def phase_kernels_prune(dev, prune_call):
+    """K15 on the long drive's first prune that tombstones a voxel: against
+    its plain version (keys, counts, flags and num_points identical;
+    fails unless it tombstoned voxels and removed points), one device
+    operation a call, then timed as a CUDA graph of 20 on a copy restored
+    before each replay. Returns {"prune_levels": record}."""
+    (levels, location, max_distance, gate) = (
+        prune_call.args + (prune_call.kw.get("gate"),))[:4]
+    err = checks.check_prune_levels(levels, location, max_distance, gate)
+    tomb, removed = sum(err["tombstoned"]), sum(err["removed"])
+    if not (tomb > 0 and removed > 0):
+        raise RuntimeError(f"K15: the checked prune tombstoned {tomb} voxels"
+                           f" and removed {removed} points")
+    # each level's slots, its occupied slots' first points, the
+    # tombstones' writes; the graph's 19 later calls find them gone
+    slots = sum(lv.capacity for lv in levels)
+    occupied = sum(int(((lv.keys != k15.EMPTY) & (lv.keys != k15.TOMB))
+                       .sum()) for lv in levels)
+    first_bytes = slots * 4 + occupied * 12 + tomb * (4 + 12) + 12 + 1
+    later_bytes = slots * 4 + (occupied - tomb) * 12 + 12 + 1
+    copies = [_level_copy(lv) for lv in levels]
+    (traced,) = _traced("K15", [
+        ("ops", k15.prune_levels, (copies, location, max_distance, gate),
+         None)])
+    ops = _require_ops("K15 prune_levels", traced, 1)
+
+    def restore():
+        for c, lv in zip(copies, levels):
+            for name in ("keys", "count", "nflags", "num_points"):
+                getattr(c, name).copy_(getattr(lv, name))
+
+    ms, how = time_graph(
+        restore, lambda: k15.prune_levels(copies, location, max_distance,
+                                          gate), reps=10, calls=20)
+    plain_ms, _ = time_graph(
+        restore, lambda: k15.prune_levels_plain(copies, location,
+                                                max_distance, gate),
+        reps=10, calls=20)
+    restore()
+    host_ms, _ = time_host(
+        lambda: k15.prune_levels(copies, location, max_distance, gate))
+    record = dict(
+        max_abs_err=0.0, ms=ms, timing=how, plain_ms=plain_ms,
+        library_ms=None, host_ms=host_ms,
+        bytes=(first_bytes + 19 * later_bytes) / 20,
+        ops=occupied * 9.0, device_ops_per_call=ops,
+        tombstoned=err["tombstoned"], removed=err["removed"],
+        shape=f"levels={len(levels)} C={[lv.capacity for lv in levels]} "
+              f"occupied={occupied} tombstoned={tomb} "
+              f"max_distance={max_distance}")
+    b_ms, b_by = bound(record["bytes"], record["ops"])
+    log(f"K15 prune_levels ({record['shape']}): identical to plain "
+        f"(removed {err['removed']} points); {ms:.4f} ms ({how}: the first "
+        f"call tombstones, the others find nothing to do), {host_ms:.4f} ms "
+        f"with its host side, plain {plain_ms:.4f} ms; bound {b_ms:.5f} ms "
+        f"({b_by})")
+    del copies, prune_call.args
+    torch.cuda.empty_cache()
+    return {"prune_levels": record}
 
 
 def _reset_counts():
     for spec in KERNELS.values():
-        spec["module"].launches = 0
+        setattr(spec["module"], spec.get("counter", "launches"), 0)
     k5.reset_steps()
 
 
@@ -1325,7 +1525,8 @@ def _read_steps(dev="cuda"):
 
 
 def _read_counts():
-    return {name: spec["module"].launches for name, spec in KERNELS.items()}
+    return {name: getattr(spec["module"], spec.get("counter", "launches"))
+            for name, spec in KERNELS.items()}
 
 
 def _stream(odo, preps, batch):
@@ -1390,12 +1591,17 @@ def _path_stats(odo, frames, preps, summaries, batch_s, wall):
                              for p in preps) / nf), errs
 
 
-def phase_driving(odo, frames, preps):
+def phase_driving(odo, frames, preps, spies=()):
     """The driving path through the user's entry points: ``preps`` are
-    ``odo.prepare_frame`` of ``frames``."""
+    ``odo.prepare_frame`` of ``frames``; ``spies`` (``_FirstCall``s) in
+    place during the run."""
+    for spy in spies:
+        spy.start()
     _reset_counts()
     summaries, batch_s, wall = _stream(odo, preps, BATCH)
     launches, lm_steps = _read_counts(), _read_steps()
+    for spy in spies:
+        spy.stop()
     out, _ = _path_stats(odo, frames, preps, summaries, batch_s, wall)
     out.update(batch=BATCH, launches=launches, lm_steps=lm_steps)
     log("driving path: " + json.dumps(out))
@@ -1411,9 +1617,18 @@ def phase_driving(odo, frames, preps):
                            f"{APE_SMOKE_BOUND_M} m")
     _require_launches("driving", launches, ["candidate_gather",
                                             "plane_moments", "map_insert",
-                                            "lm_step"])
+                                            "lm_step", "scan_transform",
+                                            "prune_levels"])
     _require_syncs("driving", out, committed_only=True)
+    # K14: the unpack and the world transform, once each a frame, and the
+    # solver's keypoints to the world once an ICP iteration; K15: one
+    # launch a pruning frame (every level in it)
+    prunes = round(out["prunes_per_frame"] * out["frames"])
     icp_iters = round(out["icp_iters_per_frame"] * out["frames"])
+    for name, want in (("scan_transform", 2 * out["frames"] + icp_iters),
+                       ("prune_levels", prunes), ("compact_mask", 0),
+                       ("knn_describe", 0)):
+        _require_count("driving", launches, name, want)
     if launches["lm_step"] != icp_iters:
         raise RuntimeError(f"driving path: {launches['lm_step']} K5 launches "
                            f"for {icp_iters} LM calls")
@@ -1461,7 +1676,8 @@ def phase_robust(dev):
                            f"{APE_SMOKE_BOUND_M} m")
     _require_launches("robust", launches, ["candidate_gather",
                                            "plane_moments", "map_insert",
-                                           "lm_step"])
+                                           "lm_step", "scan_transform",
+                                           "prune_levels"])
     _require_syncs("robust", out,
                    committed_only=odo.speculative_rollbacks == 0)
     return out, records, (odo, frames, preps)
@@ -1525,7 +1741,8 @@ def phase_escalation(dev):
     failed = [k for k, ok in checks_ok.items() if not ok]
     if failed:
         raise RuntimeError(f"escalation path: {failed}")
-    _require_launches("escalation", launches, K1_K5)
+    _require_launches("escalation", launches,
+                      K1_K5 + ["scan_transform", "prune_levels"])
     _require_syncs("escalation", out,
                    committed_only=odo.speculative_rollbacks == 0)
     return out, jolt
@@ -1565,16 +1782,19 @@ def _require_rebase_launches(path, launches, rebases, levels):
 def phase_long(dev):
     """The urban drive (seed 7), its first LONG_SMOKE_FRAMES frames,
     through the user's entry points, with the rebase distance at 100 m.
-    Returns (path record, the first
-    rebase's capture, the acquisition with its rendered frames kept)."""
+    Returns (path record, the first rebase's capture, the acquisition with
+    its rendered frames kept, K15's first call that tombstones a voxel)."""
     acq = CachedAcquisition(ld.load_acquisition(LONG_SEED))
     odo = Odometry(default_driving_profile(), device=dev)
     odo.rebase_distance = LONG_REBASE_DISTANCE
     captured = {}
     _capture_first_rebase(odo, captured)
+    prune = _FirstCall(k15, "prune_levels", _prunes_some)
+    prune.start()
     _reset_counts()
     out = stream_acquisition(odo, acq, LONG_SMOKE_FRAMES, ld.LONG_BATCH)
     launches, lm_steps = _read_counts(), _read_steps()
+    prune.stop()
     out.update(launches=launches, lm_steps=lm_steps, seed=LONG_SEED,
                rebase_distance_m=LONG_REBASE_DISTANCE,
                first_rebase_frame=captured.get("frame"),
@@ -1597,14 +1817,16 @@ def phase_long(dev):
     _require_launches("long drive", launches, ["candidate_gather",
                                                "plane_moments", "map_insert",
                                                "lm_step", "row_gather",
-                                               "rebuild_claim"])
+                                               "rebuild_claim",
+                                               "scan_transform",
+                                               "prune_levels"])
     _require_rebase_launches("long drive", launches, out["rebases"],
                              len(odo.map_state))
     if not out["host_syncs_per_frame"] < out["lm_steps"] / out["frames"]:
         raise RuntimeError("long drive: a host sync per LM step")
     del odo
     torch.cuda.empty_cache()
-    return out, captured, acq
+    return out, captured, acq, prune
 
 
 def _capture_full_refine(backend, store):
@@ -2110,10 +2332,54 @@ def phase_indoor(dev):
     out["snapshot_ms"] = time_host(
         lambda: pl.snapshot(levels, odo._odo_state), reps=5)[0]
     loc = torch.zeros(3, device=dev)
-    out["prune_level_ms"] = [time_mutating(
-        lambda lv=lv: _level_copy(lv),
-        lambda lv2: vm.prune_level(lv2, loc, odo.options.max_distance))[0]
-        for lv in levels]
+    md = odo.options.max_distance
+    # K15 against its plain version on the three levels from a location
+    # max_distance beyond the middle of level 0's voxels (about half of
+    # each level lies past it), gated off, then on
+    lv0, p0 = levels[0], levels[0].points.shape[1] // 3
+    occ = (lv0.keys != k15.EMPTY) & (lv0.keys != k15.TOMB)
+    far = (lv0.points[occ][:, [0, p0, 2 * p0]].mean(0)
+           + torch.tensor([md, 0.0, 0.0], device=dev)).contiguous()
+    off = checks.check_prune_levels(levels, far, md,
+                                    torch.zeros((), dtype=torch.bool,
+                                                device=dev))
+    cut = checks.check_prune_levels(levels, far, md,
+                                    torch.ones((), dtype=torch.bool,
+                                               device=dev))
+    if any(off["tombstoned"]) or not (all(cut["tombstoned"])
+                                      and all(cut["removed"])):
+        raise RuntimeError(f"indoor K15 check: gated off {off}, on {cut}")
+    out["prune_check"] = dict(location=far.tolist(),
+                              tombstoned=cut["tombstoned"],
+                              removed=cut["removed"])
+    del occ
+    # K15 a level, K15 over all three in one launch, and the plain version
+    # a level: CUDA graphs of 20 calls on copies restored before each
+    # replay (a pruned voxel stays pruned, so the later calls of a replay
+    # only read)
+    copies = [_level_copy(lv) for lv in levels]
+
+    def restore():
+        for c, lv in zip(copies, levels):
+            for name in ("keys", "count", "nflags", "num_points"):
+                getattr(c, name).copy_(getattr(lv, name))
+
+    def graph_ms(fn):
+        return time_graph(restore, fn, reps=10, calls=20)[0]
+
+    out["prune_level_ms"] = [graph_ms(lambda c=c: vm.prune_level(c, loc, md))
+                             for c in copies]
+    out["prune_levels_ms"] = graph_ms(
+        lambda: vm.prune_levels(copies, loc, md))
+    out["prune_level_plain_ms"] = [
+        graph_ms(lambda c=c: k15.prune_level_plain(c, loc, md))
+        for c in copies]
+    out["prune_tombstoned"] = [int(((lv.keys != k15.EMPTY)
+                                    & (lv.keys != k15.TOMB)).sum())
+                               - int(((c.keys != k15.EMPTY)
+                                      & (c.keys != k15.TOMB)).sum())
+                               for lv, c in zip(levels, copies)]
+    del copies
     batch_ms = (iw.INDOOR_BATCH / out["median_batch_fps"] * 1e3
                 if out["median_batch_fps"] else None)
     out["snapshot_share_of_batch"] = (out["snapshot_ms"] / batch_ms
@@ -2129,14 +2395,26 @@ def phase_indoor(dev):
         f"levels, device memory peak {peak_gb:.3f} GB; the checkpoint's "
         f"clone {out['snapshot_ms']:.4f} ms "
         f"({out['snapshot_share_of_batch']:.4f} of a median batch), "
-        f"prune_level by level "
-        f"{[round(x, 4) for x in out['prune_level_ms']]} ms")
+        f"K15 by level {[round(x, 4) for x in out['prune_level_ms']]} ms, "
+        f"all three in one launch {out['prune_levels_ms']:.4f} ms, the "
+        f"plain version by level "
+        f"{[round(x, 4) for x in out['prune_level_plain_ms']]} ms (CUDA "
+        f"graphs of 20; voxels tombstoned {out['prune_tombstoned']})")
     if out["failures"]:
         raise RuntimeError(f"indoor walk: {out['failures']} failed frames")
     if not out["mean_ape_m"] <= APE_SMOKE_BOUND_M:
         raise RuntimeError(f"indoor walk: mean APE {out['mean_ape_m']} m > "
                            f"{APE_SMOKE_BOUND_M} m")
-    _require_launches("indoor walk", launches, K1_K5)
+    # K16: the device keypoint election of an escalated frame is capped by
+    # the profile's residual cap (pipeline.device_decimation)
+    _require_launches("indoor walk", launches,
+                      K1_K5 + ["scan_transform", "prune_levels",
+                               "compact_mask"])
+    # K15 prunes every level of a pruning frame in one launch
+    if launches["prune_levels"] > launches["map_insert"] // len(levels):
+        raise RuntimeError(f"indoor walk: {launches['prune_levels']} K15 "
+                           f"launches for {launches['map_insert']} K3 "
+                           f"launches over {len(levels)} levels")
     # every insert goes to all three levels: three K3 launches at least a
     # registered frame (attempts, re-runs and deferred updates add more)
     if (launches["map_insert"] % len(levels)
@@ -3157,7 +3435,13 @@ class _FirstCall:
 
     def start(self):
         def copy(x):
-            return x.clone() if torch.is_tensor(x) else x
+            if torch.is_tensor(x):
+                return x.clone()
+            if hasattr(x, "_fields"):        # a MapLevel
+                return type(x)(*(copy(v) for v in x))
+            if isinstance(x, (list, tuple)):  # a map's levels
+                return type(x)(copy(v) for v in x)
+            return x
 
         def spy(*args, **kw):
             if self.args is None and (self.when is None
@@ -3229,7 +3513,8 @@ def _search_run(dev, name, frames, driving, spies=()):
         f"{out['failures']}; launches K1 {launches['candidate_gather']}, "
         f"K2 {launches['plane_moments']}, K3 {launches['map_insert']}, K4 "
         f"{launches['grid_sample']}, K5 {launches['lm_step']}, K10 "
-        f"{launches['level_normals']}, K12 {launches['knn_search']}")
+        f"{launches['level_normals']}, K12 {launches['knn_search']}, K17 "
+        f"{launches['knn_describe']}")
     if out["failures"]:
         raise RuntimeError(f"{name} path: {out['failures']} failed frames")
     if not out["mean_ape_m"] <= bound_m:
@@ -3238,27 +3523,37 @@ def _search_run(dev, name, frames, driving, spies=()):
     return out, odo
 
 
+def _require_knn_counts(path, launches):
+    """The exact k-NN path searches and describes in one K17 launch a K1
+    launch; K12's own instance stays off it."""
+    if launches["knn_search"] or (launches["knn_describe"]
+                                  != launches["candidate_gather"]):
+        raise RuntimeError(
+            f"{path} path: K12 {launches['knn_search']}, K17 "
+            f"{launches['knn_describe']}, K1 {launches['candidate_gather']} "
+            "launches (want K12 = 0, K17 = K1)")
+
+
 def phase_knn(dev, frames, driving):
     """The exact k-NN search (ball_neighborhood=False): the first
     SEARCH_FRAMES frames,
-    K12 and no K2; then its first 10 frames with num_closest_neighbors=2,
-    whose LM problems take two rows a keypoint. Returns the run's stats
-    and K12's first call."""
-    first = _FirstCall(k12, "knn_search")
+    K17 and no K2 (nor K12's own instance); then its first 10 frames with
+    num_closest_neighbors=2, whose LM problems take two rows a keypoint.
+    Returns the run's stats and K17's first call."""
+    first = _FirstCall(k12, "knn_describe")
     out, _ = _search_run(dev, "knn", frames[:SEARCH_FRAMES], driving,
                          [first])
     launches = out["launches"]
-    _require_launches("knn", launches, ["candidate_gather", "knn_search",
+    _require_launches("knn", launches, ["candidate_gather", "knn_describe",
                                         "map_insert", "lm_step"])
     if launches["plane_moments"] or launches["grid_sample"]:
         raise RuntimeError("knn path: K2 or K4 launched")
-    if launches["knn_search"] != launches["candidate_gather"]:
-        raise RuntimeError("knn path: not one K12 launch a K1 launch")
+    _require_knn_counts("knn", launches)
     _require_syncs("knn", out, committed_only=True)
 
-    # kc = 2: the rows K5 takes against the queries K12 searched
+    # kc = 2: the rows K5 takes against the queries K17 searched
     rows, queries = [], []
-    lm_inner, knn_inner = k5.lm_loop, k12.knn_search
+    lm_inner, knn_inner = k5.lm_loop, k12.knn_describe
 
     def lm_spy(r, *args, **kw):
         rows.append(r.shape[0])
@@ -3268,11 +3563,11 @@ def phase_knn(dev, frames, driving):
         queries.append(q.shape[0])
         return knn_inner(points, slots, cnt_ok, q, *args, **kw)
 
-    k5.lm_loop, k12.knn_search = lm_spy, knn_spy
+    k5.lm_loop, k12.knn_describe = lm_spy, knn_spy
     try:
         kc2, _ = _search_run(dev, "knn_kc2", frames[:KC2_FRAMES], driving)
     finally:
-        k5.lm_loop, k12.knn_search = lm_inner, knn_inner
+        k5.lm_loop, k12.knn_describe = lm_inner, knn_inner
     kc2.update(rows_per_lm_call=float(np.mean(rows)),
                keypoints_per_search=float(np.mean(queries)))
     log(f"  knn_kc2: residual rows a frame {kc2['residuals_per_frame']:.1f} "
@@ -3283,7 +3578,9 @@ def phase_knn(dev, frames, driving):
     if not (sum(rows) == 2 * sum(queries) and sum(rows) > sum(queries) > 0):
         raise RuntimeError(f"knn_kc2: K5 took {sum(rows)} rows for "
                            f"{sum(queries)} searched keypoints")
-    _require_launches("knn_kc2", kc2["launches"], ["knn_search", "lm_step"])
+    _require_launches("knn_kc2", kc2["launches"], ["knn_describe",
+                                                   "lm_step"])
+    _require_knn_counts("knn_kc2", kc2["launches"])
     out["kc2"] = kc2
     return out, first
 
@@ -3302,8 +3599,8 @@ def phase_distance(dev, frames, driving):
     _require_launches("distance", launches, [
         "candidate_gather", "plane_moments", "map_insert", "lm_step",
         "level_normals"])
-    if launches["knn_search"]:
-        raise RuntimeError("distance path: K12 launched")
+    if launches["knn_search"] or launches["knn_describe"]:
+        raise RuntimeError("distance path: K12 or K17 launched")
     if k1_first.kw.get("sensor_location") is None:
         raise RuntimeError("distance path: K1 ran without the filter")
     n_levels = len(odo.map_state)
@@ -3327,26 +3624,105 @@ def phase_devsub(dev, frames, driving):
     first = _FirstCall(k4, "grid_sample",
                        lambda points, valid, voxel, capacity, *a, **kw:
                        capacity == sub_cap)
+    k16_first = _FirstCall(k16, "compact_mask")
     out, _ = _search_run(dev, "devsub", frames[:SEARCH_FRAMES], driving,
-                         [first])
+                         [first, k16_first])
     launches = out["launches"]
     _require_launches("devsub", launches, ["candidate_gather",
                                            "plane_moments", "map_insert",
-                                           "grid_sample", "lm_step"])
+                                           "grid_sample", "lm_step",
+                                           "compact_mask"])
     if launches["grid_sample"] != 2 * out["frames"]:
         raise RuntimeError(f"devsub path: {launches['grid_sample']} K4 "
                            f"launches for {out['frames']} frames")
+    # K16: the device election's residual cap, once a frame
+    _require_count("devsub", launches, "compact_mask", out["frames"])
     _require_syncs("devsub", out, committed_only=True)
     out["scan_rung"] = int(first.args[0].shape[0])
-    return out, first
+    return out, first, k16_first
 
 
-def phase_kernels_search(dev, knn_first, k1_first, k2_first, k4_first):
-    """K12, K1 with the normal filter, K2 with a radius a query and K4 at
-    the scan's rung against their plain versions on the inputs of their
+def _kernel_k17(points, slots, cnt, q, radius, k, full, k12_bytes, live):
+    """K17 against its plain version (K12's plain search, then
+    compute_description) on the knn run's first search, normal-only (as
+    the run took it, ``full`` False) and full, one device operation a
+    call, then timed as a CUDA graph of 20."""
+    out = {}
+    for f in sorted({bool(full), True}):
+        args = (points, slots, cnt, q, radius, k, f)
+        err = checks.check_knn_describe(*args)
+        (ops,) = _traced("K17", [("ops", k12.knn_describe, args, None)])
+        n_ops = _require_ops(f"K17 knn_describe full={f}", ops, 1)
+        ms, how = time_stateless(lambda: k12.knn_describe(*args))
+        plain_ms, _ = time_stateless(lambda: k12.knn_describe_plain(*args))
+        host_ms, _ = time_host(lambda: k12.knn_describe(*args))
+        m = q.shape[0]
+        # K12's bytes and, out, the normal and a2D (the full descriptor's
+        # 17 floats more); the moments (13 operations a found neighbour)
+        # and the eigensolve
+        rec = dict(
+            max_abs_err=err["max_abs_err"], ms=ms, timing=how,
+            plain_ms=plain_ms, library_ms=None, host_ms=host_ms,
+            bytes=k12_bytes + m * 4 * (4 + (17 if f else 0)),
+            ops=live * 8.0 + err["found"] * 13.0
+            + m * DESCRIBE_OPS_PER_QUERY,
+            device_ops_per_call=n_ops,
+            shape=f"M={m} O={slots.shape[1]} k={k} full={f} "
+                  f"found={err['found']} planar={err['planar']}")
+        b_ms, b_by = bound(rec["bytes"], rec["ops"])
+        log(f"K17 knn_describe knn frame 1 ({rec['shape']}): the list "
+            f"identical to plain, the descriptor within K2's tolerance "
+            f"({json.dumps(err)}); {ms:.4f} ms ({how}), {host_ms:.4f} ms "
+            f"with its host side, plain {plain_ms:.4f} ms; bound "
+            f"{b_ms:.5f} ms ({b_by})")
+        out[f] = rec
+    rec = out[bool(full)]
+    if True in out and not full:
+        rec["others"] = {"full descriptor (the same search)": out[True]}
+    return rec
+
+
+def _kernel_k16(mask, capacity):
+    """K16 against its plain version on the device sub-sample path's first
+    residual cap, one device operation a call, then timed: L2 flushed
+    (``ms``), as a CUDA graph of 20 (``warm_ms``), with its host side;
+    ``torch.nonzero(mask)`` beside it (the library's compaction, never
+    called by the port)."""
+    err = checks.check_compact_mask(mask, capacity)
+    (ops,) = _traced("K16", [("ops", k16.compact_mask, (mask, capacity),
+                              None)])
+    n_ops = _require_ops("K16 compact_mask", ops, 1)
+    ms, how = time_cold(lambda: k16.compact_mask(mask, capacity))
+    warm_ms, _ = time_stateless(lambda: k16.compact_mask(mask, capacity))
+    host_ms, _ = time_host(lambda: k16.compact_mask(mask, capacity))
+    plain_ms, _ = time_stateless(
+        lambda: k16.compact_mask_plain(mask, capacity))
+    library_ms, lib_how = time_stateless(lambda: torch.nonzero(mask))
+    n = mask.shape[0]
+    rec = dict(max_abs_err=0.0, ms=ms, timing=how, warm_ms=warm_ms,
+               host_ms=host_ms, plain_ms=plain_ms, library_ms=library_ms,
+               library_timing=lib_how, bytes=n + capacity * 5 + 4,
+               ops=float(n), device_ops_per_call=n_ops,
+               shape=f"N={n} capacity={capacity} kept={err['count']}")
+    b_ms, b_by = bound(rec["bytes"], rec["ops"])
+    log(f"K16 compact_mask ({rec['shape']}): identical to plain; {ms:.4f} "
+        f"ms ({how}), {warm_ms:.4f} ms back to back, {host_ms:.4f} ms with "
+        f"its host side; plain {plain_ms:.4f} ms; torch.nonzero "
+        f"{library_ms:.4f} ms ({lib_how}); bound {b_ms:.5f} ms ({b_by})")
+    return rec
+
+
+def phase_kernels_search(dev, knn_first, k1_first, k2_first, k4_first,
+                         k16_first):
+    """K12 (off the paths since K17 took the search: on K17's first call's
+    inputs) and K17 (the knn run's first search, normal-only as the run
+    took it, and full), K1 with the normal filter, K2 with a
+    radius a query, K4 at the scan's rung and K16 (the device sub-sample's
+    first residual cap) against their plain versions on the inputs of their
     first calls in phases 22-24, then timed. Returns {name: record}."""
     records = {}
-    points, slots, cnt, q, radius, k = knn_first.args
+    points, slots, cnt, q, radius, k = knn_first.args[:6]
+    full = (knn_first.args[6:] or [knn_first.kw.get("full", False)])[0]
     err = checks.check_knn_search(points, slots, cnt, q, radius, k)
     job = ("ops", k12.knn_search, (points, slots, cnt, q, radius, k), None)
     ops = _require_ops("K12 knn_search", _traced("K12", [job])[0], 1)
@@ -3373,6 +3749,8 @@ def phase_kernels_search(dev, knn_first, k1_first, k2_first, k4_first):
         f"({how}), plain {plain_ms:.4f} ms; {live} live candidates "
         f"({live / m:.1f} a query), {points_read} distinct live points, "
         f"{n_bytes} bytes")
+    records["knn_describe"] = _kernel_k17(points, slots, cnt, q, radius, k,
+                                          full, n_bytes, live)
 
     keys, count, qk, qv, res_v, nv, thr, max_c = k1_first.args
     kw = k1_first.kw
@@ -3396,7 +3774,9 @@ def phase_kernels_search(dev, knn_first, k1_first, k2_first, k4_first):
     records["grid_sample"] = _kernel_k4(dev, scan, valid, voxel, capacity,
                                         *k4_first.args[4:],
                                         tag="device sub-sample")
+    records["compact_mask"] = _kernel_k16(*k16_first.args)
     del knn_first.args, k1_first.args, k2_first.args, k4_first.args
+    del k16_first.args
     torch.cuda.empty_cache()
     return records
 
@@ -3484,13 +3864,13 @@ def _staged_run(dev, name, frames, driving, spies=()):
                            f"{out['mean_ape_m']} m > {bound_m} m")
     _require_launches(f"staged {name}", launches,
                       ["candidate_gather", "plane_moments", "map_insert",
-                       "grid_sample", "lm_step"])
+                       "grid_sample", "lm_step", "scan_transform"])
     return out, odo, summaries[-1]
 
 
 def _require_count(path, launches, name, want):
     if launches[name] != want:
-        raise RuntimeError(f"staged {path} path: {launches[name]} {name} "
+        raise RuntimeError(f"{path} path: {launches[name]} {name} "
                            f"launches, not {want}")
 
 
@@ -3735,7 +4115,7 @@ def _solver_run(dev, name, frames, driving, spies=()):
                                f"{ref_last} m")
     _require_launches(f"solver {name}", launches,
                       ["candidate_gather", "plane_moments", "map_insert",
-                       "lm_step"])
+                       "lm_step", "scan_transform"])
     return out, odo, summaries
 
 
@@ -4496,7 +4876,8 @@ def phase_online(dev, frames, driving):
                            f"{len(aggregated)} files for {sum(valid)} valid "
                            f"corrected points")
     _require_launches("online node", launches, [
-        "candidate_gather", "plane_moments", "map_insert", "lm_step"])
+        "candidate_gather", "plane_moments", "map_insert", "lm_step",
+        "scan_transform"])
     return out, node, ply_frames
 
 
@@ -4595,18 +4976,23 @@ def main() -> int:
         f"{[p['n'] for p in preps[:2]]} ... {preps[-1]['n']}, keypoints "
         f"{[p['kp_n'] for p in preps[:2]]} ... {preps[-1]['kp_n']}")
     driving_records = phase_kernels_driving(dev, odo.options, preps)
-    stages = phase_stages(dev, odo, {0: preps[0], len(preps) - 1: preps[-1]})
-    driving = phase_driving(odo, frames, preps)
+    # K14's first unpack on the driving path, and its first world
+    # transform of a sub-frame (more rows than any frame's keypoints) on
+    # the slerp branch with alphas across the frame
+    stage_spies = [_FirstCall(k14, "unpack"),
+                   _FirstCall(k14, "transform", _slerp_call(
+                       max(p["kp_n"] for p in preps) + 1))]
+    driving = phase_driving(odo, frames, preps, stage_spies)
+    stage_records = phase_kernels_stages(dev, *stage_spies)
+    del stage_spies
     mark("driving")
-    for name, per_frame in (("B11 unpack_scan+transform_points", 1.0),
-                            ("B9 compact_mask", 0.0),
-                            ("B10 prune_level", driving["prunes_per_frame"])):
-        stages[name]["calls_per_frame"] = per_frame
     robust, robust_records, robust_run = phase_robust(dev)
     mark("robust")
     escalation, jolt_k5 = phase_escalation(dev)
     mark("escalation")
-    long_drive, long_capture, long_acq = phase_long(dev)
+    long_drive, long_capture, long_acq, long_prune = phase_long(dev)
+    stage_records.update(phase_kernels_prune(dev, long_prune))
+    del long_prune
     mark("long")
     backend_runs, refine_capture = phase_backend(dev, long_acq)
     mark("backend")
@@ -4648,9 +5034,9 @@ def main() -> int:
     mark("scale-out")
     knn, knn_first = phase_knn(dev, frames, driving)
     distance, k1_first, k2_first = phase_distance(dev, frames, driving)
-    devsub, k4_first = phase_devsub(dev, frames, driving)
+    devsub, k4_first, k16_first = phase_devsub(dev, frames, driving)
     search_records = phase_kernels_search(dev, knn_first, k1_first,
-                                          k2_first, k4_first)
+                                          k2_first, k4_first, k16_first)
     mark("search")
     staged_adaptive, adaptive_first, adaptive_run = phase_staged_adaptive(
         dev, frames, driving)
@@ -4713,7 +5099,9 @@ def main() -> int:
                "ct_ba_block": backend_records["ct_ba_block"],
                **replay_records, "owner_pack": scale_records["owner_pack"],
                "knn_search": search_records["knn_search"],
-               "exact_sample": staged_record}
+               "exact_sample": staged_record, **stage_records,
+               "compact_mask": search_records["compact_mask"],
+               "knn_describe": search_records["knn_describe"]}
     search_others = {
         "candidate_gather": {
             "normal filter (distance)": search_records["candidate_gather"]},
@@ -4748,6 +5136,8 @@ def main() -> int:
         rec = dict(
             name=name, route="cuda", source=spec["source"],
             replaces=spec["replaces"],
+            **({"also_replaces": spec["also_replaces"]}
+               if "also_replaces" in spec else {}),
             launches=sum(p["launches"][name] for p in paths.values()),
             launches_by_path={k: p["launches"][name]
                               for k, p in paths.items()},
@@ -4770,6 +5160,10 @@ def main() -> int:
         if name == "grid_sample":
             rec["device_ops_per_call"] = \
                 driving_records["grid_sample_device_ops"]
+        if name == "knn_search":
+            rec["note"] = ("K12's own instance is off the paths: the exact "
+                           "k-NN path runs K17, its descriptor instance, "
+                           "counted apart")
         rec["ptxas"] = spec.get("ptxas")
         for key, o in others.items():
             if o is None:
@@ -4814,7 +5208,6 @@ def main() -> int:
                       jolt_k5)],
     }
     log("extras: " + json.dumps(extras))
-    log("stages: " + json.dumps(stages))
     log(f"total wall time {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

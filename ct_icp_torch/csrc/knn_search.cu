@@ -41,6 +41,22 @@
 //      (min against the reversed array, then the half-cleaners);
 //   5. the list out: the first k keys, the points re-read through the
 //      slots, sqrt(d2), and the mask; past the list, zeros, +inf and false.
+//   6. (K17, the descriptor instance, kDesc > 0) the query's masked
+//      moments over its list: each lane sums the offsets p - q and their
+//      six products over the entries it wrote, the warp reduces them by
+//      shuffles, and lane 0 runs the descriptor of
+//      ops/neighborhood.py::compute_description on them (the covariance
+//      sec / n - mean mean^T, csrc/eigh3.cuh's closed-form eigensolve, the
+//      normal and a2D; kDesc = 2, the full descriptor, also the line,
+//      linearity, planarity, barycenter and covariance that the ROBUST
+//      solver and the line and distribution distances read). It replaces
+//      ct_icp_tpu/ops/neighborhood.py::compute_description (:39), which the
+//      reference runs on radius_search's list (icp/solver.py:280), and the
+//      ~15 torch operations of its plain version an ICP iteration. The
+//      sums are taken in another order than torch's, so the descriptor is
+//      held to K2's tolerance (kernels/checks.py); steps 1-5 are the same
+//      code in both instances, so the list is the plain version's bit for
+//      bit in both.
 // d2 is dx*dx + dy*dy + dz*dz left to right, in round-to-nearest intrinsics
 // (and the file is built with -fmad=false), so the in-radius test and the
 // order are the plain version's bit for bit.
@@ -54,6 +70,7 @@
 // count, five shuffles and two warp barriers a candidate. Batches that beat
 // nothing cost their d2 and one ballot.
 #include "common.cuh"
+#include "eigh3.cuh"
 
 // Warps a query: 2 (tools/exp_select.py times 1, 2 and 4 on the main
 // path's shapes; two warps were the fastest at O = 27 and at O = 343).
@@ -158,13 +175,64 @@ __device__ __forceinline__ Key kth_key(const Key (&a)[R], int k) {
   return __shfl_sync(kFull, v, (k - 1) & 31);
 }
 
-template <int R>
+// the descriptor's outputs (K17; unused by the plain instance): normal
+// f32[M, 3], a2d f32[M]; with the full descriptor also line f32[M, 3],
+// linearity and planarity f32[M], barycenter f32[M, 3], covariance
+// f32[M, 3, 3]
+struct DescOut {
+  float* normal;
+  float* a2d;
+  float* line;
+  float* linearity;
+  float* planarity;
+  float* barycenter;
+  float* covariance;
+};
+
+// ops/neighborhood.py::compute_description on the summed moments of n
+// neighbours (offsets from the query q): lane 0 of the query's warp
+template <int kDesc>
+__device__ __forceinline__ void describe(const DescOut& d, int qi,
+                                         const float* q, int n,
+                                         const float* s, const float* so) {
+  const float cs = fmaxf(static_cast<float>(n), 1.0f);
+  float mean[3], cov[3][3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) mean[a] = s[a] / cs;
+  // so: xx, xy, xz, yy, yz, zz
+  constexpr int kAt[3][3] = {{0, 1, 2}, {1, 3, 4}, {2, 4, 5}};
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int b = 0; b < 3; ++b)
+      cov[a][b] = so[kAt[a][b]] / cs - mean[a] * mean[b];
+  float line[3];
+  const cticp::Eig eig = cticp::eigh3x3_normal(cov, kDesc == 2 ? line
+                                                               : nullptr);
+  const float s0 = fmaxf(fabsf(eig.vals[0]), 1e-20f);
+  const float s1 = fabsf(eig.vals[1]), s2 = fabsf(eig.vals[2]);
+  for (int a = 0; a < 3; ++a) d.normal[3 * qi + a] = eig.normal[a];
+  d.a2d[qi] = (sqrtf(s1) - sqrtf(s2)) / sqrtf(s0);
+  if constexpr (kDesc == 2) {
+    d.linearity[qi] = (fabsf(eig.vals[0]) - s1) / s0;
+    d.planarity[qi] = (s1 - s2) / s0;
+    for (int a = 0; a < 3; ++a) {
+      d.line[3 * qi + a] = line[a];
+      d.barycenter[3 * qi + a] = mean[a] + q[a];
+      for (int b = 0; b < 3; ++b)
+        d.covariance[9 * qi + 3 * a + b] = cov[a][b];
+    }
+  }
+}
+
+template <int R, int kDesc>
 __global__ void __launch_bounds__(32 * kWarpsPerBlock) knn_search_kernel(
     const float* __restrict__ points, const int32_t* __restrict__ slots,
     const int32_t* __restrict__ cnt_ok, const float* __restrict__ queries,
     int m, int n_off, int p, float rr, const float* __restrict__ radius,
     int k, int group_bytes, float* __restrict__ out_pts,
-    uint8_t* __restrict__ out_mask, float* __restrict__ out_dist) {
+    uint8_t* __restrict__ out_mask, float* __restrict__ out_dist,
+    const DescOut desc) {
   constexpr int kL = 32 * R;
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
@@ -256,7 +324,12 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock) knn_search_kernel(
     }
   }
 
-  // ---- 5. the list out
+  // ---- 5. the list out; 6. with the descriptor, the lane's moments
+  float q[3], mom[10];   // 6: the query; n, s x y z, xx xy xz yy yz zz
+  if constexpr (kDesc > 0) {
+    for (int c = 0; c < 3; ++c) q[c] = queries[3 * qi + c];
+    for (int c = 0; c < 10; ++c) mom[c] = 0.0f;
+  }
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int t = r * 32 + lane;
@@ -269,24 +342,49 @@ __global__ void __launch_bounds__(32 * kWarpsPerBlock) knn_search_kernel(
       const int oo = f / p;
       const int j = f - oo * p;
       const float* row = points + static_cast<size_t>(slot[oo]) * (3 * p);
-      dst[0] = row[j];
-      dst[1] = row[p + j];
-      dst[2] = row[2 * p + j];
+      const float x = row[j], y = row[p + j], z = row[2 * p + j];
+      dst[0] = x;
+      dst[1] = y;
+      dst[2] = z;
       out_mask[at] = 1;
       out_dist[at] = __fsqrt_rn(__uint_as_float(bits));
+      if constexpr (kDesc > 0) {
+        const float dx = __fsub_rn(x, q[0]);
+        const float dy = __fsub_rn(y, q[1]);
+        const float dz = __fsub_rn(z, q[2]);
+        mom[0] += 1.0f;
+        mom[1] += dx;
+        mom[2] += dy;
+        mom[3] += dz;
+        mom[4] += __fmul_rn(dx, dx);
+        mom[5] += __fmul_rn(dx, dy);
+        mom[6] += __fmul_rn(dx, dz);
+        mom[7] += __fmul_rn(dy, dy);
+        mom[8] += __fmul_rn(dy, dz);
+        mom[9] += __fmul_rn(dz, dz);
+      }
     } else {
       dst[0] = dst[1] = dst[2] = 0.0f;
       out_mask[at] = 0;
       out_dist[at] = __uint_as_float(kInfBits);
     }
   }
+  if constexpr (kDesc > 0) {
+#pragma unroll
+    for (int c = 0; c < 10; ++c)
+      for (int o = 16; o > 0; o >>= 1)
+        mom[c] += __shfl_xor_sync(kFull, mom[c], o);
+    if (lane == 0)
+      describe<kDesc>(desc, qi, q, static_cast<int>(mom[0]), mom + 1,
+                      mom + 4);
+  }
 }
 
-template <int R>
+template <int R, int kDesc>
 int launch(const void* points, const void* slots, const void* cnt_ok,
            const void* queries, int m, int n_off, int p, float rr,
            const void* radius, int k, void* out_pts, void* out_mask,
-           void* out_dist, cudaStream_t stream) {
+           void* out_dist, const DescOut& desc, cudaStream_t stream) {
   // a query's shared memory: the arrays its other warps hand over, then
   // the O + 1 offsets and O slots, rounded up to 8 bytes
   const int group_bytes =
@@ -294,19 +392,36 @@ int launch(const void* points, const void* slots, const void* cnt_ok,
   const int smem = group_bytes * kQueriesPerBlock;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        knn_search_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem);
+        knn_search_kernel<R, kDesc>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (m + kQueriesPerBlock - 1) / kQueriesPerBlock;
-  knn_search_kernel<R><<<blocks, 32 * kWarpsPerBlock, smem, stream>>>(
+  knn_search_kernel<R, kDesc>
+      <<<blocks, 32 * kWarpsPerBlock, smem, stream>>>(
       static_cast<const float*>(points), static_cast<const int32_t*>(slots),
       static_cast<const int32_t*>(cnt_ok),
       static_cast<const float*>(queries), m, n_off, p, rr,
       static_cast<const float*>(radius), k, group_bytes,
       static_cast<float*>(out_pts), static_cast<uint8_t*>(out_mask),
-      static_cast<float*>(out_dist));
+      static_cast<float*>(out_dist), desc);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the least R of 1, 2 and 4 with 32 R >= k (kth_key relies on it)
+template <int kDesc>
+int launch_k(const void* points, const void* slots, const void* cnt_ok,
+             const void* queries, int m, int n_off, int p, float rr,
+             const void* radius, int k, void* out_pts, void* out_mask,
+             void* out_dist, const DescOut& desc, cudaStream_t s) {
+  if (k <= 32)
+    return launch<1, kDesc>(points, slots, cnt_ok, queries, m, n_off, p, rr,
+                            radius, k, out_pts, out_mask, out_dist, desc, s);
+  if (k <= 64)
+    return launch<2, kDesc>(points, slots, cnt_ok, queries, m, n_off, p, rr,
+                            radius, k, out_pts, out_mask, out_dist, desc, s);
+  return launch<4, kDesc>(points, slots, cnt_ok, queries, m, n_off, p, rr,
+                          radius, k, out_pts, out_mask, out_dist, desc, s);
 }
 
 }  // namespace
@@ -325,14 +440,35 @@ extern "C" int k12_knn_search(const void* points, const void* slots,
                               void* out_dist, void* stream) {
   if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
   if (m <= 0) return static_cast<int>(cudaGetLastError());
+  return launch_k<0>(points, slots, cnt_ok, queries, m, n_off, p, rr, radius,
+                     k, out_pts, out_mask, out_dist, DescOut{},
+                     static_cast<cudaStream_t>(stream));
+}
+
+// K17: k12_knn_search's list and outputs, and the descriptor of each
+// query's list (ops/neighborhood.py::compute_description): normal f32[M, 3]
+// and a2d f32[M]; with a non-NULL line, the full descriptor (line f32[M,
+// 3], linearity and planarity f32[M], barycenter f32[M, 3], covariance
+// f32[M, 3, 3]).
+extern "C" int k17_knn_describe(const void* points, const void* slots,
+                                const void* cnt_ok, const void* queries,
+                                int m, int n_off, int p, float rr,
+                                const void* radius, int k, void* out_pts,
+                                void* out_mask, void* out_dist, void* normal,
+                                void* a2d, void* line, void* linearity,
+                                void* planarity, void* barycenter,
+                                void* covariance, void* stream) {
+  if (k < 1 || k > kMaxK) return static_cast<int>(cudaErrorInvalidValue);
+  if (m <= 0) return static_cast<int>(cudaGetLastError());
+  const DescOut desc{static_cast<float*>(normal), static_cast<float*>(a2d),
+                     static_cast<float*>(line), static_cast<float*>(linearity),
+                     static_cast<float*>(planarity),
+                     static_cast<float*>(barycenter),
+                     static_cast<float*>(covariance)};
   auto* s = static_cast<cudaStream_t>(stream);
-  // the least R of 1, 2 and 4 with 32 R >= k (kth_key relies on it)
-  if (k <= 32)
-    return launch<1>(points, slots, cnt_ok, queries, m, n_off, p, rr, radius,
-                     k, out_pts, out_mask, out_dist, s);
-  if (k <= 64)
-    return launch<2>(points, slots, cnt_ok, queries, m, n_off, p, rr, radius,
-                     k, out_pts, out_mask, out_dist, s);
-  return launch<4>(points, slots, cnt_ok, queries, m, n_off, p, rr, radius, k,
-                   out_pts, out_mask, out_dist, s);
+  if (line != nullptr)
+    return launch_k<2>(points, slots, cnt_ok, queries, m, n_off, p, rr,
+                       radius, k, out_pts, out_mask, out_dist, desc, s);
+  return launch_k<1>(points, slots, cnt_ok, queries, m, n_off, p, rr, radius,
+                     k, out_pts, out_mask, out_dist, desc, s);
 }

@@ -29,6 +29,7 @@ from ct_icp_torch.core import se3_np as s3n
 from ct_icp_torch.core.pose import TrajectoryFrame
 from ct_icp_torch.icp import residuals as res
 from ct_icp_torch.icp import solver as slv
+from ct_icp_torch.kernels import scan_transform as k14
 
 
 @dataclasses.dataclass
@@ -265,7 +266,7 @@ class CTICPRegistration:
             statics, dyn, map_state[self.level_index], raw_t, alphas_t,
             valid_t, qb, tb, qe, te, slv.search_radius(statics, dyn, raw_t),
             te, None, True, full=True)
-        world = res.interp_world_points(qb, tb, qe, te, raw_t, alphas_t)
+        world = k14.transform(raw_t, alphas_t, qb, tb, qe, te)
         r = res.geometric_residuals(statics.distance, world, p.anchors,
                                     p.normals, p.lines, p.cov_inv, p.geom_w)
         out = [x if x is None else x.cpu().numpy()

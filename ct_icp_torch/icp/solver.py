@@ -75,9 +75,10 @@ from ct_icp_torch.config.options import (CTICPOptions, IcpDistance,
 from ct_icp_torch.core import se3 as s3
 from ct_icp_torch.icp import residuals as res
 from ct_icp_torch.kernels import lm_step as lm
+from ct_icp_torch.kernels import scan_transform as k14
 from ct_icp_torch.mapping import voxel_map as vm
 from ct_icp_torch.ops.neighborhood import (CLASS_LINEAR, CLASS_PLANAR,
-                                           classify, compute_description)
+                                           classify)
 
 # FunctorPointToDistribution's epsilon (reference cost_functions.h:180)
 DISTRIBUTION_EPS = 0.05
@@ -271,7 +272,7 @@ def _build_problem(statics, dyn, level, raw, alphas, valid, qb, tb, qe, te,
     [K, kc]. ``full`` (default: where the solver reads them) asks K2 for
     the line and the rest of the descriptor; without it ``lines`` is None
     in ball mode."""
-    world = res.interp_world_points(qb, tb, qe, te, raw, alphas)
+    world = k14.transform(raw, alphas, qb, tb, qe, te)     # K14 on the card
     filt = dict(sensor_location=sensor_location,
                 use_normal_filter=statics.use_normal_filter)
     if full is None:
@@ -297,14 +298,15 @@ def _build_problem(statics, dyn, level, raw, alphas, valid, qb, tb, qe, te,
         cache = (slots, cnt_ok, desc.r_eff2)
         lines = desc.line
     else:
-        nb = vm.radius_search(level, world, valid, radius,
-                              dyn.voxel_resolution,
-                              statics.voxel_neighborhood,
-                              statics.max_neighbors,
-                              threshold_voxel_occupancy=(
-                                  dyn.threshold_voxel_occupancy), **filt)
+        # the search and the descriptor of its lists (K1 + K17 on the card)
+        nb, desc = vm.radius_describe(level, world, valid, radius,
+                                      dyn.voxel_resolution,
+                                      statics.voxel_neighborhood,
+                                      statics.max_neighbors, full=full,
+                                      threshold_voxel_occupancy=(
+                                          dyn.threshold_voxel_occupancy),
+                                      **filt)
         count = nb.mask.sum(-1)
-        desc = compute_description(nb.points, nb.mask, world)
         closest, normals, a2d = nb.points[:, 0], desc.normal, desc.a2D
         lines = desc.line
         closest_dist = torch.where(nb.mask[:, 0], nb.dist[:, 0],

@@ -67,6 +67,17 @@ CUDA inputs and raises AssertionError on a disagreement. Tolerances:
     another order turn it freely: those slots are counted, not compared);
   * K11 (owner pack): the send buffers, their flags and the dropped count
     identical (integer ranks, copied points);
+  * K14 (scan unpack and CT transform, distort_raw's too): identical (the
+    plain version's operations in its order, torch's order of the
+    four-term quaternion sums included);
+  * K15 (the prune of every level in one launch): keys, counts, flags and
+    num_points identical on every level;
+  * K16 (compact_mask): indices, count and validity identical;
+  * K17 (the k-NN descriptor): the list (points, mask, distances)
+    identical, as K12's; the descriptor as K2's (the moments summed in
+    another order): the covariance within 1e-4 of the query's largest
+    second-moment sum, the normal, a2D and, with the full descriptor, the
+    rest as in ``_check_descriptor``;
   * K3's rank-0 slots (the with_normals insert's dirty list) identical,
     with the refit of those slots held as K10 is;
   * K8's halo launch (a rank's slice of a sharded window): held as a
@@ -82,6 +93,7 @@ import torch
 from ct_icp_torch.config.options import LeastSquares
 from ct_icp_torch.core import se3_np as s3n
 from ct_icp_torch.kernels import candidate_gather as k1
+from ct_icp_torch.kernels import compact_mask as k16
 from ct_icp_torch.kernels import ct_ba_block as k8
 from ct_icp_torch.kernels import evict_voxels as k9
 from ct_icp_torch.kernels import exact_sample as k13
@@ -92,8 +104,10 @@ from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.kernels import map_insert as k3
 from ct_icp_torch.kernels import owner_pack as k11
 from ct_icp_torch.kernels import plane_moments as k2
+from ct_icp_torch.kernels import prune_levels as k15
 from ct_icp_torch.kernels import rebuild as k7
 from ct_icp_torch.kernels import row_gather as k6
+from ct_icp_torch.kernels import scan_transform as k14
 from ct_icp_torch.mapping import voxel_map as vm
 from ct_icp_torch.parallel import ct_ba as ba
 
@@ -179,26 +193,27 @@ def robust_classes(planarity, linearity, thresholds=CLASS_THRESHOLDS):
     return torch.where(planar, 1, torch.where(linear, 2, 0))
 
 
-def _check_descriptor(got, want, queries, scale, five):
-    """K2's full descriptor against the plain version's (tolerances in the
-    module docstring)."""
+def _check_descriptor(got, want, queries, scale, five,
+                      what="plane_moments"):
+    """K2's (or K17's) full descriptor against the plain version's
+    (tolerances in the module docstring)."""
     cov_err = ((got.covariance - want.covariance).abs().amax(dim=(1, 2))
                / scale)
     bar_err = ((got.barycenter - want.barycenter).abs().amax(-1)
                - 1e-6 * queries.abs().amax(-1)) / scale.sqrt()
     if cov_err.max() > 1e-4 or bar_err.max() > 1e-5:
-        raise AssertionError(f"plane_moments covariance / barycenter: "
+        raise AssertionError(f"{what} covariance / barycenter: "
                              f"{cov_err.max().item()}, "
                              f"{bar_err.max().item()}")
     for name in ("linearity", "planarity"):
         err = (getattr(got, name)[five] - getattr(want, name)[five]).abs()
         if five.any() and err.max() > 1e-4:
-            raise AssertionError(f"plane_moments {name}: {err.max().item()}")
+            raise AssertionError(f"{what} {name}: {err.max().item()}")
     vals = torch.linalg.eigvalsh(want.covariance.double()).flip(-1).abs()
     clear = five & (vals[:, 0] > 1.05 * vals[:, 1])
     cos_line = (got.line * want.line).sum(-1).abs()
     if clear.any() and (1.0 - cos_line[clear]).max() > 1e-3:
-        raise AssertionError("plane_moments line beyond 1e-3")
+        raise AssertionError(f"{what} line beyond 1e-3")
     tol = 1e-4
     near = torch.zeros_like(five)
     for name, thr in zip(("planarity", "linearity"), CLASS_THRESHOLDS):
@@ -208,7 +223,7 @@ def _check_descriptor(got, want, queries, scale, five):
     cls_w = robust_classes(want.planarity, want.linearity)
     differ = (cls_g != cls_w) & ~near
     if differ.any():
-        raise AssertionError(f"plane_moments classes: {int(differ.sum())} "
+        raise AssertionError(f"{what} classes: {int(differ.sum())} "
                              "differ away from the thresholds")
     return {"near_threshold": int(near.sum()),
             "classes": [int((cls_w == c).sum()) for c in (0, 1, 2)],
@@ -655,4 +670,93 @@ def check_insert_with_normals(level, pts, valid, resolution, min_dist,
                            num_points=a[3])
     out = check_level_normals(after, begin_tr, dirty)
     out.update(dirty=int(dirty.shape[0]), inserted=int(n_a[0]))
+    return out
+
+
+def check_scan_unpack(packed):
+    """K14's unpack against its plain version: identical."""
+    got = k14.unpack(packed)
+    want = k14.unpack_plain(packed)
+    torch.cuda.synchronize()
+    _same(got[0], want[0], "scan_transform unpack xyz")
+    _same(got[1], want[1], "scan_transform unpack alphas")
+    return {"max_abs_err": 0.0}
+
+
+def check_scan_transform(raw, alphas, qb, tb, qe, te, distort=False):
+    """K14's transform (``distort``: distort_raw) against its plain
+    version: identical."""
+    got = k14.transform(raw, alphas, qb, tb, qe, te, distort)
+    want = k14.transform_plain(raw, alphas, qb, tb, qe, te, distort)
+    torch.cuda.synchronize()
+    _same(got, want, f"scan_transform (distort={distort})")
+    return {"max_abs_err": 0.0, "coords": int(got.numel())}
+
+
+def check_prune_levels(levels, location, max_distance, gate=None):
+    """The one-launch prune of every level against the plain one, each on
+    its own copy of the levels: keys, counts, flags and num_points
+    identical. Returns the voxels and points removed a level."""
+    copies = [[type(lv)(*(t.clone() for t in lv)) for lv in levels]
+              for _ in range(2)]
+    k15.prune_levels(copies[0], location, max_distance, gate)
+    k15.prune_levels_plain(copies[1], location, max_distance, gate)
+    torch.cuda.synchronize()
+    for li, (x, y) in enumerate(zip(*copies)):
+        for name in ("keys", "count", "nflags", "num_points"):
+            _same(getattr(x, name), getattr(y, name),
+                  f"prune_levels level {li} {name}")
+    return {"max_abs_err": 0.0,
+            "tombstoned": [int(((lv.keys != k15.TOMB) & (c.keys == k15.TOMB))
+                               .sum()) for lv, c in zip(levels, copies[0])],
+            "removed": [int(lv.num_points[0] - c.num_points[0])
+                        for lv, c in zip(levels, copies[0])]}
+
+
+def check_compact_mask(mask, capacity):
+    """K16 against its plain version: indices, count and validity
+    identical."""
+    got = k16.compact_mask(mask, capacity)
+    want = k16.compact_mask_plain(mask, capacity)
+    torch.cuda.synchronize()
+    for a, b, name in zip(got, want, ("idx", "count", "out_valid")):
+        _same(a, b, f"compact_mask {name}")
+    return {"max_abs_err": 0.0, "count": int(want[1])}
+
+
+def check_knn_describe(points, slots, cnt_ok, queries, radius, k,
+                       full=False):
+    """K17 against its plain version (K12's plain search, then
+    ``compute_description``): the list identical, the descriptor within
+    K2's tolerances (the module docstring)."""
+    (nb, got) = k12.knn_describe(points, slots, cnt_ok, queries, radius, k,
+                                 full)
+    want_nb, want = k12.knn_describe_plain(points, slots, cnt_ok, queries,
+                                           radius, k, full)
+    torch.cuda.synchronize()
+    _same(nb.mask, want_nb.mask, "knn_describe mask")
+    _same(nb.points, want_nb.points, "knn_describe points")
+    _same(nb.dist, want_nb.dist, "knn_describe dist")
+    count = want_nb.mask.sum(-1)
+    # the query's second-moment sums (the scale K2's check holds its sums
+    # to): the plain version's
+    rel = ((want_nb.points - queries[:, None, :])
+           * want_nb.mask[..., None].to(queries.dtype))
+    scale = (rel[..., :, None] * rel[..., None, :]).sum(1).abs() \
+        .amax(dim=(1, 2)) + 1e-6
+    planar = (count >= 10) & (want.a2D > 0.5)
+    cosang = (got.normal * want.normal).sum(-1).abs()
+    if planar.any() and (1.0 - cosang[planar]).max() > 1e-3:
+        raise AssertionError("knn_describe normal beyond 1e-3")
+    five = count >= 5
+    a2d_err = (got.a2D[five] - want.a2D[five]).abs()
+    if five.any() and a2d_err.max() > 1e-3:
+        raise AssertionError(f"knn_describe a2D: {a2d_err.max().item()}")
+    out = {"max_abs_err": max(
+        (1.0 - cosang[planar]).max().item() if planar.any() else 0.0,
+        a2d_err.max().item() if five.any() else 0.0),
+        "found": int(count.sum()), "planar": int(planar.sum())}
+    if full:
+        out.update(_check_descriptor(got, want, queries, scale, five,
+                                     "knn_describe"))
     return out

@@ -132,7 +132,7 @@ def exact_sample_plain(points, valid, capacity: int, voxel_size=None,
         kept |= cand & (win[gid] == pid)
     if max_keep > 0:
         kept &= torch.cumsum(kept.to(torch.int32), 0) <= max_keep
-    idx, count, out_valid = vx.compact_mask(kept, capacity)
+    idx, count, out_valid = vx.compact_mask_plain(kept, capacity)
     return idx, out_valid, count
 
 

@@ -48,7 +48,7 @@ def grid_sample_plain(points, valid, voxel_size: float, capacity: int,
     claim.scatter_reduce_(0, torch.where(valid, h, torch.full_like(h, t)),
                           pid, "amin")
     mask = valid & (claim[h] == pid)
-    idx, count, out_valid = vx.compact_mask(mask, capacity)
+    idx, count, out_valid = vx.compact_mask_plain(mask, capacity)
     return idx, out_valid, count
 
 

@@ -68,7 +68,7 @@ def _resolve_or_claim_slots(keys, pt_keys, h, valid):
 
     # claim rounds on the compacted unresolved subset; arbitration by the
     # ORIGINAL scan index, so the winners match the uncompacted election
-    idx_n, _, ok = vx.compact_mask(valid & ~resolved, n)
+    idx_n, _, ok = vx.compact_mask_plain(valid & ~resolved, n)
     idx = idx_n.to(torch.int64)
     h_s, keys_s, pid_s = h[idx], pt_keys[idx], idx
     asg = torch.full_like(idx, -1)
@@ -141,7 +141,7 @@ def map_insert_plain(keys, count, points, num_points, pts, valid,
     far_enough = (ecount == 0) | (d2.amin(-1) > min_dist_sq(min_dist))
     eligible = resolved & far_enough & (ecount < p)
 
-    e_idx, _, ok_e = vx.compact_mask(eligible, n)
+    e_idx, _, ok_e = vx.compact_mask_plain(eligible, n)
     e_idx = e_idx.to(torch.int64)
     slot_e = torch.where(ok_e, slot[e_idx], torch.full_like(e_idx, c))
     rank = _elect_ranks(torch.clamp(slot_e, 0, c - 1), ok_e, c, max_rounds)

@@ -34,6 +34,7 @@ from ct_icp_torch.kernels import knn_search as k12
 from ct_icp_torch.kernels import level_normals as k10
 from ct_icp_torch.kernels import map_insert as k3
 from ct_icp_torch.kernels import plane_moments as k2
+from ct_icp_torch.kernels import prune_levels as k15
 from ct_icp_torch.kernels import rebuild as k7
 from ct_icp_torch.kernels import row_gather as k6
 # the identity key lives in ops/voxel.py; the reference defines it here
@@ -177,6 +178,23 @@ def radius_search(level: MapLevel, queries, query_valid, radius,
     return k12.knn_search(level.points, slots, cnt_ok, queries, radius, k)
 
 
+def radius_describe(level: MapLevel, queries, query_valid, radius,
+                    resolution: float, nv: int, k: int, full: bool = False,
+                    sensor_location=None, use_normal_filter: bool = False,
+                    threshold_voxel_occupancy: int = 1):
+    """:func:`radius_search` and the descriptor of each query's neighbours
+    about the query (``ops/neighborhood.py::compute_description``, the
+    reference's solver.py:280): K1, then K17, one launch that writes K12's
+    list and the descriptor (the normal and a2D; with ``full`` also the
+    line, linearity, planarity, barycenter and covariance). Returns
+    (``Neighbors``, ``NeighborhoodDescription``)."""
+    slots, cnt_ok = gather_candidate_planes(
+        level, queries, query_valid, resolution, nv,
+        threshold_voxel_occupancy, 0, sensor_location, use_normal_filter)
+    return k12.knn_describe(level.points, slots, cnt_ok, queries, radius, k,
+                            full)
+
+
 def ball_search(level: MapLevel, queries, query_valid, radius,
                 resolution: float, nv: int, sensor_location=None,
                 use_normal_filter: bool = False,
@@ -248,23 +266,16 @@ def prune_level(level: MapLevel, location, max_distance: float, gate=None):
     """Tombstone, in place, every voxel whose first point lies farther than
     ``max_distance`` from ``location`` (reference
     RemoveElementsFarFromLocation, map.h:305-322); only where the bool
-    tensor ``gate`` holds, when given. Probe chains stay intact."""
-    p = level.max_points
-    occupied = (level.keys != EMPTY) & (level.keys != TOMB)
-    dx = level.points[:, 0] - location[0]
-    dy = level.points[:, p] - location[1]
-    dz = level.points[:, 2 * p] - location[2]
-    d2 = dx * dx + dy * dy + dz * dz
-    drop = occupied & (d2 > float(max_distance) * float(max_distance))
-    if gate is not None:
-        drop = drop & gate
-    zero = torch.zeros_like(level.count)
-    level.num_points.sub_(
-        torch.where(drop, level.count, zero).sum().to(torch.int32))
-    level.keys.copy_(torch.where(drop, torch.full_like(level.keys, TOMB),
-                                 level.keys))
-    level.count.copy_(torch.where(drop, zero, level.count))
-    level.nflags.copy_(torch.where(drop, zero, level.nflags))
+    tensor ``gate`` holds, when given. Probe chains stay intact. Kernel
+    K15 on one level (:func:`prune_levels` prunes every level of a frame in
+    one launch)."""
+    k15.prune_levels([level], location, max_distance, gate)
+
+
+def prune_levels(levels, location, max_distance: float, gate=None):
+    """:func:`prune_level` on every level of ``levels`` at once (kernel K15,
+    one launch on the card); ``location`` f32[3] on the levels' device."""
+    k15.prune_levels(levels, location, max_distance, gate)
 
 
 def evict_voxels(level: MapLevel, coords, valid):

@@ -13,6 +13,10 @@ above 2^31 is negative as int32.
 
 import torch
 
+from ct_icp_torch.kernels import compact_mask as k16
+# the plain version, which the plain versions of K3, K4 and K13 call
+from ct_icp_torch.kernels.compact_mask import compact_mask_plain  # noqa: F401
+
 _MASK32 = 0xFFFFFFFF
 
 # Primes of the reference voxel hash (types.h:615-618)
@@ -75,18 +79,9 @@ def as_i32(u):
 
 def compact_mask(mask, capacity: int):
     """Pack the True positions of ``mask`` [N] into the front of a buffer,
-    in their original order (a stable prefix-sum compaction).
+    in their original order (a stable prefix-sum compaction; kernel K16 on
+    the card, :func:`compact_mask_plain` on the CPU).
 
     Returns (indices [capacity] int32, count int32 tensor, out_valid
     [capacity] bool). Slots beyond ``count`` hold 0 and must stay masked."""
-    n = mask.shape[0]
-    dev = mask.device
-    pid = torch.arange(n, dtype=torch.int32, device=dev)
-    pos = torch.cumsum(mask.to(torch.int32), 0) - 1
-    dst = torch.where(mask & (pos < capacity), pos,
-                      torch.full_like(pos, capacity)).to(torch.int64)
-    idx = torch.zeros(capacity + 1, dtype=torch.int32, device=dev)
-    idx.scatter_(0, dst, pid)
-    count = mask.sum(dtype=torch.int32)
-    out_valid = torch.arange(capacity, dtype=torch.int32, device=dev) < count
-    return idx[:capacity], torch.clamp_max(count, capacity), out_valid
+    return k16.compact_mask(mask, capacity)

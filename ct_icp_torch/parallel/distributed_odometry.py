@@ -38,6 +38,7 @@ from ct_icp_torch.core.pose import Pose, TrajectoryFrame
 from ct_icp_torch.icp import residuals as res
 from ct_icp_torch.icp import solver as slv
 from ct_icp_torch.icp.registration import make_prior
+from ct_icp_torch.kernels import scan_transform as k14
 from ct_icp_torch.odometry.odometry import _sanitize_scan
 from ct_icp_torch.ops import sampling as smp
 from ct_icp_torch.ops.neighborhood import description_from_moments
@@ -65,7 +66,7 @@ def make_distributed_register_fn(statics: slv.SolverStatics, map_options,
         converged = False
         it = syncs = 0
         while it < dyn.num_iters_icp and not converged:
-            world = res.interp_world_points(qb, tb, qe, te, raw, alphas)
+            world = k14.transform(raw, alphas, qb, tb, qe, te)
             count, sum_rel, sum_outer, closest, best = query(
                 state, world, valid, dyn.search_radius)
             desc = description_from_moments(count, sum_rel, sum_outer, world)
@@ -229,10 +230,9 @@ class DistributedOdometry:
 
         # the world points and the sharded insert
         begin_tr = self._f32(frame.begin_pose.tr)
-        world = res.interp_world_points(
-            self._f32(frame.begin_pose.quat), begin_tr,
-            self._f32(frame.end_pose.quat), self._f32(frame.end_pose.tr),
-            sub_raw, sub_al)
+        world = k14.transform(
+            sub_raw, sub_al, self._f32(frame.begin_pose.quat), begin_tr,
+            self._f32(frame.end_pose.quat), self._f32(frame.end_pose.tr))
         location = self._f32(frame.end_pose.tr)
         if self.map_update == "partitioned":
             self.map_state, _, dropped = self.update(

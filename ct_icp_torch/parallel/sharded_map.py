@@ -82,9 +82,9 @@ def make_sharded_update_fn(options, max_dirty: int, group=None):
     def update(state: ShardedMapState, world, valid, begin_tr, location,
                max_distance: float):
         inserted = torch.zeros((1,), dtype=torch.int32, device=world.device)
+        vm.prune_levels(state.levels, location, max_distance)
         for i, level in enumerate(state.levels):
             mine = valid & (k11.owners(world, resolutions[i], n) == me)
-            vm.prune_level(level, location, max_distance)
             inserted += vm.insert_points(level, world, mine, resolutions[i],
                                          min_dists[i], MAX_ROUNDS, begin_tr,
                                          max_dirty)
@@ -128,12 +128,12 @@ def make_partitioned_update_fn(options, max_dirty: int, group=None,
         dev = world.device
         inserted = torch.zeros((1,), dtype=torch.int32, device=dev)
         dropped = torch.zeros((1,), dtype=torch.int32, device=dev)
+        vm.prune_levels(state.levels, location, max_distance)
         for i, level in enumerate(state.levels):
             packed = k11.owner_pack(w, v, resolutions[i], n, cap)
             pts = comm.all_to_all(packed.send, group).reshape(n * cap, 3)
             pvalid = comm.all_to_all(packed.send_valid,
                                      group).reshape(n * cap) != 0
-            vm.prune_level(level, location, max_distance)
             inserted += vm.insert_points(level, pts, pvalid, resolutions[i],
                                          min_dists[i], MAX_ROUNDS, begin_tr,
                                          max_dirty)

@@ -6,6 +6,7 @@
     python3 -m ct_icp_torch.tools.profile_stream --long [--frames 128]
     python3 -m ct_icp_torch.tools.profile_stream --escalation [--frames 48]
     python3 -m ct_icp_torch.tools.profile_stream --indoor [--frames 36]
+    python3 -m ct_icp_torch.tools.profile_stream --knn [--frames 48]
 
 Runs ``Odometry(default_driving_profile())`` over the synthetic corridor
 (seed 3), or with ``--robust`` ``Odometry(robust_driving_profile())`` over
@@ -19,7 +20,9 @@ distance at 100 m, so that the batch of frames 112-127 holds the first
 rebase), or with ``--indoor`` ``default_robust_outdoor_low_inertia()``
 (three map levels) over the first frames of the indoor walk (seed 7,
 batch 4: the batch of frames 32-35 lies in the first doorway turn, whose
-frames escalate), with ``stream_frames(batch)``, and profiles the last
+frames escalate), or with ``--knn`` the driving profile with the exact
+k-NN search (``ball_neighborhood=False``: K1 and K17 an ICP iteration)
+over the corridor, with ``stream_frames(batch)``, and profiles the last
 batch with
 ``torch.profiler`` (CPU and CUDA activities). The solver's and the map's
 stages are labelled with ``record_function`` ranges for the run (the
@@ -28,7 +31,10 @@ batch's wall time under the profiler, the device's busy share (device
 time over wall time), device operations per frame, the heaviest host
 ops and device work, and for each stage its calls, its host time and the
 device time of the torch ops it ran (the kernels launched through ctypes
-are not attributed to a range; chip_smoke.py times those).
+are not attributed to a range; chip_smoke.py times those); and, unprofiled,
+the median frames/s of the batches before the last but the first.
+A stage a tree lacks is left out, so that another tree's package can be
+profiled by this script (``tools/exp_stages.py``).
 """
 
 import argparse
@@ -64,6 +70,7 @@ STAGES = (
     (slv, "_lm_inner_loop", "K5 LM inner loop"),
     (pl, "transform_points", "B11 transform_points"),
     (vm, "prune_level", "B10 prune_level"),
+    (vm, "prune_levels", "K15 prune_levels"),
     (vm, "insert_points", "K3 insert_points"),
     (vm, "rebuild_level", "K7+K6 rebuild_level"),
     (pl, "snapshot", "checkpoint snapshot (map clone)"),
@@ -87,6 +94,7 @@ def main():
     path.add_argument("--long", action="store_true")
     path.add_argument("--escalation", action="store_true")
     path.add_argument("--indoor", action="store_true")
+    path.add_argument("--knn", action="store_true")
     args = ap.parse_args()
     if args.frames is None:
         args.frames = 128 if args.long else 36 if args.indoor else 48
@@ -98,7 +106,9 @@ def main():
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True).stdout.strip()
-    for mod, attr, label in STAGES:
+    stages_here = [(mod, attr, label) for mod, attr, label in STAGES
+                   if hasattr(mod, attr)]
+    for mod, attr, label in stages_here:
         setattr(mod, attr, _labelled(getattr(mod, attr), label))
 
     if args.long or args.indoor:
@@ -121,14 +131,24 @@ def main():
                                                robust_num_attempts=3))
         else:
             traj = cor.straight_trajectory(400, args.frames * 0.1 + 0.5)
-            odo = Odometry(default_driving_profile())
+            o = default_driving_profile()
+            if args.knn:
+                o = dataclasses.replace(o, ct_icp_options=dataclasses.replace(
+                    o.ct_icp_options, ball_neighborhood=False))
+            odo = Odometry(o)
         frames = cor.render_corridor(cor.build_scene(), traj, args.frames,
                                      cor.APE_SEEDS[0])
     preps = [odo.prepare_frame(f["xyz"], f["timestamps"], i, frame_id=i)
              for i, f in enumerate(frames)]
     head, last = preps[:-args.batch], preps[-args.batch:]
-    for _ in odo.stream_frames(iter(head), batch=args.batch):
-        pass
+    torch.cuda.synchronize()
+    batch_s, t_batch = [], time.time()
+    for i, _ in enumerate(odo.stream_frames(iter(head), batch=args.batch)):
+        if (i + 1) % args.batch == 0:
+            torch.cuda.synchronize()
+            now = time.time()
+            batch_s.append(now - t_batch)
+            t_batch = now
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -136,7 +156,7 @@ def main():
         summaries = list(odo.stream_frames(iter(last), batch=args.batch))
         torch.cuda.synchronize()
         wall = time.time() - t0
-    labels = {label for _, _, label in STAGES}
+    labels = {label for _, _, label in stages_here}
     # device work: kernels, copies and memsets on the card's timeline; the
     # stage ranges appear there too, as annotations spanning their work,
     # and are left out
@@ -147,7 +167,7 @@ def main():
     for e in device:
         by_name[e.key] += e.device_time_total
     stages = {}
-    for _, _, label in STAGES:
+    for _, _, label in stages_here:
         spans = [e for e in prof.events()
                  if e.key == label and e.device_type == DeviceType.CPU]
         stages[label] = dict(
@@ -162,10 +182,14 @@ def main():
         card=card, profile=("robust" if args.robust else
                             "escalation" if args.escalation else
                             "long" if args.long else
-                            "indoor" if args.indoor else "driving"),
+                            "indoor" if args.indoor else
+                            "knn" if args.knn else "driving"),
         frames=len(last), batch=args.batch,
         first_frame=last[0]["info"].registered_fid,
         wall_ms_per_frame=wall * 1e3 / len(last),
+        unprofiled_median_batch_fps=(float(np.median(
+            [args.batch / t for t in batch_s[1:]])) if len(batch_s) > 1
+            else None),
         device_busy_ms_per_frame=busy_us / 1e3 / len(last),
         device_busy_share=busy_us / 1e6 / wall,
         device_ops_per_frame=len(device) / len(last),

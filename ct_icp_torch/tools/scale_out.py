@@ -23,6 +23,8 @@ from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.kernels import map_insert as k3
 from ct_icp_torch.kernels import owner_pack as k11
 from ct_icp_torch.kernels import plane_moments as k2
+from ct_icp_torch.kernels import prune_levels as k15
+from ct_icp_torch.kernels import scan_transform as k14
 from ct_icp_torch.parallel import ct_ba
 from ct_icp_torch.parallel.distributed_odometry import DistributedOdometry
 
@@ -30,7 +32,8 @@ from ct_icp_torch.parallel.distributed_odometry import DistributedOdometry
 PATH_KERNELS = {"candidate_gather": k1, "plane_moments": k2,
                 "map_insert": k3, "grid_sample": k4, "lm_step": k5,
                 "level_normals": k10, "owner_pack": k11,
-                "ct_ba_block": k8}
+                "ct_ba_block": k8, "scan_transform": k14,
+                "prune_levels": k15}
 
 
 def reset_launches():

@@ -162,13 +162,14 @@ def time_cold(fn, reps=20):
     return total / reps, how
 
 
-def time_graph(reset, fn, reps=20):
-    """Mean ms of ``fn()`` captured once in a CUDA graph and replayed
+def time_graph(reset, fn, reps=20, calls=1):
+    """Mean ms of one ``fn()`` in a CUDA graph of ``calls`` calls replayed
     between two events, ``reset()`` (which restores the state ``fn``
-    updates) run before each replay outside them. The span holds the
-    graph's submission as well as the call's device time: for a call of a
-    few microseconds, most of it (:func:`time_kernels` is the kernels'
-    own time). Returns (ms, method)."""
+    updates) run before each replay outside them: the first call of a
+    replay finds the restored state, the others the state it left. The
+    span holds the graph's submission as well as the calls' device time:
+    for one call of a few microseconds, most of it (:func:`time_kernels`
+    is the kernels' own time). Returns (ms, method)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -178,7 +179,8 @@ def time_graph(reset, fn, reps=20):
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
-        fn()
+        for _ in range(calls):
+            fn()
     total = 0.0
     for _ in range(reps):
         reset()
@@ -189,7 +191,8 @@ def time_graph(reset, fn, reps=20):
         end.record()
         torch.cuda.synchronize()
         total += start.elapsed_time(end)
-    return total / reps, "cuda-graph"
+    return (total / (reps * calls),
+            "cuda-graph" if calls == 1 else f"cuda-graph of {calls}")
 
 
 def time_host(fn, reps=50):

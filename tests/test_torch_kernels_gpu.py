@@ -1,4 +1,4 @@
-"""CUDA kernels K1-K13 against their plain PyTorch versions, on the card
+"""CUDA kernels K1-K17 against their plain PyTorch versions, on the card
 (K5 as one launch per LM call, K3 as one launch per insert, K1 one launch a
 call returning slots, K2 reading the live points through them, the rebase
 as one K7 and one K6 launch, K4 one launch a call on a claim table kept
@@ -10,7 +10,9 @@ normal filter, K2 with a radius a query and with the full descriptor; K5
 for every residual family, loss, the [41] prior and the analytic
 Jacobian; K13 one launch an exact sample,
 bit for bit, on a table kept from call to call, and the staged path's
-register_frame through K13 and K4 and no plain version). The tests that
+register_frame through K13 and K4 and no plain version; K14 the scan's
+unpack and CT transform, K15 the prune of every level, K16 compact_mask
+and K17 the k-NN descriptor, each one launch a call). The tests that
 count a call's device operations read torch.profiler in a fresh process
 (the ``traced_ops`` fixture).
 
@@ -32,6 +34,7 @@ import torch
 from ct_icp_torch.core import se3_np as s3n
 from ct_icp_torch.kernels import build, checks
 from ct_icp_torch.kernels import candidate_gather as k1
+from ct_icp_torch.kernels import compact_mask as k16
 from ct_icp_torch.kernels import ct_ba_block as k8
 from ct_icp_torch.kernels import evict_voxels as k9
 from ct_icp_torch.kernels import exact_sample as k13
@@ -42,8 +45,10 @@ from ct_icp_torch.kernels import lm_step as k5
 from ct_icp_torch.kernels import map_insert as k3
 from ct_icp_torch.kernels import owner_pack as k11
 from ct_icp_torch.kernels import plane_moments as k2
+from ct_icp_torch.kernels import prune_levels as k15
 from ct_icp_torch.kernels import rebuild as k7
 from ct_icp_torch.kernels import row_gather as k6
+from ct_icp_torch.kernels import scan_transform as k14
 from ct_icp_torch.mapping import voxel_map as vm
 from ct_icp_torch.parallel import ct_ba
 from torch_rebase_cases import chain_level, merge_level
@@ -1720,3 +1725,225 @@ def test_online_node_on_card_matches_cpu(cuda):
         out.append((node, summaries[:4]))
     assert out[0][0].odometry.device.type == "cuda"
     _same_corrected(out[0][1], out[1][1])
+
+
+# ------------------- K14-K17: scan, prune, compaction, k-NN descriptor —
+def _packed_scan(rng, rows):
+    from ct_icp_torch.odometry import pipeline as pl
+    xyz = rng.uniform(-200, 200, (rows, 3))
+    alphas = rng.uniform(0, 1, rows)
+    alphas[:2] = [0.0, 1.0]
+    packed = pl.pack_scan_u16(xyz, alphas, rows, rows)
+    packed[2:6, :3] = [[0, 32767, 32768], [65535, 1, 0], [32769, 0, 0],
+                       [0, 0, 65534]]
+    packed[2:6, 3] = [0, 32767, 32768, 65535]
+    return packed
+
+
+def _ct_poses(dev, case):
+    qb = torch.tensor([0.9, 0.1, -0.3, 0.2], device=dev)
+    qb = qb / qb.norm()
+    if case == "slerp":
+        qe = torch.tensor([0.85, 0.2, -0.25, 0.3], device=dev)
+    elif case == "nlerp":        # |dot| > 1 - 1e-7: the nlerp fallback
+        qe = qb + torch.tensor([1e-8, 0.0, 0.0, 0.0], device=dev)
+    else:                        # the other hemisphere: the sign flip
+        qe = -torch.tensor([0.88, 0.12, -0.3, 0.25], device=dev)
+    qe = qe / qe.norm()
+    return (qb, torch.tensor([1.0, 2.0, 3.0], device=dev), qe,
+            torch.tensor([2.5, 1.0, 3.2], device=dev))
+
+
+@pytest.mark.parametrize("rows", [32768, 131072])
+@pytest.mark.parametrize("case", ["slerp", "nlerp", "flip"])
+def test_scan_transform_matches_plain(cuda, rows, case):
+    """K14's unpack and transform (distort off and on) bit for bit against
+    their plain versions, one launch a call."""
+    rng = np.random.default_rng(40)
+    scan = torch.from_numpy(_packed_scan(rng, rows).view(np.int16)).to(cuda)
+    launches = k14.launches
+    checks.check_scan_unpack(scan)
+    raw, alphas = k14.unpack(scan)
+    for distort in (False, True):
+        checks.check_scan_transform(raw, alphas, *_ct_poses(cuda, case),
+                                    distort)
+    # a sub-frame's slice of the unpacked scan, as the frame core passes it
+    n = rows // 3
+    checks.check_scan_transform(raw[:n], alphas[:n], *_ct_poses(cuda, case))
+    assert k14.launches == launches + 5
+
+
+def test_scan_transform_is_one_device_operation(cuda, traced_ops):
+    rng = np.random.default_rng(41)
+    scan = torch.from_numpy(_packed_scan(rng, 32768).view(np.int16)).to(cuda)
+    raw, alphas = k14.unpack(scan)
+    poses = _ct_poses(cuda, "slerp")
+    torch.cuda.synchronize()
+    for fn, args, name in ((k14.unpack, (scan,), "unpack"),
+                           (k14.transform, (raw, alphas, *poses, True),
+                            "transform")):
+        names = traced_ops(fn, *args)
+        if not names:
+            pytest.skip("the profiler saw no device activity")
+        assert len(names) == 1 and name in names[0], names
+
+
+def _indoor_levels(rng, dev):
+    """The indoor walk's three levels (0.2 m x 50 points at 2^20 slots,
+    0.5 m x 40 at 2^19, 1.5 m x 40 at 2^17), filled by K3 with a room-sized
+    cloud."""
+    pts = torch.from_numpy(rng.uniform(-30, 30, (150000, 3)).astype(
+        np.float32)).to(dev)
+    ok = torch.ones(pts.shape[0], dtype=torch.bool, device=dev)
+    levels = []
+    for cap_log2, p, res in ((20, 50, 0.2), (19, 40, 0.5), (17, 40, 1.5)):
+        level = vm.make_level(cap_log2, p, dev)
+        vm.insert_points(level, pts, ok, res, 0.05, max_rounds=12)
+        levels.append(level)
+    return levels
+
+
+def test_prune_levels_matches_plain(cuda):
+    """K15 over the indoor map's three levels in one launch, gate false,
+    then true, then none: keys, counts, flags and num_points bit for bit."""
+    rng = np.random.default_rng(42)
+    levels = _indoor_levels(rng, cuda)
+    loc = torch.tensor([4.0, -3.0, 0.5], device=cuda)
+    launches = k15.launches
+    out = checks.check_prune_levels(levels, loc, 18.0,
+                                    torch.tensor(False, device=cuda))
+    assert out["tombstoned"] == [0, 0, 0]
+    out = checks.check_prune_levels(levels, loc, 18.0,
+                                    torch.tensor(True, device=cuda))
+    assert min(out["tombstoned"]) > 0 and min(out["removed"]) > 0
+    checks.check_prune_levels(levels, loc, 18.0)
+    assert k15.launches == launches + 3
+
+
+def test_prune_levels_keeps_probe_chains(cuda):
+    """A small table whose voxels share probe chains: after K15 tombstones
+    the far voxels, every kept voxel is still found by a lookup (K1) past
+    the tombstones, at its own slot, and the tables equal the plain
+    version's."""
+    rng = np.random.default_rng(43)
+    level = vm.make_level(10, 4, cuda)
+    pts = torch.from_numpy(rng.uniform(-12, 12, (3000, 3)).astype(
+        np.float32)).to(cuda)
+    vm.insert_points(level, pts, torch.ones(3000, dtype=torch.bool,
+                                            device=cuda), 1.0, 0.0,
+                     max_rounds=16)
+    keys = level.keys.clone()
+    loc = torch.zeros(3, device=cuda)
+    checks.check_prune_levels([level], loc, 9.0)
+    vm.prune_level(level, loc, 9.0)
+    # keys are uint32 bit patterns: occupied is neither EMPTY nor TOMB
+    tomb = (keys != k15.EMPTY) & (keys != k15.TOMB) & (level.keys
+                                                       == k15.TOMB)
+    kept = torch.nonzero((level.keys != k15.EMPTY)
+                         & (level.keys != k15.TOMB))[:, 0]
+    assert int(tomb.sum()) > 50 and kept.numel() > 50
+    # kept voxels whose probe chain crosses a slot this prune tombstoned
+    from ct_icp_torch.ops import voxel as vx
+    p = level.max_points
+    first = torch.stack([level.points[kept, 0], level.points[kept, p],
+                         level.points[kept, 2 * p]], -1)
+    coords = torch.trunc(first / 1.0).to(torch.int32)
+    c = level.capacity
+    home = (vx.voxel_hash_u32(coords.cpu()) & (c - 1)).tolist()
+    dead = tomb.cpu().tolist()
+    past = sum(any(dead[(h + r) & (c - 1)] for r in range((s - h) % c))
+               for h, s in zip(home, kept.tolist()))
+    assert past > 0, "no kept voxel lies past a new tombstone"
+    slot = vm.find_slots(level, coords)
+    assert torch.equal(slot.long(), kept)
+
+
+def test_prune_levels_is_one_device_operation(cuda, traced_ops):
+    rng = np.random.default_rng(44)
+    levels = _indoor_levels(rng, cuda)
+    loc = torch.tensor([4.0, -3.0, 0.5], device=cuda)
+    gate = torch.tensor(True, device=cuda)
+    torch.cuda.synchronize()
+    names = traced_ops(k15.prune_levels, levels, loc, 18.0, gate)
+    if not names:
+        pytest.skip("the profiler saw no device activity")
+    assert len(names) == 1 and "prune_levels" in names[0], names
+
+
+@pytest.mark.parametrize("n, cap, frac", [
+    (4096, 4096, 0.9), (16830, 16830, 0.3), (16830, 2000, 0.6),
+    (3000, 512, 0.0), (1, 1, 1.0), (0, 64, 0.5), (1 << 20, 1 << 20, 0.5),
+    (1 << 20, 250000, 0.7)])
+def test_compact_mask_matches_plain(cuda, n, cap, frac):
+    """K16 bit for bit at the decimation's shapes (the keypoint election's
+    capacity), an all-False mask, an empty one and a million entries."""
+    mask = torch.from_numpy(np.random.default_rng(45).uniform(size=n)
+                            < frac).to(cuda)
+    launches = k16.launches
+    out = checks.check_compact_mask(mask, cap)
+    assert k16.launches == launches + 1
+    assert out["count"] == min(int(mask.sum()), cap)
+
+
+def test_compact_mask_repeats_and_raises(cuda):
+    """A thousand calls on the kept block-count scratch are all identical;
+    a mask past the resident blocks' tiles raises."""
+    mask = torch.from_numpy(np.random.default_rng(46).uniform(size=70000)
+                            < 0.4).to(cuda)
+    first = k16.compact_mask(mask, 70000)
+    for _ in range(1000):
+        again = k16.compact_mask(mask, 70000)
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    _, resident = k16._device_state(cuda)
+    too_many = resident * k16.MAX_TILES * k16.THREADS + 1
+    with pytest.raises(ValueError):
+        k16.compact_mask(torch.zeros(too_many, dtype=torch.bool,
+                                     device=cuda), 8)
+
+
+def test_compact_mask_is_one_device_operation(cuda, traced_ops):
+    mask = torch.from_numpy(np.random.default_rng(47).uniform(size=16830)
+                            < 0.3).to(cuda)
+    k16.compact_mask(mask, 16830)
+    torch.cuda.synchronize()
+    names = traced_ops(k16.compact_mask, mask, 16830)
+    if not names:
+        pytest.skip("the profiler saw no device activity")
+    assert len(names) == 1 and "compact_mask" in names[0], names
+
+
+@pytest.mark.parametrize("full", [False, True])
+@pytest.mark.parametrize("nv", [1, 3])
+def test_knn_describe_matches_plain(cuda, nv, full):
+    """K17 at the knn run's shapes (M = 1,350, k = 40) over O = 27 and
+    O = 343 voxels: the list bit for bit, the descriptor within K2's
+    tolerance; one launch a call, counted by K17 alone."""
+    rng = np.random.default_rng(48)
+    level = _warm_level(rng, cuda, noise=0.01)
+    q = torch.from_numpy(_scene(rng, 1350)).to(cuda)
+    valid = torch.from_numpy(rng.uniform(size=q.shape[0]) < 0.95).to(cuda)
+    slots, cnt = vm.gather_candidate_planes(level, q, valid, 0.8, nv)
+    assert slots.shape[1] == (2 * nv + 1) ** 3
+    launches, described = k12.launches, k12.describe_launches
+    out = checks.check_knn_describe(level.points, slots, cnt, q, 1.0, 40,
+                                    full)
+    assert k12.launches == launches
+    assert k12.describe_launches == described + 1
+    assert out["found"] > 0 and out["planar"] > 100
+
+
+def test_knn_describe_is_one_device_operation(cuda, traced_ops):
+    rng = np.random.default_rng(49)
+    level = _warm_level(rng, cuda)
+    q = torch.from_numpy(_scene(rng, 1350)).to(cuda)
+    valid = torch.ones(q.shape[0], dtype=torch.bool, device=cuda)
+    slots, cnt = vm.gather_candidate_planes(level, q, valid, 0.8, 1)
+    for full in (False, True):
+        k12.knn_describe(level.points, slots, cnt, q, 1.0, 40, full)
+        torch.cuda.synchronize()
+        names = traced_ops(k12.knn_describe, level.points, slots, cnt, q,
+                           1.0, 40, full)
+        if not names:
+            pytest.skip("the profiler saw no device activity")
+        assert len(names) == 1 and "knn_search" in names[0], names
